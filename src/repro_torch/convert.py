@@ -1,0 +1,46 @@
+"""Parameter conversion from the JAX package's layout to the port's.
+
+``params_from_numpy`` takes the pytree ``repro.models.model.init_params``
+returns, already turned into numpy arrays by the caller (for example with
+``jax.tree.map(np.asarray, params)``), so this module never sees JAX.  The
+JAX package stacks each segment's layers along a leading axis
+(``params["blocks"]["seg0"]`` leaves are ``(L, ...)``); the port keeps a
+list of per-layer dicts.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common, transformer
+
+
+def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    # via float32: numpy has no native bfloat16, and widening is exact
+    arr = np.array(a, np.float32)
+    return torch.from_numpy(arr).to(device=device, dtype=dtype)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _unstack(tree, n: int) -> list[dict]:
+    return [_map(tree, lambda a, i=i: a[i]) for i in range(n)]
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
+    """The port's parameter dict for ``cfg`` from the JAX package's
+    parameter pytree as numpy arrays, on ``device`` in ``cfg.dtype``."""
+    dtype = common.resolve_dtype(cfg.dtype)
+    conv = lambda a: _tensor(a, dtype, device)   # noqa: E731
+    out = {k: _map(v, conv) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = {}
+    for i, (_, n) in enumerate(transformer.segments(cfg)):
+        stacked = tree["blocks"][f"seg{i}"]
+        out["blocks"][f"seg{i}"] = [_map(layer, conv)
+                                    for layer in _unstack(stacked, n)]
+    return out

@@ -1,0 +1,115 @@
+"""Serving CLI over the port's continuous-batching engine:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+        --tdvmm 'ffn.*' --chain --calibrate --requests 8
+
+runs a seeded ragged trace through ``runtime.engine.Engine`` on the card
+(``--device cpu`` runs the plain torch path on the CPU; add ``--smoke`` for
+the reduced same-family model).  Weights are random, drawn from ``--seed``.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch.configs import TDVMMPlan, get_config, smoke as smoke_cfg, tdvmm_rule
+from repro_torch.models import common, model
+from repro_torch.runtime.engine import Engine, EngineConfig, Request
+from repro_torch.runtime.paged_cache import pages_for
+
+
+def make_trace(vocab: int, n: int, prompt_len: int, gen: int,
+               seed: int) -> list[Request]:
+    """Seeded ragged trace: prompts in [prompt_len/4, prompt_len], budgets in
+    [gen/4, gen], arrival gaps in [0, 2] steps."""
+    rng = np.random.default_rng(seed)
+    lo, hi = max(1, prompt_len // 4), prompt_len + 1
+    reqs, arrival = [], 0
+    for rid in range(n):
+        reqs.append(Request(
+            rid=rid,
+            prompt=tuple(int(t) for t in
+                         rng.integers(0, vocab, rng.integers(lo, hi))),
+            max_new_tokens=int(rng.integers(max(1, gen // 4), gen + 1)),
+            arrival_step=arrival))
+        arrival += int(rng.integers(0, 3))
+    return reqs
+
+
+def serve_engine(cfg, args):
+    device = common.resolve_device(args.device)
+    params = model.init_params(args.seed, cfg, device=device)
+    calib = None
+    if args.calibrate:
+        gen = torch.Generator().manual_seed(args.seed + 1)
+        batch = {"inputs": torch.randint(
+            0, cfg.vocab_size, (min(args.slots, 4), args.prompt_len),
+            generator=gen)}
+        calib = model.calibrate(params, batch, cfg, device=device)
+        print(f"[serve] calibrated sites: {calib.sites()}")
+    reqs = make_trace(cfg.vocab_size, args.requests, args.prompt_len,
+                      args.gen, args.seed)
+    ecfg = EngineConfig(
+        slots=args.slots, page_size=args.page_size, num_pages=args.num_pages,
+        chunk=args.chunk,
+        max_pages_per_slot=min(args.num_pages, pages_for(
+            args.prompt_len + args.gen, args.page_size)))
+    rep = Engine(cfg, params, ecfg, calib=calib, device=device).run(reqs)
+    print(f"[serve] {device}: {len(reqs)} requests, {rep.generated_tokens} "
+          f"tokens in {rep.steps} steps ({rep.prefill_steps} chunk + "
+          f"{rep.decode_steps} decode, "
+          f"{rep.generated_tokens / max(rep.wall_s, 1e-9):.1f} tok/s), "
+          f"utilization {rep.utilization:.2f}, step shapes {rep.step_shapes}")
+    if rep.analog_ops:
+        print(f"[serve] analog: {rep.analog_ops:.3g} Ops, "
+              f"{rep.fj_per_op:.2f} fJ/Op, {rep.tokens_per_joule:.3g} tok/J")
+    for r in rep.requests[:4]:
+        print(f"[serve]   req {r['rid']}: {r['finish_reason']} "
+              f"tokens={r['tokens'][:8]}")
+    return rep
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family model (2 layers, d_model 64)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--chunk", type=int, default=16)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--calibrate", action="store_true",
+                    help="pin every TD-VMM site's readout window with one "
+                         "calibration pass before serving (needed whenever "
+                         "--tdvmm enables a site)")
+    ap.add_argument("--tdvmm", default=None, metavar="PATTERN",
+                    help="run the plan sites matching PATTERN (e.g. 'ffn.*') "
+                         "as analog TD-VMM tiles")
+    ap.add_argument("--chain", action="store_true",
+                    help="time-domain chain ffn.in -> ffn.out (no "
+                         "intermediate p-bit readout)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' runs "
+                         "the plain path)")
+    args = ap.parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_cfg(cfg)
+    rules = []
+    if args.tdvmm:
+        rules.append(tdvmm_rule(args.tdvmm, enabled=True))
+    if args.chain:
+        rules.append(tdvmm_rule("ffn.in", chain=True))
+    if rules:
+        cfg = cfg.replace(tdvmm_plan=TDVMMPlan(rules=tuple(rules)))
+    serve_engine(cfg, args)
+
+
+if __name__ == "__main__":
+    main()

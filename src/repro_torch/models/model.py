@@ -1,0 +1,189 @@
+"""LM wrapper: embedding, stack, head; serving entry points — torch port of
+``repro.models.model`` (dense token-input models).
+
+Parameters are a plain dict::
+
+    {"embed": {"table": (V_pad, d)},
+     "blocks": {"seg0": [layer params, ...]},
+     "ln_f": {"scale": (d,)},
+     "head": {"w": (d, V_pad)}}          # absent with tied embeddings
+
+``init_params`` draws them from a seeded ``torch.Generator`` on the target
+device; ``repro_torch.convert.params_from_numpy`` builds the same structure
+from the JAX package's parameters.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import calibration
+from repro_torch.models import attention, common, transformer
+from repro_torch.runtime.paged_cache import DecodeCtx, PrefillChunkCtx
+
+
+def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
+    """Random weights from ``torch.Generator(device).manual_seed(seed)``, on
+    the card unless ``device`` says otherwise (raises with no card)."""
+    device = common.resolve_device(device)
+    dtype = common.resolve_dtype(cfg.dtype)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params: dict[str, Any] = {}
+    if cfg.input_mode == "tokens":
+        table = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
+                            dtype=torch.float32, device=device) * 0.02
+        params["embed"] = {"table": table.to(dtype)}
+    params["blocks"] = transformer.init(gen, cfg, dtype, device)
+    params["ln_f"] = common.rmsnorm_init(cfg.d_model, dtype, device)
+    if not cfg.tie_embeddings:
+        params["head"] = common.dense_init(gen, cfg.d_model, cfg.padded_vocab,
+                                           dtype, device,
+                                           scale=cfg.d_model ** -0.5)
+    return params
+
+
+def param_device(params) -> torch.device:
+    return params["ln_f"]["scale"].device
+
+
+def check_device(params, device=None) -> torch.device:
+    """Resolve an entry point's device and require the params to live there."""
+    device = common.resolve_device(device)
+    have = param_device(params)
+    if have.type != device.type or (
+            device.index is not None and have.index != device.index):
+        raise ValueError(f"params live on {have}, the entry point runs on "
+                         f"{device}")
+    return have
+
+
+def _embed(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.input_mode == "tokens":
+        return params["embed"]["table"][batch["inputs"].long()]
+    return batch["inputs"].to(common.resolve_dtype(cfg.dtype))
+
+
+def _head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["table"].T
+    return common.dense(params["head"], x, cfg.site_tdvmm("head"))
+
+
+# --------------------------------------------------------------------------
+# Dense-cache serving (calibration pass and the solo greedy oracle)
+# --------------------------------------------------------------------------
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
+    """Stacked dense KV caches: {"seg<i>": KVCache((L, B, S, kv, hd) x 2,
+    pos (L, B))}."""
+    dtype = common.resolve_dtype(cfg.dtype)
+    caches = {}
+    for i, (_, n) in enumerate(transformer.segments(cfg)):
+        one = attention.init_cache(cfg, batch, max_len, dtype, device)
+        caches[f"seg{i}"] = attention.KVCache(
+            *(t.unsqueeze(0).repeat((n,) + (1,) * t.dim()) for t in one))
+    return caches
+
+
+def prefill_step(params, batch: dict, caches: dict, cfg: ModelConfig,
+                 calib=None):
+    """Absorb a prompt.  Returns (logits at the last position (B, 1, V),
+    caches).  ``calib`` (a ``CalibrationState``) pins each TD-VMM site's
+    readout window."""
+    cfg = calibration.apply_calibration(cfg, calib)
+    x = _embed(params, batch, cfg)
+    x, caches = transformer.apply(params["blocks"], x, cfg, "prefill", caches)
+    x = common.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
+    return _head(params, x, cfg), caches
+
+
+def decode_step(params, batch: dict, caches: dict, cfg: ModelConfig,
+                calib=None):
+    """One token for every sequence, batch['inputs']: (B, 1).  Returns
+    (logits (B, 1, V), caches)."""
+    cfg = calibration.apply_calibration(cfg, calib)
+    x = _embed(params, batch, cfg)
+    x, caches = transformer.apply(params["blocks"], x, cfg, "decode", caches)
+    x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    return _head(params, x, cfg), caches
+
+
+# --------------------------------------------------------------------------
+# Paged serving (continuous-batching engine, runtime/engine.py)
+# --------------------------------------------------------------------------
+def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
+                      device) -> dict:
+    """Stacked page pools for every attention layer: {"seg<i>":
+    PagedKVCache((L, num_pages + 1, page_size, kv, hd) x 2)}.  All layers
+    share one logical page allocation."""
+    if cfg.family not in ("dense", "vlm", "audio"):
+        raise NotImplementedError(
+            f"paged serving of {cfg.family!r} models is not ported yet")
+    dtype = common.resolve_dtype(cfg.dtype)
+    caches = {}
+    for i, (_, n) in enumerate(transformer.segments(cfg)):
+        one = attention.init_paged_cache(cfg, num_pages, page_size, dtype,
+                                         device)
+        caches[f"seg{i}"] = attention.PagedKVCache(
+            *(torch.zeros((n,) + tuple(t.shape), dtype=t.dtype, device=device)
+              for t in one))
+    return caches
+
+
+def prefill_chunk(params, batch: dict, caches: dict, cfg: ModelConfig,
+                  calib=None, windows=None):
+    """One fixed-shape prefill chunk for ONE slot (the engine's first step).
+    batch: {"inputs": (1, C), "block_row": (P,), "offset": (), "valid": ()}
+    tensors.  Returns (logits at the last valid position (1, 1, V), caches);
+    the page pools are written in place.  ``windows`` (site -> float32
+    window tensor, ``CalibrationState.as_arrays()``) are the pinned readout
+    windows as operands."""
+    cfg = calibration.apply_calibration(cfg, calib)
+    ctx = PrefillChunkCtx(block_row=batch["block_row"],
+                          offset=batch["offset"], valid=batch["valid"])
+    with calibration.runtime_windows(windows):
+        x = _embed(params, batch, cfg)
+        x, caches = transformer.apply(params["blocks"], x, cfg,
+                                      "prefill_paged", caches, page_ctx=ctx)
+        last = (ctx.valid - 1).reshape(1).long()
+        x = torch.index_select(x, 1, last)
+        x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        return _head(params, x, cfg), caches
+
+
+def decode_slots(params, batch: dict, caches: dict, cfg: ModelConfig,
+                 calib=None, windows=None):
+    """One token for every slot (the engine's second step).  batch:
+    {"inputs": (B, 1), "block_tables": (B, P), "pos": (B,), "active": (B,)}
+    tensors.  Returns (logits (B, 1, V), caches); inactive rows produce
+    ignored logits.  ``windows`` as in ``prefill_chunk``."""
+    cfg = calibration.apply_calibration(cfg, calib)
+    ctx = DecodeCtx(block_tables=batch["block_tables"], pos=batch["pos"],
+                    active=batch["active"])
+    with calibration.runtime_windows(windows):
+        x = _embed(params, batch, cfg)
+        x, caches = transformer.apply(params["blocks"], x, cfg,
+                                      "decode_paged", caches, page_ctx=ctx)
+        x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        return _head(params, x, cfg), caches
+
+
+@torch.no_grad()
+def calibrate(params, batch: dict, cfg: ModelConfig, max_len: int = 0,
+              device=None) -> calibration.CalibrationState:
+    """Model-wide §3.1 readout-window calibration (one prefill pass).
+
+    Runs ``prefill_step`` over a representative batch with the calibration
+    collector installed: every enabled, digital-boundary TD-VMM site records
+    the max|z| of its latch-normalized accumulation (layers sharing a site
+    max-merge).  On the card, unpinned sites run the data-calibrated readout
+    (kernel B2) and the capture runs B1 in raw mode."""
+    device = check_device(params, device)
+    inputs = torch.as_tensor(batch["inputs"], device=device)
+    b, s = inputs.shape[:2]
+    caches = init_caches(cfg, b, max_len or s, device)
+    with calibration.collect() as collected:
+        prefill_step(params, {"inputs": inputs}, caches, cfg)
+    return calibration.CalibrationState.from_collected(collected)

@@ -1,0 +1,71 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and its
+entry points never drop to the CPU unless asked to."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs import get_config, smoke
+from repro_torch.models import model
+from repro_torch.runtime.engine import Engine, EngineConfig
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(
+    r"^\s*(import jax|from jax|import repro($|[ .,])|from repro(\.| import))",
+    re.M)
+
+
+def _modules() -> list[str]:
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    mods = _modules()
+    assert "repro_torch.runtime.engine" in mods and len(mods) > 20
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+        "m.startswith('repro.'))\n"
+        "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in
+    [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]))
+def test_no_jax_or_reference_imports_in_source(path):
+    text = (ROOT / path).read_text()
+    assert not FORBIDDEN.search(text), path
+
+
+def test_entry_points_refuse_a_missing_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = smoke(get_config("qwen1.5-0.5b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_params(0, cfg)
+    params = model.init_params(0, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cfg, params, EngineConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.calibrate(params, {"inputs": torch.zeros((1, 4), dtype=torch.long)},
+                        cfg)
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen1.5-0.5b", "--smoke"])
+    # asked for explicitly, the CPU path runs
+    Engine(cfg, params, EngineConfig(), device="cpu")

@@ -1,0 +1,173 @@
+"""TD-VMM integrate + readout: the port's ops (plain path of kernels B1/B2 on
+the CPU) are bitwise the JAX package's ``backend="jnp"`` for every readout
+mode, batched E, shared-x and ragged shapes; the port's oracle is bitwise
+the JAX oracle."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.tdvmm import ops as jops
+from repro.kernels.tdvmm import ref as jref
+from repro_torch.kernels.tdvmm import ops as tops
+from repro_torch.kernels.tdvmm import ref as tref
+from repro_torch.kernels.tdvmm import tdvmm as tk
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _f32_mode():
+    # tests/test_tdcore.py turns on jax x64 at import; the port is float32
+    old = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", False)
+    yield
+    jax.config.update("jax_enable_x64", old)
+
+
+def _operands(ex, e, m, k, n, seed=0):
+    rng = np.random.default_rng(seed)
+    lead_x = () if ex is None else (ex,)
+    lead_w = () if e is None else (e,)
+    xq = rng.integers(-63, 64, lead_x + (m, k)).astype(np.int8)
+    wq = rng.integers(-63, 64, lead_w + (k, n)).astype(np.int8)
+    xs = rng.uniform(0.5, 2.0, lead_x + (m,)).astype(np.float32)
+    ws = rng.uniform(0.5, 2.0, lead_w + (n,)).astype(np.float32)
+    return xq, wq, xs, ws
+
+
+def _zmax(xq, wq, gain):
+    acc = np.matmul(xq.astype(np.int64), wq.astype(np.int64))
+    z = np.abs(acc.astype(np.float32) * np.float32(gain))
+    return z.max(axis=(-2, -1)) if acc.ndim == 3 else z.max()
+
+
+def _both(xq, wq, xs, ws, out_window=None, **kw):
+    """(port outputs by backend, the JAX package's jnp output)."""
+    ow_j = None if out_window is None else jnp.asarray(out_window)
+    yj = np.asarray(jops.tdvmm_matmul(
+        jnp.asarray(xq), jnp.asarray(wq), jnp.asarray(xs), jnp.asarray(ws),
+        backend="jnp", out_window=ow_j, **kw))
+    outs = {}
+    for backend, fused in (("jnp", True), ("auto", True), ("auto", False)):
+        ow_t = None if out_window is None else torch.from_numpy(
+            np.asarray(out_window, np.float32))
+        outs[(backend, fused)] = tops.tdvmm_matmul(
+            torch.from_numpy(xq), torch.from_numpy(wq), torch.from_numpy(xs),
+            torch.from_numpy(ws), backend=backend, fused_calibration=fused,
+            out_window=ow_t, **kw).numpy()
+    return outs, yj
+
+
+GAIN = 1.0 / (63.0 * 63.0 * 2.0 * 130)
+
+# name: (x batch, w batch, M, K, N, readout)
+CASES = {
+    "2d_no_readout": (None, None, 3, 130, 200, "none"),
+    "2d_fixed_window": (None, None, 3, 130, 200, "fixed"),
+    "2d_runtime_window": (None, None, 3, 130, 200, "runtime"),
+    "2d_data_calibrated": (None, None, 3, 130, 200, "data"),
+    "batched_no_readout": (3, 3, 5, 130, 70, "none"),
+    "batched_expert_windows": (3, 3, 5, 130, 70, "tuple"),
+    "batched_runtime_expert_windows": (3, 3, 5, 130, 70, "runtime"),
+    "batched_data_calibrated": (3, 3, 5, 130, 70, "data"),
+    "shared_x_fixed_window": (1, 4, 6, 130, 96, "fixed"),
+    "shared_x_data_calibrated": (1, 4, 6, 130, 96, "data"),
+    "decode_row_runtime_window": (None, None, 1, 64, 128, "runtime"),
+    "wide_tiles_data_calibrated": (None, None, 33, 130, 300, "data"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tdvmm_matmul_bitwise_vs_reference(case):
+    ex, e, m, k, n, readout = CASES[case]
+    xq, wq, xs, ws = _operands(ex, e, m, k, n)
+    if ex == 1:                                  # shared-x: a 2-D x
+        xq, xs = xq[0], xs[0]
+    kw = {"gain": GAIN}
+    zmax = _zmax(xq, wq, GAIN)
+    if readout != "none":
+        kw["out_bits"] = 6
+    if readout == "fixed":
+        kw["out_scale"] = float(np.float32(0.7 * np.max(zmax)))
+    elif readout == "tuple":
+        kw["out_scale"] = tuple(float(v) for v in 0.6 * zmax)
+    elif readout == "runtime":
+        kw["out_window"] = (0.8 * zmax).astype(np.float32)
+    outs, yj = _both(xq, wq, xs, ws, **kw)
+    for (backend, fused), y in outs.items():
+        assert y.shape == yj.shape
+        np.testing.assert_array_equal(
+            y, yj, err_msg=f"{case}: backend={backend} fused={fused}")
+    if ex == 1 or (readout in ("runtime", "tuple") and e is not None):
+        return                  # the oracles take neither shared-x nor (E,)
+    s = kw.get("out_scale")
+    if readout == "runtime":
+        s = float(kw["out_window"])
+    yr_t = tref.tdvmm_matmul_ref(
+        torch.from_numpy(xq), torch.from_numpy(wq), torch.from_numpy(xs),
+        torch.from_numpy(ws), GAIN, kw.get("out_bits"), s).numpy()
+    yr_j = np.asarray(jref.tdvmm_matmul_ref(
+        jnp.asarray(xq), jnp.asarray(wq), jnp.asarray(xs), jnp.asarray(ws),
+        GAIN, kw.get("out_bits"), s))
+    np.testing.assert_array_equal(yr_t, yr_j)
+    np.testing.assert_allclose(outs[("auto", True)], yr_t, rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(None, 3, 130, 200), (2, 5, 64, 70),
+                                   (1, 6, 130, 96)])
+def test_codes_matmul_bitwise(shape):
+    e, m, k, n = shape
+    xq, wq, _, _ = _operands(None if e is None else 1 if e == 1 else e,
+                             e, m, k, n, seed=1)
+    if e == 1:
+        xq = xq[0]
+        wq = np.concatenate([wq] * 3)            # shared-x against 3 tiles
+    yj = np.asarray(jops.codes_matmul(jnp.asarray(xq), jnp.asarray(wq), "jnp"))
+    for backend in ("jnp", "auto"):
+        yt = tops.codes_matmul(torch.from_numpy(xq), torch.from_numpy(wq),
+                               backend).numpy()
+        np.testing.assert_array_equal(yt, yj)
+
+
+@pytest.mark.parametrize("e,n,bn", [(1, 200, 64), (4, 128, 64), (2, 64, 128)])
+def test_b2_plain_with_calib_slots(e, n, bn):
+    """The B2 plain version with ``_calib_slots`` reproduces the unfused
+    per-expert data-calibrated epilogue bitwise."""
+    xq, wq, xs, ws = _operands(e, e, 7, 130, n, seed=2)
+    slots, nslots = tops._calib_slots(e, n, bn, None)
+    assert nslots == e and tuple(slots.shape) == (e, -(-n // min(bn, n)))
+    y = tk.tdvmm_calibrated(
+        torch.from_numpy(xq), torch.from_numpy(wq), torch.from_numpy(xs),
+        torch.from_numpy(ws), slots, nslots, min(bn, n), GAIN, 6).numpy()
+    yj = np.asarray(jops.tdvmm_matmul(
+        jnp.asarray(xq), jnp.asarray(wq), jnp.asarray(xs), jnp.asarray(ws),
+        gain=GAIN, out_bits=6, backend="jnp"))
+    np.testing.assert_array_equal(y, yj)
+
+
+def test_calib_slots_group_widths_match_reference():
+    widths = (128, 256, 128)
+    ids_t, n_t = tops._calib_slots(1, 512, 128, widths)
+    ids_j, n_j = jops._calib_slots(1, 512, 128, widths)
+    assert n_t == n_j == 3
+    np.testing.assert_array_equal(ids_t.numpy(), np.asarray(ids_j))
+
+
+def test_empty_and_unported_modes():
+    z = tops.tdvmm_matmul(torch.zeros((0, 8), dtype=torch.int8),
+                          torch.ones((8, 5), dtype=torch.int8),
+                          torch.ones(0), torch.ones(5), out_bits=6)
+    assert tuple(z.shape) == (0, 5)
+    with pytest.raises(NotImplementedError):
+        tk.tdvmm_fused(torch.zeros((1, 2, 4)), torch.zeros((1, 4, 3)),
+                       torch.ones(1, 2), torch.ones(1, 3))
+    with pytest.raises(NotImplementedError, match="group_widths"):
+        tops.tdvmm_matmul(torch.zeros((2, 4), dtype=torch.int8),
+                          torch.zeros((4, 3), dtype=torch.int8),
+                          torch.ones(2), torch.ones(3), group_widths=(3,))
+    with pytest.raises(ValueError, match="out_window"):
+        tops.tdvmm_matmul(torch.zeros((2, 4), dtype=torch.int8),
+                          torch.zeros((4, 3), dtype=torch.int8),
+                          torch.ones(2), torch.ones(3),
+                          out_window=torch.ones(()))
