@@ -5,7 +5,7 @@ td_matmul is the closed form of the four-quadrant TD-VMM, structured as the
 code-and-scale pipeline of ``core/quant.py``:
 
     plan         flatten (..., N_in) to 2-D, pick code storage, resolve the
-                 integrate backend + block sizes
+                 integrate backend
     encode       x -> p-bit signed time codes + per-row scale   (Eq. 2, DAC)
     program      W -> signed current codes + per-channel scale  (FG tuning)
     integrate    codes matmul — kernel B1/B2 on the card, the plain torch
@@ -46,7 +46,6 @@ class MatmulPlan(NamedTuple):
     n: int
     backend: str                     # resolved: "jnp" | "cuda"
     code_dtype: str                  # "int4" | "int8" | "f32" code storage
-    blocks: tuple[int, int, int]     # (bm, bk, bn)
 
 
 def _plan_code_dtype(cfg: TDVMMLayerConfig, k: int, noisy: bool) -> str:
@@ -87,8 +86,8 @@ def plan_matmul(x_shape, w_shape, cfg: TDVMMLayerConfig,
             f"(bits={cfg.bits}, weight_bits={cfg.weight_bits}, noisy={noisy}) "
             f"is {_LATER}")
     from repro_torch.kernels.tdvmm import ops
-    kp = ops.plan_kernel(cfg.backend, m, k, n, code_dtype)
-    return MatmulPlan(batch_shape, m, k, n, kp.backend, code_dtype, kp.blocks)
+    return MatmulPlan(batch_shape, m, k, n, ops.resolve_backend(cfg.backend),
+                      code_dtype)
 
 
 def _readout_args(
@@ -200,7 +199,6 @@ def td_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TDVMMLayerConfig,
         out_scale=out_scale,
         backend=plan.backend,
         code_dtype=plan.code_dtype,
-        block_sizes=plan.blocks,
         out_window=out_window,
     )
     return y.reshape(plan.batch_shape + (plan.n,)).to(x.dtype)

@@ -24,74 +24,53 @@
 
 namespace tdvmm {
 
-template <int TM, int MODE>
+template <int MODE>
 __global__ void __launch_bounds__(kThreads)
 b1_kernel(TileArgs a, const float* __restrict__ xs,
           const float* __restrict__ ws, const float* __restrict__ win,
           long long win_se, long long win_sn, void* __restrict__ out,
           float gain, float levels, float inv_levels) {
   const int e = blockIdx.z;
-  const int m0 = blockIdx.y * (16 * TM);
+  const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * kBN;
-  int acc[TM][kTN];
-  integrate_tile<TM>(a, e, m0, n0, acc);
+  int acc[kTN];
+  integrate_tile(a, e, m0, n0, acc);
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int xe = a.shared_x ? 0 : e;
+  const int m = m0 + ty;
+  if (m >= a.M) return;
+  const size_t row = ((size_t)e * a.M + m) * a.N;
+  float xsv = 0.0f;
+  if (MODE != 0) xsv = xs[(size_t)(a.shared_x ? 0 : e) * a.M + m];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= a.M) continue;
-    const size_t row = ((size_t)e * a.M + m) * a.N;
-    float xsv = 0.0f;
-    if (MODE != 0) xsv = xs[(size_t)xe * a.M + m];
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= a.N) continue;
-      if (MODE == 0) {
-        static_cast<int*>(out)[row + n] = acc[i][j];
-        continue;
-      }
-      const float z = __fmul_rn((float)acc[i][j], gain);
-      const float wsv = ws[(size_t)e * a.N + n];
-      float y;
-      if (MODE == 2) {
-        const float s = win[e * win_se + n * win_sn];
-        y = readout(z, s, xsv, wsv, levels, inv_levels);
-      } else {
-        y = __fmul_rn(__fmul_rn(z, xsv), wsv);
-      }
-      static_cast<float*>(out)[row + n] = y;
+  for (int j = 0; j < kTN; ++j) {
+    const int n = n0 + tx + 16 * j;
+    if (n >= a.N) continue;
+    if (MODE == 0) {
+      static_cast<int*>(out)[row + n] = acc[j];
+      continue;
     }
+    const float z = __fmul_rn((float)acc[j], gain);
+    const float wsv = ws[(size_t)e * a.N + n];
+    float y;
+    if (MODE == 2) {
+      const float s = win[e * win_se + n * win_sn];
+      y = readout(z, s, xsv, wsv, levels, inv_levels);
+    } else {
+      y = __fmul_rn(__fmul_rn(z, xsv), wsv);
+    }
+    static_cast<float*>(out)[row + n] = y;
   }
 }
 
-template <int TM, int MODE>
+template <int MODE>
 static void launch(const TileArgs& a, int E, const float* xs, const float* ws,
                    const float* win, long long win_se, long long win_sn,
                    void* out, float gain, float levels, float inv_levels,
                    cudaStream_t stream) {
-  dim3 grid((a.N + kBN - 1) / kBN, (a.M + 16 * TM - 1) / (16 * TM), E);
-  b1_kernel<TM, MODE><<<grid, kThreads, 0, stream>>>(
+  dim3 grid((a.N + kBN - 1) / kBN, (a.M + kBM - 1) / kBM, E);
+  b1_kernel<MODE><<<grid, kThreads, 0, stream>>>(
       a, xs, ws, win, win_se, win_sn, out, gain, levels, inv_levels);
-}
-
-template <int TM>
-static void dispatch_mode(int mode, const TileArgs& a, int E, const float* xs,
-                          const float* ws, const float* win, long long win_se,
-                          long long win_sn, void* out, float gain,
-                          float levels, float inv_levels,
-                          cudaStream_t stream) {
-  if (mode == 0)
-    launch<TM, 0>(a, E, xs, ws, win, win_se, win_sn, out, gain, levels,
-                  inv_levels, stream);
-  else if (mode == 1)
-    launch<TM, 1>(a, E, xs, ws, win, win_se, win_sn, out, gain, levels,
-                  inv_levels, stream);
-  else
-    launch<TM, 2>(a, E, xs, ws, win, win_se, win_sn, out, gain, levels,
-                  inv_levels, stream);
 }
 
 }  // namespace tdvmm
@@ -102,21 +81,24 @@ extern "C" int tdvmm_b1(const void* x, const void* w, const void* xs,
                         const void* ws, const void* win, long long win_se,
                         long long win_sn, void* out, int E, int M, int K,
                         int N, int shared_x, int vec_x, int vec_w, int mode,
-                        int tm, float gain, float levels, float inv_levels,
+                        float gain, float levels, float inv_levels,
                         void* stream) {
   using namespace tdvmm;
-  if (mode < 0 || mode > 2 || (tm != 1 && tm != 4)) return (int)cudaErrorInvalidValue;
+  if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
   TileArgs a{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
              M, K, N, shared_x, vec_x, vec_w};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* fxs = static_cast<const float*>(xs);
   const float* fws = static_cast<const float*>(ws);
   const float* fwin = static_cast<const float*>(win);
-  if (tm == 4)
-    dispatch_mode<4>(mode, a, E, fxs, fws, fwin, win_se, win_sn, out, gain,
-                     levels, inv_levels, s);
+  if (mode == 0)
+    launch<0>(a, E, fxs, fws, fwin, win_se, win_sn, out, gain, levels,
+              inv_levels, s);
+  else if (mode == 1)
+    launch<1>(a, E, fxs, fws, fwin, win_se, win_sn, out, gain, levels,
+              inv_levels, s);
   else
-    dispatch_mode<1>(mode, a, E, fxs, fws, fwin, win_se, win_sn, out, gain,
-                     levels, inv_levels, s);
+    launch<2>(a, E, fxs, fws, fwin, win_se, win_sn, out, gain, levels,
+              inv_levels, s);
   return (int)cudaGetLastError();
 }

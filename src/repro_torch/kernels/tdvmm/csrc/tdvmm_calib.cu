@@ -24,29 +24,26 @@
 
 namespace tdvmm {
 
-template <int TM>
 __global__ void __launch_bounds__(kThreads)
 b2_integrate(TileArgs a, const int* __restrict__ slots, int nsb, int slot_bw,
              float* __restrict__ slot_max, int* __restrict__ out, float gain) {
   const int e = blockIdx.z;
-  const int m0 = blockIdx.y * (16 * TM);
+  const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * kBN;
-  int acc[TM][kTN];
-  integrate_tile<TM>(a, e, m0, n0, acc);
+  int acc[kTN];
+  integrate_tile(a, e, m0, n0, acc);
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int m = m0 + ty;
   float tmax = 0.0f;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= a.M) continue;
+  if (m < a.M) {
     const size_t row = ((size_t)e * a.M + m) * a.N;
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
       const int n = n0 + tx + 16 * j;
       if (n >= a.N) continue;
-      out[row + n] = acc[i][j];
-      tmax = fmaxf(tmax, fabsf(__fmul_rn((float)acc[i][j], gain)));
+      out[row + n] = acc[j];
+      tmax = fmaxf(tmax, fabsf(__fmul_rn((float)acc[j], gain)));
     }
   }
   __shared__ float warp_max[kThreads / 32];
@@ -94,22 +91,18 @@ extern "C" int tdvmm_b2(const void* x, const void* w, const void* xs,
                         const void* ws, const void* slots, int nsb,
                         int slot_bw, void* slot_max, void* out, int E, int M,
                         int K, int N, int shared_x, int vec_x, int vec_w,
-                        int tm, float gain, float levels, float inv_levels,
+                        float gain, float levels, float inv_levels,
                         void* stream) {
   using namespace tdvmm;
-  if ((tm != 1 && tm != 4) || slot_bw < 1) return (int)cudaErrorInvalidValue;
+  if (slot_bw < 1) return (int)cudaErrorInvalidValue;
   TileArgs a{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
              M, K, N, shared_x, vec_x, vec_w};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* islots = static_cast<const int*>(slots);
   float* fmax = static_cast<float*>(slot_max);
-  dim3 grid((N + kBN - 1) / kBN, (M + 16 * tm - 1) / (16 * tm), E);
-  if (tm == 4)
-    b2_integrate<4><<<grid, kThreads, 0, s>>>(a, islots, nsb, slot_bw, fmax,
-                                              static_cast<int*>(out), gain);
-  else
-    b2_integrate<1><<<grid, kThreads, 0, s>>>(a, islots, nsb, slot_bw, fmax,
-                                              static_cast<int*>(out), gain);
+  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, E);
+  b2_integrate<<<grid, kThreads, 0, s>>>(a, islots, nsb, slot_bw, fmax,
+                                         static_cast<int*>(out), gain);
   int err = (int)cudaGetLastError();
   if (err) return err;
   const size_t total = (size_t)E * M * N;

@@ -1,13 +1,13 @@
 // Shared int8 charge-accumulation tile for the TD-VMM kernels (B1 and B2).
 //
-// One CTA of 256 threads owns a (BM x 64) output tile of one batch entry e
-// (BM = 16 * TM) and walks the whole K axis itself: the loop over K inside
-// the block takes the place of the sequential K grid axis of the Pallas
-// kernel (repro/kernels/tdvmm/tdvmm.py:_kernel), whose accumulator lived in
-// VMEM scratch.  Here it lives in registers: thread (tx, ty) accumulates the
-// TM x 4 outputs at rows ty + 16 i and columns tx + 16 j.
+// One CTA of 256 threads owns a (16 x 64) output tile of one batch entry e
+// and walks the whole K axis itself: the loop over K inside the block takes
+// the place of the sequential K grid axis of the Pallas kernel
+// (repro/kernels/tdvmm/tdvmm.py:_kernel), whose accumulator lived in VMEM
+// scratch.  Here it lives in registers: thread (tx, ty) accumulates the 4
+// outputs at row ty and columns tx + 16 j.
 //
-// Each K step stages a (BM x 64)-byte x tile and a (64 x 64)-byte w tile in
+// Each K step stages a (16 x 64)-byte x tile and a (64 x 64)-byte w tile in
 // shared memory, both packed as int32 words of four consecutive k codes, so
 // the inner product is __dp4a (s8 x s8 -> s32, exact).  w arrives N-major
 // (E, K, N); four rows of four columns are transposed in registers with
@@ -27,6 +27,7 @@
 namespace tdvmm {
 
 constexpr int kThreads = 256;
+constexpr int kBM = 16;          // output rows per CTA
 constexpr int kBN = 64;          // output columns per CTA
 constexpr int kBK = 64;          // k codes per shared-memory stage
 constexpr int kBKW = kBK / 4;    // ... as packed int32 words
@@ -69,13 +70,11 @@ __device__ __forceinline__ uint32_t load_w_row4(const TileArgs& a,
   return v;
 }
 
-// Accumulate the CTA's tile over the whole K axis into acc[TM][kTN].
-template <int TM>
+// Accumulate the CTA's tile over the whole K axis into acc[kTN].
 __device__ __forceinline__ void integrate_tile(const TileArgs& a, int e,
                                                int m0, int n0,
-                                               int (&acc)[TM][kTN]) {
-  constexpr int BM = 16 * TM;
-  __shared__ int sx[BM][kBKW + 1];
+                                               int (&acc)[kTN]) {
+  __shared__ int sx[kBM][kBKW + 1];
   __shared__ int sw[kBN][kBKW + 1];
   const int t = threadIdx.x;
   const int tx = t % 16, ty = t / 16;
@@ -83,18 +82,11 @@ __device__ __forceinline__ void integrate_tile(const TileArgs& a, int e,
   const int8_t* wb = a.w + (size_t)e * a.K * a.N;
 
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0;
+  for (int j = 0; j < kTN; ++j) acc[j] = 0;
 
   for (int k0 = 0; k0 < a.K; k0 += kBK) {
-    // x tile: BM rows x 16 words; TM words per thread, row-contiguous.
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int idx = t + r * kThreads;
-      const int row = idx / kBKW, word = idx % kBKW;
-      sx[row][word] = load_x_word(a, xb, m0 + row, k0 + 4 * word);
-    }
+    // x tile: 16 rows x 16 words, one word per thread.
+    sx[ty][tx] = load_x_word(a, xb, m0 + ty, k0 + 4 * tx);
     // w tile: thread (kw, nq) loads rows 4kw..4kw+3 of columns 4nq..4nq+3
     // and transposes the 4x4 bytes into one k-packed word per column.
     {
@@ -116,15 +108,9 @@ __device__ __forceinline__ void integrate_tile(const TileArgs& a, int e,
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kBKW; ++kk) {
-      int av[TM], bv[kTN];
+      const int av = sx[ty][kk];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = sx[ty + 16 * i][kk];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) bv[j] = sw[tx + 16 * j][kk];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < kTN; ++j) acc[j] = __dp4a(av, sw[tx + 16 * j][kk], acc[j]);
     }
     __syncthreads();
   }

@@ -25,7 +25,7 @@ for ``td_grouped_matmul``'s slice.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,27 +40,6 @@ def resolve_backend(backend: str) -> str:
     if backend != "jnp":
         raise ValueError(f"unknown TD-VMM backend {backend!r}")
     return backend
-
-
-class KernelPlan(NamedTuple):
-    """Resolved backend + block sizes for one codes matmul."""
-    backend: str
-    bm: int
-    bk: int
-    bn: int
-    code_dtype: str = "int8"
-
-    @property
-    def blocks(self) -> tuple[int, int, int]:
-        return (self.bm, self.bk, self.bn)
-
-
-def plan_kernel(backend: str, m: int, k: int, n: int,
-                code_dtype: str = "int8") -> KernelPlan:
-    """resolve_backend + the H100 block heuristic for a 2-D launch (no
-    autotune table yet)."""
-    return KernelPlan(resolve_backend(backend),
-                      *tdvmm.heuristic_blocks(1, m, n), code_dtype=code_dtype)
 
 
 def _f32(v, device) -> torch.Tensor:
@@ -120,7 +99,7 @@ def _calib_slots(e: int, n: int, bn: int,
 
 
 def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
-                out_scale, out_window, backend, code_dtype, blocks,
+                out_scale, out_window, backend, code_dtype,
                 fused_calibration):
     ex, m, k = x_codes.shape
     e, _, n = w_codes.shape
@@ -134,8 +113,6 @@ def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
             "f32 and int4-packed codes)")
     xi = x_codes.to(torch.int8).contiguous()
     wi = w_codes.to(torch.int8).contiguous()
-    bm, _, bn = blocks if blocks is not None else tdvmm.heuristic_blocks(
-        e, m, n)
 
     if backend == "jnp":
         return _epilogue(tdvmm.acc_plain(xi, wi), x_scale, w_scale, gain,
@@ -148,13 +125,13 @@ def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
             else:
                 window = _f32(out_scale, xi.device)
         return tdvmm.tdvmm_fused(xi, wi, x_scale, w_scale, gain, out_bits,
-                                 window, bm=bm)
+                                 window)
     if fused_calibration:
-        slots, nslots = _calib_slots(e, n, bn, None)
+        slots, nslots = _calib_slots(e, n, tdvmm.TILE_N, None)
         return tdvmm.tdvmm_calibrated(
             xi, wi, x_scale, w_scale, slots.to(xi.device), nslots,
-            min(bn, n), gain, out_bits, bm=bm)
-    acc = tdvmm.tdvmm_matmul_raw(xi, wi, bm=bm)
+            min(tdvmm.TILE_N, n), gain, out_bits)
+    acc = tdvmm.tdvmm_matmul_raw(xi, wi)
     return _epilogue(acc, x_scale, w_scale, gain, out_bits, out_scale,
                      out_window)
 
@@ -192,7 +169,6 @@ def tdvmm_matmul(
     out_scale: float | tuple[float, ...] | None = None,
     backend: str = "auto",
     code_dtype: str = "auto",
-    block_sizes: Optional[tuple[int, int, int]] = None,
     group_widths: Optional[tuple[int, ...]] = None,
     fused_calibration: bool = True,
     out_window: Optional[torch.Tensor] = None,
@@ -243,6 +219,6 @@ def tdvmm_matmul(
     x_scale = x_scale.reshape(ex, m).to(torch.float32).contiguous()
     w_scale = w_scale.reshape(e, n).to(torch.float32).contiguous()
     y = _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
-                    out_scale, out_window, backend, code_dtype, block_sizes,
+                    out_scale, out_window, backend, code_dtype,
                     bool(fused_calibration))
     return y[0] if squeeze else y

@@ -41,6 +41,9 @@ BUILD_DIR = Path(__file__).parent / "build"
 SOURCES = {"b1": "tdvmm.cu", "b2": "tdvmm_calib.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+# Output columns per CTA (kBN in csrc/tdvmm_tile.cuh): B2 folds each CTA's
+# max|z| into one readout slot, so a slot spans whole 64-column tiles.
+TILE_N = 64
 
 # Kernel launches per wrapper (a B2 call is one count for its two launches).
 LAUNCHES = {"raw": 0, "fused": 0, "calibrated": 0}
@@ -58,13 +61,6 @@ def padded_size(size: int, block: int, tile: int) -> int:
     if n >= block:
         n = ((n + block - 1) // block) * block
     return n
-
-
-def heuristic_blocks(e: int, m: int, n: int) -> tuple[int, int, int]:
-    """(bm, bk, bn) for the H100 kernels: 64-row tiles once they alone give
-    two CTAs per SM (132 SMs), else 16-row tiles for more CTAs in flight."""
-    tiles64 = e * -(-m // 64) * -(-n // 64)
-    return (64 if tiles64 >= 264 else 16, 64, 64)
 
 
 # ---------------------------------------------------------------------------
@@ -131,12 +127,11 @@ def _lib(name: str) -> ctypes.CDLL:
                             ctypes.c_float)
             if name == "b1":
                 lib.tdvmm_b1.argtypes = [vp, vp, vp, vp, vp, ll, ll, vp,
-                                         i, i, i, i, i, i, i, i, i, f, f, f,
-                                         vp]
+                                         i, i, i, i, i, i, i, i, f, f, f, vp]
                 lib.tdvmm_b1.restype = i
             else:
                 lib.tdvmm_b2.argtypes = [vp, vp, vp, vp, vp, i, i, vp, vp,
-                                         i, i, i, i, i, i, i, i, f, f, f, vp]
+                                         i, i, i, i, i, i, i, f, f, f, vp]
                 lib.tdvmm_b2.restype = i
             _LIBS[name] = lib
         return lib
@@ -299,8 +294,7 @@ def _window_3d(window: Optional[torch.Tensor], e: int, n: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Wrappers (kernel on the card, plain version on the CPU)
 # ---------------------------------------------------------------------------
-def tdvmm_matmul_raw(x: torch.Tensor, w: torch.Tensor,
-                     bm: Optional[int] = None) -> torch.Tensor:
+def tdvmm_matmul_raw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """B1 raw mode: int32 (E, M, N) charge accumulation."""
     if not _kernel_device(x):
         return tdvmm_raw_plain(x, w)
@@ -309,10 +303,9 @@ def tdvmm_matmul_raw(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((e, m, n), dtype=torch.int32, device=x.device)
     if out.numel() == 0:
         return out
-    bm = bm or heuristic_blocks(e, m, n)[0]
     err = _lib("b1").tdvmm_b1(
         x.data_ptr(), w.data_ptr(), None, None, None, 0, 0, out.data_ptr(),
-        e, m, k, n, int(shared_x), _vec(x, k), _vec(w, n), 0, bm // 16,
+        e, m, k, n, int(shared_x), _vec(x, k), _vec(w, n), 0,
         1.0, 0.0, 0.0, _stream())
     _raise_on(err, "tdvmm_matmul_raw")
     LAUNCHES["raw"] += 1
@@ -322,8 +315,7 @@ def tdvmm_matmul_raw(x: torch.Tensor, w: torch.Tensor,
 def tdvmm_fused(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
                 w_scale: torch.Tensor, gain: float = 1.0,
                 out_bits: Optional[int] = None,
-                window: Optional[torch.Tensor] = None,
-                bm: Optional[int] = None) -> torch.Tensor:
+                window: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B1 fused: integrate + gain -> optional readout over a fixed window
     -> per-row x per-column rescale, float32 (E, M, N) out.
 
@@ -347,11 +339,10 @@ def tdvmm_fused(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
     if out.numel() == 0:
         return out
     levels, inv_levels = _levels(out_bits)
-    bm = bm or heuristic_blocks(e, m, n)[0]
     err = _lib("b1").tdvmm_b1(
         x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
         None if win is None else win.data_ptr(), se, sn, out.data_ptr(),
-        e, m, k, n, int(shared_x), _vec(x, k), _vec(w, n), mode, bm // 16,
+        e, m, k, n, int(shared_x), _vec(x, k), _vec(w, n), mode,
         float(np.float32(gain)), levels, inv_levels, _stream())
     _raise_on(err, "tdvmm_fused")
     LAUNCHES["fused"] += 1
@@ -360,8 +351,8 @@ def tdvmm_fused(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
 
 def tdvmm_calibrated(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
                      w_scale: torch.Tensor, slots: torch.Tensor, nslots: int,
-                     slot_bw: int, gain: float = 1.0, out_bits: int = 6,
-                     bm: Optional[int] = None) -> torch.Tensor:
+                     slot_bw: int, gain: float = 1.0,
+                     out_bits: int = 6) -> torch.Tensor:
     """B2: integrate + data-calibrated readout, float32 (E, M, N) out.
 
     ``slots`` (E, ceil(N / slot_bw)) int32 is the readout-slot id of every
@@ -377,20 +368,19 @@ def tdvmm_calibrated(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
     if slots.dtype != torch.int32 or tuple(slots.shape) != (e, nsb) \
             or slots.device != x.device:
         raise ValueError(f"slots: expected int32 ({e}, {nsb}) on {x.device}")
-    if nsb > 1 and slot_bw % 64:
+    if nsb > 1 and slot_bw % TILE_N:
         raise ValueError(f"slot block width {slot_bw} must be a multiple of "
-                         "the kernel's 64-column tile")
+                         f"the kernel's {TILE_N}-column tile")
     _contig(x, w, x_scale, w_scale, slots)
     out = torch.empty((e, m, n), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
     slot_max = torch.zeros(nslots, dtype=torch.float32, device=x.device)
     levels, inv_levels = _levels(out_bits)
-    bm = bm or heuristic_blocks(e, m, n)[0]
     err = _lib("b2").tdvmm_b2(
         x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
         slots.data_ptr(), nsb, slot_bw, slot_max.data_ptr(), out.data_ptr(),
-        e, m, k, n, int(shared_x), _vec(x, k), _vec(w, n), bm // 16,
+        e, m, k, n, int(shared_x), _vec(x, k), _vec(w, n),
         float(np.float32(gain)), levels, inv_levels, _stream())
     _raise_on(err, "tdvmm_calibrated")
     LAUNCHES["calibrated"] += 1
