@@ -7,20 +7,30 @@ Phases, each of which stops the script with a non-zero exit on failure:
 
 1. environment: the card's name and power limit; TF32 off, deterministic
    algorithms on;
-2. build: kernels B1 (``csrc/tdvmm.cu``) and B2 (``csrc/tdvmm_calib.cu``)
-   with ``nvcc`` from the checkout's sources;
+2. build: kernels B1 (``csrc/tdvmm.cu``), B2 (``csrc/tdvmm_calib.cu``) and
+   B3 (``kernels/ssd/csrc/ssd.cu``) with ``nvcc`` from the checkout's
+   sources, one process per source, all started together;
 3. kernels: every mode of B1 (raw, fused without readout, scalar window,
-   (E,) window, shared-x) and B2 (one slot, E slots) against its plain torch
-   version on the card at the serving path's shapes, bitwise
-   (``max_abs_err == 0``), with kernel / plain / bound / library times;
+   (E,) window, shared-x, per-column member windows of a ragged launch) and
+   B2 (one slot, E slots, member slots) against its plain torch version on
+   the card at the serving paths' shapes, bitwise (``max_abs_err == 0``);
+   B3 against ``ssd_plain`` at full width in bfloat16 and float32 and on a
+   small grouped case with a ragged length, within SSD_RTOL; each with
+   kernel / plain / bound / library times;
 4. serving: qwen1.5-0.5b at full width (24 layers, d_model 1024, bf16,
    random weights from seed 0) under the ``ffn_unchained`` and
    ``ffn_chained`` plans: one calibration pass, then the paged engine
    serves 8 ragged requests; every request must finish with its full token
    budget, no NaN logits, its stream equal to the same request served alone,
-   and the kernel launch counts must match the plan's sites exactly;
+   and the kernel launch counts must match the plan's sites exactly.  Then
+   mamba2-1.3b at full width (48 layers, d_model 2048, 64 heads x 64,
+   d_state 128, chunk 128, vocab 50280, bf16, random weights from seed 0)
+   under ``ssm_unchained``: one calibration pass over 4 x 512 tokens, then
+   the static path serves 4 prompts x 512 tokens for 32 new tokens each;
+   no NaN, exact launch counts, and the batch served in reverse order must
+   give the reversed streams;
 5. small input: the card's kernel path against the CPU plain path at smoke
-   width, same weights.
+   width, same weights, for qwen and for mamba2.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Without a CUDA device, or run from a
@@ -43,6 +53,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 H100_HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 H100_INT8_OPS_PER_S = 1979e12       # dense int8 tensor-core rate
+H100_TF32_FLOPS_PER_S = 495e12      # dense TF32 tensor-core rate
 
 ARCH = "qwen1.5-0.5b"
 CHUNK, SLOTS, PAGE, NUM_PAGES = 64, 4, 16, 64
@@ -55,14 +66,36 @@ PROFILE_SKIP, PROFILE_STEPS = 16, 12             # engine ticks
 # (attention, norms, the head) differ; measured 6e-7 on an H100.
 SMALL_LOGIT_RTOL = 1e-5
 
+SSM_ARCH = "mamba2-1.3b"
+SSM_BATCH, SSM_PROMPT, SSM_GEN = 4, 512, 32
+SSM_ROWS = SSM_BATCH * SSM_PROMPT
+# ssm.in_proj: the five members z, x, B, C, dt (4096, 4096, 128, 128, 64),
+# each in a 128-lane span; ssm.out: (d_inner, d_model)
+SSM_WIDTHS = (4096, 4096, 128, 128, 128)
+SSM_IN, SSM_OUT = (2048, sum(SSM_WIDTHS)), (4096, 2048)
+SSM_PROFILE_STEPS = 8                            # decode steps
+# B3 against ssd_plain, max|kernel - plain| over max|plain|, for y and the
+# final state: both sum in float32 in different orders.  Measured on an
+# NVIDIA H100 80GB HBM3 at 700 W, at the cases of ``ssd_cases``: float32 y
+# <= 6.4e-7, the state <= 1.4e-6.  bfloat16 y rounds once from float32 on both sides, so one
+# bf16 ulp (at most 2^-7 of |y|) can separate them; measured 2.6e-4.
+SSD_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7, "state": 1e-5}
+# Phase 5, mamba2 at smoke width, card against CPU logits relative to
+# max|logit|: the TD-VMM codes came out equal; B3 and the plain scan, the
+# conv and the norms sum in other orders; measured 3.5e-7 on an NVIDIA H100
+# 80GB HBM3 at 700 W.
+SMALL_SSM_LOGIT_RTOL = 1e-5
+
 SOURCES = {"tdvmm_fused": "src/repro_torch/kernels/tdvmm/csrc/tdvmm.cu",
            "tdvmm_matmul_raw": "src/repro_torch/kernels/tdvmm/csrc/tdvmm.cu",
-           "tdvmm_calibrated": "src/repro_torch/kernels/tdvmm/csrc/tdvmm_calib.cu"}
+           "tdvmm_calibrated": "src/repro_torch/kernels/tdvmm/csrc/tdvmm_calib.cu",
+           "ssd_scan": "src/repro_torch/kernels/ssd/csrc/ssd.cu"}
 REPLACES = {"tdvmm_fused": "src/repro/kernels/tdvmm/tdvmm.py:233",
             "tdvmm_matmul_raw": "src/repro/kernels/tdvmm/tdvmm.py:233",
-            "tdvmm_calibrated": "src/repro/kernels/tdvmm/tdvmm.py:440"}
+            "tdvmm_calibrated": "src/repro/kernels/tdvmm/tdvmm.py:440",
+            "ssd_scan": "src/repro/kernels/ssd/ssd.py:32"}
 COUNTER = {"tdvmm_fused": "fused", "tdvmm_matmul_raw": "raw",
-           "tdvmm_calibrated": "calibrated"}
+           "tdvmm_calibrated": "calibrated", "ssd_scan": "ssd"}
 
 
 def say(tag: str, msg: str) -> None:
@@ -174,6 +207,18 @@ def kernel_cases() -> list[dict]:
         dict(kernel="tdvmm_calibrated", mode="one_slot", e=1, ex=1, m=3,
              k=130, n=200),
     ]
+    # mamba2-1.3b: ssm.in_proj as one ragged launch with per-member
+    # windows, ssm.out with a scalar one; prefill rows B*L and decode rows B
+    for (k, n), mode in ((SSM_IN, "member_windows"),
+                         (SSM_OUT, "scalar_window")):
+        for m in (SSM_ROWS, SSM_BATCH):
+            cases.append(dict(kernel="tdvmm_fused", mode=mode, e=1, ex=1,
+                              m=m, k=k, n=n))
+        cases.append(dict(kernel="tdvmm_matmul_raw", mode="raw", e=1, ex=1,
+                          m=SSM_ROWS, k=k, n=n))
+        cases.append(dict(kernel="tdvmm_calibrated",
+                          mode="member_slots" if n == SSM_IN[1] else "one_slot",
+                          e=1, ex=1, m=SSM_ROWS, k=k, n=n))
     return cases
 
 
@@ -184,7 +229,9 @@ def bound(case: dict) -> tuple[float, str]:
     nbytes = ex * m * k + e * k * n + 4 * e * m * n       # codes in, out
     if case["mode"] != "raw":
         nbytes += 4 * (ex * m + e * n)                     # scales
-    if "window" in case["mode"]:
+    if case["mode"] == "member_windows":
+        nbytes += 4 * n
+    elif "window" in case["mode"]:
         nbytes += 4 * e
     t_bytes = nbytes / H100_HBM_BYTES_PER_S
     t_ops = 2.0 * e * m * k * n / H100_INT8_OPS_PER_S
@@ -207,8 +254,15 @@ def run_case(case: dict, dev, seed: int) -> dict:
     ws = torch.rand((e, n), generator=g, device=dev) + 0.5
     gain = 1.0 / (63.0 * 63.0 * 2.0 * k)
     mode = case["mode"]
-    window = None
-    if "window" in mode:
+    window, widths, members = None, None, None
+    if n == sum(SSM_WIDTHS):
+        widths = SSM_WIDTHS
+    if mode == "member_windows":
+        z = torch.abs(tk.acc_plain(x, w)[0].to(torch.float32) * float(gain))
+        spans = torch.split(z, list(widths), dim=1)
+        members = tuple(float(torch.amax(t)) * 0.7 for t in spans)
+        window = ops._member_window_cols(members, widths, n, x.device)
+    elif "window" in mode:
         z = tk.acc_plain(x, w).to(torch.float32) * float(gain)
         zmax = torch.amax(torch.abs(z), dim=(1, 2)) * 0.7
         window = zmax if mode == "expert_windows" else zmax[0].reshape(())
@@ -221,8 +275,8 @@ def run_case(case: dict, dev, seed: int) -> dict:
         plain = lambda: tk.tdvmm_fused_plain(x, w, xs, ws, gain, bits,   # noqa: E731
                                              window)
     else:
-        slots, nslots = ops._calib_slots(e, n, tk.TILE_N, None)
-        slots = slots.to(dev)
+        slots, nslots = ops._calib_slots(e, n, tk.TILE_N, widths)
+        slots = slots.contiguous().to(dev)
         bw = min(tk.TILE_N, n)
         kern = lambda: tk.tdvmm_calibrated(x, w, xs, ws, slots, nslots,  # noqa: E731
                                            bw, gain, 6)
@@ -238,15 +292,24 @@ def run_case(case: dict, dev, seed: int) -> dict:
     err = float((yk.to(torch.float64) - yp.to(torch.float64)).abs().max())
     require(err == 0.0, f"{case}: kernel differs from plain by {err}")
 
-    library = None
-    if e == 1 and ex == 1 and m > 16 and k % 8 == 0 and n % 8 == 0:
+    # the yardstick: torch._int_mm (which takes M > 16 only: fewer rows are
+    # zero-padded to 32 and sliced back) plus the torch epilogue
+    library, padded = None, m <= 16
+    if e == 1 and ex == 1 and k % 8 == 0 and n % 8 == 0:
         x2, w2 = x[0], w[0]
+        if padded:
+            x2 = torch.cat([x2, torch.zeros((32 - m, k), dtype=x2.dtype,
+                                            device=dev)])
+        lib_win = None if mode == "member_windows" else window
+
+        def int_mm():
+            return torch._int_mm(x2, w2)[:m][None]
         if case["kernel"] == "tdvmm_matmul_raw":
-            library = lambda: torch._int_mm(x2, w2)[None]         # noqa: E731
+            library = int_mm
         else:
             library = lambda: ops._epilogue(                      # noqa: E731
-                torch._int_mm(x2, w2)[None], xs, ws, gain, bits, None,
-                out_window=window)
+                int_mm(), xs, ws, gain, bits, members, out_window=lib_win,
+                group_widths=widths)
         ylib = library()
         torch.cuda.synchronize()
         require(bool(torch.equal(ylib, yp)),
@@ -255,7 +318,82 @@ def run_case(case: dict, dev, seed: int) -> dict:
     row = dict(case, max_abs_err=err, ms=time_ms(kern, 20),
                plain_ms=time_ms(plain, 5), bound_ms=bound_ms,
                bound_by=bound_by,
-               library_ms=None if library is None else time_ms(library, 10))
+               library_ms=None if library is None else time_ms(library, 10),
+               library_padded=library is not None and padded)
+    row.pop("rep", None)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernel B3 against ssd_plain
+# ---------------------------------------------------------------------------
+def ssd_cases() -> list[dict]:
+    """mamba2-1.3b's prefill scan at full width (bfloat16, as served, and
+    float32), and a small grouped case (G = 2 over H = 4) whose length is
+    not a multiple of the chunk."""
+    full = dict(kernel="ssd_scan", b=SSM_BATCH, l=SSM_PROMPT, h=64, p=64,
+                g=1, s=128, q=128)
+    return [dict(full, dtype="bfloat16", rep=True),
+            dict(full, dtype="float32"),
+            dict(full, b=2, l=300, h=4, g=2, dtype="float32")]
+
+
+def ssd_bound(case: dict) -> tuple[float, str]:
+    """Least time for the scan: x, dt, b, c and a_log read once, y and the
+    state written once, against the products the scan needs at the TF32
+    tensor-core rate.  Both Q x Q products are causal, so each counts its
+    Q (Q + 1) / 2 lower triangle; C.B^T depends on the group, not the head,
+    so it counts once per (row, group, chunk): Q (Q + 1) S flops there, and
+    Q (Q + 1) P + 4 Q P S per (row, head, chunk) for the weighted x, the
+    inter-chunk C.state^T and the state update."""
+    b, l, h, p, g, s, q = (case[f] for f in "blhpgsq")
+    elt = 2 if case["dtype"] == "bfloat16" else 4
+    nbytes = (2 * b * l * h * p * elt + 4 * b * l * h + 2 * b * l * g * s * elt
+              + 4 * h + 4 * b * h * p * s)
+    nc = -(-l // q)
+    flops = (b * g * nc * q * (q + 1) * s
+             + b * h * nc * (q * (q + 1) * p + 4 * q * p * s))
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S
+    t_ops = flops / H100_TF32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def run_ssd_case(case: dict, dev, seed: int) -> dict:
+    import torch
+    from repro_torch.kernels.ssd import ssd
+
+    b, l, h, p, g, s, q = (case[f] for f in "blhpgsq")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dtype = getattr(torch, case["dtype"])
+    x = torch.randn((b, l, h, p), generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, l, h), generator=gen, device=dev) - 3.0)
+    a_log = torch.log(torch.arange(1, h + 1, dtype=torch.float32, device=dev))
+    bb = (torch.randn((b, l, g, s), generator=gen, device=dev) * 0.3).to(dtype)
+    cc = (torch.randn((b, l, g, s), generator=gen, device=dev) * 0.3).to(dtype)
+    kern = lambda: ssd.ssd_scan(x, dt, a_log, bb, cc, q)           # noqa: E731
+    plain = lambda: ssd.ssd_plain(x, dt, a_log, bb, cc, q)         # noqa: E731
+    (yk, sk), (yp, sp) = kern(), plain()
+    torch.cuda.synchronize()
+    require(yk.dtype == yp.dtype == dtype and yk.shape == yp.shape
+            and sk.shape == sp.shape, f"{case}: kernel y {yk.dtype}"
+            f"{tuple(yk.shape)} vs plain {yp.dtype}{tuple(yp.shape)}")
+    require(bool(torch.isfinite(yp.float()).all() and torch.isfinite(sp).all()),
+            f"{case}: non-finite plain output")
+    err_y = float((yk.double() - yp.double()).abs().max())
+    err_s = float((sk.double() - sp.double()).abs().max())
+    rel_y = err_y / float(yp.double().abs().max())
+    rel_s = err_s / float(sp.double().abs().max())
+    require(rel_y <= SSD_RTOL[case["dtype"]] and rel_s <= SSD_RTOL["state"],
+            f"{case}: kernel differs from plain by {rel_y:.3g} (y) and "
+            f"{rel_s:.3g} (state) of max|plain|")
+    bound_ms, bound_by = ssd_bound(case)
+    row = dict(case, mode=case["dtype"], max_abs_err=max(err_y, err_s), rel_err_y=rel_y,
+               rel_err_state=rel_s, ms=time_ms(kern, 10),
+               plain_ms=time_ms(plain, 3), bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None)
     row.pop("rep", None)
     return row
 
@@ -329,7 +467,7 @@ def serve_plan(name: str, plan, dev, params_cache: dict) -> dict:
                                  device=dev)
 
     # ---- the main path: counts at 0, calibrate, serve, read ---------------
-    tk.reset_launches()
+    reset_all_launches()
     t0 = time.perf_counter()
     calib = model.calibrate(params, {"inputs": calib_tokens}, cfg)
     torch.cuda.synchronize()
@@ -404,6 +542,135 @@ def profile_plan(out: dict) -> dict:
         top_kernels=[(k[:70], v / max(dev_us, 1e-9)) for k, v in top])
 
 
+def ssm_plan():
+    from repro_torch.configs import TDVMMPlan, tdvmm_rule
+    return TDVMMPlan(rules=(tdvmm_rule("ssm.*", enabled=True,
+                                       backend="auto"),))
+
+
+def ssm_expected_launches(n_layers: int) -> dict:
+    """Exact kernel launches of the SSM path: per layer one B3 scan per
+    prefill; ssm.in_proj (one ragged launch) and ssm.out at every step, B1
+    fused in serving; in calibration each is captured (B1 raw) and read out
+    data-calibrated (B2)."""
+    L = n_layers
+    return {"calibrate": {"raw": 2 * L, "calibrated": 2 * L, "fused": 0,
+                          "ssd": L},
+            "serve": {"raw": 0, "calibrated": 0, "fused": 2 * L * SSM_GEN,
+                      "ssd": L}}
+
+
+def launches_now() -> dict:
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.tdvmm import tdvmm as tk
+    return {**tk.LAUNCHES, **ssd.LAUNCHES}
+
+
+def reset_all_launches() -> None:
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.tdvmm import tdvmm as tk
+    tk.reset_launches()
+    ssd.reset_launches()
+
+
+def serve_ssm(dev) -> dict:
+    """mamba2-1.3b at full width through the static path: calibrate on one
+    4 x 512 batch, serve another for 32 new tokens, then the same batch in
+    reverse order."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    cfg = get_config(SSM_ARCH).replace(tdvmm_plan=ssm_plan())
+    params = model.init_params(0, cfg, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    calib_tokens = torch.randint(0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT),
+                                 generator=g, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT),
+                            generator=g, device=dev)
+
+    # ---- the main path: counts at 0, calibrate, serve, read ---------------
+    reset_all_launches()
+    t0 = time.perf_counter()
+    calib = model.calibrate(params, {"inputs": calib_tokens}, cfg,
+                            max_len=SSM_PROMPT + SSM_GEN)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    at_calib = launches_now()
+    out = serve.serve_static(cfg, SSM_BATCH, SSM_PROMPT, SSM_GEN, calib=calib,
+                             device=dev, params=params, prompts=prompts)
+    launches = launches_now()
+    serve_launches = {k: launches[k] - at_calib[k] for k in launches}
+
+    want = ssm_expected_launches(cfg.n_layers)
+    require(at_calib == want["calibrate"],
+            f"ssm: calibration launches {at_calib} != {want['calibrate']}")
+    require(serve_launches == want["serve"],
+            f"ssm: serving launches {serve_launches} != {want['serve']}")
+    require(calib.sites() == ("ssm.in_proj", "ssm.out"),
+            f"ssm: calibrated sites {calib.sites()}")
+    require(tuple(calib.windows["ssm.in_proj"].shape) == (5,),
+            f"ssm: in_proj window {tuple(calib.windows['ssm.in_proj'].shape)}")
+    tokens = out["tokens"]
+    require(tuple(tokens.shape) == (SSM_BATCH, SSM_GEN),
+            f"ssm: tokens {tuple(tokens.shape)}")
+    require(out["nan_steps"] == 0, f"ssm: {out['nan_steps']} NaN steps")
+    require(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+            "ssm: a token outside the vocabulary")
+    # the same batch in reverse order gives the reversed streams
+    rev = serve.serve_static(cfg, SSM_BATCH, SSM_PROMPT, SSM_GEN, calib=calib,
+                             device=dev, params=params,
+                             prompts=torch.flip(prompts, dims=(0,)))
+    require(torch.equal(rev["tokens"], torch.flip(tokens, dims=(0,))),
+            "ssm: the reversed batch did not give the reversed streams")
+    return dict(plan="ssm_unchained", calibrate_s=t_cal,
+                prefill_s=out["prefill_s"], decode_s=out["decode_s"],
+                decode_tok_per_s=out["decode_tok_per_s"],
+                tokens=tokens[:, :8].tolist(), launches=launches,
+                launches_calibrate=at_calib,
+                args=(cfg, params, calib, prompts))
+
+
+def profile_ssm(out: dict) -> dict:
+    """Device time of one full-width prefill and of a window of decode
+    steps: kernels per step, device-busy share (summed kernel time over the
+    window's wall time) and the largest kernels."""
+    import torch
+    from repro_torch.models import model
+
+    cfg, params, calib, prompts = out["args"]
+    caches = model.init_caches(cfg, SSM_BATCH, SSM_PROMPT + SSM_GEN,
+                               prompts.device)
+    state = {}
+
+    def prefill():
+        logits, _ = model.prefill_step(params, {"inputs": prompts}, caches,
+                                       cfg, calib=calib)
+        state["tok"] = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
+
+    def decode_window():
+        for _ in range(SSM_PROFILE_STEPS):
+            logits, _ = model.decode_step(params, {"inputs": state["tok"]},
+                                          caches, cfg, calib=calib)
+            state["tok"] = torch.argmax(logits[:, -1, :cfg.vocab_size],
+                                        -1)[:, None]
+
+    rows = {}
+    for name, fn, steps in (("prefill", prefill, 1),
+                            ("decode", decode_window, SSM_PROFILE_STEPS)):
+        with torch.no_grad():
+            wall, by_name, kernels = device_profile(fn)
+        dev_us = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        rows[name] = dict(
+            steps=steps, wall_s=wall, kernels_per_step=kernels / steps,
+            device_busy_share=dev_us / 1e6 / wall,
+            top_kernels=[(k[:70], v / max(dev_us, 1e-9)) for k, v in top])
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: the card's kernel path against the CPU plain path, small input
 # ---------------------------------------------------------------------------
@@ -448,9 +715,52 @@ def small_input_agreement(dev) -> float:
     return worst
 
 
+def small_ssm_agreement(dev) -> float:
+    """Smoke-width mamba2 (2 layers, float32, chunk 8) under ssm_unchained,
+    the same weights on the card (B1, B3) and on the CPU (plain versions):
+    equal greedy tokens, logits within SMALL_SSM_LOGIT_RTOL of max|logit|.
+    The 13-token prompt is not a multiple of the chunk."""
+    import torch
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import model
+
+    cfg = smoke(get_config(SSM_ARCH)).replace(tdvmm_plan=ssm_plan())
+    p_cpu = model.init_params(0, cfg, device="cpu")
+    p_dev = _to(p_cpu, dev)
+    prompt = torch.arange(3, 29).reshape(2, 13)
+    calib = model.calibrate(p_cpu, {"inputs": prompt}, cfg, device="cpu")
+    worst = 0.0
+    for p, d in ((p_cpu, "cpu"), (p_dev, dev)):
+        caches = model.init_caches(cfg, 2, 24, d)
+        logits, caches = model.prefill_step(p, {"inputs": prompt.to(d)},
+                                            caches, cfg, calib=calib)
+        rows, toks = [logits[:, -1].float().cpu()], []
+        for _ in range(7):
+            toks.append(torch.argmax(rows[-1][:, :cfg.vocab_size], -1))
+            logits, caches = model.decode_step(
+                p, {"inputs": toks[-1][:, None].to(d)}, caches, cfg,
+                calib=calib)
+            rows.append(logits[:, -1].float().cpu())
+        toks = torch.stack(toks, 1)
+        if d == "cpu":
+            ref_rows, ref_toks = torch.stack(rows), toks
+        else:
+            got = torch.stack(rows)
+            worst = float((got - ref_rows).abs().max()
+                          / ref_rows.abs().max())
+            require(torch.equal(toks, ref_toks),
+                    f"mamba2 card tokens {toks.tolist()} != cpu "
+                    f"{ref_toks.tolist()}")
+    require(worst <= SMALL_SSM_LOGIT_RTOL,
+            f"mamba2 card logits differ from cpu by {worst:.3g}")
+    return worst
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
     return tree.to(dev)
 
 
@@ -465,7 +775,7 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels.tdvmm import tdvmm as tk
+    from repro_torch import kernels
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -479,8 +789,8 @@ def main() -> int:
     torch.use_deterministic_algorithms(True)
     torch.utils.deterministic.fill_uninitialized_memory = False
 
-    build_s = tk.build(verbose=True)
-    say("build", f"B1 + B2 built in {build_s:.1f} s")
+    build_s = kernels.build_all(verbose=True)
+    say("build", f"B1 + B2 + B3 built in {build_s:.1f} s")
 
     rows = []
     for i, case in enumerate(kernel_cases()):
@@ -492,7 +802,18 @@ def main() -> int:
             f"max_abs_err={row['max_abs_err']} kernel_ms={row['ms']:.5f} "
             f"plain_ms={row['plain_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
             f"({row['bound_by']}) library_ms="
-            f"{'n/a' if lib is None else format(lib, '.5f')}")
+            f"{'n/a' if lib is None else format(lib, '.5f')}"
+            f"{' (rows padded to 32)' if row['library_padded'] else ''}")
+    for i, case in enumerate(ssd_cases()):
+        row = run_ssd_case(case, dev, seed=100 + i)
+        rows.append((case, row))
+        say("kernel", f"ssd_scan {row['dtype']:<8} B={row['b']} L={row['l']} "
+            f"H={row['h']} P={row['p']} G={row['g']} S={row['s']} "
+            f"Q={row['q']} max_abs_err={row['max_abs_err']:.3g} rel_err "
+            f"y={row['rel_err_y']:.3g} state={row['rel_err_state']:.3g} "
+            f"kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+            f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
+            "library_ms=none")
 
     served, cache = [], {}
     for name, plan in plans().items():
@@ -519,15 +840,36 @@ def main() -> int:
     del cache
     torch.cuda.empty_cache()
 
+    ssm = serve_ssm(dev)
+    served.append(ssm)
+    say("serve", f"ssm_unchained: mamba2-1.3b full width, {SSM_BATCH} x "
+        f"{SSM_PROMPT} prompt tokens + {SSM_GEN} new each: calibrate "
+        f"{ssm['calibrate_s']:.3f} s, prefill {ssm['prefill_s']:.3f} s, "
+        f"decode {ssm['decode_s']:.3f} s ({ssm['decode_tok_per_s']:.2f} "
+        f"tokens/s), launches calibrate {ssm['launches_calibrate']} total "
+        f"{ssm['launches']}, reversed batch == reversed streams, no NaN; "
+        f"first tokens {ssm['tokens']}")
+    prof = profile_ssm(ssm)
+    for name, r in prof.items():
+        say("profile", f"ssm_unchained {name}: {r['steps']} step(s) in "
+            f"{r['wall_s']:.3f} s, {r['kernels_per_step']:.1f} device "
+            f"kernels per step, device busy {r['device_busy_share']:.3f}; "
+            "top " + "; ".join(f"{k} {v:.3f}" for k, v in r["top_kernels"]))
+    del ssm["args"], prof
+    torch.cuda.empty_cache()
+
     worst = small_input_agreement(dev)
-    say("small", "card vs cpu plain path: equal greedy tokens, logits "
+    say("small", "qwen card vs cpu plain path: equal greedy tokens, logits "
         f"within {worst:.3g} of max|logit|")
+    worst = small_ssm_agreement(dev)
+    say("small", "mamba2 card vs cpu plain path: equal greedy tokens, "
+        f"logits within {worst:.3g} of max|logit|")
 
     kernels = []
     for name in SOURCES:
         mine = [r for c, r in rows if r["kernel"] == name]
         rep = next(r for c, r in rows if c["kernel"] == name and c.get("rep"))
-        launches = sum(s["launches"][COUNTER[name]] for s in served)
+        launches = sum(s["launches"].get(COUNTER[name], 0) for s in served)
         require(launches > 0, f"{name} was not launched on the main path")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -536,7 +878,9 @@ def main() -> int:
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"],
-            "shape": {k: rep[k] for k in ("mode", "e", "m", "k", "n")}})
+            "shape": {k: rep[k] for k in (
+                ("dtype", "b", "l", "h", "p", "g", "s", "q")
+                if name == "ssd_scan" else ("mode", "e", "m", "k", "n"))}})
     say("done", "all phases passed")
     print(card)
     print(json.dumps({"kernels": kernels}))

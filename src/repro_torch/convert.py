@@ -5,7 +5,9 @@ returns, already turned into numpy arrays by the caller (for example with
 ``jax.tree.map(np.asarray, params)``), so this module never sees JAX.  The
 JAX package stacks each segment's layers along a leading axis
 (``params["blocks"]["seg0"]`` leaves are ``(L, ...)``); the port keeps a
-list of per-layer dicts.
+list of per-layer dicts.  Every leaf takes the model's dtype except the SSM
+scan parameters (``dt_bias``, ``A_log``, ``D``), which the JAX package keeps
+in float32 whatever the model's dtype.
 """
 from __future__ import annotations
 
@@ -22,21 +24,29 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
 
-def _map(tree, fn):
+# leaves the JAX package initialises in float32 for every model dtype
+FLOAT32_LEAVES = frozenset({"dt_bias", "A_log", "D"})
+
+
+def _map(tree, fn, name: str = ""):
     if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _map(v, fn, k) for k, v in tree.items()}
+    return fn(tree, name)
 
 
 def _unstack(tree, n: int) -> list[dict]:
-    return [_map(tree, lambda a, i=i: a[i]) for i in range(n)]
+    return [_map(tree, lambda a, _, i=i: a[i]) for i in range(n)]
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
     """The port's parameter dict for ``cfg`` from the JAX package's
     parameter pytree as numpy arrays, on ``device`` in ``cfg.dtype``."""
     dtype = common.resolve_dtype(cfg.dtype)
-    conv = lambda a: _tensor(a, dtype, device)   # noqa: E731
+
+    def conv(a, name):
+        return _tensor(a, torch.float32 if name in FLOAT32_LEAVES else dtype,
+                       device)
+
     out = {k: _map(v, conv) for k, v in tree.items() if k != "blocks"}
     out["blocks"] = {}
     for i, (_, n) in enumerate(transformer.segments(cfg)):

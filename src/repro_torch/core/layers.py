@@ -14,11 +14,12 @@ code-and-scale pipeline of ``core/quant.py``:
                  window when the tile boundary is digital      (Eq. 3, §4.2)
     rescale      digital per-row x per-channel rescale to model units
 
-Only int8 code storage is ported (p <= 7 on both operands, no noise): f32
-codes (p = 8, noisy) and int4-packed codes (p <= 3) raise
-``NotImplementedError``, as do the grouped and expert-batched layers, which
-belong to later slices of the port.  The layer serves only: there is no
-gradient path.
+``td_grouped_matmul`` runs G same-input projections (``ssm.in_proj``) as
+one ragged concat launch.  Only int8 code storage is ported (p <= 7 on both
+operands, no noise): f32 codes (p = 8, noisy) and int4-packed codes
+(p <= 3) raise ``NotImplementedError``, as does the expert-batched layer,
+which belongs to a later slice of the port.  The layer serves only: there
+is no gradient path.
 """
 from __future__ import annotations
 
@@ -139,18 +140,31 @@ def _latch_gain(levels_x: int, levels_w: int, k: int) -> float:
 
 def _record_window(cfg: TDVMMLayerConfig, x_codes: torch.Tensor,
                    w_codes: torch.Tensor, backend: str, code_dtype: str,
-                   gain: float) -> None:
+                   gain: float,
+                   group_widths: Optional[tuple[int, ...]] = None) -> None:
     """Calibration capture: when a ``core.calibration`` collector is active
     and the site has a digital readout boundary, record its latch-normalized
-    max|z| — exactly the window per-call data calibration would use.  Costs
-    one extra codes matmul (B1 raw mode on the card) per site, paid only
-    during the one-time calibration pass."""
+    max|z| — a scalar, or the per-member ``(G,)`` vector over a ragged
+    concat launch's column spans (``group_widths``) — exactly the window
+    per-call data calibration would use.  Costs one extra codes matmul (B1
+    raw mode on the card) per site, paid only during the one-time
+    calibration pass."""
     from repro_torch.core import calibration
     if not calibration.active() or not cfg.io_quantize:
         return
     from repro_torch.kernels.tdvmm import ops
     acc = ops.codes_matmul(x_codes, w_codes, backend, code_dtype=code_dtype)
-    calibration.record(cfg.site, _max0(torch.abs(acc * _f32(gain))))
+    z = torch.abs(acc * _f32(gain))
+    if group_widths is not None:
+        # member g owns columns [off, off + width_g); pad columns are zero
+        # charge, so the span max equals the member's standalone max
+        off, maxes = 0, []
+        for wd in group_widths:
+            maxes.append(_max0(z[..., off:off + wd]))
+            off += wd
+        calibration.record(cfg.site, torch.stack(maxes))
+        return
+    calibration.record(cfg.site, _max0(z))
 
 
 def _f32(v: float) -> float:
@@ -211,13 +225,67 @@ def td_expert_matmul(x, w, cfg: TDVMMLayerConfig, key=None):
     raise NotImplementedError(f"td_expert_matmul on an enabled site is {_LATER}")
 
 
-def td_grouped_matmul(x, ws, cfg: TDVMMLayerConfig, key=None):
-    """G same-input projections as one ragged launch — a later slice; the
-    digital (disabled) form is G plain matmuls."""
+def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
+                      key=None) -> tuple[torch.Tensor, ...]:
+    """Grouped four-quadrant TD-VMM: G same-input projections, one launch.
+
+    ``x`` (..., N_in) is encoded once and the G matrices (N_in, N_g) run as
+    one **ragged concat** launch: the members concatenate along N into one
+    2-D (K, sum widths) bank, each member rounded up to the 128 lane only.
+    Per-member per-channel weight scales concatenate into the epilogue's
+    per-column scale row, and per-member readout windows resolve by column
+    span (``group_widths``), so the launch is bitwise the G sequential calls
+    whenever the windows match.  Returns G tensors shaped (..., N_g)."""
     ws = tuple(ws)
+    if not ws:
+        return ()
     if not cfg.enabled:
         return tuple(x @ w for w in ws)
-    raise NotImplementedError(f"td_grouped_matmul on an enabled site is {_LATER}")
+    k = x.shape[-1]
+    ns = tuple(w.shape[-1] for w in ws)
+    for w in ws:
+        if w.dim() != 2 or w.shape[0] != k:
+            raise ValueError(f"grouped member {tuple(w.shape)} for an input "
+                             f"of width {k}")
+    noisy = cfg.noise and key is not None
+    plan = plan_matmul(x.shape, (k, sum(ns)), cfg, noisy=noisy)
+    from repro_torch.kernels.tdvmm import ops, tdvmm
+    # per-member column spans: each member rounds to the 128 lane only
+    widths = tuple(tdvmm.padded_size(n, tdvmm.LANE, tdvmm.LANE) for n in ns)
+    n_total = sum(widths)
+
+    qx = quant.encode_input(x, cfg.bits)                       # encode ONCE
+    qw = quant.concat_group(
+        [quant.program_weights(w, cfg.weight_bits, cfg.per_channel)
+         for w in ws], widths)
+    gain = _latch_gain(qx.levels, qw.levels, k)
+    w_scale = qw.scale.reshape(n_total) * _f32(2.0 * k)
+    out_bits, out_scale = _readout_args(cfg, n_experts=len(ws))
+    out_scale, out_window = _runtime_override(cfg, out_bits, out_scale)
+    x_codes = qx.codes.reshape(plan.m, k)
+    # each member's column span is its own analog tile: calibration records
+    # one (G,) vector for the site
+    _record_window(cfg, x_codes, qw.codes, plan.backend, plan.code_dtype,
+                   gain, group_widths=widths)
+    y = ops.tdvmm_matmul(
+        x_codes,
+        qw.codes,
+        qx.scale.reshape(plan.m),
+        w_scale,
+        gain=gain,
+        out_bits=out_bits,
+        out_scale=out_scale,
+        backend=plan.backend,
+        code_dtype=plan.code_dtype,
+        group_widths=widths,
+        out_window=out_window,
+    )                                                          # (M, n_total)
+    outs, off = [], 0
+    for n, wd in zip(ns, widths):
+        outs.append(y[:, off:off + n].reshape(plan.batch_shape + (n,))
+                    .to(x.dtype))
+        off += wd
+    return tuple(outs)
 
 
 def calibrate_out_scale(x: torch.Tensor, w: torch.Tensor,

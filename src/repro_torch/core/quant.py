@@ -15,14 +15,17 @@ Codes are **bitwise** those of the JAX package (``repro.core.quant``): the
 normalization is the division ``xf / s`` (never a reciprocal multiply), the
 scale is ``max(max|x| with initial 0, 1e-6)``, and rounding is half to even.
 Every constant enters as an explicit float32 tensor, so no double-precision
-scalar arithmetic sneaks in.  Only int8 storage (p <= 7) is ported; there is
-no straight-through-estimator term because the port serves only.
+scalar arithmetic sneaks in.  ``concat_group`` joins G programmed members
+into the ragged bank of a grouped launch.  Only int8 storage (p <= 7) is
+ported; there is no straight-through-estimator term because the port serves
+only.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import encoding as enc
 
@@ -106,3 +109,35 @@ def program_weights(
     w_max = _floor(_absmax(wf, dims), 1e-6)
     return QuantizedTensor(codes=_store(wf / w_max, bits), scale=w_max,
                            bits=bits)
+
+
+def concat_group(qws, widths: tuple[int, ...]) -> QuantizedTensor:
+    """Concatenate G programmed (K, N_g) members along N into one ragged bank.
+
+    The ragged grouped launch (``core.layers.td_grouped_matmul``) runs one
+    shared input against the column concat of G same-input projections:
+    member g owns a ``widths[g]``-wide column span (its width rounded up to
+    the 128 lane).  Pad columns carry zero codes, which integrate zero
+    charge, and scale 1.0, which only ever multiplies a zero output."""
+    qws = tuple(qws)
+    if not qws:
+        raise ValueError("concat_group needs at least one member")
+    if len(widths) != len(qws):
+        raise ValueError(f"{len(widths)} widths for {len(qws)} members")
+    bits = qws[0].bits
+    if any(q.bits != bits for q in qws):
+        raise ValueError(f"grouped members must share a code width, got "
+                         f"{[q.bits for q in qws]}")
+    if any(q.codes.dim() != 2 for q in qws):
+        raise ValueError("concat_group concatenates 2-D (K, N) members")
+    if any(q.codes.shape[-1] > wd for q, wd in zip(qws, widths)):
+        raise ValueError(
+            f"member widths {[q.codes.shape[-1] for q in qws]} exceed the "
+            f"declared spans {tuple(widths)}")
+    codes = torch.cat([F.pad(q.codes, (0, wd - q.codes.shape[-1]))
+                       for q, wd in zip(qws, widths)], dim=-1)
+    scale = torch.cat([F.pad(
+        torch.broadcast_to(q.scale, (1, q.codes.shape[-1])),
+        (0, wd - q.codes.shape[-1]), value=1.0)
+        for q, wd in zip(qws, widths)], dim=-1)
+    return QuantizedTensor(codes=codes, scale=scale, bits=bits)

@@ -1,0 +1,101 @@
+"""Build and bind the port's CUDA kernels.
+
+Each kernel source (``*/csrc/*.cu``) is compiled at first use with ``nvcc``
+for ``sm_90a`` into one shared library with a plain C interface, under
+``build/`` beside this file (gitignored), and bound with ``ctypes``.  The
+library's file name carries a hash of its flags and of every file in its
+``csrc/`` directory, so an edited source or header is rebuilt.  ``build``
+starts one ``nvcc`` per missing library, all together, and waits for all.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Callable, Iterable
+
+BUILD_DIR = Path(__file__).parent / "build"
+BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+@dataclasses.dataclass(frozen=True)
+class Library:
+    """One kernel source compiled into one shared library.
+
+    ``bind`` sets the ``argtypes``/``restype`` of the C entry points on the
+    loaded library."""
+    name: str
+    source: Path
+    flags: tuple[str, ...]
+    bind: Callable[[ctypes.CDLL], None]
+
+    def path(self) -> Path:
+        h = hashlib.sha256(" ".join(BASE_FLAGS + self.flags).encode())
+        for f in sorted(self.source.parent.iterdir()):
+            h.update(f.name.encode() + f.read_bytes())
+        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
+
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the port's kernels are built with "
+                           "the CUDA toolkit on the machine with the card")
+    return found
+
+
+def build(libs: Iterable[Library], verbose: bool = False) -> float:
+    """Build every library of ``libs`` that is not built yet, one ``nvcc``
+    per source, all started together.  Returns the seconds spent (0 when all
+    were built already).  Raises with the compiler's output on failure."""
+    todo = [lib for lib in libs if not lib.path().exists()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for lib in todo:
+        path = lib.path()
+        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *BASE_FLAGS, *lib.flags,
+               *(["-Xptxas", "-v"] if verbose else []),
+               "-o", str(tmp), str(lib.source)]
+        procs.append((lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, path))
+    failed = []
+    for lib, proc, tmp, path in procs:
+        out, _ = proc.communicate()
+        if verbose and out:
+            print(f"[nvcc {lib.source.name}]\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{lib.source.name}:\n{out}")
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(lib: Library) -> ctypes.CDLL:
+    """The bound library, built first if needed."""
+    with _LOCK:
+        cdll = _LOADED.get(lib.name)
+        if cdll is None:
+            build([lib])
+            cdll = ctypes.CDLL(str(lib.path()))
+            lib.bind(cdll)
+            _LOADED[lib.name] = cdll
+        return cdll

@@ -20,11 +20,15 @@ or the runtime ``out_window`` operand) or no readout runs fused in B1; a
 data-calibrated window (``out_scale=None`` with ``out_bits``) runs B2
 (``fused_calibration=False`` keeps the two-pass form: B1 raw + ``_epilogue``).
 
-Only int8 codes are ported; ragged grouped launches (``group_widths``) wait
-for ``td_grouped_matmul``'s slice.
+Ragged grouped launches (``group_widths``, ``td_grouped_matmul``) run the
+same kernels: a fixed window becomes a per-column window over the member
+spans (built once per window, widths and device, then reused), and the
+data-calibrated readout gives B2 one slot per member.  Only int8 codes are
+ported.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -44,38 +48,100 @@ def resolve_backend(backend: str) -> str:
 
 def _f32(v, device) -> torch.Tensor:
     """A float32 scalar (or (E,) tuple) as a tensor on ``device``; a scalar
-    is filled on the device, with no host-to-device copy."""
+    is filled on the device, a tuple copied once and then reused."""
     if isinstance(v, tuple):
-        return torch.from_numpy(np.asarray(v, np.float32)).to(device)
+        return _window_values(v, torch.device(device))
     return torch.full((), float(np.float32(v)), dtype=torch.float32,
                       device=device)
+
+
+@functools.lru_cache(maxsize=256)
+def _window_values(values: tuple, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(values, np.float32)).to(device)
+
+
+def _member_ids(group_widths: tuple, n: int) -> np.ndarray:
+    """Column -> owning member over the ragged concat span; pad columns
+    past the members get id G."""
+    ids = np.full(n, len(group_widths), np.int64)
+    ids[:sum(group_widths)] = np.repeat(np.arange(len(group_widths)),
+                                        group_widths)
+    return ids
+
+
+@functools.lru_cache(maxsize=256)
+def _member_window_cols(values: tuple, group_widths: tuple, n: int,
+                        device: torch.device) -> torch.Tensor:
+    """(G,) per-member window values -> a (1, 1, N) per-column window over
+    the ragged concat span (pad columns get 1.0: they only ever multiply
+    zero-code outputs).  Built once per (values, widths, N, device)."""
+    vals = np.append(np.asarray(values, np.float32), np.float32(1.0))
+    cols = vals[_member_ids(group_widths, n)]
+    return torch.from_numpy(cols).to(device).reshape(1, 1, n)
+
+
+@functools.lru_cache(maxsize=256)
+def _member_col_index(group_widths: tuple, n: int,
+                      device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_member_ids(group_widths, n)).to(device)
+
+
+def _member_window_cols_arr(values: torch.Tensor, group_widths: tuple,
+                            n: int) -> torch.Tensor:
+    """Tensor sibling of ``_member_window_cols``: a (G,) window tensor
+    gathered out to the (1, 1, N) per-column window (pad columns 1.0) with
+    a cached device index, so a swapped window copies nothing from the
+    host."""
+    dev = values.device
+    vals = torch.cat([values.reshape(-1).to(torch.float32),
+                      torch.ones(1, dtype=torch.float32, device=dev)])
+    return vals[_member_col_index(tuple(group_widths), n, dev)].reshape(1, 1, n)
 
 
 # ---------------------------------------------------------------------------
 # Epilogue (unfused form; the kernels mirror this term for term)
 # ---------------------------------------------------------------------------
 def _epilogue(acc, x_scale, w_scale, gain, out_bits, out_scale,
-              out_window=None):
+              out_window=None, group_widths=None):
     """gain -> optional p-bit readout -> per-row x per-channel rescale.
 
     acc: (E, M, N) int32, non-empty; x_scale: (E|1, M); w_scale: (E, N).
     ``out_scale=None`` calibrates the ADC window to max|z| *per expert tile*;
     a tuple is an (E,)-vector of fixed per-expert windows; ``out_window`` is
     the tensor form of a fixed window (scalar or (E,)) — the serving engine's
-    runtime operand."""
+    runtime operand.  With ``group_widths`` (a ragged concat launch) windows
+    are per member column span instead: a tuple or an ``out_window`` holds
+    one window per member, and data calibration takes max|z| over each
+    member's columns."""
     s = None
     if out_bits is not None:
         dev = acc.device
+        n = acc.shape[-1]
         if out_window is not None:
             ow = out_window.to(device=dev, dtype=torch.float32)
-            s = ow.reshape(-1, 1, 1) if ow.dim() >= 1 else ow
+            if group_widths is not None:
+                s = _member_window_cols_arr(ow, group_widths, n)
+            else:
+                s = ow.reshape(-1, 1, 1) if ow.dim() >= 1 else ow
         elif out_scale is None:
-            z = acc.to(torch.float32) * _f32(gain, dev)
-            s = torch.maximum(
-                torch.amax(torch.abs(z), dim=(-2, -1), keepdim=True),
-                _f32(1e-9, dev))
+            z = torch.abs(acc.to(torch.float32) * _f32(gain, dev))
+            if group_widths is not None:
+                off, segs = 0, []
+                for wd in group_widths:
+                    seg = torch.amax(z[..., off:off + wd], dim=(-2, -1),
+                                     keepdim=True)
+                    segs.append(seg.expand(seg.shape[:-1] + (wd,)))
+                    off += wd
+                s = torch.cat(segs, dim=-1)
+            else:
+                s = torch.amax(z, dim=(-2, -1), keepdim=True)
+            s = torch.maximum(s, _f32(1e-9, dev))
         elif isinstance(out_scale, tuple):
-            s = _f32(out_scale, dev).reshape(-1, 1, 1)
+            if group_widths is not None:
+                s = _member_window_cols(out_scale, tuple(group_widths), n,
+                                        torch.device(dev))
+            else:
+                s = _f32(out_scale, dev).reshape(-1, 1, 1)
         else:
             s = _f32(out_scale, dev)
     return tdvmm.epilogue_plain(acc, x_scale, w_scale, gain, out_bits, s)
@@ -98,9 +164,16 @@ def _calib_slots(e: int, n: int, bn: int,
     return torch.from_numpy(ids[None, :]), len(group_widths)
 
 
+@functools.lru_cache(maxsize=64)
+def _device_calib_slots(e: int, n: int, bn: int, group_widths,
+                        device: torch.device) -> tuple[torch.Tensor, int]:
+    slots, nslots = _calib_slots(e, n, bn, group_widths)
+    return slots.to(device), nslots
+
+
 def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
                 out_scale, out_window, backend, code_dtype,
-                fused_calibration):
+                fused_calibration, group_widths=None):
     ex, m, k = x_codes.shape
     e, _, n = w_codes.shape
     if min(e, m, k, n) == 0:
@@ -116,24 +189,32 @@ def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
 
     if backend == "jnp":
         return _epilogue(tdvmm.acc_plain(xi, wi), x_scale, w_scale, gain,
-                         out_bits, out_scale, out_window)
+                         out_bits, out_scale, out_window, group_widths)
     if out_bits is None or out_scale is not None or out_window is not None:
         window = None
         if out_bits is not None:
             if out_window is not None:
                 window = out_window.to(device=xi.device, dtype=torch.float32)
+                if group_widths is not None:
+                    window = _member_window_cols_arr(window, group_widths, n)
+            elif group_widths is not None and isinstance(out_scale, tuple):
+                window = _member_window_cols(out_scale, group_widths, n,
+                                             xi.device)
             else:
                 window = _f32(out_scale, xi.device)
         return tdvmm.tdvmm_fused(xi, wi, x_scale, w_scale, gain, out_bits,
                                  window)
     if fused_calibration:
-        slots, nslots = _calib_slots(e, n, tdvmm.TILE_N, None)
+        # every member span is a multiple of the 128 lane, so no 64-column
+        # tile of B2 straddles two members' readout slots
+        slots, nslots = _device_calib_slots(e, n, tdvmm.TILE_N, group_widths,
+                                            xi.device)
         return tdvmm.tdvmm_calibrated(
-            xi, wi, x_scale, w_scale, slots.to(xi.device), nslots,
+            xi, wi, x_scale, w_scale, slots, nslots,
             min(tdvmm.TILE_N, n), gain, out_bits)
     acc = tdvmm.tdvmm_matmul_raw(xi, wi)
     return _epilogue(acc, x_scale, w_scale, gain, out_bits, out_scale,
-                     out_window)
+                     out_window, group_widths)
 
 
 def codes_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
@@ -177,9 +258,14 @@ def tdvmm_matmul(
 
     ``out_scale=None`` calibrates the readout window from the data (§3.1);
     a float or an (E,)-tuple pins it.  ``out_window`` is the tensor form of
-    a fixed window — scalar or per-expert (E,) — bitwise interchangeable with
-    ``out_scale``.  Shared-x: a 2-D (M, K) x against a 3-D (G, K, N) bank
-    returns (G, M, N) un-squeezed.
+    a fixed window — scalar, per-expert (E,) or per-member (G,) — bitwise
+    interchangeable with ``out_scale``.  Shared-x: a 2-D (M, K) x against a
+    3-D (G, K, N) bank returns (G, M, N) un-squeezed.
+
+    Ragged grouped: ``group_widths=(N_1, ..., N_G)`` declares a 2-D
+    (M, K) x (K, sum N_g) launch as the column concat of G same-input
+    members; readout windows (tuple ``out_scale``, ``out_window`` or data
+    calibration) resolve per member column span instead of per launch.
     """
     backend = resolve_backend(backend)
     squeeze = x_codes.dim() == 2 and w_codes.dim() == 2
@@ -194,9 +280,21 @@ def tdvmm_matmul(
             f"batched x/w mismatch: x batch {ex} vs w batch {e} "
             "(shared-x grouped launches carry a single x batch entry)")
     if group_widths is not None:
-        raise NotImplementedError(
-            "ragged grouped launches (group_widths) are not ported yet")
-    if isinstance(out_scale, tuple) and len(out_scale) != e:
+        group_widths = tuple(int(w) for w in group_widths)
+        if ex != 1 or e != 1:
+            raise ValueError(
+                "group_widths describes a 2-D ragged concat launch; got "
+                f"batched codes (x batch {ex}, w batch {e})")
+        if sum(group_widths) != n:
+            raise ValueError(
+                f"group_widths {group_widths} sum to {sum(group_widths)} "
+                f"but the concat weight bank has N={n}")
+        if isinstance(out_scale, tuple) and \
+                len(out_scale) != len(group_widths):
+            raise ValueError(
+                f"out_scale has {len(out_scale)} member windows for "
+                f"{len(group_widths)} group members")
+    elif isinstance(out_scale, tuple) and len(out_scale) != e:
         raise ValueError(
             f"out_scale has {len(out_scale)} per-expert windows for "
             f"E={e} batched tiles")
@@ -207,18 +305,24 @@ def tdvmm_matmul(
             raise ValueError(
                 "out_window and out_scale are mutually exclusive (the "
                 "window tensor is the runtime-operand form of out_scale)")
-        if out_window.dim() == 1 and out_window.shape[0] != e:
+        if group_widths is not None:
+            if tuple(out_window.shape) != (len(group_widths),):
+                raise ValueError(
+                    f"out_window shape {tuple(out_window.shape)} for a "
+                    f"{len(group_widths)}-member grouped launch; expected "
+                    f"({len(group_widths)},)")
+        elif out_window.dim() == 1 and out_window.shape[0] != e:
             raise ValueError(
                 f"out_window has {out_window.shape[0]} per-expert windows "
                 f"for E={e} batched tiles")
-        if out_window.dim() > 1:
-            raise ValueError(f"out_window must be scalar or (E,); got shape "
-                             f"{tuple(out_window.shape)}")
+        elif out_window.dim() > 1:
+            raise ValueError(f"out_window must be scalar, (E,) or (G,); got "
+                             f"shape {tuple(out_window.shape)}")
     if code_dtype == "auto":
         code_dtype = "int8" if not x_codes.dtype.is_floating_point else "f32"
     x_scale = x_scale.reshape(ex, m).to(torch.float32).contiguous()
     w_scale = w_scale.reshape(e, n).to(torch.float32).contiguous()
     y = _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
                     out_scale, out_window, backend, code_dtype,
-                    bool(fused_calibration))
+                    bool(fused_calibration), group_widths)
     return y[0] if squeeze else y

@@ -15,32 +15,24 @@ version beside it (same arithmetic in torch ops, exact integer
 accumulation); a tensor on the card goes to the kernel, or the wrapper
 raises.  There is no fallback.  ``LAUNCHES`` counts kernel launches only.
 
-The kernels are built at first use with ``nvcc`` for ``sm_90a`` into
-``build/`` beside this file (one shared library per source, built in
-parallel) and bound with ``ctypes``.  Only int8 codes are ported; f32 and
-int4-packed codes raise.
+The kernels are built at first use with ``nvcc`` for ``sm_90a`` into the
+port's kernel build directory (``kernels/_build.py``: one shared library
+per source, built in parallel) and bound with ``ctypes``.  Only int8 codes
+are ported; f32 and int4-packed codes raise.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import _build
+
 LANE = 128
 CSRC = Path(__file__).parent / "csrc"
-BUILD_DIR = Path(__file__).parent / "build"
-SOURCES = {"b1": "tdvmm.cu", "b2": "tdvmm_calib.cu"}
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 # Output columns per CTA (kBN in csrc/tdvmm_tile.cuh): B2 folds each CTA's
 # max|z| into one readout slot, so a slot spans whole 64-column tiles.
 TILE_N = 64
@@ -66,75 +58,32 @@ def padded_size(size: int, block: int, tile: int) -> int:
 # ---------------------------------------------------------------------------
 # Build and bind
 # ---------------------------------------------------------------------------
-_LIBS: dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+def _bind_b1(lib: ctypes.CDLL) -> None:
+    vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    lib.tdvmm_b1.argtypes = [vp, vp, vp, vp, vp, ll, ll, vp,
+                             i, i, i, i, i, i, i, i, f, f, f, vp]
+    lib.tdvmm_b1.restype = i
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the TD-VMM kernels are built with "
-                           "the CUDA toolkit on the machine with the card")
-    return found
+def _bind_b2(lib: ctypes.CDLL) -> None:
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tdvmm_b2.argtypes = [vp, vp, vp, vp, vp, i, i, vp, vp,
+                             i, i, i, i, i, i, i, f, f, f, vp]
+    lib.tdvmm_b2.restype = i
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.iterdir()):
-        h.update(f.name.encode() + f.read_bytes())
-    return BUILD_DIR / f"libtdvmm_{name}-{h.hexdigest()[:16]}.so"
-
-
-def build(verbose: bool = False) -> float:
-    """Build every kernel library that is not built yet, one ``nvcc`` per
-    source, all started together.  Returns the seconds spent (0 when all
-    were built already).  Raises with the compiler's output on failure."""
-    todo = {n: _lib_path(n) for n in SOURCES if not _lib_path(n).exists()}
-    if not todo:
-        return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    t0 = time.perf_counter()
-    procs = {}
-    for name, path in todo.items():
-        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC / SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, path)
-    failed = []
-    for name, (proc, tmp, path) in procs.items():
-        out, _ = proc.communicate()
-        if verbose and out:
-            print(f"[nvcc {SOURCES[name]}]\n{out}")
-        if proc.returncode != 0:
-            failed.append(f"{SOURCES[name]}:\n{out}")
-        else:
-            os.replace(tmp, path)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return time.perf_counter() - t0
+# --fmad=false: the epilogue's products and sums round one by one, as the
+# reference's do (bitwise contract)
+LIBRARIES = {
+    "b1": _build.Library("tdvmm_b1", CSRC / "tdvmm.cu", ("--fmad=false",),
+                         _bind_b1),
+    "b2": _build.Library("tdvmm_b2", CSRC / "tdvmm_calib.cu",
+                         ("--fmad=false",), _bind_b2),
+}
 
 
 def _lib(name: str) -> ctypes.CDLL:
-    with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            build()
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            vp, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                            ctypes.c_float)
-            if name == "b1":
-                lib.tdvmm_b1.argtypes = [vp, vp, vp, vp, vp, ll, ll, vp,
-                                         i, i, i, i, i, i, i, i, f, f, f, vp]
-                lib.tdvmm_b1.restype = i
-            else:
-                lib.tdvmm_b2.argtypes = [vp, vp, vp, vp, vp, i, i, vp, vp,
-                                         i, i, i, i, i, i, i, f, f, f, vp]
-                lib.tdvmm_b2.restype = i
-            _LIBS[name] = lib
-        return lib
+    return _build.load(LIBRARIES[name])
 
 
 # ---------------------------------------------------------------------------

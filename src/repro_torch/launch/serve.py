@@ -3,13 +3,21 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --tdvmm 'ffn.*' --chain --calibrate --requests 8
 
-runs a seeded ragged trace through ``runtime.engine.Engine`` on the card
-(``--device cpu`` runs the plain torch path on the CPU; add ``--smoke`` for
-the reduced same-family model).  Weights are random, drawn from ``--seed``.
+runs a seeded ragged trace through ``runtime.engine.Engine`` on the card.
+``--static`` serves one uniform batch instead — one prefill, then greedy
+decode steps — the only path for SSM models, as in the JAX package:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+        --static --tdvmm 'ssm.*' --calibrate --batch 4 --prompt-len 512 \\
+        --gen 32
+
+``--device cpu`` runs the plain torch path on the CPU; add ``--smoke`` for
+the reduced same-family model.  Weights are random, drawn from ``--seed``.
 """
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 import torch
@@ -71,14 +79,76 @@ def serve_engine(cfg, args):
     return rep
 
 
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve_static(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
+                 calibrate: bool = False, calib=None, device=None,
+                 params=None, prompts=None) -> dict:
+    """Uniform-batch prefill + greedy decode (the JAX package's ``serve()``
+    without a mesh).  ``calibrate=True`` runs the model-wide readout-window
+    pass on the prompt batch first and serves with every TD-VMM site's
+    window pinned; ``calib`` passes a captured state instead.  ``params``
+    and ``prompts`` ((batch, prompt_len) token ids) default to random ones
+    from ``seed``.  Returns the (batch, gen) tokens and the times."""
+    device = common.resolve_device(device)
+    if params is None:
+        params = model.init_params(seed, cfg, device=device)
+    if prompts is None:
+        g = torch.Generator().manual_seed(seed)
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                                generator=g)
+    prompts = torch.as_tensor(prompts).to(device)
+    batch, prompt_len = prompts.shape
+    with torch.no_grad():
+        if calibrate and calib is None:
+            calib = model.calibrate(params, {"inputs": prompts}, cfg,
+                                    max_len=prompt_len + gen, device=device)
+        caches = model.init_caches(cfg, batch, prompt_len + gen, device)
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, caches = model.prefill_step(params, {"inputs": prompts},
+                                            caches, cfg, calib=calib)
+        tok = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
+        _sync(device)
+        t_prefill = time.perf_counter() - t0
+        # counted on the device and read once, after the timed loop
+        out, nan_steps = [tok], torch.isnan(logits).any().to(torch.int32)
+        t0 = time.perf_counter()
+        for _ in range(gen - 1):
+            logits, caches = model.decode_step(params, {"inputs": tok},
+                                               caches, cfg, calib=calib)
+            nan_steps = nan_steps + torch.isnan(logits).any()
+            tok = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
+            out.append(tok)
+        _sync(device)
+        t_decode = time.perf_counter() - t0
+    return {
+        "tokens": torch.cat(out, dim=1).cpu(),
+        "prefill_s": t_prefill,
+        "decode_s": t_decode,
+        "decode_tok_per_s": batch * (gen - 1) / max(t_decode, 1e-9),
+        "nan_steps": int(nan_steps),
+        "calibration": calib,
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--static", action="store_true",
+                    help="uniform batch: one prefill + greedy decode steps "
+                         "(the only path for SSM archs)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="--static: sequences in the batch")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family model (2 layers, d_model 64)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
-    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=16,
+                    help="new tokens per request (--static: per sequence)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--chunk", type=int, default=16)
     ap.add_argument("--page-size", type=int, default=16)
@@ -108,7 +178,18 @@ def main(argv=None):
         rules.append(tdvmm_rule("ffn.in", chain=True))
     if rules:
         cfg = cfg.replace(tdvmm_plan=TDVMMPlan(rules=tuple(rules)))
-    serve_engine(cfg, args)
+    if not args.static:
+        serve_engine(cfg, args)
+        return
+    out = serve_static(cfg, args.batch, args.prompt_len, args.gen,
+                       seed=args.seed, calibrate=args.calibrate,
+                       device=args.device)
+    print(f"[serve] {args.arch} batch={args.batch} "
+          f"prefill={out['prefill_s']:.3f}s decode={out['decode_s']:.3f}s "
+          f"({out['decode_tok_per_s']:.1f} tok/s)")
+    if out["calibration"] is not None:
+        print(f"[serve] calibrated sites: {out['calibration'].sites()}")
+    print("[serve] sample:", out["tokens"][0, :12].tolist())
 
 
 if __name__ == "__main__":

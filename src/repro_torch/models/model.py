@@ -1,5 +1,6 @@
 """LM wrapper: embedding, stack, head; serving entry points — torch port of
-``repro.models.model`` (dense token-input models).
+``repro.models.model`` (dense and SSM token-input models; the paged steps
+serve dense models only, as the JAX package's do).
 
 Parameters are a plain dict::
 
@@ -20,7 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import calibration
-from repro_torch.models import attention, common, transformer
+from repro_torch.models import attention, common, ssm, transformer
 from repro_torch.runtime.paged_cache import DecodeCtx, PrefillChunkCtx
 
 
@@ -76,13 +77,18 @@ def _head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # Dense-cache serving (calibration pass and the solo greedy oracle)
 # --------------------------------------------------------------------------
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
-    """Stacked dense KV caches: {"seg<i>": KVCache((L, B, S, kv, hd) x 2,
-    pos (L, B))}."""
+    """Stacked caches, one leading layer axis per segment: dense KV caches
+    {"seg<i>": KVCache((L, B, S, kv, hd) x 2, pos (L, B))}, SSM caches
+    {"seg<i>": SSMCache(conv (L, B, d_conv-1, C), state (L, B, H, P, S),
+    pos (L, B))} (``max_len`` does not size an SSM cache)."""
     dtype = common.resolve_dtype(cfg.dtype)
     caches = {}
-    for i, (_, n) in enumerate(transformer.segments(cfg)):
-        one = attention.init_cache(cfg, batch, max_len, dtype, device)
-        caches[f"seg{i}"] = attention.KVCache(
+    for i, (kind, n) in enumerate(transformer.segments(cfg)):
+        if kind == "ssm":
+            one = ssm.init_cache(cfg, batch, dtype, device)
+        else:
+            one = attention.init_cache(cfg, batch, max_len, dtype, device)
+        caches[f"seg{i}"] = type(one)(
             *(t.unsqueeze(0).repeat((n,) + (1,) * t.dim()) for t in one))
     return caches
 
@@ -120,7 +126,8 @@ def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
     share one logical page allocation."""
     if cfg.family not in ("dense", "vlm", "audio"):
         raise NotImplementedError(
-            f"paged serving of {cfg.family!r} models is not ported yet")
+            f"paged serving supports attention families, not {cfg.family!r} "
+            "(SSM state is O(1) per slot; use the static path)")
     dtype = common.resolve_dtype(cfg.dtype)
     caches = {}
     for i, (_, n) in enumerate(transformer.segments(cfg)):

@@ -1,5 +1,6 @@
-"""Layer stacks — torch port of ``repro.models.transformer``, dense
-``attn_ffn`` segments only.
+"""Layer stacks — torch port of ``repro.models.transformer``: dense
+``attn_ffn`` segments and the SSM family's ``ssm`` (Mamba-2) segments.
+The hybrid family (zamba2) and MoE segments belong to later slices.
 
 The JAX package stacks each segment's layer parameters along a leading axis
 and ``lax.scan``s over them; here a segment is a list of per-layer parameter
@@ -14,7 +15,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common, ffn
+from repro_torch.models import attention, common, ffn, ssm
 
 
 def attn_ffn_block(params, x, cfg: ModelConfig, mode: str, cache, positions,
@@ -38,11 +39,34 @@ def attn_ffn_block(params, x, cfg: ModelConfig, mode: str, cache, positions,
     return x + ffn.apply(params["ffn"], h, cfg, key), new_cache
 
 
+def ssm_block(params, x, cfg: ModelConfig, mode: str, cache, key=None):
+    if mode in ("prefill_paged", "decode_paged"):
+        raise NotImplementedError(
+            "paged serving covers attention families only; SSM state is "
+            "O(1) per slot (serve SSM models through the static path)")
+    x = common.constrain_batch(x)
+    h = common.rmsnorm(params["ln"], x, cfg.norm_eps)
+    if mode == "prefill":
+        y, new_cache = ssm.apply_prefill(params["ssm"], h, cfg, cache, key)
+    elif mode == "decode":
+        y, new_cache = ssm.apply_decode(params["ssm"], h, cfg, cache, key)
+    else:
+        raise NotImplementedError(f"mode {mode!r} is not ported yet")
+    return x + y, new_cache
+
+
 def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
     if cfg.family in ("dense", "vlm", "audio"):
         return [("attn_ffn", cfg.n_layers)]
+    if cfg.family == "ssm":
+        return [("ssm", cfg.n_layers)]
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            "the hybrid family (zamba2: SSM groups with a shared attention "
+            "block) is not ported yet; it follows the paper-physics slice "
+            "(ROADMAP A.12)")
     raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported yet (dense only)")
+        f"model family {cfg.family!r} is not ported yet (dense and ssm only)")
 
 
 def _init_attn_ffn(gen, cfg: ModelConfig, dtype, device) -> dict:
@@ -54,11 +78,21 @@ def _init_attn_ffn(gen, cfg: ModelConfig, dtype, device) -> dict:
     }
 
 
+def _init_ssm(gen, cfg: ModelConfig, dtype, device) -> dict:
+    return {
+        "ln": common.rmsnorm_init(cfg.d_model, dtype, device),
+        "ssm": ssm.init(gen, cfg, dtype, device),
+    }
+
+
+_INIT = {"attn_ffn": _init_attn_ffn, "ssm": _init_ssm}
+
+
 def init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
     """{"seg<i>": [per-layer params, ...]} for every segment."""
-    return {f"seg{i}": [_init_attn_ffn(gen, cfg, dtype, device)
+    return {f"seg{i}": [_INIT[kind](gen, cfg, dtype, device)
                         for _ in range(n)]
-            for i, (_, n) in enumerate(segments(cfg))}
+            for i, (kind, n) in enumerate(segments(cfg))}
 
 
 def _layer_cache(seg_cache, i: int):
@@ -70,19 +104,23 @@ def apply(params, x: torch.Tensor, cfg: ModelConfig, mode: str,
           caches: Optional[dict], positions=None, key=None,
           page_ctx=None) -> tuple[torch.Tensor, dict]:
     """Run the full stack.  Returns (x, caches); the caches are updated in
-    place and returned with any per-layer fields (dense ``pos``) advanced.
+    place and returned with their per-layer ``pos`` fields advanced.
 
     ``page_ctx`` (``runtime.paged_cache.PrefillChunkCtx`` / ``DecodeCtx``)
     rides alongside the paged modes: the block table and positions are the
     same for every layer."""
     new_caches: dict[str, Any] = {}
-    for i, (_, n) in enumerate(segments(cfg)):
+    for i, (kind, n) in enumerate(segments(cfg)):
         seg_cache = caches[f"seg{i}"]
         pos_out = []
         for li, p in enumerate(params[f"seg{i}"]):
-            x, c = attn_ffn_block(p, x, cfg, mode, _layer_cache(seg_cache, li),
-                                  positions, key, page_ctx=page_ctx)
-            if isinstance(c, attention.KVCache):
+            layer_cache = _layer_cache(seg_cache, li)
+            if kind == "ssm":
+                x, c = ssm_block(p, x, cfg, mode, layer_cache, key)
+            else:
+                x, c = attn_ffn_block(p, x, cfg, mode, layer_cache, positions,
+                                      key, page_ctx=page_ctx)
+            if isinstance(c, (attention.KVCache, ssm.SSMCache)):
                 pos_out.append(c.pos)
         if pos_out:
             seg_cache = seg_cache._replace(pos=torch.stack(pos_out))

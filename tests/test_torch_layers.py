@@ -13,6 +13,7 @@ from repro.configs import smoke as jsmoke
 from repro.configs import tdvmm_rule as jrule
 from repro.core import calibration as jcal
 from repro.core import layers as jlayers
+from repro.core import quant as jquant
 from repro.models import model as jmodel
 from repro_torch import convert
 from repro_torch.configs import TDVMMLayerConfig as TLayer
@@ -22,6 +23,7 @@ from repro_torch.configs import smoke as tsmoke
 from repro_torch.configs import tdvmm_rule as trule
 from repro_torch.core import calibration as tcal
 from repro_torch.core import layers as tlayers
+from repro_torch.core import quant as tquant
 from repro_torch.models import model as tmodel
 
 
@@ -113,3 +115,114 @@ def test_calibration_windows_match_reference(chain):
     tp, jp = tcal.apply_calibration(tc, calib_t), jcal.apply_calibration(jc, calib_j)
     for site in ("ffn.in", "ffn.out"):
         assert tp.site_tdvmm(site).out_scale == jp.site_tdvmm(site).out_scale
+
+
+# ---------------------------------------------------------------------------
+# Grouped sites: one encode, one ragged concat launch
+# ---------------------------------------------------------------------------
+RAGGED = (40, 40, 16, 16, 4)            # ssm.in_proj's five members, small
+
+
+def _members(k, widths, seed=4):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal((k, n)) * k ** -0.5).astype(np.float32)
+            for n in widths]
+
+
+def test_concat_group_bitwise():
+    ws = _members(24, RAGGED)
+    spans = (128,) * len(RAGGED)
+    qt = tquant.concat_group([tquant.program_weights(torch.from_numpy(w), 6)
+                              for w in ws], spans)
+    qj = jquant.concat_group([jquant.program_weights(jnp.asarray(w), 6)
+                              for w in ws], spans)
+    assert qt.bits == qj.bits and qt.codes.dtype == torch.int8
+    np.testing.assert_array_equal(qt.codes.numpy(), np.asarray(qj.codes))
+    np.testing.assert_array_equal(qt.scale.numpy(), np.asarray(qj.scale))
+    assert float(qt.scale[0, 40:128].min()) == 1.0       # pad columns
+    with pytest.raises(ValueError, match="exceed"):
+        tquant.concat_group([tquant.program_weights(torch.from_numpy(ws[0]),
+                                                    6)], (32,))
+
+
+def _group_windows(x, ws, kw):
+    """The (G,) windows the reference captures for the grouped site."""
+    with jcal.collect() as got:
+        jlayers.td_grouped_matmul(jnp.asarray(x), [jnp.asarray(w) for w in ws],
+                                  JLayer(backend="jnp", **kw))
+    return np.asarray(got[kw["site"]], np.float32)
+
+
+GROUP_CFGS = {
+    "data_calibrated": dict(enabled=True),
+    "member_windows": dict(enabled=True),      # a (G,) tuple out_scale
+    "runtime_windows": dict(enabled=True),     # the (G,) window tensor
+    "scalar_window": dict(enabled=True, out_scale=0.02),
+    "no_readout": dict(enabled=True, io_quantize=False),
+    "digital": dict(enabled=False),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("site", sorted(GROUP_CFGS))
+def test_td_grouped_matmul_bitwise(site, dtype):
+    kw = dict(GROUP_CFGS[site], site="ssm.in_proj")
+    x, _ = _xw((2, 3), 24, 8, seed=5)
+    ws = _members(24, RAGGED)
+    if site in ("member_windows", "runtime_windows"):
+        win = _group_windows(x, ws, kw) * np.float32(0.8)
+    if site == "member_windows":
+        kw["out_scale"] = tuple(float(v) for v in win)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    with jcal.runtime_windows({"ssm.in_proj": jnp.asarray(win)}
+                              if site == "runtime_windows" else None):
+        yj = jlayers.td_grouped_matmul(jnp.asarray(x).astype(jd),
+                                       [jnp.asarray(w).astype(jd) for w in ws],
+                                       JLayer(backend="jnp", **kw))
+    for backend in ("auto", "jnp"):
+        cfg = TLayer(backend=backend, **kw)
+        args = (torch.from_numpy(x).to(td),
+                [torch.from_numpy(w).to(td) for w in ws], cfg)
+        if site == "runtime_windows":
+            with tcal.runtime_windows({"ssm.in_proj": torch.from_numpy(win)}):
+                yt = tlayers.td_grouped_matmul(*args)
+        else:
+            yt = tlayers.td_grouped_matmul(*args)
+        assert len(yt) == len(RAGGED)
+        for a, b, n in zip(yt, yj, RAGGED):
+            assert a.dtype == td and tuple(a.shape) == (2, 3, n)
+            b = np.asarray(b.astype(jnp.float32))
+            if kw["enabled"]:
+                np.testing.assert_array_equal(a.float().numpy(), b)
+            else:      # a digital site is a plain float matmul on both sides
+                np.testing.assert_allclose(a.float().numpy(), b, rtol=2e-2,
+                                           atol=2e-2)
+
+
+def test_grouped_calibration_windows_bitwise():
+    """The captured (G,) window vector equals the reference's, survives
+    ``from_collected``/``apply_calibration`` as a (G,) tuple, and serving
+    with it pinned is bitwise the per-call data-calibrated launch."""
+    kw = dict(enabled=True, site="ssm.in_proj")
+    x, _ = _xw((4,), 24, 8, seed=6)
+    ws = _members(24, RAGGED, seed=7)
+    want = _group_windows(x, ws, kw)
+    xt, wt = torch.from_numpy(x), [torch.from_numpy(w) for w in ws]
+    with tcal.collect() as got:
+        data = tlayers.td_grouped_matmul(xt, wt, TLayer(**kw))
+    assert got["ssm.in_proj"].shape == (len(RAGGED),)
+    np.testing.assert_array_equal(got["ssm.in_proj"], want)
+    state = tcal.CalibrationState.from_collected(got)
+    jstate = jcal.CalibrationState.from_collected({"ssm.in_proj": want})
+    tc = tsmoke(tget("mamba2-1.3b")).replace(tdvmm_plan=TPlan((
+        trule("ssm.*", enabled=True),)))
+    jc = jsmoke(jget("mamba2-1.3b")).replace(tdvmm_plan=JPlan((
+        jrule("ssm.*", enabled=True, backend="jnp"),)))
+    pinned = tcal.apply_calibration(tc, state).site_tdvmm("ssm.in_proj")
+    assert pinned.out_scale == jcal.apply_calibration(
+        jc, jstate).site_tdvmm("ssm.in_proj").out_scale
+    assert isinstance(pinned.out_scale, tuple)
+    assert len(pinned.out_scale) == len(RAGGED)
+    served = tlayers.td_grouped_matmul(xt, wt, pinned)
+    for a, b in zip(served, data):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())

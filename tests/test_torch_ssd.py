@@ -1,0 +1,195 @@
+"""The SSD scan and the Mamba-2 pieces around it: the port's plain version of
+kernel B3 (``ssd_plain``), its token-by-token oracle, the decode step and
+the causal conv against the JAX package's, on the same seeded inputs.
+
+The port's functions run in torch on the CPU and sum in other orders than
+XLA does, so they agree within float32 rounding, not bitwise.  Each bound
+below is stated relative to max|reference| and sits about 10x above what
+was measured on these inputs."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd.ref import ssd_naive as j_ssd_naive
+from repro.kernels.ssd.ssd import ssd_kernel as j_ssd_kernel
+from repro.models import ssm as jssm
+from repro_torch.kernels.ssd import ref as tref
+from repro_torch.kernels.ssd import ssd as tssd
+from repro_torch.models import ssm as tssm
+
+# ssd_plain against the reference's ssd_chunked (the same chunked algebra,
+# another summation order): measured <= 2.6e-7 of max|y|, state <= 4.5e-7.
+CHUNKED_RTOL = 4e-6
+# against the token-by-token recurrence (other algebra: per-token decays
+# multiply up instead of exp of a cumulative sum): measured <= 2.4e-7; and
+# the interpret-mode Pallas kernel: measured <= 1.7e-7.
+NAIVE_RTOL = 3e-6
+# bfloat16 x/b/c: both sides compute in float32 from the same bf16 inputs
+# and round y to bf16 once, so y differs by at most one bf16 ulp of |y|
+# (2^-8 relative), which bounds the error by 2^-7 of max|y|.
+BF16_RTOL = 2.0 ** -7
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _f32_mode():
+    # tests/test_tdcore.py turns on jax x64 at import; the port is float32
+    old = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", False)
+    yield
+    jax.config.update("jax_enable_x64", old)
+
+
+# name: (B, L, H, P, G, S, chunk)
+CASES = {
+    "multiple_g1": (2, 32, 4, 8, 1, 16, 8),
+    "multiple_g2": (2, 32, 4, 8, 2, 16, 16),
+    "ragged_g1": (2, 21, 4, 8, 1, 16, 8),
+    "ragged_g2": (1, 40, 4, 16, 2, 8, 16),
+    "shorter_than_chunk_g2": (2, 13, 4, 8, 2, 8, 16),
+}
+
+
+def _inputs(b, l, h, p, g, s, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, l, h, p)).astype(np.float32)
+    dt = (np.log1p(np.exp(rng.standard_normal((b, l, h)))) * 0.1
+          ).astype(np.float32)
+    a_log = np.log(np.arange(1, h + 1, dtype=np.float32))
+    bb = (rng.standard_normal((b, l, g, s)) * 0.3).astype(np.float32)
+    cc = (rng.standard_normal((b, l, g, s)) * 0.3).astype(np.float32)
+    return x, dt, a_log, bb, cc
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+def _j(*arrays):
+    return tuple(jnp.asarray(a) for a in arrays)
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-30))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_ssd_plain_matches_reference_chunked(case):
+    *shape, chunk = CASES[case]
+    arrs = _inputs(*shape)
+    y, st = tssd.ssd_plain(*_t(*arrs), chunk)
+    yj, stj = jssm.ssd_chunked(*_j(*arrs), chunk)
+    assert tuple(y.shape) == yj.shape and tuple(st.shape) == stj.shape
+    assert y.dtype == torch.float32 and st.dtype == torch.float32
+    assert _rel(y, yj) <= CHUNKED_RTOL
+    assert _rel(st, stj) <= CHUNKED_RTOL
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_ssd_plain_and_port_oracle_match_reference_naive(case):
+    *shape, chunk = CASES[case]
+    arrs = _inputs(*shape, seed=1)
+    yj, stj = j_ssd_naive(*_j(*arrs))
+    y, st = tssd.ssd_plain(*_t(*arrs), chunk)
+    assert _rel(y, yj) <= NAIVE_RTOL and _rel(st, stj) <= NAIVE_RTOL
+    # the port's own oracle is the same recurrence, step for step
+    yn, stn = tref.ssd_naive(*_t(*arrs))
+    assert _rel(yn, yj) <= NAIVE_RTOL and _rel(stn, stj) <= NAIVE_RTOL
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_ssd_plain_matches_interpret_mode_kernel(case):
+    """The reference's Pallas kernel, run in interpret mode as its own tests
+    run it.  It takes L in whole chunks, so a ragged L is padded with
+    dt = 0 (inert, as ``ssd_chunked`` pads) and the tail sliced off."""
+    b, l, h, p, g, s, chunk = CASES[case]
+    x, dt, a_log, bb, cc = _inputs(b, l, h, p, g, s, seed=2)
+    q = min(chunk, l)
+    pad = (-l) % q
+    padded = [np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+              for a in (x, dt, bb, cc)]
+    yk = np.asarray(j_ssd_kernel(*_j(padded[0], padded[1], a_log, padded[2],
+                                     padded[3]), chunk=q, interpret=True))
+    y, _ = tssd.ssd_plain(*_t(x, dt, a_log, bb, cc), chunk)
+    assert _rel(y, yk[:, :l]) <= NAIVE_RTOL
+
+
+def test_ssd_plain_bfloat16_inputs():
+    b, l, h, p, g, s, chunk = CASES["ragged_g2"]
+    x, dt, a_log, bb, cc = _inputs(b, l, h, p, g, s, seed=3)
+    xt, bt, ct = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, bb, cc))
+    y, st = tssd.ssd_plain(xt, torch.from_numpy(dt), torch.from_numpy(a_log),
+                           bt, ct, chunk)
+    xj, bj, cj = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x, bb, cc))
+    yj, stj = jssm.ssd_chunked(xj, jnp.asarray(dt), jnp.asarray(a_log), bj,
+                               cj, chunk)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    assert _rel(y.float(), np.asarray(yj.astype(jnp.float32))) <= BF16_RTOL
+    assert _rel(st, stj) <= CHUNKED_RTOL
+
+
+def test_ssd_op_routes_cpu_tensors_to_the_plain_version():
+    *shape, chunk = CASES["ragged_g2"]
+    arrs = _t(*_inputs(*shape, seed=4))
+    tssd.reset_launches()
+    y, st = tssd.ssd_plain(*arrs, chunk)
+    y2, st2 = tssd.ssd_scan(*arrs, chunk)
+    assert torch.equal(y2, y) and torch.equal(st2, st)
+    assert tssd.LAUNCHES["ssd"] == 0            # no kernel ran on the CPU
+    with pytest.raises(ValueError, match="inconsistent"):
+        tssd.ssd_scan(arrs[0], arrs[1], arrs[2][:1], arrs[3], arrs[4], chunk)
+
+
+def test_ssd_scan_refuses_a_device_other_than_cpu_or_cuda():
+    *shape, chunk = CASES["ragged_g2"]
+    arrs = [t.to("meta") for t in _t(*_inputs(*shape, seed=4))]
+    tssd.reset_launches()
+    with pytest.raises(ValueError, match="runs on cuda"):
+        tssd.ssd_scan(*arrs, chunk)
+    assert tssd.LAUNCHES["ssd"] == 0
+
+
+def test_ssd_scan_of_an_empty_sequence_leaves_a_zero_state():
+    b, _, h, p, g, s, chunk = CASES["ragged_g2"]
+    x, dt, a_log, bb, cc = _t(*_inputs(b, 0, h, p, g, s, seed=6))
+    y, st = tssd.ssd_scan(x, dt, a_log, bb, cc, chunk)
+    assert y.shape == (b, 0, h, p) and y.dtype == x.dtype
+    assert st.shape == (b, h, p, s) and st.dtype == torch.float32
+    assert not st.any()
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssd_decode_step_matches_reference(g):
+    b, h, p, s = 3, 4, 8, 16
+    rng = np.random.default_rng(5 + g)
+    state = rng.standard_normal((b, h, p, s)).astype(np.float32)
+    x = rng.standard_normal((b, h, p)).astype(np.float32)
+    dt = (rng.uniform(0.01, 0.2, (b, h))).astype(np.float32)
+    a_log = np.log(np.arange(1, h + 1, dtype=np.float32))
+    bb = rng.standard_normal((b, g, s)).astype(np.float32)
+    cc = rng.standard_normal((b, g, s)).astype(np.float32)
+    y, st = tssm.ssd_decode_step(*_t(state, x, dt, a_log, bb, cc))
+    yj, stj = jssm.ssd_decode_step(*_j(state, x, dt, a_log, bb, cc))
+    assert _rel(y, yj) <= CHUNKED_RTOL and _rel(st, stj) <= CHUNKED_RTOL
+
+
+@pytest.mark.parametrize("left", [False, True])
+@pytest.mark.parametrize("L", [1, 7])
+def test_conv1d_with_left_context_matches_reference(L, left):
+    b, width, ch = 2, 4, 24
+    rng = np.random.default_rng(L + 10 * left)
+    x = rng.standard_normal((b, L, ch)).astype(np.float32)
+    w = (rng.standard_normal((width, 1, ch)) * 0.1).astype(np.float32)
+    bias = rng.standard_normal((ch,)).astype(np.float32)
+    ctx = rng.standard_normal((b, width - 1, ch)).astype(np.float32) \
+        if left else None
+    y, new_ctx = tssm._conv1d(*_t(x, w, bias),
+                              None if ctx is None else torch.from_numpy(ctx))
+    yj, new_ctx_j = jssm._conv1d(*_j(x, w, bias),
+                                 None if ctx is None else jnp.asarray(ctx))
+    # four float32 products summed: a few ulps of the largest term
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_array_equal(new_ctx.numpy(), np.asarray(new_ctx_j))

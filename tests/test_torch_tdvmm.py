@@ -162,12 +162,109 @@ def test_empty_and_unported_modes():
     with pytest.raises(NotImplementedError):
         tk.tdvmm_fused(torch.zeros((1, 2, 4)), torch.zeros((1, 4, 3)),
                        torch.ones(1, 2), torch.ones(1, 3))
-    with pytest.raises(NotImplementedError, match="group_widths"):
+    # a ragged launch runs, and its member spans must tile the bank
+    xq, wq, xs, ws = _operands(None, None, 2, 4, 3)
+    y = tops.tdvmm_matmul(torch.from_numpy(xq), torch.from_numpy(wq),
+                          torch.from_numpy(xs), torch.from_numpy(ws),
+                          gain=0.01, out_bits=6, group_widths=(3,))
+    yj = jops.tdvmm_matmul(jnp.asarray(xq), jnp.asarray(wq), jnp.asarray(xs),
+                           jnp.asarray(ws), gain=0.01, out_bits=6,
+                           backend="jnp", group_widths=(3,))
+    np.testing.assert_array_equal(y.numpy(), np.asarray(yj))
+    with pytest.raises(ValueError, match="sum to"):
         tops.tdvmm_matmul(torch.zeros((2, 4), dtype=torch.int8),
                           torch.zeros((4, 3), dtype=torch.int8),
-                          torch.ones(2), torch.ones(3), group_widths=(3,))
+                          torch.ones(2), torch.ones(3), group_widths=(2,))
     with pytest.raises(ValueError, match="out_window"):
         tops.tdvmm_matmul(torch.zeros((2, 4), dtype=torch.int8),
                           torch.zeros((4, 3), dtype=torch.int8),
                           torch.ones(2), torch.ones(3),
                           out_window=torch.ones(()))
+
+
+# ---------------------------------------------------------------------------
+# Ragged grouped launches (group_widths)
+# ---------------------------------------------------------------------------
+WIDTHS = (128, 256, 128, 128)        # lane-rounded member spans, N = 640
+
+
+def test_member_window_cols_bitwise():
+    vals = (0.013, 0.5, 1.0 / 3.0, 2.5e-4)
+    n = sum(WIDTHS) + 128                       # a pad tail gets 1.0
+    want = np.asarray(jops._member_window_cols(vals, WIDTHS, n))
+    got = tops._member_window_cols(vals, WIDTHS, n, torch.device("cpu"))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got is tops._member_window_cols(vals, WIDTHS, n,
+                                           torch.device("cpu"))  # reused
+    arr = np.asarray(vals, np.float32)
+    want = np.asarray(jops._member_window_cols_arr(jnp.asarray(arr), WIDTHS,
+                                                   n))
+    got = tops._member_window_cols_arr(torch.from_numpy(arr), WIDTHS, n)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("readout", ["none", "tuple", "runtime", "data"])
+@pytest.mark.parametrize("m", [1, 6])
+def test_tdvmm_matmul_ragged_bitwise_vs_reference(readout, m):
+    """Every route (jnp; cuda-route plain versions of B1 with a per-column
+    window, B2 with per-member slots, and B1 raw + epilogue) against the
+    JAX package's jnp epilogue."""
+    xq, wq, xs, ws = _operands(None, None, m, 130, sum(WIDTHS), seed=5)
+    # member 2 integrates nothing: its window floors at 1e-9
+    wq[:, 384:512] = 0
+    kw = {"gain": GAIN, "group_widths": WIDTHS}
+    if readout != "none":
+        kw["out_bits"] = 6
+    acc = np.matmul(xq.astype(np.int64), wq.astype(np.int64))
+    z = np.abs(acc.astype(np.float32) * np.float32(GAIN))
+    bounds = np.cumsum((0,) + WIDTHS)
+    spans = np.array([max(z[:, a:b].max(), 1e-9)
+                      for a, b in zip(bounds[:-1], bounds[1:])], np.float32)
+    if readout == "tuple":
+        kw["out_scale"] = tuple(float(v) for v in 0.75 * spans)
+    elif readout == "runtime":
+        kw["out_window"] = (0.85 * spans).astype(np.float32)
+    outs, yj = _both(xq, wq, xs, ws, **kw)
+    for (backend, fused), y in outs.items():
+        assert y.shape == yj.shape == (m, sum(WIDTHS))
+        np.testing.assert_array_equal(
+            y, yj, err_msg=f"{readout}: backend={backend} fused={fused}")
+    if readout == "data":
+        # the per-member data window IS each member's standalone window
+        off = 0
+        for wd in WIDTHS:
+            ys = tops.tdvmm_matmul(
+                torch.from_numpy(xq), torch.from_numpy(wq[:, off:off + wd]),
+                torch.from_numpy(xs), torch.from_numpy(ws[off:off + wd]),
+                gain=GAIN, out_bits=6).numpy()
+            np.testing.assert_array_equal(outs[("auto", True)][:, off:off + wd],
+                                          ys)
+            off += wd
+
+
+def test_ragged_b2_slots_follow_members():
+    """B2's slot map for a ragged launch: 64-column tiles, one slot per
+    member, never a tile across two members."""
+    slots, nslots = tops._calib_slots(1, sum(WIDTHS), tk.TILE_N, WIDTHS)
+    assert nslots == len(WIDTHS)
+    want = np.repeat(np.arange(len(WIDTHS)), np.asarray(WIDTHS) // tk.TILE_N)
+    np.testing.assert_array_equal(slots.numpy()[0], want)
+
+
+@pytest.mark.parametrize("bad", ["batched", "window_shape", "tuple_len"])
+def test_ragged_argument_checks(bad):
+    xq, wq, xs, ws = _operands(None, None, 2, 8, 256, seed=6)
+    args = [torch.from_numpy(a) for a in (xq, wq, xs, ws)]
+    kw = dict(out_bits=6, group_widths=(128, 128))
+    if bad == "batched":
+        args[1] = args[1][None].repeat(2, 1, 1)
+        args[3] = args[3][None].repeat(2, 1)
+        match = "2-D ragged"
+    elif bad == "window_shape":
+        kw["out_window"] = torch.ones(3)
+        match = "grouped launch"
+    else:
+        kw["out_scale"] = (0.1, 0.2, 0.3)
+        match = "member windows"
+    with pytest.raises(ValueError, match=match):
+        tops.tdvmm_matmul(*args, **kw)
