@@ -7,16 +7,19 @@ Phases, each of which stops the script with a non-zero exit on failure:
 
 1. environment: the card's name and power limit; TF32 off, deterministic
    algorithms on;
-2. build: kernels B1 (``csrc/tdvmm.cu``), B2 (``csrc/tdvmm_calib.cu``) and
-   B3 (``kernels/ssd/csrc/ssd.cu``) with ``nvcc`` from the checkout's
-   sources, one process per source, all started together;
+2. build: kernels B1 (``csrc/tdvmm.cu``), B2 (``csrc/tdvmm_calib.cu``), B3
+   (``kernels/ssd/csrc/ssd.cu``) and B4 (``kernels/crossing/csrc/
+   crossing.cu``) with ``nvcc`` from the checkout's sources, one process per
+   source, all started together;
 3. kernels: every mode of B1 (raw, fused without readout, scalar window,
    (E,) window, shared-x, per-column member windows of a ragged launch) and
    B2 (one slot, E slots, member slots) against its plain torch version on
    the card at the serving paths' shapes, bitwise (``max_abs_err == 0``);
    B3 against ``ssd_plain`` at full width in bfloat16 and float32 and on a
-   small grouped case with a ragged length, within SSD_RTOL; each with
-   kernel / plain / bound / library times;
+   small grouped case with a ragged length, within SSD_RTOL; B4 against
+   ``crossing_plain`` at the physics path's three launches, within
+   CROSSING_RTOL_T of the window T; each with kernel / plain / bound /
+   library times;
 4. serving: qwen1.5-0.5b at full width (24 layers, d_model 1024, bf16,
    random weights from seed 0) under the ``ffn_unchained`` and
    ``ffn_chained`` plans: one calibration pass, then the paged engine
@@ -28,9 +31,15 @@ Phases, each of which stops the script with a non-zero exit on failure:
    under ``ssm_unchained``: one calibration pass over 4 x 512 tokens, then
    the static path serves 4 prompts x 512 tokens for 32 new tokens each;
    no NaN, exact launch counts, and the batch served in reverse order must
-   give the reversed streams;
+   give the reversed streams.  Then the paper's circuit
+   (``launch/perceptron.py``): the 10 x 10 x 10 perceptron on a batch of 64,
+   clean and on DIBL-perturbed 6-bit weights, and a 1024 x 1024
+   four-quadrant array on 4096 samples, each within TD_ATOL of its closed
+   form, with exactly 2 B4 launches per perceptron forward and 1 per array
+   forward;
 5. small input: the card's kernel path against the CPU plain path at smoke
-   width, same weights, for qwen and for mamba2.
+   width, same weights, for qwen and for mamba2, and for the perceptron and
+   a 64 x 64 array.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Without a CUDA device, or run from a
@@ -86,16 +95,46 @@ SSD_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7, "state": 1e-5}
 # 80GB HBM3 at 700 W.
 SMALL_SSM_LOGIT_RTOL = 1e-5
 
+# The physics path (launch/perceptron.py): the paper's 10 x 10 x 10
+# perceptron on a batch of 64, and a 1024 x 1024 four-quadrant array on 4096
+# samples.
+PHYS_N, PHYS_BATCH = 1024, 4096
+CASE_N, CASE_BATCH = 10, 64
+# B4 against crossing_plain, max|t_kernel - t_plain| / T: the two sum Q over
+# K in other orders, so where Q(mid) lies within that rounding of the charge
+# they may take different halves; both still bracket the crossing, so they
+# differ by at most the last bracket (2T * 2^-24) plus the sum's rounding
+# over Q's slope.  Measured on an NVIDIA H100 80GB HBM3 at 700 W: 4.4e-7 T
+# at the perceptron's launches, 8.9e-7 T at the array's (a few float32 ulps
+# of t in [T, 2T]).  The gate, ~2.8x that, keeps float32 rounding apart
+# from a kernel short of steps: after 18 of 24 the last bracket is 7.6e-6 T
+# and its midpoint is off by up to 3.8e-6 T.
+CROSSING_RTOL_T = 2.5e-6
+# decoded output against the closed form (Eq. 1) in float64, and card
+# against the CPU plain path: float32 onsets, currents and charge sums, and
+# the bisection's last bracket (2^-23 of T).  Measured on the same card:
+# 5.6e-7 (perceptron), 6.7e-7 (array), 8.9e-7 (card against CPU).  Gated
+# at ~2.8x that, for the same reason as CROSSING_RTOL_T.
+TD_ATOL = 2.5e-6
+H100_F32_FLOPS_PER_S = 67e12        # float32 on CUDA cores (data sheet)
+
 SOURCES = {"tdvmm_fused": "src/repro_torch/kernels/tdvmm/csrc/tdvmm.cu",
            "tdvmm_matmul_raw": "src/repro_torch/kernels/tdvmm/csrc/tdvmm.cu",
            "tdvmm_calibrated": "src/repro_torch/kernels/tdvmm/csrc/tdvmm_calib.cu",
-           "ssd_scan": "src/repro_torch/kernels/ssd/csrc/ssd.cu"}
+           "ssd_scan": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+           "crossing": "src/repro_torch/kernels/crossing/csrc/crossing.cu"}
 REPLACES = {"tdvmm_fused": "src/repro/kernels/tdvmm/tdvmm.py:233",
             "tdvmm_matmul_raw": "src/repro/kernels/tdvmm/tdvmm.py:233",
             "tdvmm_calibrated": "src/repro/kernels/tdvmm/tdvmm.py:440",
-            "ssd_scan": "src/repro/kernels/ssd/ssd.py:32"}
+            "ssd_scan": "src/repro/kernels/ssd/ssd.py:32",
+            "crossing": "src/repro/kernels/crossing/crossing.py:27"}
 COUNTER = {"tdvmm_fused": "fused", "tdvmm_matmul_raw": "raw",
-           "tdvmm_calibrated": "calibrated", "ssd_scan": "ssd"}
+           "tdvmm_calibrated": "calibrated", "ssd_scan": "ssd",
+           "crossing": "crossing"}
+
+
+SHAPE_KEYS = {"ssd_scan": ("dtype", "b", "l", "h", "p", "g", "s", "q"),
+              "crossing": ("quadrants", "b", "k", "n", "iters")}
 
 
 def say(tag: str, msg: str) -> None:
@@ -399,6 +438,94 @@ def run_ssd_case(case: dict, dev, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3: kernel B4 against crossing_plain
+# ---------------------------------------------------------------------------
+def crossing_cases() -> list[dict]:
+    """B4's launches on the physics path: the perceptron's four-quadrant
+    layer (K 21, N 20) and two-quadrant layer (K 11, N 20) on a batch of
+    64, and the array's four-quadrant launch (K 2049, N 2048) on 4096 rows."""
+    return [dict(kernel="crossing", quadrants=4, b=CASE_BATCH, n_in=CASE_N,
+                 n_out=CASE_N),
+            dict(kernel="crossing", quadrants=2, b=CASE_BATCH, n_in=CASE_N,
+                 n_out=CASE_N),
+            dict(kernel="crossing", quadrants=4, b=PHYS_BATCH, n_in=PHYS_N,
+                 n_out=PHYS_N, rep=True)]
+
+
+def crossing_bound(b: int, k: int, n: int, iters: int) -> tuple[float, str]:
+    """Least time for the solve: onsets and currents read once, the times
+    written once, against a subtract, a max and an FMA (4 flops) per
+    (row, column, source, iteration) at the float32 CUDA-core rate."""
+    t_bytes = 4.0 * (b * k + k * n + b * n) / H100_HBM_BYTES_PER_S
+    t_ops = 4.0 * b * n * k * iters / H100_F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_long_ms(fn) -> float:
+    """Device milliseconds of one call of a function that runs long and
+    launches more kernels than the card's queue holds (so ``time_ms`` cannot
+    queue it ahead): CUDA events around one call after a warm one; the host's
+    launch gaps are inside, negligible against its ms-long kernels."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def run_crossing_case(case: dict, dev, seed: int) -> dict:
+    """B4 on the operands the physics path gives it: weights and inputs
+    U(-1, 1) (inputs U(0, 1) for the two-quadrant layer), programmed and
+    encoded by ``core/tdcore``, the bias source as the last row."""
+    import torch
+    from repro_torch.core import tdcore
+    from repro_torch.kernels.crossing import crossing, ref
+    from repro_torch.launch.perceptron import SPEC
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    w = torch.rand((case["n_in"], case["n_out"]), generator=gen,
+                   device=dev) * 2 - 1
+    x = torch.rand((case["b"], case["n_in"]), generator=gen, device=dev)
+    operands = (tdcore.four_quadrant_operands(x * 2 - 1, w, SPEC)
+                if case["quadrants"] == 4
+                else tdcore.two_quadrant_operands(x, w, SPEC))
+    t_on, i_full = tdcore.with_bias_source(*operands[:3])
+    k_charge, t_window, iters = operands[3], SPEC.t_window_s, 24
+    b, k = t_on.shape
+    n = i_full.shape[1]
+    args = (t_on, i_full, k_charge, 0.0, 2.0 * t_window, iters)
+    kern = lambda: crossing.crossing_kernel(*args)                # noqa: E731
+    plain = lambda: ref.crossing_plain(*args)                     # noqa: E731
+    tk, tp = kern(), plain()
+    torch.cuda.synchronize()
+    require(tk.shape == tp.shape == (b, n) and tk.dtype == torch.float32,
+            f"{case}: kernel {tk.dtype}{tuple(tk.shape)} vs plain "
+            f"{tp.dtype}{tuple(tp.shape)}")
+    require(bool(torch.isfinite(tp).all()), f"{case}: non-finite plain times")
+    err = float((tk.double() - tp.double()).abs().max())
+    rel = err / t_window
+    require(rel <= CROSSING_RTOL_T,
+            f"{case}: kernel differs from plain by {rel:.3g} T")
+    bound_ms, bound_by = crossing_bound(b, k, n, iters)
+    # the plain version launches ~7 kernels per bisection step: one call
+    # fits the card's queue at the perceptron's shapes
+    big = b * k * n > 1 << 28
+    row = dict(case, k=k, n=n, iters=iters, max_abs_err=err, rel_err_t=rel,
+               ms=time_ms(kern, 3 if big else 20),
+               plain_ms=time_long_ms(plain) if big else time_ms(plain, 1),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    row.pop("rep", None)
+    return row
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: serving at full width
 # ---------------------------------------------------------------------------
 def plans():
@@ -555,22 +682,25 @@ def ssm_expected_launches(n_layers: int) -> dict:
     data-calibrated (B2)."""
     L = n_layers
     return {"calibrate": {"raw": 2 * L, "calibrated": 2 * L, "fused": 0,
-                          "ssd": L},
+                          "ssd": L, "crossing": 0},
             "serve": {"raw": 0, "calibrated": 0, "fused": 2 * L * SSM_GEN,
-                      "ssd": L}}
+                      "ssd": L, "crossing": 0}}
 
 
 def launches_now() -> dict:
+    from repro_torch.kernels.crossing import crossing
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.tdvmm import tdvmm as tk
-    return {**tk.LAUNCHES, **ssd.LAUNCHES}
+    return {**tk.LAUNCHES, **ssd.LAUNCHES, **crossing.LAUNCHES}
 
 
 def reset_all_launches() -> None:
+    from repro_torch.kernels.crossing import crossing
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.tdvmm import tdvmm as tk
     tk.reset_launches()
     ssd.reset_launches()
+    crossing.reset_launches()
 
 
 def serve_ssm(dev) -> dict:
@@ -669,6 +799,59 @@ def profile_ssm(out: dict) -> dict:
             device_busy_share=dev_us / 1e6 / wall,
             top_kernels=[(k[:70], v / max(dev_us, 1e-9)) for k, v in top])
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the paper's circuit on the card (launch/perceptron.py)
+# ---------------------------------------------------------------------------
+def physics_path(dev) -> dict:
+    """The 10 x 10 x 10 perceptron on a batch of 64 (a clean and a DIBL
+    forward, 2 B4 launches each), then the 1024 x 1024 array on 4096
+    samples (1 launch): decoded outputs within TD_ATOL of the closed form,
+    exact launch counts."""
+    import torch
+    from repro_torch.launch import perceptron
+
+    reset_all_launches()
+    case = perceptron.case_study(dev)
+    at_case = launches_now()
+    arr = perceptron.array(dev, PHYS_N, PHYS_BATCH)
+    launches = launches_now()
+    want_case = {k: 0 for k in at_case} | {"crossing": 4}
+    require(at_case == want_case,
+            f"perceptron: launches {at_case} != {want_case}")
+    require(launches["crossing"] - at_case["crossing"] == 1,
+            f"array: {launches['crossing'] - at_case['crossing']} B4 "
+            "launches, not 1")
+    for name, out in (("perceptron", case), ("array", arr)):
+        require(bool(torch.isfinite(out["y"]).all()),
+                f"{name}: non-finite outputs")
+    require(tuple(case["y"].shape) == (CASE_BATCH, CASE_N)
+            and tuple(arr["y"].shape) == (PHYS_BATCH, PHYS_N),
+            f"outputs {tuple(case['y'].shape)}, {tuple(arr['y'].shape)}")
+    for what, err in (("perceptron", case["max_err"]),
+                      ("perceptron on DIBL weights", case["max_err_dibl"]),
+                      ("array", arr["max_err"])):
+        require(err <= TD_ATOL,
+                f"{what}: {err:.3g} from the closed form (> {TD_ATOL})")
+    return dict(case=case, array=arr, launches=launches)
+
+
+def small_physics_agreement(dev) -> float:
+    """The perceptron (batch 64) and a 64 x 64 array (batch 16) from the
+    same seed on the card (B4) and on the CPU (crossing_plain): decoded
+    outputs within TD_ATOL."""
+    from repro_torch.launch import perceptron
+
+    worst = 0.0
+    for fn, keys in ((perceptron.case_study, ("y", "y_dibl")),
+                     (lambda d: perceptron.array(d, 64, 16), ("y",))):
+        cpu, card = fn("cpu"), fn(dev)
+        for k in keys:
+            worst = max(worst, float((card[k].cpu().double()
+                                      - cpu[k].double()).abs().max()))
+    require(worst <= TD_ATOL, f"physics card vs cpu: {worst:.3g} > {TD_ATOL}")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -790,7 +973,7 @@ def main() -> int:
     torch.utils.deterministic.fill_uninitialized_memory = False
 
     build_s = kernels.build_all(verbose=True)
-    say("build", f"B1 + B2 + B3 built in {build_s:.1f} s")
+    say("build", f"B1 + B2 + B3 + B4 built in {build_s:.1f} s")
 
     rows = []
     for i, case in enumerate(kernel_cases()):
@@ -814,6 +997,14 @@ def main() -> int:
             f"kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
             f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
             "library_ms=none")
+    for i, case in enumerate(crossing_cases()):
+        row = run_crossing_case(case, dev, seed=200 + i)
+        rows.append((case, row))
+        say("kernel", f"crossing {row['quadrants']}-quadrant B={row['b']} "
+            f"K={row['k']} N={row['n']} iters={row['iters']} "
+            f"max|dt|/T={row['rel_err_t']:.3g} kernel_ms={row['ms']:.5f} "
+            f"plain_ms={row['plain_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
+            f"({row['bound_by']}) library_ms=none")
 
     served, cache = [], {}
     for name, plan in plans().items():
@@ -858,12 +1049,35 @@ def main() -> int:
     del ssm["args"], prof
     torch.cuda.empty_cache()
 
+    phys = physics_path(dev)
+    served.append(phys)
+    case, arr = phys["case"], phys["array"]
+    say("physics", f"perceptron {CASE_N}x{CASE_N}x{CASE_N}, batch "
+        f"{CASE_BATCH}: max|y - ideal| {case['max_err']:.3g}, on 6-bit DIBL "
+        f"weights (error {case['dibl_error']:.4f}) {case['max_err_dibl']:.3g};"
+        f" argmax agrees with the closed form on those weights in "
+        f"{case['argmax_agree']:.4f} of rows, with the 6-bit digital twin in "
+        f"{case['argmax_agree_twin']:.4f}; pipelined period "
+        f"{case['pipeline']['period_s'] * 1e9:.1f} ns, 64 samples in "
+        f"{case['pipeline']['total_s'] * 1e6:.3f} us; "
+        f"{case['energy_pj_per_inference']:.3f} pJ per inference; forward "
+        f"{case['seconds'] * 1e3:.3f} ms")
+    say("physics", f"array {PHYS_N}x{PHYS_N}, batch {PHYS_BATCH}: max|y - "
+        f"ideal| {arr['max_err']:.3g}, forward {arr['seconds']:.4f} s, "
+        f"{arr['fj_per_op']:.3f} fJ/Op ({arr['tops_per_j']:.1f} TOps/J); "
+        f"B4 launches {phys['launches']['crossing']} (2 per perceptron "
+        "forward, 1 per array forward)")
+    del phys["case"], phys["array"]
+
     worst = small_input_agreement(dev)
     say("small", "qwen card vs cpu plain path: equal greedy tokens, logits "
         f"within {worst:.3g} of max|logit|")
     worst = small_ssm_agreement(dev)
     say("small", "mamba2 card vs cpu plain path: equal greedy tokens, "
         f"logits within {worst:.3g} of max|logit|")
+    worst = small_physics_agreement(dev)
+    say("small", "perceptron and 64 x 64 array card vs cpu plain path: "
+        f"decoded outputs within {worst:.3g}")
 
     kernels = []
     for name in SOURCES:
@@ -878,9 +1092,8 @@ def main() -> int:
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"],
-            "shape": {k: rep[k] for k in (
-                ("dtype", "b", "l", "h", "p", "g", "s", "q")
-                if name == "ssd_scan" else ("mode", "e", "m", "k", "n"))}})
+            "shape": {k: rep[k] for k in SHAPE_KEYS.get(
+                name, ("mode", "e", "m", "k", "n"))}})
     say("done", "all phases passed")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -8,6 +8,9 @@ JAX package stacks each segment's layers along a leading axis
 list of per-layer dicts.  Every leaf takes the model's dtype except the SSM
 scan parameters (``dt_bias``, ``A_log``, ``D``), which the JAX package keeps
 in float32 whatever the model's dtype.
+
+The circuit simulator (``core/tdcore``) needs no conversion: its parameters
+are plain (N_in, N_out) weight matrices, handed to it as tensors.
 """
 from __future__ import annotations
 
