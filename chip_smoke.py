@@ -14,7 +14,10 @@ Phases, each of which stops the script with a non-zero exit on failure:
 3. kernels: every mode of B1 (raw, fused without readout, scalar window,
    (E,) window, shared-x, per-column member windows of a ragged launch) and
    B2 (one slot, E slots, member slots) against its plain torch version on
-   the card at the serving paths' shapes, bitwise (``max_abs_err == 0``);
+   the card at the serving paths' shapes, bitwise (``max_abs_err == 0``),
+   in each code storage: int8, float32 codes and int4-packed pairs, the
+   MoE expert grid at mixtral-8x7b's prefill (E 8, M 2049) and decode (M 5)
+   shapes;
    B3 against ``ssd_plain`` at full width in bfloat16 and float32 and on a
    small grouped case with a ragged length, within SSD_RTOL; B4 against
    ``crossing_plain`` at the physics path's three launches, within
@@ -31,14 +34,23 @@ Phases, each of which stops the script with a non-zero exit on failure:
    under ``ssm_unchained``: one calibration pass over 4 x 512 tokens, then
    the static path serves 4 prompts x 512 tokens for 32 new tokens each;
    no NaN, exact launch counts, and the batch served in reverse order must
-   give the reversed streams.  Then the paper's circuit
+   give the reversed streams.  Then mixtral-8x7b at full width (d_model
+   4096, 32 heads, GQA kv 8, 8 experts top-2 of d_ff 14336, sliding window
+   4096, vocab 32000, bf16, random weights from seed 0) cut to 8 of its 32
+   layers, capacity factor 4.0 (dropless), under ``moe_unchained`` (int8
+   codes) and ``moe_mixed`` (f32 codes at ``moe.expert.in``, int4 pairs at
+   ``moe.expert.out``): one calibration pass over 4 x 512 tokens, then the
+   static path serves 4 prompts x 512 tokens for 16 new tokens each; exact
+   launch counts per code storage, (8,) windows, no NaN, reversed batch ==
+   reversed streams.  Then the paper's circuit
    (``launch/perceptron.py``): the 10 x 10 x 10 perceptron on a batch of 64,
    clean and on DIBL-perturbed 6-bit weights, and a 1024 x 1024
    four-quadrant array on 4096 samples, each within TD_ATOL of its closed
    form, with exactly 2 B4 launches per perceptron forward and 1 per array
    forward;
 5. small input: the card's kernel path against the CPU plain path at smoke
-   width, same weights, for qwen and for mamba2, and for the perceptron and
+   width, same weights, for qwen, for mamba2, for mixtral under both MoE
+   plans (a prompt longer than its window of 8), and for the perceptron and
    a 64 x 64 array.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
@@ -118,9 +130,28 @@ CROSSING_RTOL_T = 2.5e-6
 TD_ATOL = 2.5e-6
 H100_F32_FLOPS_PER_S = 67e12        # float32 on CUDA cores (data sheet)
 
-SOURCES = {"tdvmm_fused": "src/repro_torch/kernels/tdvmm/csrc/tdvmm.cu",
-           "tdvmm_matmul_raw": "src/repro_torch/kernels/tdvmm/csrc/tdvmm.cu",
-           "tdvmm_calibrated": "src/repro_torch/kernels/tdvmm/csrc/tdvmm_calib.cu",
+# mixtral-8x7b (arXiv:2401.04088) at full width: 8 of its 32 layers (one
+# layer is ~2.9 GB in bf16, 32 would be ~93 GB on an 80 GB card), capacity
+# factor n_experts / top_k = 4.0, so capacity is T + 1 and no token drops
+# (the default 1.25 drops tokens depending on the batch's composition).
+MOE_ARCH = "mixtral-8x7b"
+MOE_LAYERS, MOE_CAPACITY_FACTOR = 8, 4.0
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 512, 16
+# the expert grid: E experts, C = capacity rows of the dispatch buffer
+# (int(T * top_k * factor / E) + 1: 2049 at prefill, 5 at decode), and the
+# (K, N) of moe.expert.in and moe.expert.out
+MOE_E, MOE_PREFILL_C, MOE_DECODE_C = 8, 2049, 5
+MOE_IN, MOE_OUT = (4096, 14336), (14336, 4096)
+MOE_PROFILE_STEPS = 4                            # decode steps
+# Phase 5, mixtral at smoke width, card against CPU logits relative to
+# max|logit|: the TD-VMM codes are bitwise on both; the router, attention
+# and norms sum in float32 in other orders.
+SMALL_MOE_LOGIT_RTOL = 1e-5
+
+_TDVMM_SRC = "src/repro_torch/kernels/tdvmm/csrc/"
+SOURCES = {"tdvmm_fused": _TDVMM_SRC + "tdvmm.cu",
+           "tdvmm_matmul_raw": _TDVMM_SRC + "tdvmm.cu",
+           "tdvmm_calibrated": _TDVMM_SRC + "tdvmm_calib.cu",
            "ssd_scan": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
            "crossing": "src/repro_torch/kernels/crossing/csrc/crossing.cu"}
 REPLACES = {"tdvmm_fused": "src/repro/kernels/tdvmm/tdvmm.py:233",
@@ -131,10 +162,26 @@ REPLACES = {"tdvmm_fused": "src/repro/kernels/tdvmm/tdvmm.py:233",
 COUNTER = {"tdvmm_fused": "fused", "tdvmm_matmul_raw": "raw",
            "tdvmm_calibrated": "calibrated", "ssd_scan": "ssd",
            "crossing": "crossing"}
+# B1/B2 in the f32-code and int4-pair storages: one entry each
+for _kern in ("tdvmm_fused", "tdvmm_matmul_raw", "tdvmm_calibrated"):
+    for _codes in ("f32", "int4"):
+        SOURCES[f"{_kern}_{_codes}"] = SOURCES[_kern]
+        REPLACES[f"{_kern}_{_codes}"] = REPLACES[_kern]
+        COUNTER[f"{_kern}_{_codes}"] = f"{COUNTER[_kern]}_{_codes}"
+# code ranges: p = 6 codes, moe_mixed's p = 8 x 4-bit weights (f32 codes)
+# and 3-bit x 3-bit (int4 pairs)
+CODE_LIMITS = {"int8": (63, 63), "f32": (255, 15), "int4": (7, 7)}
 
 
 SHAPE_KEYS = {"ssd_scan": ("dtype", "b", "l", "h", "p", "g", "s", "q"),
               "crossing": ("quadrants", "b", "k", "n", "iters")}
+
+
+def entry_name(case: dict) -> str:
+    """The kernels-line entry of a B1/B2 case: the wrapper's name, with the
+    code storage appended for f32 and int4."""
+    codes = case.get("codes", "int8")
+    return case["kernel"] + ("" if codes == "int8" else "_" + codes)
 
 
 def say(tag: str, msg: str) -> None:
@@ -258,14 +305,48 @@ def kernel_cases() -> list[dict]:
         cases.append(dict(kernel="tdvmm_calibrated",
                           mode="member_slots" if n == SSM_IN[1] else "one_slot",
                           e=1, ex=1, m=SSM_ROWS, k=k, n=n))
+    # mixtral-8x7b's expert grid, E = 8 with (E,) windows and one B2 slot
+    # per expert, in each storage at the sites that take it: int8 at both
+    # (moe_unchained), f32 codes at moe.expert.in and int4 pairs at
+    # moe.expert.out (moe_mixed); capture rows and decode rows; then a small
+    # case of each new storage with an odd K and ragged tiles
+    e = MOE_E
+    for codes, shapes in (("int8", (MOE_IN, MOE_OUT)), ("f32", (MOE_IN,)),
+                          ("int4", (MOE_OUT,))):
+        new = codes != "int8"
+        for k, n in shapes:
+            big = dict(codes=codes, e=e, ex=e, k=k, n=n)
+            cases += [
+                dict(big, kernel="tdvmm_matmul_raw", mode="raw",
+                     m=MOE_PREFILL_C, rep=new),
+                dict(big, kernel="tdvmm_fused", mode="expert_windows",
+                     m=MOE_PREFILL_C, rep=new),
+                dict(big, kernel="tdvmm_fused", mode="expert_windows",
+                     m=MOE_DECODE_C),
+                dict(big, kernel="tdvmm_calibrated", mode="expert_slots",
+                     m=MOE_PREFILL_C, rep=new)]
+        if new:
+            small = dict(codes=codes, e=3, ex=3, m=5, k=131, n=70)
+            cases += [dict(small, kernel="tdvmm_fused", mode="no_readout"),
+                      dict(small, kernel="tdvmm_fused", mode="expert_windows"),
+                      dict(small, kernel="tdvmm_calibrated",
+                           mode="expert_slots"),
+                      dict(small, kernel="tdvmm_fused",
+                           mode="shared_x_window", ex=1)]
     return cases
 
 
 def bound(case: dict) -> tuple[float, str]:
-    """Least time for the work: each input read once, each output written
-    once, against the operations at the int8 tensor-core rate."""
+    """Least time for the work: each input read once (int4 codes as packed
+    pairs, f32 codes as 4 bytes), each output written once, against the
+    operations at the int8 tensor-core rate for integer codes (the data
+    sheet gives no int4 rate for this card) and the TF32 rate for f32 codes
+    (integer codes up to 255 are exact in TF32)."""
     e, ex, m, k, n = (case[f] for f in ("e", "ex", "m", "k", "n"))
-    nbytes = ex * m * k + e * k * n + 4 * e * m * n       # codes in, out
+    codes = case.get("codes", "int8")
+    kb = (k + 1) // 2 if codes == "int4" else k            # bytes per row
+    cb = 4 if codes == "f32" else 1
+    nbytes = cb * (ex * m * kb + e * kb * n) + 4 * e * m * n   # codes, out
     if case["mode"] != "raw":
         nbytes += 4 * (ex * m + e * n)                     # scales
     if case["mode"] == "member_windows":
@@ -273,25 +354,36 @@ def bound(case: dict) -> tuple[float, str]:
     elif "window" in case["mode"]:
         nbytes += 4 * e
     t_bytes = nbytes / H100_HBM_BYTES_PER_S
-    t_ops = 2.0 * e * m * k * n / H100_INT8_OPS_PER_S
+    t_ops = 2.0 * e * m * k * n / (H100_TF32_FLOPS_PER_S if codes == "f32"
+                                   else H100_INT8_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
 def run_case(case: dict, dev, seed: int) -> dict:
     import torch
+    from repro_torch.core import quant
     from repro_torch.kernels.tdvmm import ops, tdvmm as tk
 
     e, ex, m, k, n = (case[f] for f in ("e", "ex", "m", "k", "n"))
+    codes = case.get("codes", "int8")
+    lim_x, lim_w = CODE_LIMITS[codes]
+    dtype = torch.float32 if codes == "f32" else torch.int8
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
-    x = torch.randint(-63, 64, (ex, m, k), generator=g, device=dev,
-                      dtype=torch.int8)
-    w = torch.randint(-63, 64, (e, k, n), generator=g, device=dev,
-                      dtype=torch.int8)
+    x = torch.randint(-lim_x, lim_x + 1, (ex, m, k), generator=g, device=dev,
+                      dtype=dtype)
+    w = torch.randint(-lim_w, lim_w + 1, (e, k, n), generator=g, device=dev,
+                      dtype=dtype)
     xs = torch.rand((ex, m), generator=g, device=dev) + 0.5
     ws = torch.rand((e, n), generator=g, device=dev) + 0.5
-    gain = 1.0 / (63.0 * 63.0 * 2.0 * k)
+    gain = 1.0 / (float(lim_x) * float(lim_w) * 2.0 * k)
+    # the operands as B1/B2 take them: int4 codes packed in pairs along K
+    xk, wk, i4 = x, w, None
+    if codes == "int4":
+        xk = quant.pack_int4(x, axis=-1).contiguous()
+        wk = quant.pack_int4(w, axis=-2).contiguous()
+        i4 = k
     mode = case["mode"]
     window, widths, members = None, None, None
     if n == sum(SSM_WIDTHS):
@@ -305,22 +397,24 @@ def run_case(case: dict, dev, seed: int) -> dict:
         z = tk.acc_plain(x, w).to(torch.float32) * float(gain)
         zmax = torch.amax(torch.abs(z), dim=(1, 2)) * 0.7
         window = zmax if mode == "expert_windows" else zmax[0].reshape(())
+        del z
     bits = None if mode in ("raw", "no_readout") else 6
     if case["kernel"] == "tdvmm_matmul_raw":
-        kern = lambda: tk.tdvmm_matmul_raw(x, w)                  # noqa: E731
-        plain = lambda: tk.tdvmm_raw_plain(x, w)                  # noqa: E731
+        kern = lambda: tk.tdvmm_matmul_raw(xk, wk, i4)            # noqa: E731
+        plain = lambda: tk.tdvmm_raw_plain(xk, wk, i4)            # noqa: E731
     elif case["kernel"] == "tdvmm_fused":
-        kern = lambda: tk.tdvmm_fused(x, w, xs, ws, gain, bits, window)  # noqa: E731
-        plain = lambda: tk.tdvmm_fused_plain(x, w, xs, ws, gain, bits,   # noqa: E731
-                                             window)
+        kern = lambda: tk.tdvmm_fused(xk, wk, xs, ws, gain, bits,  # noqa: E731
+                                      window, i4)
+        plain = lambda: tk.tdvmm_fused_plain(xk, wk, xs, ws, gain,  # noqa: E731
+                                             bits, window, i4)
     else:
         slots, nslots = ops._calib_slots(e, n, tk.TILE_N, widths)
         slots = slots.contiguous().to(dev)
         bw = min(tk.TILE_N, n)
-        kern = lambda: tk.tdvmm_calibrated(x, w, xs, ws, slots, nslots,  # noqa: E731
-                                           bw, gain, 6)
-        plain = lambda: tk.tdvmm_calibrated_plain(x, w, xs, ws, slots,   # noqa: E731
-                                                  nslots, bw, gain, 6)
+        kern = lambda: tk.tdvmm_calibrated(xk, wk, xs, ws, slots,  # noqa: E731
+                                           nslots, bw, gain, 6, i4)
+        plain = lambda: tk.tdvmm_calibrated_plain(              # noqa: E731
+            xk, wk, xs, ws, slots, nslots, bw, gain, 6, i4)
     yk, yp = kern(), plain()
     torch.cuda.synchronize()
     require(yk.dtype == yp.dtype and yk.shape == yp.shape,
@@ -330,34 +424,47 @@ def run_case(case: dict, dev, seed: int) -> dict:
             f"{case}: non-finite plain output")
     err = float((yk.to(torch.float64) - yp.to(torch.float64)).abs().max())
     require(err == 0.0, f"{case}: kernel differs from plain by {err}")
+    del yk, yp
 
-    # the yardstick: torch._int_mm (which takes M > 16 only: fewer rows are
-    # zero-padded to 32 and sliced back) plus the torch epilogue
-    library, padded = None, m <= 16
-    if e == 1 and ex == 1 and k % 8 == 0 and n % 8 == 0:
-        x2, w2 = x[0], w[0]
-        if padded:
-            x2 = torch.cat([x2, torch.zeros((32 - m, k), dtype=x2.dtype,
-                                            device=dev)])
+    # the yardstick: per expert torch._int_mm on the unpacked integer codes
+    # (it takes M > 16 only: fewer rows are zero-padded to 32 and sliced
+    # back), or torch.bmm in float32 for f32 codes; plus the torch epilogue
+    library, padded = None, codes != "f32" and m <= 16
+    if codes == "f32" or (k % 8 == 0 and n % 8 == 0):
+        if codes == "f32":
+            xb = x.expand(e, m, k)
+
+            def lib_acc():
+                return torch.bmm(xb, w)
+        else:
+            x2 = x
+            if padded:
+                x2 = torch.cat([x, torch.zeros((ex, 32 - m, k), dtype=x.dtype,
+                                               device=dev)], dim=1)
+
+            def lib_acc():
+                return torch.stack([torch._int_mm(x2[min(i, ex - 1)], w[i])
+                                    for i in range(e)])[:, :m]
         lib_win = None if mode == "member_windows" else window
-
-        def int_mm():
-            return torch._int_mm(x2, w2)[:m][None]
         if case["kernel"] == "tdvmm_matmul_raw":
-            library = int_mm
+            library = lib_acc
         else:
             library = lambda: ops._epilogue(                      # noqa: E731
-                int_mm(), xs, ws, gain, bits, members, out_window=lib_win,
+                lib_acc(), xs, ws, gain, bits, members, out_window=lib_win,
                 group_widths=widths)
-        ylib = library()
+        ylib, yp = library(), plain()
         torch.cuda.synchronize()
         require(bool(torch.equal(ylib, yp)),
                 f"{case}: the library yardstick computes another function")
+        del ylib, yp
     bound_ms, bound_by = bound(case)
-    row = dict(case, max_abs_err=err, ms=time_ms(kern, 20),
-               plain_ms=time_ms(plain, 5), bound_ms=bound_ms,
+    big = e * m * k * n > 1e11
+    row = dict(case, codes=codes, max_abs_err=err,
+               ms=time_ms(kern, 3 if big else 20),
+               plain_ms=time_ms(plain, 2 if big else 5), bound_ms=bound_ms,
                bound_by=bound_by,
-               library_ms=None if library is None else time_ms(library, 10),
+               library_ms=None if library is None
+               else time_ms(library, 3 if big else 10),
                library_padded=library is not None and padded)
     row.pop("rep", None)
     return row
@@ -562,14 +669,16 @@ def expected_launches(cfg, plan: str, steps: int) -> dict:
     layer is one TD-VMM launch; the calibration pass captures each
     digital-boundary matmul once (B1 raw) and reads it out data-calibrated
     (B2), and a chained ffn.in has no readout (B1 fused)."""
+    from repro_torch.kernels.tdvmm import tdvmm as tk
     n_in = 2 if cfg.act == "silu_glu" else 1
     per_layer = n_in + 1
     readouts = 1 if plan == "ffn_chained" else per_layer
     L = cfg.n_layers
-    return {"calibrate": {"raw": L * readouts, "calibrated": L * readouts,
-                          "fused": L * (per_layer - readouts)},
-            "serve": {"raw": 0, "calibrated": 0,
-                      "fused": L * per_layer * steps}}
+    zero = dict.fromkeys(tk.LAUNCHES, 0)
+    return {"calibrate": zero | {"raw": L * readouts,
+                                 "calibrated": L * readouts,
+                                 "fused": L * (per_layer - readouts)},
+            "serve": zero | {"fused": L * per_layer * steps}}
 
 
 def serve_plan(name: str, plan, dev, params_cache: dict) -> dict:
@@ -681,10 +790,9 @@ def ssm_expected_launches(n_layers: int) -> dict:
     fused in serving; in calibration each is captured (B1 raw) and read out
     data-calibrated (B2)."""
     L = n_layers
-    return {"calibrate": {"raw": 2 * L, "calibrated": 2 * L, "fused": 0,
-                          "ssd": L, "crossing": 0},
-            "serve": {"raw": 0, "calibrated": 0, "fused": 2 * L * SSM_GEN,
-                      "ssd": L, "crossing": 0}}
+    zero = dict.fromkeys(launches_now(), 0)
+    return {"calibrate": zero | {"raw": 2 * L, "calibrated": 2 * L, "ssd": L},
+            "serve": zero | {"fused": 2 * L * SSM_GEN, "ssd": L}}
 
 
 def launches_now() -> dict:
@@ -763,16 +871,128 @@ def serve_ssm(dev) -> dict:
                 args=(cfg, params, calib, prompts))
 
 
-def profile_ssm(out: dict) -> dict:
-    """Device time of one full-width prefill and of a window of decode
-    steps: kernels per step, device-busy share (summed kernel time over the
-    window's wall time) and the largest kernels."""
+# ---------------------------------------------------------------------------
+# Phase 4: mixtral-8x7b at full width through the static path
+# ---------------------------------------------------------------------------
+def moe_plans():
+    """moe_unchained: every moe.* site at p = 6 (int8 codes).  moe_mixed:
+    moe.expert.in at 8-bit inputs x 4-bit weights (f32 codes; worst |acc|
+    255 x 15 x 4096 = 15,667,200 < 2^24, so exact) and moe.expert.out at
+    3 x 3 bits (int4 pairs)."""
+    from repro_torch.configs import TDVMMPlan, tdvmm_rule
+    unchained = TDVMMPlan(rules=(tdvmm_rule("moe.*", enabled=True,
+                                            backend="auto"),))
+    return {"moe_unchained": unchained,
+            "moe_mixed": unchained.with_rules(
+                tdvmm_rule("moe.expert.in", bits=8, weight_bits=4),
+                tdvmm_rule("moe.expert.out", bits=3, weight_bits=3))}
+
+
+def moe_config():
+    """mixtral-8x7b at its published width, cut to MOE_LAYERS layers, with
+    the dropless capacity factor."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    return cfg.replace(n_layers=MOE_LAYERS, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_CAPACITY_FACTOR))
+
+
+def moe_expected_launches(plan: str, n_layers: int) -> dict:
+    """Exact kernel launches of the MoE path: per layer gate and up are two
+    moe.expert.in launches and down one moe.expert.out launch over the
+    (E, C, d) dispatch buffer, at every static step (the prefill and
+    MOE_GEN - 1 decode steps) B1 fused; in calibration each is captured
+    (B1 raw) and read out data-calibrated (B2, one slot per expert).
+    moe_mixed runs them in the f32 (in) and int4 (out) storages."""
+    L = n_layers
+    codes_in, codes_out = ("", "") if plan == "moe_unchained" \
+        else ("_f32", "_int4")
+    calib = dict.fromkeys(launches_now(), 0)
+    serve = dict(calib)
+    for codes, per_layer in ((codes_in, 2), (codes_out, 1)):
+        calib["raw" + codes] += per_layer * L
+        calib["calibrated" + codes] += per_layer * L
+        serve["fused" + codes] += per_layer * L * MOE_GEN
+    return {"calibrate": calib, "serve": serve}
+
+
+def serve_moe(name: str, plan, dev, params_cache: dict) -> dict:
+    """mixtral-8x7b under ``plan`` through the static path: calibrate on one
+    4 x 512 batch, serve another for 16 new tokens, then the same batch in
+    reverse order."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    cfg = moe_config().replace(tdvmm_plan=plan)
+    if "params" not in params_cache:
+        params_cache["params"] = model.init_params(0, cfg, device=dev)
+    params = params_cache["params"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    calib_tokens = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT),
+                                 generator=g, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT),
+                            generator=g, device=dev)
+
+    # ---- the main path: counts at 0, calibrate, serve, read ---------------
+    reset_all_launches()
+    t0 = time.perf_counter()
+    calib = model.calibrate(params, {"inputs": calib_tokens}, cfg,
+                            max_len=MOE_PROMPT + MOE_GEN, device=dev)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    at_calib = launches_now()
+    out = serve.serve_static(cfg, MOE_BATCH, MOE_PROMPT, MOE_GEN, calib=calib,
+                             device=dev, params=params, prompts=prompts)
+    launches = launches_now()
+    serve_launches = {k: launches[k] - at_calib[k] for k in launches}
+
+    want = moe_expected_launches(name, cfg.n_layers)
+    require(at_calib == want["calibrate"],
+            f"{name}: calibration launches {at_calib} != {want['calibrate']}")
+    require(serve_launches == want["serve"],
+            f"{name}: serving launches {serve_launches} != {want['serve']}")
+    require(calib.sites() == ("moe.expert.in", "moe.expert.out"),
+            f"{name}: calibrated sites {calib.sites()}")
+    for site, win in calib.windows.items():
+        require(tuple(win.shape) == (MOE_E,)
+                and bool(torch.isfinite(win).all() and (win > 0).all()),
+                f"{name}: {site} window {win.tolist()}")
+    tokens = out["tokens"]
+    require(tuple(tokens.shape) == (MOE_BATCH, MOE_GEN),
+            f"{name}: tokens {tuple(tokens.shape)}")
+    require(out["nan_steps"] == 0, f"{name}: {out['nan_steps']} NaN steps")
+    require(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+            f"{name}: a token outside the vocabulary")
+    # the same batch in reverse order gives the reversed streams
+    rev = serve.serve_static(cfg, MOE_BATCH, MOE_PROMPT, MOE_GEN, calib=calib,
+                             device=dev, params=params,
+                             prompts=torch.flip(prompts, dims=(0,)))
+    require(torch.equal(rev["tokens"], torch.flip(tokens, dims=(0,))),
+            f"{name}: the reversed batch did not give the reversed streams")
+    return dict(plan=name, calibrate_s=t_cal, prefill_s=out["prefill_s"],
+                decode_s=out["decode_s"],
+                decode_tok_per_s=out["decode_tok_per_s"],
+                tokens=tokens[:, :8].tolist(), launches=launches,
+                launches_calibrate=at_calib,
+                windows={s: [round(float(v), 6) for v in w]
+                         for s, w in calib.windows.items()},
+                args=(cfg, params, calib, prompts))
+
+
+def profile_static(args, steps: int) -> dict:
+    """Device time of one full prefill and of ``steps`` decode steps of the
+    static path: kernels per step, device-busy share (summed kernel time
+    over the window's wall time), the TD-VMM kernels' share and the largest
+    kernels."""
     import torch
     from repro_torch.models import model
 
-    cfg, params, calib, prompts = out["args"]
-    caches = model.init_caches(cfg, SSM_BATCH, SSM_PROMPT + SSM_GEN,
-                               prompts.device)
+    cfg, params, calib, prompts = args
+    b, s = prompts.shape
+    caches = model.init_caches(cfg, b, s + steps + 1, prompts.device)
     state = {}
 
     def prefill():
@@ -781,22 +1001,24 @@ def profile_ssm(out: dict) -> dict:
         state["tok"] = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
 
     def decode_window():
-        for _ in range(SSM_PROFILE_STEPS):
+        for _ in range(steps):
             logits, _ = model.decode_step(params, {"inputs": state["tok"]},
                                           caches, cfg, calib=calib)
             state["tok"] = torch.argmax(logits[:, -1, :cfg.vocab_size],
                                         -1)[:, None]
 
     rows = {}
-    for name, fn, steps in (("prefill", prefill, 1),
-                            ("decode", decode_window, SSM_PROFILE_STEPS)):
+    for name, fn, n in (("prefill", prefill, 1),
+                        ("decode", decode_window, steps)):
         with torch.no_grad():
             wall, by_name, kernels = device_profile(fn)
         dev_us = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         rows[name] = dict(
-            steps=steps, wall_s=wall, kernels_per_step=kernels / steps,
+            steps=n, wall_s=wall, kernels_per_step=kernels / n,
             device_busy_share=dev_us / 1e6 / wall,
+            tdvmm_device_share=sum(v for k, v in by_name.items()
+                                   if "tdvmm::" in k) / max(dev_us, 1e-9),
             top_kernels=[(k[:70], v / max(dev_us, 1e-9)) for k, v in top])
     return rows
 
@@ -939,6 +1161,48 @@ def small_ssm_agreement(dev) -> float:
     return worst
 
 
+def small_moe_agreement(dev, plan) -> float:
+    """Smoke-width mixtral (2 layers, d_model 64, 4 experts top-2, window
+    8, float32) under ``plan``, the same weights on the card (B1/B2 in the
+    plan's code storages) and on the CPU (plain versions): equal greedy
+    tokens, logits within SMALL_MOE_LOGIT_RTOL of max|logit|.  The 13-token
+    prompt is longer than the window, so the cache rolls."""
+    import torch
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import model
+
+    cfg = smoke(get_config(MOE_ARCH)).replace(tdvmm_plan=plan)
+    p_cpu = model.init_params(0, cfg, device="cpu")
+    p_dev = _to(p_cpu, dev)
+    prompt = torch.arange(3, 29).reshape(2, 13)
+    calib = model.calibrate(p_cpu, {"inputs": prompt}, cfg, device="cpu")
+    worst = 0.0
+    for p, d in ((p_cpu, "cpu"), (p_dev, dev)):
+        caches = model.init_caches(cfg, 2, 24, d)
+        logits, caches = model.prefill_step(p, {"inputs": prompt.to(d)},
+                                            caches, cfg, calib=calib)
+        rows, toks = [logits[:, -1].float().cpu()], []
+        for _ in range(7):
+            toks.append(torch.argmax(rows[-1][:, :cfg.vocab_size], -1))
+            logits, caches = model.decode_step(
+                p, {"inputs": toks[-1][:, None].to(d)}, caches, cfg,
+                calib=calib)
+            rows.append(logits[:, -1].float().cpu())
+        toks = torch.stack(toks, 1)
+        if d == "cpu":
+            ref_rows, ref_toks = torch.stack(rows), toks
+        else:
+            got = torch.stack(rows)
+            worst = float((got - ref_rows).abs().max()
+                          / ref_rows.abs().max())
+            require(torch.equal(toks, ref_toks),
+                    f"mixtral card tokens {toks.tolist()} != cpu "
+                    f"{ref_toks.tolist()}")
+    require(worst <= SMALL_MOE_LOGIT_RTOL,
+            f"mixtral card logits differ from cpu by {worst:.3g}")
+    return worst
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -959,6 +1223,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import kernels
+    from repro_torch.configs import get_config
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -973,14 +1238,16 @@ def main() -> int:
     torch.utils.deterministic.fill_uninitialized_memory = False
 
     build_s = kernels.build_all(verbose=True)
-    say("build", f"B1 + B2 + B3 + B4 built in {build_s:.1f} s")
+    say("build", f"B1 + B2 (int8, int4 and f32 codes) + B3 + B4 built in "
+        f"{build_s:.1f} s")
 
     rows = []
     for i, case in enumerate(kernel_cases()):
         row = run_case(case, dev, seed=i)
         rows.append((case, row))
         lib = row["library_ms"]
-        say("kernel", f"{row['kernel']:<17} {row['mode']:<15} E={row['e']} "
+        say("kernel", f"{row['kernel']:<17} {row['codes']:<4} "
+            f"{row['mode']:<15} E={row['e']} "
             f"x{row['ex']} M={row['m']:<4} K={row['k']:<5} N={row['n']:<5} "
             f"max_abs_err={row['max_abs_err']} kernel_ms={row['ms']:.5f} "
             f"plain_ms={row['plain_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
@@ -1040,13 +1307,41 @@ def main() -> int:
         f"tokens/s), launches calibrate {ssm['launches_calibrate']} total "
         f"{ssm['launches']}, reversed batch == reversed streams, no NaN; "
         f"first tokens {ssm['tokens']}")
-    prof = profile_ssm(ssm)
+    prof = profile_static(ssm["args"], SSM_PROFILE_STEPS)
     for name, r in prof.items():
         say("profile", f"ssm_unchained {name}: {r['steps']} step(s) in "
             f"{r['wall_s']:.3f} s, {r['kernels_per_step']:.1f} device "
             f"kernels per step, device busy {r['device_busy_share']:.3f}; "
             "top " + "; ".join(f"{k} {v:.3f}" for k, v in r["top_kernels"]))
     del ssm["args"], prof
+    torch.cuda.empty_cache()
+
+    say("serve", f"{MOE_ARCH}: full width, depth cut to {MOE_LAYERS} of "
+        f"{get_config(MOE_ARCH).n_layers} layers, capacity factor "
+        f"{MOE_CAPACITY_FACTOR} (default "
+        f"{get_config(MOE_ARCH).moe.capacity_factor}): dropless")
+    moe_cache = {}
+    for name, plan in moe_plans().items():
+        out = serve_moe(name, plan, dev, moe_cache)
+        served.append(out)
+        say("serve", f"{name}: {MOE_ARCH} {MOE_LAYERS} layers, {MOE_BATCH} "
+            f"x {MOE_PROMPT} prompt tokens + {MOE_GEN} new each: calibrate "
+            f"{out['calibrate_s']:.3f} s, prefill {out['prefill_s']:.3f} s, "
+            f"decode {out['decode_s']:.3f} s ({out['decode_tok_per_s']:.2f} "
+            f"tokens/s), launches calibrate {out['launches_calibrate']} "
+            f"total {out['launches']}, windows {out['windows']}, reversed "
+            f"batch == reversed streams, no NaN; first tokens "
+            f"{out['tokens']}")
+        prof = profile_static(out["args"], MOE_PROFILE_STEPS)
+        for step, r in prof.items():
+            say("profile", f"{name} {step}: {r['steps']} step(s) in "
+                f"{r['wall_s']:.3f} s, {r['kernels_per_step']:.1f} device "
+                f"kernels per step, device busy "
+                f"{r['device_busy_share']:.3f}, TD-VMM kernels "
+                f"{r['tdvmm_device_share']:.3f} of device time; top "
+                + "; ".join(f"{k} {v:.3f}" for k, v in r["top_kernels"]))
+        del out["args"], prof
+    del moe_cache
     torch.cuda.empty_cache()
 
     phys = physics_path(dev)
@@ -1075,14 +1370,18 @@ def main() -> int:
     worst = small_ssm_agreement(dev)
     say("small", "mamba2 card vs cpu plain path: equal greedy tokens, "
         f"logits within {worst:.3g} of max|logit|")
+    for name, plan in moe_plans().items():
+        worst = small_moe_agreement(dev, plan)
+        say("small", f"mixtral {name} card vs cpu plain path: equal greedy "
+            f"tokens, logits within {worst:.3g} of max|logit|")
     worst = small_physics_agreement(dev)
     say("small", "perceptron and 64 x 64 array card vs cpu plain path: "
         f"decoded outputs within {worst:.3g}")
 
     kernels = []
     for name in SOURCES:
-        mine = [r for c, r in rows if r["kernel"] == name]
-        rep = next(r for c, r in rows if c["kernel"] == name and c.get("rep"))
+        mine = [r for c, r in rows if entry_name(c) == name]
+        rep = next(r for c, r in rows if entry_name(c) == name and c.get("rep"))
         launches = sum(s["launches"].get(COUNTER[name], 0) for s in served)
         require(launches > 0, f"{name} was not launched on the main path")
         kernels.append({
@@ -1093,7 +1392,7 @@ def main() -> int:
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"],
             "shape": {k: rep[k] for k in SHAPE_KEYS.get(
-                name, ("mode", "e", "m", "k", "n"))}})
+                name, ("codes", "mode", "e", "m", "k", "n"))}})
     say("done", "all phases passed")
     print(card)
     print(json.dumps({"kernels": kernels}))

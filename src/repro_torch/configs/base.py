@@ -46,8 +46,10 @@ class TDVMMLayerConfig:
     Code storage is chosen per call (core/layers.plan_matmul): codes with
     p <= 7 (incl. the default p = 6) store as int8 — quarter the HBM bytes,
     *exact* int32 accumulation for any K, so both backends are bit-for-bit
-    identical with no envelope caveat.  p = 8 or noisy codes (f32 storage)
-    and p <= 3 (int4 packing) are not ported yet and raise.
+    identical with no envelope caveat.  p <= 3 on both operands packs two
+    codes per byte (int4), still exact; p = 8 stores integer-valued float32
+    codes, exact while worst |acc| < 2^24.  Noisy codes (training) are not
+    ported and raise.
 
     ``out_scale`` caches a calibration-time readout window (see
     ``TDVMMLinear.calibrate`` / ``calibrate_out_scale`` / the model-wide

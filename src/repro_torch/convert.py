@@ -6,8 +6,10 @@ returns, already turned into numpy arrays by the caller (for example with
 JAX package stacks each segment's layers along a leading axis
 (``params["blocks"]["seg0"]`` leaves are ``(L, ...)``); the port keeps a
 list of per-layer dicts.  Every leaf takes the model's dtype except the SSM
-scan parameters (``dt_bias``, ``A_log``, ``D``), which the JAX package keeps
-in float32 whatever the model's dtype.
+scan parameters (``dt_bias``, ``A_log``, ``D``) and the MoE router
+(``router``), which the JAX package keeps in float32 whatever the model's
+dtype.  MoE expert banks (``w_gate``, ``w_up``, ``w_down``, each (E, ...))
+and shared experts convert leaf by leaf like any other weight.
 
 The circuit simulator (``core/tdcore``) needs no conversion: its parameters
 are plain (N_in, N_out) weight matrices, handed to it as tensors.
@@ -27,13 +29,17 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
 
-# leaves the JAX package initialises in float32 for every model dtype
-FLOAT32_LEAVES = frozenset({"dt_bias", "A_log", "D"})
+# leaves (and subtrees) the JAX package initialises in float32 for every
+# model dtype
+FLOAT32_LEAVES = frozenset({"dt_bias", "A_log", "D", "router"})
 
 
 def _map(tree, fn, name: str = ""):
+    """``fn(leaf, name)`` over a dict tree; a leaf inside a FLOAT32_LEAVES
+    subtree gets that subtree's name."""
     if isinstance(tree, dict):
-        return {k: _map(v, fn, k) for k, v in tree.items()}
+        return {k: _map(v, fn, name if name in FLOAT32_LEAVES else k)
+                for k, v in tree.items()}
     return fn(tree, name)
 
 

@@ -14,12 +14,18 @@ code-and-scale pipeline of ``core/quant.py``:
                  window when the tile boundary is digital      (Eq. 3, §4.2)
     rescale      digital per-row x per-channel rescale to model units
 
+``td_expert_matmul`` is the batched (E, C, K) x (E, K, N) form for MoE
+expert banks: one analog tile per expert, per-expert scales and (E,)
+readout windows, the expert dim on the kernels' batched grid axis.
 ``td_grouped_matmul`` runs G same-input projections (``ssm.in_proj``) as
-one ragged concat launch.  Only int8 code storage is ported (p <= 7 on both
-operands, no noise): f32 codes (p = 8, noisy) and int4-packed codes
-(p <= 3) raise ``NotImplementedError``, as does the expert-batched layer,
-which belongs to a later slice of the port.  The layer serves only: there
-is no gradient path.
+one ragged concat launch.
+
+Code storage follows the JAX package's rule (``_plan_code_dtype``): int8
+for p <= 7 on both operands, int4-packed pairs for p <= 3 on both, float32
+codes for p = 8 (warning where the worst |acc| reaches 2^24, beyond which
+the float32 sums may round).  The layer serves only: there is no gradient
+path, and programming noise (``cfg.noise`` with a key, a training feature)
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,8 +41,8 @@ from repro_torch.core import quant
 __all__ = ["TDVMMLayerConfig", "td_matmul", "td_expert_matmul",
            "td_grouped_matmul", "calibrate_out_scale"]
 
-_LATER = ("not ported yet: the PyTorch port serves int8 codes only "
-          "(ROADMAP: B1's remaining modes and the MoE / grouped slices)")
+_NOISE = ("programming noise (cfg.noise with a key) is a training feature "
+          "the port does not have yet (ROADMAP A.11)")
 
 
 class MatmulPlan(NamedTuple):
@@ -66,13 +72,13 @@ def _plan_code_dtype(cfg: TDVMMLayerConfig, k: int, noisy: bool) -> str:
     if worst >= (1 << 24):
         warnings.warn(
             f"TD-VMM f32 accumulator may exceed f32 integer range: "
-            f"(2^{cfg.bits}-1)*(2^{cfg.weight_bits}-1)*K={worst} >= 2^24",
-            stacklevel=3)
+            f"(2^{cfg.bits}-1)*(2^{cfg.weight_bits}-1)*K={worst} >= 2^24; "
+            "charge sums can round and the kernel and plain routes may "
+            "diverge", stacklevel=3)
     return "f32"
 
 
-def plan_matmul(x_shape, w_shape, cfg: TDVMMLayerConfig,
-                noisy: bool = False) -> MatmulPlan:
+def plan_matmul(x_shape, w_shape, cfg: TDVMMLayerConfig) -> MatmulPlan:
     k, n = w_shape
     if x_shape[-1] != k:
         raise ValueError(f"td_matmul shapes {tuple(x_shape)} x {tuple(w_shape)}")
@@ -80,12 +86,7 @@ def plan_matmul(x_shape, w_shape, cfg: TDVMMLayerConfig,
     m = 1
     for d in batch_shape:
         m *= d
-    code_dtype = _plan_code_dtype(cfg, k, noisy)
-    if code_dtype != "int8":
-        raise NotImplementedError(
-            f"site {cfg.site or '<unnamed>'}: {code_dtype} code storage "
-            f"(bits={cfg.bits}, weight_bits={cfg.weight_bits}, noisy={noisy}) "
-            f"is {_LATER}")
+    code_dtype = _plan_code_dtype(cfg, k, False)
     from repro_torch.kernels.tdvmm import ops
     return MatmulPlan(batch_shape, m, k, n, ops.resolve_backend(cfg.backend),
                       code_dtype)
@@ -140,15 +141,16 @@ def _latch_gain(levels_x: int, levels_w: int, k: int) -> float:
 
 def _record_window(cfg: TDVMMLayerConfig, x_codes: torch.Tensor,
                    w_codes: torch.Tensor, backend: str, code_dtype: str,
-                   gain: float,
+                   gain: float, per_tile: bool = False,
                    group_widths: Optional[tuple[int, ...]] = None) -> None:
     """Calibration capture: when a ``core.calibration`` collector is active
     and the site has a digital readout boundary, record its latch-normalized
-    max|z| — a scalar, or the per-member ``(G,)`` vector over a ragged
-    concat launch's column spans (``group_widths``) — exactly the window
-    per-call data calibration would use.  Costs one extra codes matmul (B1
-    raw mode on the card) per site, paid only during the one-time
-    calibration pass."""
+    max|z| — a scalar, the per-expert-tile ``(E,)`` vector when
+    ``per_tile``, or the per-member ``(G,)`` vector over a ragged concat
+    launch's column spans (``group_widths``) — exactly the window per-call
+    data calibration would use.  Costs one extra codes matmul (B1 raw mode
+    on the card) per site, paid only during the one-time calibration
+    pass."""
     from repro_torch.core import calibration
     if not calibration.active() or not cfg.io_quantize:
         return
@@ -164,6 +166,10 @@ def _record_window(cfg: TDVMMLayerConfig, x_codes: torch.Tensor,
             off += wd
         calibration.record(cfg.site, torch.stack(maxes))
         return
+    if per_tile:
+        calibration.record(cfg.site, torch.amax(z, dim=(-2, -1)).clamp_min(0.0)
+                           if z.numel() else z.new_zeros(z.shape[0]))
+        return
     calibration.record(cfg.site, _max0(z))
 
 
@@ -172,6 +178,11 @@ def _f32(v: float) -> float:
     it multiplies in float32 by exactly this value (what JAX does with a
     weakly typed constant), and no scalar tensor is copied to the card."""
     return float(np.float32(v))
+
+
+def _refuse_noise(cfg: TDVMMLayerConfig, key) -> None:
+    if cfg.noise and key is not None:
+        raise NotImplementedError(f"site {cfg.site or '<unnamed>'}: {_NOISE}")
 
 
 def _max0(z: torch.Tensor) -> torch.Tensor:
@@ -185,11 +196,11 @@ def td_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TDVMMLayerConfig,
     """Four-quadrant TD-VMM fast path.  x: (..., N_in), w: (N_in, N_out).
 
     ``key`` stands for the JAX package's noise key; noisy codes are not
-    ported, so it must be None on an enabled site with ``cfg.noise``."""
+    ported, so an enabled site with ``cfg.noise`` and a key raises."""
     if not cfg.enabled:
         return x @ w
-    noisy = cfg.noise and key is not None
-    plan = plan_matmul(x.shape, w.shape, cfg, noisy=noisy)
+    _refuse_noise(cfg, key)
+    plan = plan_matmul(x.shape, w.shape, cfg)
 
     qx = quant.encode_input(x, cfg.bits)
     qw = quant.program_weights(w, cfg.weight_bits, cfg.per_channel)
@@ -218,11 +229,52 @@ def td_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TDVMMLayerConfig,
     return y.reshape(plan.batch_shape + (plan.n,)).to(x.dtype)
 
 
-def td_expert_matmul(x, w, cfg: TDVMMLayerConfig, key=None):
-    """Batched (E, C, K) x (E, K, N) expert TD-VMM — the MoE slice."""
+def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
+                     cfg: TDVMMLayerConfig, key=None) -> torch.Tensor:
+    """Batched four-quadrant TD-VMM: one analog tile per expert.
+
+    x (E, C, N_in) is the MoE dispatch buffer, w (E, N_in, N_out) the
+    stacked expert bank; one kernel launch covers every expert, with the
+    expert dim on the batched grid axis, per-expert-per-row input scales,
+    per-expert-per-channel weight scales and, once calibrated, an (E,)
+    vector of readout windows.  Zero-padded (capacity) rows carry zero
+    codes and contribute zero charge, so the padding is exact."""
     if not cfg.enabled:
         return torch.einsum("eck,ekn->ecn", x, w)
-    raise NotImplementedError(f"td_expert_matmul on an enabled site is {_LATER}")
+    e, c, k = x.shape
+    e2, k2, n = w.shape
+    if e != e2 or k != k2:
+        raise ValueError(f"td_expert_matmul shapes {tuple(x.shape)} x "
+                         f"{tuple(w.shape)}")
+    _refuse_noise(cfg, key)
+    code_dtype = _plan_code_dtype(cfg, k, False)
+    from repro_torch.kernels.tdvmm import ops
+    backend = ops.resolve_backend(cfg.backend)
+
+    qx = quant.encode_input(x, cfg.bits)                       # scale (E, C, 1)
+    qw = quant.program_weights(w, cfg.weight_bits, cfg.per_channel)
+    gain = _latch_gain(qx.levels, qw.levels, k)
+    # qw.scale is (E, 1, N) per-channel or (E, 1, 1) per-tensor
+    w_scale = torch.broadcast_to(
+        qw.scale.reshape(e, qw.scale.shape[-1]) * _f32(2.0 * k), (e, n))
+    out_bits, out_scale = _readout_args(cfg, n_experts=e)
+    out_scale, out_window = _runtime_override(cfg, out_bits, out_scale)
+    # each expert is its own analog tile: calibration records (E,) windows
+    _record_window(cfg, qx.codes, qw.codes, backend, code_dtype, gain,
+                   per_tile=True)
+    y = ops.tdvmm_matmul(
+        qx.codes,
+        qw.codes,
+        qx.scale.reshape(e, c),
+        w_scale,
+        gain=gain,
+        out_bits=out_bits,
+        out_scale=out_scale,
+        backend=backend,
+        code_dtype=code_dtype,
+        out_window=out_window,
+    )
+    return y.to(x.dtype)
 
 
 def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
@@ -247,8 +299,8 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
         if w.dim() != 2 or w.shape[0] != k:
             raise ValueError(f"grouped member {tuple(w.shape)} for an input "
                              f"of width {k}")
-    noisy = cfg.noise and key is not None
-    plan = plan_matmul(x.shape, (k, sum(ns)), cfg, noisy=noisy)
+    _refuse_noise(cfg, key)
+    plan = plan_matmul(x.shape, (k, sum(ns)), cfg)
     from repro_torch.kernels.tdvmm import ops, tdvmm
     # per-member column spans: each member rounds to the 128 lane only
     widths = tuple(tdvmm.padded_size(n, tdvmm.LANE, tdvmm.LANE) for n in ns)
@@ -298,7 +350,8 @@ def calibrate_out_scale(x: torch.Tensor, w: torch.Tensor,
     ``cfg.replace(out_scale=...)`` to pin the window."""
     if not cfg.enabled:
         raise ValueError("calibrate_out_scale needs an enabled TD-VMM config")
-    plan = plan_matmul(x.shape, w.shape, cfg, noisy=cfg.noise and key is not None)
+    _refuse_noise(cfg, key)
+    plan = plan_matmul(x.shape, w.shape, cfg)
     qx = quant.encode_input(x, cfg.bits)
     qw = quant.program_weights(w, cfg.weight_bits, cfg.per_channel)
     from repro_torch.kernels.tdvmm import ops

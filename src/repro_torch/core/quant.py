@@ -10,15 +10,21 @@ holds the two code stages the serving path runs before the TD-VMM kernel:
     program_weights   sections 2, 4.1 — floating-gate tuning programs each
                       cell's current to one of 2^p_w levels, per-output-column
                       scale.
+    readout           Eq. 3 / section 4.2 — the p-bit ADC over an output
+                      window, in the value domain.
 
 Codes are **bitwise** those of the JAX package (``repro.core.quant``): the
 normalization is the division ``xf / s`` (never a reciprocal multiply), the
 scale is ``max(max|x| with initial 0, 1e-6)``, and rounding is half to even.
 Every constant enters as an explicit float32 tensor, so no double-precision
 scalar arithmetic sneaks in.  ``concat_group`` joins G programmed members
-into the ragged bank of a grouped launch.  Only int8 storage (p <= 7) is
-ported; there is no straight-through-estimator term because the port serves
-only.
+into the ragged bank of a grouped launch.
+
+Storage: int8 for p <= 7; integer-valued float32 for p = 8 (``signed_codes``,
+written as the JAX package's straight-through form ``lin + (q - lin)``, whose
+forward value is the rounded code).  ``pack_int4`` / ``unpack_int4`` hold
+p <= 3 codes two per byte, the layout kernel B1 streams in its int4 mode.
+There is no gradient path: the port serves only.
 """
 from __future__ import annotations
 
@@ -44,7 +50,7 @@ def storage_dtype(bits: int) -> torch.dtype:
 class QuantizedTensor:
     """Integer codes + the scale that maps them back to model units.
 
-    codes:  int8 in [-levels, levels] (p <= 7).
+    codes:  int8 in [-levels, levels] (p <= 7), else integer-valued f32.
     scale:  f32, per-row ``(..., 1)`` for activations, per-channel ``(1, N)``
             or per-tensor ``(1, 1)`` for weights.
     bits:   code width p.
@@ -59,13 +65,53 @@ class QuantizedTensor:
         return (1 << self.bits) - 1
 
 
+def pack_int4(codes: torch.Tensor, axis: int) -> torch.Tensor:
+    """Pack int8 codes with |code| <= 7 (p <= 3) two per byte along ``axis``.
+
+    Byte ``kp`` holds code ``2 kp`` in the low nibble and ``2 kp + 1`` in the
+    high nibble; an odd-length axis is zero-padded first (a zero code is an
+    inert current source).  Returns int8 of half the (even) extent."""
+    axis = axis % codes.dim()
+    if codes.shape[axis] % 2:
+        pad = [0, 0] * (codes.dim() - 1 - axis) + [0, 1]
+        codes = F.pad(codes, pad)
+    codes = codes.to(torch.int8)
+    lo = codes[(slice(None),) * axis + (slice(0, None, 2),)]
+    hi = codes[(slice(None),) * axis + (slice(1, None, 2),)]
+    return (lo & 0x0F) | (hi << 4)
+
+
+def unpack_int4(packed: torch.Tensor, k: int, axis: int) -> torch.Tensor:
+    """Inverse of ``pack_int4``: int8 nibble pairs -> ``k`` int8 codes along
+    ``axis``.  Arithmetic shifts sign-extend the nibbles: (v << 4) >> 4 for
+    the low one, v >> 4 for the high one."""
+    axis = axis % packed.dim()
+    packed = packed.to(torch.int8)
+    lo = (packed << 4) >> 4
+    hi = packed >> 4
+    out = torch.stack([lo, hi], dim=axis + 1)
+    shape = list(packed.shape)
+    shape[axis] = 2 * packed.shape[axis]
+    return out.reshape(shape).narrow(axis, 0, k)
+
+
+def signed_codes(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Value in [-1, 1] -> integer-valued float32 code in [-L, L].
+
+    The JAX package writes this as a straight-through estimator,
+    ``lin + stop_gradient(q - lin)`` with ``lin = x * L``; the same float32
+    expression is evaluated here so the codes are bitwise equal."""
+    lin = x * float((1 << bits) - 1)
+    q = enc.quantize_code_signed(x, bits).to(torch.float32)
+    return lin + (q - lin)
+
+
 def _store(normalized: torch.Tensor, bits: int) -> torch.Tensor:
-    """int8 codes for a normalized value in [-1, 1]."""
-    if storage_dtype(bits) != torch.int8:
-        raise NotImplementedError(
-            f"{bits}-bit codes need float32 storage, which the port does not "
-            "serve yet (ROADMAP: B1's remaining modes)")
-    return enc.quantize_code_signed(normalized, bits).to(torch.int8)
+    """Codes for a normalized value in [-1, 1]: int8 when the signed range
+    fits, else integer-valued float32 (``signed_codes``)."""
+    if storage_dtype(bits) == torch.int8:
+        return enc.quantize_code_signed(normalized, bits).to(torch.int8)
+    return signed_codes(normalized, bits)
 
 
 def _floor(t: torch.Tensor, value: float) -> torch.Tensor:
@@ -141,3 +187,14 @@ def concat_group(qws, widths: tuple[int, ...]) -> QuantizedTensor:
         (0, wd - q.codes.shape[-1]), value=1.0)
         for q, wd in zip(qws, widths)], dim=-1)
     return QuantizedTensor(codes=codes, scale=scale, bits=bits)
+
+
+def readout(y: torch.Tensor, bits: int, scale=None) -> torch.Tensor:
+    """Readout stage (Eq. 3 / section 4.2): p-bit ADC over the output window,
+    in the value domain.  ``scale=None`` calibrates the window to
+    max(max|y|, 1e-9) (section 3.1); a float or tensor fixes it."""
+    if scale is None:
+        scale = _floor(_absmax(y.to(torch.float32), tuple(range(y.dim()))),
+                       1e-9).reshape(())
+    levels = float((1 << bits) - 1)
+    return signed_codes(y / scale, bits) * (scale / levels)

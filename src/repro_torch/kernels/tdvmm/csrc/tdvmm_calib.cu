@@ -7,13 +7,15 @@
 // has no barrier across CTAs, so this is two launches over ONE (E, M, N)
 // float32 buffer:
 //
-//   (i)  b2_integrate: the shared int8 tile walk (tdvmm_tile.cuh); each CTA
-//        parks its raw int32 accumulators in the float32 output (bit
-//        pattern, as the Pallas kernel parks them) and folds its tile's
-//        max |f32(acc) * gain| into the slot maximum with one atomicMax on
-//        the int bit pattern, which orders like the value for non-negative
-//        floats.  A float max is exact and order-free, so the slot window is
-//        bitwise the unfused global max.
+//   (i)  b2_integrate: the shared tile walk (tdvmm_tile.cuh, int8, int4
+//        pairs or float32 codes); each CTA parks its raw accumulators in the
+//        float32 output (an int32 accumulator as its bit pattern, as the
+//        Pallas kernel parks it; a float32 one, from f32 codes, as it is)
+//        and folds its tile's max |f32(acc) * gain| into the slot maximum
+//        with one atomicMax on the int bit pattern, which orders like the
+//        value for non-negative floats.  A float max is exact and
+//        order-free, so the slot window is bitwise the unfused global max.
+//        One slot per expert for the MoE expert grid.
 //   (ii) b2_readout: in place, every element re-reads its parked accumulator
 //        and applies the epilogue with s = max(slot_max, 1e-9).
 //
@@ -24,14 +26,17 @@
 
 namespace tdvmm {
 
+template <int CODES>
 __global__ void __launch_bounds__(kThreads)
 b2_integrate(TileArgs a, const int* __restrict__ slots, int nsb, int slot_bw,
-             float* __restrict__ slot_max, int* __restrict__ out, float gain) {
+             float* __restrict__ slot_max, void* __restrict__ out,
+             float gain) {
+  using Acc = typename AccType<CODES>::T;
   const int e = blockIdx.z;
   const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * kBN;
-  int acc[kTN];
-  integrate_tile(a, e, m0, n0, acc);
+  Acc acc[kTN];
+  integrate_tile<CODES>(a, e, m0, n0, acc);
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int m = m0 + ty;
@@ -42,7 +47,7 @@ b2_integrate(TileArgs a, const int* __restrict__ slots, int nsb, int slot_bw,
     for (int j = 0; j < kTN; ++j) {
       const int n = n0 + tx + 16 * j;
       if (n >= a.N) continue;
-      out[row + n] = acc[j];
+      static_cast<Acc*>(out)[row + n] = acc[j];
       tmax = fmaxf(tmax, fabsf(__fmul_rn((float)acc[j], gain)));
     }
   }
@@ -60,6 +65,7 @@ b2_integrate(TileArgs a, const int* __restrict__ slots, int nsb, int slot_bw,
   }
 }
 
+template <bool PARKED_F32>
 __global__ void __launch_bounds__(kThreads)
 b2_readout(float* __restrict__ out, const float* __restrict__ xs,
            const float* __restrict__ ws, const int* __restrict__ slots,
@@ -73,8 +79,8 @@ b2_readout(float* __restrict__ out, const float* __restrict__ xs,
     const size_t em = idx / N;
     const int m = (int)(em % M);
     const int e = (int)(em / M);
-    const int parked = __float_as_int(out[idx]);
-    const float z = __fmul_rn((float)parked, gain);
+    const float acc = PARKED_F32 ? out[idx] : (float)__float_as_int(out[idx]);
+    const float z = __fmul_rn(acc, gain);
     float s = slot_max[slots[(size_t)e * nsb + n / slot_bw]];
     s = (s < 1e-9f) ? 1e-9f : s;   // jnp.maximum(s, 1e-9): NaN stays NaN
     const float xsv = xs[(size_t)(shared_x ? 0 : e) * M + m];
@@ -85,33 +91,47 @@ b2_readout(float* __restrict__ out, const float* __restrict__ xs,
 }  // namespace tdvmm
 
 // Plain C entry point (bound with ctypes): both launches on ``stream``.
+// ``codes``: 0 int8, 1 int4 pairs, 2 float32; K is the code depth.
 // ``slot_max`` (nslots float32) must be zeroed by the caller.  Returns the
 // first non-zero cudaError_t, else 0.
 extern "C" int tdvmm_b2(const void* x, const void* w, const void* xs,
                         const void* ws, const void* slots, int nsb,
                         int slot_bw, void* slot_max, void* out, int E, int M,
                         int K, int N, int shared_x, int vec_x, int vec_w,
-                        float gain, float levels, float inv_levels,
+                        int codes, float gain, float levels, float inv_levels,
                         void* stream) {
   using namespace tdvmm;
-  if (slot_bw < 1) return (int)cudaErrorInvalidValue;
-  TileArgs a{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-             M, K, N, shared_x, vec_x, vec_w};
+  if (slot_bw < 1 || codes < 0 || codes > 2) return (int)cudaErrorInvalidValue;
+  const TileArgs a = tile_args(x, w, M, K, N, shared_x, vec_x, vec_w, codes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* islots = static_cast<const int*>(slots);
   float* fmax = static_cast<float*>(slot_max);
   dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, E);
-  b2_integrate<<<grid, kThreads, 0, s>>>(a, islots, nsb, slot_bw, fmax,
-                                         static_cast<int*>(out), gain);
+  if (codes == kInt8)
+    b2_integrate<kInt8><<<grid, kThreads, 0, s>>>(a, islots, nsb, slot_bw,
+                                                  fmax, out, gain);
+  else if (codes == kInt4)
+    b2_integrate<kInt4><<<grid, kThreads, 0, s>>>(a, islots, nsb, slot_bw,
+                                                  fmax, out, gain);
+  else
+    b2_integrate<kF32><<<grid, kThreads, 0, s>>>(a, islots, nsb, slot_bw,
+                                                 fmax, out, gain);
   int err = (int)cudaGetLastError();
   if (err) return err;
   const size_t total = (size_t)E * M * N;
   size_t blocks = (total + kThreads - 1) / kThreads;
   if (blocks > 8 * 132) blocks = 8 * 132;
   if (blocks < 1) blocks = 1;
-  b2_readout<<<(unsigned)blocks, kThreads, 0, s>>>(
-      static_cast<float*>(out), static_cast<const float*>(xs),
-      static_cast<const float*>(ws), islots, nsb, slot_bw, fmax, E, M, N,
-      shared_x, gain, levels, inv_levels);
+  float* fout = static_cast<float*>(out);
+  const float* fxs = static_cast<const float*>(xs);
+  const float* fws = static_cast<const float*>(ws);
+  if (codes == kF32)
+    b2_readout<true><<<(unsigned)blocks, kThreads, 0, s>>>(
+        fout, fxs, fws, islots, nsb, slot_bw, fmax, E, M, N, shared_x, gain,
+        levels, inv_levels);
+  else
+    b2_readout<false><<<(unsigned)blocks, kThreads, 0, s>>>(
+        fout, fxs, fws, islots, nsb, slot_bw, fmax, E, M, N, shared_x, gain,
+        levels, inv_levels);
   return (int)cudaGetLastError();
 }

@@ -23,8 +23,14 @@ data-calibrated window (``out_scale=None`` with ``out_bits``) runs B2
 Ragged grouped launches (``group_widths``, ``td_grouped_matmul``) run the
 same kernels: a fixed window becomes a per-column window over the member
 spans (built once per window, widths and device, then reused), and the
-data-calibrated readout gives B2 one slot per member.  Only int8 codes are
-ported.
+data-calibrated readout gives B2 one slot per member.
+
+Code storage (``code_dtype``, ``core.layers`` picks it per site): "int8"
+and "int4" cast the codes to int8 and accumulate exactly in int32 — on the
+cuda route int4 packs both operands two codes per byte
+(``quant.pack_int4``, as the JAX package's Pallas path does) and B1/B2
+unpack on chip; "f32" casts both operands to float32 and accumulates in
+float32 (exact for integer codes while worst |acc| < 2^24).
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import quant
 from repro_torch.kernels.tdvmm import tdvmm
 
 
@@ -171,6 +178,21 @@ def _device_calib_slots(e: int, n: int, bn: int, group_widths,
     return slots.to(device), nslots
 
 
+def _operands(x_codes, w_codes, code_dtype: str):
+    """(x, w, int4_k) as the kernels take them: int8 codes for "int8";
+    int4 pairs packed along K for "int4" (``int4_k`` the code depth);
+    float32 for "f32"."""
+    if code_dtype not in ("int8", "int4", "f32"):
+        raise ValueError(f"unknown code dtype {code_dtype!r}")
+    dtype = torch.float32 if code_dtype == "f32" else torch.int8
+    xi = x_codes.to(dtype).contiguous()
+    wi = w_codes.to(dtype).contiguous()
+    if code_dtype != "int4":
+        return xi, wi, None
+    return (quant.pack_int4(xi, axis=-1).contiguous(),
+            quant.pack_int4(wi, axis=-2).contiguous(), xi.shape[-1])
+
+
 def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
                 out_scale, out_window, backend, code_dtype,
                 fused_calibration, group_widths=None):
@@ -180,16 +202,13 @@ def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
         # zero charge everywhere, and readout(0) * scales == 0 on every path
         return torch.zeros((e, m, n), dtype=torch.float32,
                            device=x_codes.device)
-    if code_dtype != "int8":
-        raise NotImplementedError(
-            f"{code_dtype!r} codes are not ported yet (B1's remaining modes: "
-            "f32 and int4-packed codes)")
-    xi = x_codes.to(torch.int8).contiguous()
-    wi = w_codes.to(torch.int8).contiguous()
-
     if backend == "jnp":
+        # int4 codes accumulate unpacked, as int8 (the JAX package's jnp path)
+        xi, wi, _ = _operands(x_codes, w_codes,
+                              "f32" if code_dtype == "f32" else "int8")
         return _epilogue(tdvmm.acc_plain(xi, wi), x_scale, w_scale, gain,
                          out_bits, out_scale, out_window, group_widths)
+    xi, wi, int4_k = _operands(x_codes, w_codes, code_dtype)
     if out_bits is None or out_scale is not None or out_window is not None:
         window = None
         if out_bits is not None:
@@ -203,7 +222,7 @@ def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
             else:
                 window = _f32(out_scale, xi.device)
         return tdvmm.tdvmm_fused(xi, wi, x_scale, w_scale, gain, out_bits,
-                                 window)
+                                 window, int4_k)
     if fused_calibration:
         # every member span is a multiple of the 128 lane, so no 64-column
         # tile of B2 straddles two members' readout slots
@@ -211,8 +230,8 @@ def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
                                             xi.device)
         return tdvmm.tdvmm_calibrated(
             xi, wi, x_scale, w_scale, slots, nslots,
-            min(tdvmm.TILE_N, n), gain, out_bits)
-    acc = tdvmm.tdvmm_matmul_raw(xi, wi)
+            min(tdvmm.TILE_N, n), gain, out_bits, int4_k)
+    acc = tdvmm.tdvmm_matmul_raw(xi, wi, int4_k)
     return _epilogue(acc, x_scale, w_scale, gain, out_bits, out_scale,
                      out_window, group_widths)
 
@@ -227,15 +246,11 @@ def codes_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
     w3 = w_codes[None] if w_codes.dim() == 2 else w_codes
     if code_dtype == "auto":
         code_dtype = "int8" if not x3.dtype.is_floating_point else "f32"
-    if code_dtype != "int8":
-        raise NotImplementedError(
-            f"{code_dtype!r} codes are not ported yet (B1's remaining modes)")
-    xi = x3.to(torch.int8).contiguous()
-    wi = w3.to(torch.int8).contiguous()
     if resolve_backend(backend) == "jnp":
+        xi, wi, _ = _operands(x3, w3, "f32" if code_dtype == "f32" else "int8")
         acc = tdvmm.acc_plain(xi, wi)
     else:
-        acc = tdvmm.tdvmm_matmul_raw(xi, wi)
+        acc = tdvmm.tdvmm_matmul_raw(*_operands(x3, w3, code_dtype))
     acc = acc.to(torch.float32)
     return acc[0] if squeeze else acc
 

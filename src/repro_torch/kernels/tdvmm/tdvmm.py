@@ -1,34 +1,44 @@
 """TD-VMM kernels B1 and B2 for Hopper, their plain torch versions, and
 launch counters.
 
-B1 (``csrc/tdvmm.cu``) replaces the Pallas ``tdvmm._kernel``: int8 x int8 ->
-int32 charge accumulation with the K walk inside the CTA, and the fused
-gain -> optional p-bit readout -> rescale epilogue in registers.  Modes:
-raw int32 out (``tdvmm_matmul_raw``), fused with or without a readout over
-a fixed per-column window (``tdvmm_fused``).  B2 (``csrc/tdvmm_calib.cu``)
-replaces ``tdvmm._calib_kernel``: the data-calibrated readout, as two
-launches over one output buffer (``tdvmm_calibrated``).  Both take batched
-(E, M, K) x (E, K, N) codes or shared-x (1, M, K) x (E, K, N).
+B1 (``csrc/tdvmm.cu``) replaces the Pallas ``tdvmm._kernel``: charge
+accumulation with the K walk inside the CTA, and the fused gain -> optional
+p-bit readout -> rescale epilogue in registers.  Modes: raw accumulator out
+(``tdvmm_matmul_raw``), fused with or without a readout over a fixed
+per-column window (``tdvmm_fused``).  B2 (``csrc/tdvmm_calib.cu``) replaces
+``tdvmm._calib_kernel``: the data-calibrated readout, as two launches over
+one output buffer (``tdvmm_calibrated``).  Both take batched
+(E, M, K) x (E, K, N) codes (the MoE expert grid) or shared-x
+(1, M, K) x (E, K, N), in the Pallas kernel's three code storages:
+
+    int8   int8 codes, exact int32 accumulation (p <= 7);
+    int4   p <= 3 codes packed two per byte along K (``quant.pack_int4``;
+           pass the code depth as ``int4_k``), unpacked on chip, exact int32
+           accumulation, bitwise the int8 result;
+    f32    integer-valued float32 codes (p = 8), float32 accumulation, exact
+           while worst |acc| < 2^24 (the envelope ``core.layers`` warns on).
 
 Every wrapper follows one rule: a tensor on the CPU goes to the plain
-version beside it (same arithmetic in torch ops, exact integer
-accumulation); a tensor on the card goes to the kernel, or the wrapper
-raises.  There is no fallback.  ``LAUNCHES`` counts kernel launches only.
+version beside it (same arithmetic in torch ops, exact accumulation); a
+tensor on the card goes to the kernel, or the wrapper raises.  There is no
+fallback.  ``LAUNCHES`` counts kernel launches only, per wrapper and code
+storage (``"fused"`` is int8, ``"fused_f32"`` and ``"fused_int4"`` the
+others).
 
 The kernels are built at first use with ``nvcc`` for ``sm_90a`` into the
 port's kernel build directory (``kernels/_build.py``: one shared library
-per source, built in parallel) and bound with ``ctypes``.  Only int8 codes
-are ported; f32 and int4-packed codes raise.
+per source, built in parallel) and bound with ``ctypes``.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import quant
 from repro_torch.kernels import _build
 
 LANE = 128
@@ -37,8 +47,12 @@ CSRC = Path(__file__).parent / "csrc"
 # max|z| into one readout slot, so a slot spans whole 64-column tiles.
 TILE_N = 64
 
-# Kernel launches per wrapper (a B2 call is one count for its two launches).
-LAUNCHES = {"raw": 0, "fused": 0, "calibrated": 0}
+# Code storages, as the kernels number them.
+CODES = {"int8": 0, "int4": 1, "f32": 2}
+# Kernel launches per wrapper and code storage (a B2 call is one count for
+# its two launches); int8 keeps the bare wrapper name.
+LAUNCHES = {f"{kind}{'' if codes == 'int8' else '_' + codes}": 0
+            for kind in ("raw", "fused", "calibrated") for codes in CODES}
 
 
 def reset_launches() -> None:
@@ -61,14 +75,14 @@ def padded_size(size: int, block: int, tile: int) -> int:
 def _bind_b1(lib: ctypes.CDLL) -> None:
     vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     lib.tdvmm_b1.argtypes = [vp, vp, vp, vp, vp, ll, ll, vp,
-                             i, i, i, i, i, i, i, i, f, f, f, vp]
+                             i, i, i, i, i, i, i, i, i, f, f, f, vp]
     lib.tdvmm_b1.restype = i
 
 
 def _bind_b2(lib: ctypes.CDLL) -> None:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tdvmm_b2.argtypes = [vp, vp, vp, vp, vp, i, i, vp, vp,
-                             i, i, i, i, i, i, i, f, f, f, vp]
+                             i, i, i, i, i, i, i, i, f, f, f, vp]
     lib.tdvmm_b2.restype = i
 
 
@@ -89,21 +103,48 @@ def _lib(name: str) -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 # Argument checks
 # ---------------------------------------------------------------------------
-def _check_codes(x: torch.Tensor, w: torch.Tensor) -> tuple[int, int, int, int, bool]:
-    if x.dtype != torch.int8 or w.dtype != torch.int8:
-        raise NotImplementedError(
-            f"TD-VMM kernels take int8 codes, got {x.dtype} x {w.dtype} "
-            "(f32 and int4-packed codes are B1's remaining modes)")
+class Launch(NamedTuple):
+    """Checked geometry of one launch: K is the code depth (for int4 the
+    operands hold (K + 1) // 2 packed bytes along it)."""
+    e: int
+    m: int
+    k: int
+    n: int
+    shared_x: bool
+    codes: str
+
+
+def _check_codes(x: torch.Tensor, w: torch.Tensor,
+                 int4_k: Optional[int] = None) -> Launch:
+    """The launch geometry of x (E|1, M, K) against w (E, K, N), with the
+    code storage from the dtypes: int8 x int8 (int4 pairs with ``int4_k``)
+    or float32 x float32."""
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"batched codes expected: x (E|1, M, K), w (E, K, N); "
                          f"got {tuple(x.shape)} x {tuple(w.shape)}")
-    ex, m, k = x.shape
-    e, k2, n = w.shape
-    if k != k2 or ex not in (e, 1):
-        raise ValueError(f"code shapes {tuple(x.shape)} x {tuple(w.shape)}")
+    if x.dtype == w.dtype == torch.int8:
+        codes = "int8" if int4_k is None else "int4"
+    elif x.dtype == w.dtype == torch.float32 and int4_k is None:
+        codes = "f32"
+    else:
+        raise ValueError(
+            f"TD-VMM kernels take int8 or float32 codes on both operands "
+            f"(int4 pairs as int8 with int4_k), got {x.dtype} x {w.dtype}"
+            + ("" if int4_k is None else f" with int4_k={int4_k}"))
+    ex, m, kx = x.shape
+    e, kw, n = w.shape
+    k = kx if int4_k is None else int(int4_k)
+    if kx != kw or ex not in (e, 1) or (
+            int4_k is not None and kx != (k + 1) // 2):
+        raise ValueError(f"code shapes {tuple(x.shape)} x {tuple(w.shape)}"
+                         + ("" if int4_k is None else f" for int4_k={k}"))
     if x.device != w.device:
         raise ValueError(f"codes on {x.device} and {w.device}")
-    return e, m, k, n, ex == 1 and e > 1
+    return Launch(e, m, k, n, ex == 1 and e > 1, codes)
+
+
+def _count(kind: str, codes: str) -> None:
+    LAUNCHES[kind if codes == "int8" else f"{kind}_{codes}"] += 1
 
 
 def _check_f32(name: str, t: torch.Tensor, shape: tuple, device) -> None:
@@ -136,6 +177,11 @@ def _vec(t: torch.Tensor, minor: int) -> int:
     return int(minor % 4 == 0 and t.data_ptr() % 4 == 0)
 
 
+def _out_dtype(codes: str) -> torch.dtype:
+    """The raw accumulator's dtype: int32 for integer codes, else float32."""
+    return torch.float32 if codes == "f32" else torch.int32
+
+
 def _levels(out_bits: Optional[int]) -> tuple[float, float]:
     if out_bits is None:
         return 0.0, 0.0
@@ -151,9 +197,25 @@ def _raise_on(err: int, what: str) -> None:
 # ---------------------------------------------------------------------------
 # Plain versions (same arithmetic in torch ops)
 # ---------------------------------------------------------------------------
-def acc_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Exact int32 charge accumulation (E, M, N): int32 matmul on the CPU;
-    on the card float64 products and sums (exact below 2^53), cast back."""
+def acc_plain(x: torch.Tensor, w: torch.Tensor,
+              int4_k: Optional[int] = None) -> torch.Tensor:
+    """Charge accumulation (E, M, N).  Integer codes (int4 pairs unpacked
+    first): exact int32, as an int32 matmul on the CPU and float64 products
+    and sums (exact below 2^53) on the card.  Float32 codes: a float32
+    matmul, with TF32 off on the card (exact for integer codes while the
+    sums stay below 2^24)."""
+    if int4_k is not None:
+        x = quant.unpack_int4(x, int4_k, axis=-1)
+        w = quant.unpack_int4(w, int4_k, axis=-2)
+    if x.dtype == torch.float32:
+        if x.device.type == "cpu":
+            return torch.matmul(x, w)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return torch.matmul(x, w)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
     if x.device.type == "cpu":
         return torch.matmul(x.to(torch.int32), w.to(torch.int32))
     return torch.matmul(x.to(torch.float64), w.to(torch.float64)).to(torch.int32)
@@ -185,17 +247,20 @@ def epilogue_plain(acc: torch.Tensor, x_scale: torch.Tensor,
     return (z * x_scale[..., :, None]) * ws_row
 
 
-def tdvmm_raw_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    _check_codes(x, w)
-    return acc_plain(x, w)
+def tdvmm_raw_plain(x: torch.Tensor, w: torch.Tensor,
+                    int4_k: Optional[int] = None) -> torch.Tensor:
+    _check_codes(x, w, int4_k)
+    return acc_plain(x, w, int4_k)
 
 
 def tdvmm_fused_plain(x, w, x_scale, w_scale, gain: float = 1.0,
                       out_bits: Optional[int] = None,
-                      window: Optional[torch.Tensor] = None) -> torch.Tensor:
-    e, m, k, n, _ = _check_codes(x, w)
-    s = None if out_bits is None else _window_3d(window, e, n)
-    return epilogue_plain(acc_plain(x, w), x_scale, w_scale, gain, out_bits, s)
+                      window: Optional[torch.Tensor] = None,
+                      int4_k: Optional[int] = None) -> torch.Tensor:
+    g = _check_codes(x, w, int4_k)
+    s = None if out_bits is None else _window_3d(window, g.e, g.n)
+    return epilogue_plain(acc_plain(x, w, int4_k), x_scale, w_scale, gain,
+                          out_bits, s)
 
 
 def slot_windows_plain(z: torch.Tensor, slots: torch.Tensor, nslots: int,
@@ -215,9 +280,10 @@ def slot_windows_plain(z: torch.Tensor, slots: torch.Tensor, nslots: int,
 
 def tdvmm_calibrated_plain(x, w, x_scale, w_scale, slots: torch.Tensor,
                            nslots: int, slot_bw: int, gain: float = 1.0,
-                           out_bits: int = 6) -> torch.Tensor:
-    _check_codes(x, w)
-    acc = acc_plain(x, w)
+                           out_bits: int = 6,
+                           int4_k: Optional[int] = None) -> torch.Tensor:
+    _check_codes(x, w, int4_k)
+    acc = acc_plain(x, w, int4_k)
     z = acc.to(torch.float32) * _f32(gain, acc.device)
     s = slot_windows_plain(z, slots, nslots, slot_bw)
     return epilogue_plain(acc, x_scale, w_scale, gain, out_bits, s)
@@ -243,28 +309,32 @@ def _window_3d(window: Optional[torch.Tensor], e: int, n: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Wrappers (kernel on the card, plain version on the CPU)
 # ---------------------------------------------------------------------------
-def tdvmm_matmul_raw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """B1 raw mode: int32 (E, M, N) charge accumulation."""
+def tdvmm_matmul_raw(x: torch.Tensor, w: torch.Tensor,
+                     int4_k: Optional[int] = None) -> torch.Tensor:
+    """B1 raw mode: (E, M, N) charge accumulation, int32 for integer codes,
+    float32 for float32 codes."""
     if not _kernel_device(x):
-        return tdvmm_raw_plain(x, w)
-    e, m, k, n, shared_x = _check_codes(x, w)
+        return tdvmm_raw_plain(x, w, int4_k)
+    g = _check_codes(x, w, int4_k)
     _contig(x, w)
-    out = torch.empty((e, m, n), dtype=torch.int32, device=x.device)
+    out = torch.empty((g.e, g.m, g.n), dtype=_out_dtype(g.codes),
+                      device=x.device)
     if out.numel() == 0:
         return out
     err = _lib("b1").tdvmm_b1(
         x.data_ptr(), w.data_ptr(), None, None, None, 0, 0, out.data_ptr(),
-        e, m, k, n, int(shared_x), _vec(x, k), _vec(w, n), 0,
-        1.0, 0.0, 0.0, _stream())
+        g.e, g.m, g.k, g.n, int(g.shared_x), _vec(x, x.shape[-1]),
+        _vec(w, g.n), 0, CODES[g.codes], 1.0, 0.0, 0.0, _stream())
     _raise_on(err, "tdvmm_matmul_raw")
-    LAUNCHES["raw"] += 1
+    _count("raw", g.codes)
     return out
 
 
 def tdvmm_fused(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
                 w_scale: torch.Tensor, gain: float = 1.0,
                 out_bits: Optional[int] = None,
-                window: Optional[torch.Tensor] = None) -> torch.Tensor:
+                window: Optional[torch.Tensor] = None,
+                int4_k: Optional[int] = None) -> torch.Tensor:
     """B1 fused: integrate + gain -> optional readout over a fixed window
     -> per-row x per-column rescale, float32 (E, M, N) out.
 
@@ -272,8 +342,9 @@ def tdvmm_fused(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
     is (), (E,), (E, 1, 1) or (E, 1, N) float32."""
     if not _kernel_device(x):
         return tdvmm_fused_plain(x, w, x_scale, w_scale, gain, out_bits,
-                                 window)
-    e, m, k, n, shared_x = _check_codes(x, w)
+                                 window, int4_k)
+    g = _check_codes(x, w, int4_k)
+    e, m, n = g.e, g.m, g.n
     _check_f32("x_scale", x_scale, (x.shape[0], m), x.device)
     _check_f32("w_scale", w_scale, (e, n), x.device)
     mode, win, se, sn = 1, None, 0, 0
@@ -291,17 +362,19 @@ def tdvmm_fused(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
     err = _lib("b1").tdvmm_b1(
         x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
         None if win is None else win.data_ptr(), se, sn, out.data_ptr(),
-        e, m, k, n, int(shared_x), _vec(x, k), _vec(w, n), mode,
-        float(np.float32(gain)), levels, inv_levels, _stream())
+        e, m, g.k, n, int(g.shared_x), _vec(x, x.shape[-1]), _vec(w, n), mode,
+        CODES[g.codes], float(np.float32(gain)), levels, inv_levels,
+        _stream())
     _raise_on(err, "tdvmm_fused")
-    LAUNCHES["fused"] += 1
+    _count("fused", g.codes)
     return out
 
 
 def tdvmm_calibrated(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
                      w_scale: torch.Tensor, slots: torch.Tensor, nslots: int,
                      slot_bw: int, gain: float = 1.0,
-                     out_bits: int = 6) -> torch.Tensor:
+                     out_bits: int = 6,
+                     int4_k: Optional[int] = None) -> torch.Tensor:
     """B2: integrate + data-calibrated readout, float32 (E, M, N) out.
 
     ``slots`` (E, ceil(N / slot_bw)) int32 is the readout-slot id of every
@@ -309,8 +382,9 @@ def tdvmm_calibrated(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
     is max(max|z| over its columns, 1e-9)."""
     if not _kernel_device(x):
         return tdvmm_calibrated_plain(x, w, x_scale, w_scale, slots, nslots,
-                                      slot_bw, gain, out_bits)
-    e, m, k, n, shared_x = _check_codes(x, w)
+                                      slot_bw, gain, out_bits, int4_k)
+    g = _check_codes(x, w, int4_k)
+    e, m, n = g.e, g.m, g.n
     _check_f32("x_scale", x_scale, (x.shape[0], m), x.device)
     _check_f32("w_scale", w_scale, (e, n), x.device)
     nsb = -(-n // slot_bw)
@@ -329,8 +403,9 @@ def tdvmm_calibrated(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
     err = _lib("b2").tdvmm_b2(
         x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
         slots.data_ptr(), nsb, slot_bw, slot_max.data_ptr(), out.data_ptr(),
-        e, m, k, n, int(shared_x), _vec(x, k), _vec(w, n),
-        float(np.float32(gain)), levels, inv_levels, _stream())
+        e, m, g.k, n, int(g.shared_x), _vec(x, x.shape[-1]), _vec(w, n),
+        CODES[g.codes], float(np.float32(gain)), levels, inv_levels,
+        _stream())
     _raise_on(err, "tdvmm_calibrated")
-    LAUNCHES["calibrated"] += 1
+    _count("calibrated", g.codes)
     return out

@@ -5,11 +5,17 @@
 
 runs a seeded ragged trace through ``runtime.engine.Engine`` on the card.
 ``--static`` serves one uniform batch instead — one prefill, then greedy
-decode steps — the only path for SSM models, as in the JAX package:
+decode steps — the only path for SSM models and for sliding-window models
+such as mixtral-8x7b, as in the JAX package:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
         --static --tdvmm 'ssm.*' --calibrate --batch 4 --prompt-len 512 \\
         --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
+        --static --tdvmm 'moe.*' --calibrate --smoke --device cpu
+
+(mixtral-8x7b's published 32 layers, ~93 GB in bf16, exceed one 80 GB card;
+``chip_smoke.py`` serves it at full width with 8.)
 
 ``--device cpu`` runs the plain torch path on the CPU; add ``--smoke`` for
 the reduced same-family model.  Weights are random, drawn from ``--seed``.
@@ -140,7 +146,7 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--static", action="store_true",
                     help="uniform batch: one prefill + greedy decode steps "
-                         "(the only path for SSM archs)")
+                         "(the only path for SSM and sliding-window archs)")
     ap.add_argument("--batch", type=int, default=4,
                     help="--static: sequences in the batch")
     ap.add_argument("--smoke", action="store_true",

@@ -3,9 +3,12 @@
 
 Weights are stored flattened, (d_model, n_heads*head_dim).  Attention is
 plain torch (it is plain ``jnp`` in the JAX package too, not a Pallas
-kernel): the same f32 softmax and the same ``-1e30`` mask value.  Not
-ported: sliding-window caches, the int8 KV cache and the flash (online
-softmax) path — prompts stay under ``FLASH_THRESHOLD``.
+kernel): the same f32 softmax and the same ``-1e30`` mask value.  Sliding
+windows (``cfg.swa_window``, Mistral/Mixtral) run in the dense cache: a ring
+of ``min(max_len, window)`` slots in which absolute position p lives at slot
+p % size.  The paged cache refuses them, as the JAX package's does.  Not
+ported: the int8 KV cache and the flash (online softmax) path — prompts stay
+under ``FLASH_THRESHOLD``.
 
 Caches are updated **in place**: ``apply_prefill``/``apply_decode`` write
 the new keys and values into the cache tensors they are given (views into
@@ -83,17 +86,16 @@ def _attend(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
     return out.reshape(b, sq, h, hd)
 
 
-def _causal_mask(sq: int, skv: int, offset: int, device) -> torch.Tensor:
-    """(1, 1, sq, skv) boolean mask.  offset = absolute position of query 0."""
+def _causal_mask(sq: int, skv: int, offset: int, window, device
+                 ) -> torch.Tensor:
+    """(1, 1, sq, skv) boolean mask.  offset = absolute position of query 0;
+    ``window`` (or None) keeps only the last ``window`` keys."""
     qpos = torch.arange(sq, device=device)[:, None] + offset
     kpos = torch.arange(skv, device=device)[None, :]
-    return (kpos <= qpos)[None, None]
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.swa_window is not None:
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet")
+    m = kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    return m[None, None]
 
 
 # --------------------------------------------------------------------------
@@ -101,8 +103,10 @@ def _check_supported(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                device) -> KVCache:
-    _check_supported(cfg)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    """A (batch, size) cache; size = min(max_len, window) for a sliding
+    window (a ring), else max_len."""
+    size = max_len if cfg.swa_window is None else min(max_len, cfg.swa_window)
+    shape = (batch, size, cfg.n_kv_heads, cfg.resolved_head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros((batch,), dtype=torch.int32, device=device))
@@ -110,23 +114,31 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 def apply_prefill(params, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
                   key=None) -> tuple[torch.Tensor, KVCache]:
-    """Process a full prompt, filling the cache in place (cache.pos == 0)."""
+    """Process a full prompt, filling the cache in place (cache.pos == 0).
+    A sliding-window ring shorter than the prompt keeps its last ``size``
+    tokens, rolled so that position p sits at slot p % size."""
     b, s, _ = x.shape
     if s > FLASH_THRESHOLD:
         raise NotImplementedError(
             f"prompt of {s} tokens: flash attention (S > {FLASH_THRESHOLD}) "
             "is not ported yet")
     size = cache.k.shape[1]
-    if s > size:
+    if s > size and cfg.swa_window is None:
         raise ValueError(f"prompt of {s} tokens exceeds the cache ({size})")
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     q, k, v = _qkv(params, x, cfg, key)
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
-    out = _attend(q, k, v, _causal_mask(s, s, 0, x.device), cfg)
-    cache.k[:, :s] = k.to(cache.k.dtype)
-    cache.v[:, :s] = v.to(cache.v.dtype)
+    out = _attend(q, k, v, _causal_mask(s, s, 0, cfg.swa_window, x.device),
+                  cfg)
+    if size >= s:
+        cache.k[:, :s] = k.to(cache.k.dtype)
+        cache.v[:, :s] = v.to(cache.v.dtype)
+    else:
+        shift = s % size
+        cache.k.copy_(torch.roll(k[:, -size:], shift, dims=1))
+        cache.v.copy_(torch.roll(v[:, -size:], shift, dims=1))
     pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
     y = common.dense(params["wo"], _merge_heads(out),
                      cfg.site_tdvmm("attn.out"), key)
@@ -136,11 +148,14 @@ def apply_prefill(params, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
 def apply_decode(params, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
                  key=None) -> tuple[torch.Tensor, KVCache]:
     """One-token decode step, x: (B, 1, d); writes the cache in place.
-    Decoding past the cache's capacity raises."""
+    A sliding-window ring writes slot pos % size and attends to the slots
+    written within the last ``size`` steps; a full cache raises when
+    decoding past its capacity."""
     b = x.shape[0]
     pos = cache.pos
     size = cache.k.shape[1]
-    if bool(torch.any(pos >= size)):
+    swa = cfg.swa_window is not None
+    if not swa and bool(torch.any(pos >= size)):
         raise ValueError(
             f"attention.apply_decode: KV cache capacity exceeded "
             f"(pos={pos.tolist()} >= size={size})")
@@ -148,11 +163,16 @@ def apply_decode(params, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
     q = common.apply_rope(q, pos[:, None], cfg.rope_theta)
     k = common.apply_rope(k, pos[:, None], cfg.rope_theta)
     rows = torch.arange(b, device=x.device)
-    slot = pos.long()
+    slot = (pos % size if swa else pos).long()
     cache.k[rows, slot] = k[:, 0].to(cache.k.dtype)
     cache.v[rows, slot] = v[:, 0].to(cache.v.dtype)
     kpos = torch.arange(size, device=x.device)
-    mask = (kpos[None, :] <= pos[:, None])[:, None, None, :]    # (B, 1, 1, S)
+    if swa:
+        age = (slot[:, None] - kpos[None, :]) % size
+        valid = age <= torch.clamp(pos, max=size - 1)[:, None]
+    else:
+        valid = kpos[None, :] <= pos[:, None]
+    mask = valid[:, None, None, :]                               # (B, 1, 1, S)
     out = _attend(q, cache.k.to(q.dtype), cache.v.to(q.dtype), mask, cfg)
     y = common.dense(params["wo"], _merge_heads(out),
                      cfg.site_tdvmm("attn.out"), key)
@@ -166,7 +186,10 @@ def apply_decode(params, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      dtype, device) -> PagedKVCache:
     """One attention layer's page pool (+1 trash page)."""
-    _check_supported(cfg)
+    if cfg.swa_window is not None:
+        raise NotImplementedError(
+            "the paged cache does not hold sliding-window attention (nor does "
+            "the JAX package's); serve such models through the static path")
     shape = (num_pages + 1, page_size, cfg.n_kv_heads, cfg.resolved_head_dim)
     return PagedKVCache(torch.zeros(shape, dtype=dtype, device=device),
                         torch.zeros(shape, dtype=dtype, device=device))

@@ -1,6 +1,7 @@
 """LM wrapper: embedding, stack, head; serving entry points — torch port of
-``repro.models.model`` (dense and SSM token-input models; the paged steps
-serve dense models only, as the JAX package's do).
+``repro.models.model`` (dense, MoE and SSM token-input models; the paged
+steps serve dense models only: the JAX package's also serve MoE models
+without a sliding window, which the port's engine does not yet).
 
 Parameters are a plain dict::
 
@@ -77,8 +78,9 @@ def _head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # Dense-cache serving (calibration pass and the solo greedy oracle)
 # --------------------------------------------------------------------------
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
-    """Stacked caches, one leading layer axis per segment: dense KV caches
-    {"seg<i>": KVCache((L, B, S, kv, hd) x 2, pos (L, B))}, SSM caches
+    """Stacked caches, one leading layer axis per segment: KV caches of the
+    attention segments {"seg<i>": KVCache((L, B, S, kv, hd) x 2, pos (L, B))}
+    (S = min(max_len, window) for a sliding window), SSM caches
     {"seg<i>": SSMCache(conv (L, B, d_conv-1, C), state (L, B, H, P, S),
     pos (L, B))} (``max_len`` does not size an SSM cache)."""
     dtype = common.resolve_dtype(cfg.dtype)
@@ -126,8 +128,10 @@ def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
     share one logical page allocation."""
     if cfg.family not in ("dense", "vlm", "audio"):
         raise NotImplementedError(
-            f"paged serving supports attention families, not {cfg.family!r} "
-            "(SSM state is O(1) per slot; use the static path)")
+            f"paged serving supports dense attention families, not "
+            f"{cfg.family!r} (SSM state is O(1) per slot; the MoE family's "
+            "paged steps are not ported yet, ROADMAP A.8; use the static "
+            "path)")
     dtype = common.resolve_dtype(cfg.dtype)
     caches = {}
     for i, (_, n) in enumerate(transformer.segments(cfg)):

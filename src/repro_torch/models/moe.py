@@ -1,0 +1,163 @@
+"""Mixture-of-Experts with sort-based capacity dispatch — torch port of the
+meshless ``'local'`` path of ``repro.models.moe``.
+
+A router picks ``top_k`` experts per token (float32 logits, softmax, top-k,
+gates renormalised); the tokens are sorted by expert id (a stable sort, as
+``jnp.argsort`` is, so the same tokens drop at capacity) and scattered into
+an (E, capacity, d) buffer, rows past an expert's capacity dropped; every
+expert's FFN runs as one batched matmul over the buffer (on an enabled
+``moe.expert.*`` site one TD-VMM launch with the expert axis on the
+kernel's batched grid, ``core.layers.td_expert_matmul``); the outputs
+gather back by the inverse permutation and combine with the gates.  Shared
+experts (``moe.shared.*``) run on every token.
+
+The expert-parallel path (``_moe_ep``: experts sharded over the data axes,
+``all_to_all`` dispatch) belongs to the port's distributed slice
+(ROADMAP A.14); ``apply`` with a mesh raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import layers as td_layers
+from repro_torch.models import common
+
+
+def init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
+    m = cfg.moe
+    d = cfg.d_model
+    gated = cfg.act == "silu_glu"
+    scale = d ** -0.5
+
+    def normal(shape, s):
+        return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=device) * s).to(dtype)
+
+    def expert_bank(n):
+        p = {"w_up": normal((n, d, m.d_ff), scale),
+             "w_down": normal((n, m.d_ff, d), m.d_ff ** -0.5)}
+        if gated:
+            p["w_gate"] = normal((n, d, m.d_ff), scale)
+        return p
+
+    p = {"router": common.dense_init(gen, d, m.n_experts, torch.float32,
+                                     device),
+         "experts": expert_bank(m.n_experts)}
+    if m.n_shared_experts:
+        p["shared"] = expert_bank(m.n_shared_experts)
+    return p
+
+
+def _capacity(n_tokens: int, top_k: int, n_experts: int, factor: float) -> int:
+    c = int(n_tokens * top_k * factor / n_experts) + 1
+    return max(c, 4)
+
+
+def _expert_ffn(bank, x: torch.Tensor, cfg: ModelConfig, key=None,
+                site_prefix: str = "moe.expert") -> torch.Tensor:
+    """x: (E, C, d) -> (E, C, d).  Gate and up are two ``<prefix>.in``
+    launches, down one ``<prefix>.out`` launch."""
+    td_in = cfg.site_tdvmm(site_prefix + ".in")
+    td_out = cfg.site_tdvmm(site_prefix + ".out")
+
+    def mm(a, wmat, td):
+        return td_layers.td_expert_matmul(a, wmat, td, key)
+
+    if "w_gate" in bank:
+        h = common.activation("silu", mm(x, bank["w_gate"], td_in))
+        h = h * mm(x, bank["w_up"], td_in)
+    else:
+        h = common.activation(cfg.act, mm(x, bank["w_up"], td_in))
+    return mm(h, bank["w_down"], td_out)
+
+
+def _route(params, x_flat: torch.Tensor, cfg: ModelConfig):
+    """Router: returns (ids (T, K), gates (T, K), aux losses)."""
+    m = cfg.moe
+    logits = x_flat.to(torch.float32) @ params["router"]["w"]     # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    # jax.lax.top_k: descending, the lower index first among equal values
+    gates, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, ids = gates[:, :m.top_k], ids[:, :m.top_k]
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    me = torch.mean(probs, dim=0)                                  # (E,)
+    counts = torch.zeros((m.n_experts,), dtype=torch.float32,
+                         device=x_flat.device).index_add_(
+        0, ids.reshape(-1), torch.ones(ids.numel(), dtype=torch.float32,
+                                       device=x_flat.device))
+    ce = counts / ids.shape[0]
+    lb_loss = m.n_experts * torch.sum(me * ce)
+    z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    return ids, gates.to(x_flat.dtype), {"lb_loss": lb_loss, "z_loss": z_loss}
+
+
+def _dispatch_indices(ids: torch.Tensor, top_k: int):
+    """Sort-based dispatch bookkeeping.
+
+    Returns (sorted_expert, pos_in_expert, order, token_idx): entry j of the
+    sorted stream goes to buffer slot [sorted_expert[j], pos_in_expert[j]]
+    and came from token token_idx[j]."""
+    flat = ids.reshape(-1)                                         # (T*K,)
+    sorted_expert, order = torch.sort(flat, stable=True)
+    ranks = torch.searchsorted(sorted_expert, sorted_expert, right=False)
+    pos = torch.arange(flat.shape[0], device=flat.device) - ranks
+    token_idx = torch.div(order, top_k, rounding_mode="floor")
+    return sorted_expert, pos, order, token_idx
+
+
+def _scatter_to_buffer(x_flat, sorted_expert, pos, token_idx, n_experts,
+                       capacity) -> torch.Tensor:
+    """(E, capacity, d) dispatch buffer; entries past capacity are dropped
+    (written to a spare row that is cut off, so no host sync is needed)."""
+    d = x_flat.shape[1:]
+    buf = torch.zeros((n_experts * capacity + 1,) + d, dtype=x_flat.dtype,
+                      device=x_flat.device)
+    slot = torch.where(pos < capacity, sorted_expert * capacity + pos,
+                       n_experts * capacity)
+    buf[slot] = x_flat[token_idx]
+    return buf[:n_experts * capacity].reshape((n_experts, capacity) + d)
+
+
+def _gather_from_buffer(buf, sorted_expert, pos, order, gates,
+                        top_k) -> torch.Tensor:
+    """Inverse of the scatter; returns the (T, d) combined output.  The
+    unsort is a gather by the inverse permutation."""
+    cap = buf.shape[1]
+    vals = buf[sorted_expert, torch.clamp(pos, max=cap - 1)]      # (T*K, d)
+    vals = torch.where((pos < cap)[:, None], vals, 0.0)
+    inv_order = torch.argsort(order)
+    unsorted = vals[inv_order]
+    per_k = unsorted.reshape(-1, top_k, vals.shape[-1])
+    return torch.sum(per_k * gates[..., None].to(vals.dtype), dim=1)
+
+
+def _moe_local(params, x_flat: torch.Tensor, cfg: ModelConfig, key=None):
+    """Experts on this device: route, dispatch, expert FFNs, combine."""
+    m = cfg.moe
+    ids, gates, aux = _route(params, x_flat, cfg)
+    cap = _capacity(x_flat.shape[0], m.top_k, m.n_experts, m.capacity_factor)
+    se, pos, order, tok = _dispatch_indices(ids, m.top_k)
+    buf = _scatter_to_buffer(x_flat, se, pos, tok, m.n_experts, cap)
+    out = _expert_ffn(params["experts"], buf, cfg, key)
+    y = _gather_from_buffer(out, se, pos, order, gates, m.top_k)
+    return y, aux
+
+
+def apply(params, x: torch.Tensor, cfg: ModelConfig, key=None,
+          mesh=None) -> tuple[torch.Tensor, dict]:
+    """x: (B, S, d) -> (y, aux losses).  ``key`` stands for the JAX
+    package's noise key (programming noise is not ported: a noisy enabled
+    site raises in ``td_expert_matmul``)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "MoE over a device mesh (expert parallelism, _moe_ep) is not "
+            "ported yet (ROADMAP A.14)")
+    m = cfg.moe
+    b, s, d = x.shape
+    shared_y = 0.0
+    if m.n_shared_experts:
+        shared_y = _expert_ffn(params["shared"], x.reshape(1, b * s, d), cfg,
+                               key, site_prefix="moe.shared").reshape(b, s, d)
+    y, aux = _moe_local(params, x.reshape(-1, d), cfg, key)
+    return y.reshape(b, s, d) + shared_y, aux

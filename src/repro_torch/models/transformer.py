@@ -1,6 +1,8 @@
 """Layer stacks — torch port of ``repro.models.transformer``: dense
-``attn_ffn`` segments and the SSM family's ``ssm`` (Mamba-2) segments.
-The hybrid family (zamba2) and MoE segments belong to later slices.
+``attn_ffn`` segments, the MoE family's ``first_k_dense`` ``attn_ffn``
+layers followed by ``attn_moe`` layers, and the SSM family's ``ssm``
+(Mamba-2) segments.  The hybrid family (zamba2) belongs to a later slice.
+Serving drops the MoE router's auxiliary losses (they only enter training).
 
 The JAX package stacks each segment's layer parameters along a leading axis
 and ``lax.scan``s over them; here a segment is a list of per-layer parameter
@@ -15,7 +17,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common, ffn, ssm
+from repro_torch.models import attention, common, ffn, moe, ssm
 
 
 def attn_ffn_block(params, x, cfg: ModelConfig, mode: str, cache, positions,
@@ -36,7 +38,11 @@ def attn_ffn_block(params, x, cfg: ModelConfig, mode: str, cache, positions,
         raise NotImplementedError(f"mode {mode!r} is not ported yet")
     x = x + a
     h = common.rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + ffn.apply(params["ffn"], h, cfg, key), new_cache
+    if "moe" in params:
+        f, _ = moe.apply(params["moe"], h, cfg, key)
+    else:
+        f = ffn.apply(params["ffn"], h, cfg, key)
+    return x + f, new_cache
 
 
 def ssm_block(params, x, cfg: ModelConfig, mode: str, cache, key=None):
@@ -58,6 +64,10 @@ def ssm_block(params, x, cfg: ModelConfig, mode: str, cache, key=None):
 def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
     if cfg.family in ("dense", "vlm", "audio"):
         return [("attn_ffn", cfg.n_layers)]
+    if cfg.family == "moe":
+        k = cfg.moe.first_k_dense
+        return ([("attn_ffn", k)] if k else []) + [
+            ("attn_moe", cfg.n_layers - k)]
     if cfg.family == "ssm":
         return [("ssm", cfg.n_layers)]
     if cfg.family == "hybrid":
@@ -66,7 +76,7 @@ def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
             "block) is not ported yet; it follows the paper-physics slice "
             "(ROADMAP A.12)")
     raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported yet (dense and ssm only)")
+        f"model family {cfg.family!r} is not ported yet")
 
 
 def _init_attn_ffn(gen, cfg: ModelConfig, dtype, device) -> dict:
@@ -78,6 +88,15 @@ def _init_attn_ffn(gen, cfg: ModelConfig, dtype, device) -> dict:
     }
 
 
+def _init_attn_moe(gen, cfg: ModelConfig, dtype, device) -> dict:
+    return {
+        "ln1": common.rmsnorm_init(cfg.d_model, dtype, device),
+        "ln2": common.rmsnorm_init(cfg.d_model, dtype, device),
+        "attn": attention.init(gen, cfg, dtype, device),
+        "moe": moe.init(gen, cfg, dtype, device),
+    }
+
+
 def _init_ssm(gen, cfg: ModelConfig, dtype, device) -> dict:
     return {
         "ln": common.rmsnorm_init(cfg.d_model, dtype, device),
@@ -85,7 +104,8 @@ def _init_ssm(gen, cfg: ModelConfig, dtype, device) -> dict:
     }
 
 
-_INIT = {"attn_ffn": _init_attn_ffn, "ssm": _init_ssm}
+_INIT = {"attn_ffn": _init_attn_ffn, "attn_moe": _init_attn_moe,
+         "ssm": _init_ssm}
 
 
 def init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:

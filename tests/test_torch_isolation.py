@@ -74,9 +74,11 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
 def test_static_entry_point_refuses_a_missing_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from repro_torch.launch import serve
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        serve.main(["--arch", "mamba2-1.3b", "--smoke", "--static"])
-    # asked for explicitly, the CPU path runs
-    out = serve.serve_static(smoke(get_config("mamba2-1.3b")), 2, 5, 2,
-                             device="cpu")
-    assert tuple(out["tokens"].shape) == (2, 2)
+    for arch, sites in (("mamba2-1.3b", "ssm.*"), ("mixtral-8x7b", "moe.*")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--arch", arch, "--smoke", "--static", "--tdvmm",
+                        sites, "--calibrate"])
+        # asked for explicitly, the CPU path runs
+        out = serve.serve_static(smoke(get_config(arch)), 2, 5, 2,
+                                 device="cpu")
+        assert tuple(out["tokens"].shape) == (2, 2)

@@ -1,6 +1,8 @@
 """Model entry points of the port against the JAX package's, with the same
 converted weights: logits within float tolerance with TD-VMM off, equal
-greedy streams with ``ffn.*`` TD-VMM on (the reference's windows pinned)."""
+greedy streams with ``ffn.*`` TD-VMM on (the reference's windows pinned);
+the smoke mixtral through the static path under both MoE plans."""
+import dataclasses
 import functools
 
 import jax
@@ -21,6 +23,7 @@ from repro_torch.configs import smoke as tsmoke
 from repro_torch.configs import tdvmm_rule as trule
 from repro_torch.core.calibration import CalibrationState
 from repro_torch.models import model as tmodel
+from repro_torch.models import transformer as ttransformer
 
 # Logit agreement with TD-VMM on, relative to max|logit|.  Measured on six
 # seeds at smoke width: at most 4.8e-7 with ffn.* on, unchained or chained,
@@ -184,3 +187,85 @@ def _flatten(tree, prefix=""):
             yield from _flatten(v, f"{prefix}{i}/")
     else:
         yield prefix.rstrip("/"), tree
+
+
+# ---------------------------------------------------------------------------
+# The MoE family through the static path (smoke mixtral: 4 experts top-2,
+# sliding window 8)
+# ---------------------------------------------------------------------------
+MOE_PLANS = {
+    "moe_unchained": (("moe.*", {"enabled": True}),),
+    "moe_mixed": (("moe.*", {"enabled": True}),
+                  ("moe.expert.in", {"bits": 8, "weight_bits": 4}),
+                  ("moe.expert.out", {"bits": 3, "weight_bits": 3})),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_setup(plan: str, first_k_dense: int):
+    jc = jsmoke(jget("mixtral-8x7b"))
+    tc = tsmoke(tget("mixtral-8x7b"))
+    jc = jc.replace(moe=dataclasses.replace(jc.moe,
+                                            first_k_dense=first_k_dense))
+    tc = tc.replace(moe=dataclasses.replace(tc.moe,
+                                            first_k_dense=first_k_dense))
+    rules = MOE_PLANS[plan]
+    jc = jc.replace(tdvmm_plan=JPlan(tuple(
+        jrule(p, backend="jnp", **kw) if "enabled" in kw else jrule(p, **kw)
+        for p, kw in rules)))
+    tc = tc.replace(tdvmm_plan=TPlan(tuple(trule(p, **kw) for p, kw in rules)))
+    jparams = jmodel.init_params(jax.random.PRNGKey(0), jc)
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams), tc,
+                                        "cpu")
+    return jc, tc, jparams, tparams
+
+
+@pytest.mark.parametrize("first_k_dense", [0, 1])
+@pytest.mark.parametrize("plan", sorted(MOE_PLANS))
+def test_moe_static_path_matches_reference(plan, first_k_dense):
+    """Calibration windows bitwise; a 13-token prompt (longer than the
+    window of 8: the ring cache rolls) then greedy decode past the window,
+    logits within TDVMM_LOGIT_RTOL (measured <= 8.0e-7 over the four cases)
+    and equal tokens, batch of 2; and ``serve_static`` gives the same
+    streams."""
+    from repro_torch.launch import serve
+    jc, tc, jparams, tparams = _moe_setup(plan, first_k_dense)
+    assert [kind for kind, _ in ttransformer.segments(tc)] == \
+        (["attn_ffn"] if first_k_dense else []) + ["attn_moe"]
+    prompts = np.random.default_rng(11 + first_k_dense).integers(
+        0, jc.vocab_size, (2, 13))
+    jcal = jmodel.calibrate(jparams, {"inputs": jnp.asarray(prompts)}, jc)
+    tcal = tmodel.calibrate(tparams, {"inputs": torch.from_numpy(prompts)},
+                            tc, device="cpu")
+    assert tcal.sites() == jcal.sites() == ("moe.expert.in", "moe.expert.out")
+    for site in jcal.sites():
+        assert tcal.windows[site].shape == (tc.moe.n_experts,)
+        np.testing.assert_array_equal(tcal.windows[site].numpy(),
+                                      np.asarray(jcal.windows[site]))
+    n_new = 6
+    jcache = jmodel.init_caches(jc, 2, 13 + n_new)
+    tcache = tmodel.init_caches(tc, 2, 13 + n_new, "cpu")
+    lj, jcache = jmodel.prefill_step(jparams, {"inputs": jnp.asarray(prompts)},
+                                     jcache, jc, calib=jcal)
+    lt, tcache = tmodel.prefill_step(tparams,
+                                     {"inputs": torch.from_numpy(prompts)},
+                                     tcache, tc, calib=tcal)
+    worst, toks = _rel(lt.numpy(), lj), []
+    for _ in range(n_new - 1):
+        tok_j = np.argmax(np.asarray(lj)[:, -1, :jc.vocab_size], -1)
+        tok_t = torch.argmax(lt[:, -1, :tc.vocab_size], -1).numpy()
+        np.testing.assert_array_equal(tok_t, tok_j)
+        toks.append(tok_j)
+        lj, jcache = jmodel.decode_step(
+            jparams, {"inputs": jnp.asarray(tok_j[:, None])}, jcache, jc,
+            calib=jcal)
+        lt, tcache = tmodel.decode_step(
+            tparams, {"inputs": torch.from_numpy(tok_t[:, None])}, tcache, tc,
+            calib=tcal)
+        worst = max(worst, _rel(lt.numpy(), lj))
+    toks.append(np.argmax(np.asarray(lj)[:, -1, :jc.vocab_size], -1))
+    assert worst <= TDVMM_LOGIT_RTOL
+    out = serve.serve_static(tc, 2, 13, n_new, calib=tcal, device="cpu",
+                             params=tparams, prompts=torch.from_numpy(prompts))
+    assert out["nan_steps"] == 0
+    np.testing.assert_array_equal(out["tokens"].numpy(), np.stack(toks, 1))

@@ -1,5 +1,7 @@
 """Code stages (encode_input / program_weights) of the port are bitwise the
-JAX package's: same codes, same scales, for every width and tie case."""
+JAX package's: same codes, same scales, for every width and tie case, in
+int8 and (p = 8) float32 storage; int4 packing and the value-domain
+readout likewise."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -91,7 +93,65 @@ def test_bf16_input_and_empty_batch():
 
 
 def test_wide_codes_raise_until_ported():
-    with pytest.raises(NotImplementedError, match="float32 storage"):
-        tquant.encode_input(torch.ones(2, 3), 8)
+    """p = 8 codes (once refused) take float32 storage, bitwise."""
+    qt = tquant.encode_input(torch.ones(2, 3), 8)
+    qj = _encode_j(jnp.ones((2, 3)), 8)
+    assert qt.codes.dtype == torch.float32
+    _eq(qt.codes, qj.codes)
+    _eq(qt.scale, qj.scale)
     assert tquant.storage_dtype(7) == torch.int8
     assert tquant.storage_dtype(8) == torch.float32
+
+
+@pytest.mark.parametrize("width", [1, 3, 63, 130])
+def test_encode_input_p8_float32_codes_bitwise(width):
+    for x in _inputs(width, 8):
+        qt = tquant.encode_input(torch.from_numpy(x), 8)
+        qj = _encode_j(jnp.asarray(x), 8)
+        assert qt.codes.dtype == torch.float32
+        _eq(qt.codes, qj.codes)
+        _eq(qt.scale, qj.scale)
+        # integer-valued codes on the 8-bit grid
+        assert torch.equal(qt.codes, torch.round(qt.codes))
+        assert float(qt.codes.abs().max()) <= 255
+
+
+@pytest.mark.parametrize("per_channel", [True, False])
+def test_program_weights_p8_bitwise(per_channel):
+    rng = np.random.default_rng(8)
+    w = rng.standard_normal((3, 17, 40)).astype(np.float32) * 0.05
+    qt = tquant.program_weights(torch.from_numpy(w), 8, per_channel)
+    qj = _program_j(jnp.asarray(w), 8, per_channel)
+    _eq(qt.codes, qj.codes)
+    _eq(qt.scale, qj.scale)
+
+
+@pytest.mark.parametrize("shape,axis", [((5, 7), -1), ((5, 8), -1),
+                                        ((3, 9, 4), -2), ((2, 9), 0),
+                                        ((4, 1), -1)])
+def test_pack_int4_unpack_int4_bitwise(shape, axis):
+    """Byte kp holds code 2kp low and 2kp+1 high; odd K is zero-padded."""
+    c = np.random.default_rng(len(shape)).integers(-7, 8, shape).astype(
+        np.int8)
+    pt = tquant.pack_int4(torch.from_numpy(c), axis)
+    pj = jquant.pack_int4(jnp.asarray(c), axis)
+    _eq(pt, pj)
+    assert pt.dtype == torch.int8
+    assert pt.shape[axis] == (shape[axis] + 1) // 2
+    ut = tquant.unpack_int4(pt, shape[axis], axis)
+    _eq(ut, jquant.unpack_int4(pj, shape[axis], axis))
+    np.testing.assert_array_equal(ut.numpy(), c)
+    # the byte layout: 1 low, -2 high -> 0xE1; -7 low, 7 high -> 0x79
+    pair = tquant.pack_int4(torch.tensor([[1, -2, -7, 7]], dtype=torch.int8),
+                            -1)
+    assert pair.view(torch.uint8).tolist() == [[0xE1, 0x79]]
+
+
+@pytest.mark.parametrize("scale", [None, 0.7])
+@pytest.mark.parametrize("bits", [3, 6, 8])
+def test_readout_bitwise(bits, scale):
+    x = np.random.default_rng(bits).standard_normal((6, 33)).astype(
+        np.float32)
+    yt = tquant.readout(torch.from_numpy(x), bits, scale)
+    yj = jquant.readout(jnp.asarray(x), bits, scale)
+    _eq(yt, yj)

@@ -1,7 +1,7 @@
 """TD-VMM integrate + readout: the port's ops (plain path of kernels B1/B2 on
 the CPU) are bitwise the JAX package's ``backend="jnp"`` for every readout
-mode, batched E, shared-x and ragged shapes; the port's oracle is bitwise
-the JAX oracle."""
+mode, batched E, shared-x and ragged shapes, in int8, float32 and int4-pair
+code storage; the port's oracle is bitwise the JAX oracle."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -159,8 +159,18 @@ def test_empty_and_unported_modes():
                           torch.ones((8, 5), dtype=torch.int8),
                           torch.ones(0), torch.ones(5), out_bits=6)
     assert tuple(z.shape) == (0, 5)
-    with pytest.raises(NotImplementedError):
-        tk.tdvmm_fused(torch.zeros((1, 2, 4)), torch.zeros((1, 4, 3)),
+    # float32 codes (once refused) run, bitwise the reference's f32 path
+    xf = np.arange(-4, 4, dtype=np.float32).reshape(1, 2, 4)
+    wf = np.arange(12, dtype=np.float32).reshape(1, 4, 3) - 5
+    y = tk.tdvmm_fused(torch.from_numpy(xf), torch.from_numpy(wf),
+                       torch.ones(1, 2), torch.ones(1, 3))
+    yj = jops.tdvmm_matmul(jnp.asarray(xf), jnp.asarray(wf), jnp.ones((1, 2)),
+                           jnp.ones((1, 3)), backend="jnp", code_dtype="f32")
+    np.testing.assert_array_equal(y.numpy(), np.asarray(yj))
+    # mixed storages are refused
+    with pytest.raises(ValueError, match="int8 or float32"):
+        tk.tdvmm_fused(torch.zeros((1, 2, 4)),
+                       torch.zeros((1, 4, 3), dtype=torch.int8),
                        torch.ones(1, 2), torch.ones(1, 3))
     # a ragged launch runs, and its member spans must tile the bank
     xq, wq, xs, ws = _operands(None, None, 2, 4, 3)
@@ -268,3 +278,109 @@ def test_ragged_argument_checks(bad):
         match = "member windows"
     with pytest.raises(ValueError, match=match):
         tops.tdvmm_matmul(*args, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Float32 codes (p = 8) and int4 pairs (p <= 3)
+# ---------------------------------------------------------------------------
+# code ranges: 8-bit inputs x 4-bit weights (f32 codes), 3 x 3 bits (int4)
+WIDE = {"f32": (255, 15), "int4": (7, 7)}
+
+
+def _wide_operands(code_dtype, ex, e, m, k, n, seed=0):
+    rng = np.random.default_rng(seed)
+    lx, lw = WIDE[code_dtype]
+    dtype = np.float32 if code_dtype == "f32" else np.int8
+    lead_x = () if ex is None else (ex,)
+    lead_w = () if e is None else (e,)
+    xq = rng.integers(-lx, lx + 1, lead_x + (m, k)).astype(dtype)
+    wq = rng.integers(-lw, lw + 1, lead_w + (k, n)).astype(dtype)
+    xs = rng.uniform(0.5, 2.0, lead_x + (m,)).astype(np.float32)
+    ws = rng.uniform(0.5, 2.0, lead_w + (n,)).astype(np.float32)
+    return xq, wq, xs, ws, 1.0 / (lx * lw * 2.0 * k)
+
+
+# name: (x batch, w batch, M, K, N); odd K exercises the int4 pad nibble
+WIDE_SHAPES = {"2d": (None, None, 3, 131, 200),
+               "expert_grid": (4, 4, 5, 131, 70),
+               "shared_x": (1, 3, 6, 64, 96)}
+
+
+@pytest.mark.parametrize("readout", ["none", "fixed", "tuple", "runtime",
+                                     "data"])
+@pytest.mark.parametrize("shape", sorted(WIDE_SHAPES))
+@pytest.mark.parametrize("code_dtype", ["f32", "int4"])
+def test_tdvmm_matmul_wide_codes_bitwise(code_dtype, shape, readout):
+    """Every route (jnp; the cuda route's plain versions of B1 fused, B2,
+    and B1 raw + epilogue, int4 through pack_int4) against the JAX
+    package's jnp path with the same ``code_dtype``.  A 2-D launch's
+    "tuple" window is its one-entry (E,) form."""
+    ex, e, m, k, n = WIDE_SHAPES[shape]
+    xq, wq, xs, ws, gain = _wide_operands(code_dtype, ex, e, m, k, n)
+    if ex == 1:                                  # shared-x: a 2-D x
+        xq, xs = xq[0], xs[0]
+    kw = {"gain": gain, "code_dtype": code_dtype}
+    zmax = _zmax(xq.astype(np.int64), wq.astype(np.int64), gain)
+    if readout != "none":
+        kw["out_bits"] = 6
+    if readout == "fixed":
+        kw["out_scale"] = float(np.float32(0.7 * np.max(zmax)))
+    elif readout == "tuple":
+        kw["out_scale"] = tuple(float(v) for v in 0.6 * np.reshape(zmax, -1))
+    elif readout == "runtime":
+        kw["out_window"] = (0.8 * zmax).astype(np.float32)
+    outs, yj = _both(xq, wq, xs, ws, **kw)
+    for (backend, fused), y in outs.items():
+        assert y.shape == yj.shape
+        np.testing.assert_array_equal(
+            y, yj, err_msg=f"{shape}: backend={backend} fused={fused}")
+
+
+@pytest.mark.parametrize("code_dtype", ["f32", "int4"])
+def test_codes_matmul_wide_codes_bitwise(code_dtype):
+    xq, wq, _, _, _ = _wide_operands(code_dtype, 2, 2, 5, 33, 70, seed=3)
+    yj = np.asarray(jops.codes_matmul(jnp.asarray(xq), jnp.asarray(wq), "jnp",
+                                      code_dtype=code_dtype))
+    for backend in ("jnp", "auto"):
+        yt = tops.codes_matmul(torch.from_numpy(xq), torch.from_numpy(wq),
+                               backend, code_dtype=code_dtype)
+        assert yt.dtype == torch.float32
+        np.testing.assert_array_equal(yt.numpy(), yj)
+
+
+@pytest.mark.parametrize("code_dtype", ["f32", "int4"])
+def test_b1_b2_plain_wide_codes_are_exact(code_dtype):
+    """The wrappers' plain versions in the wide storages (what B1/B2 are
+    held to on the card) against the exact integer accumulation: raw, fused
+    with (E,) windows, and B2 with one slot per expert."""
+    from repro_torch.core import quant
+    xq, wq, xs, ws, gain = _wide_operands(code_dtype, 3, 3, 7, 131, 130,
+                                          seed=4)
+    exact = torch.from_numpy(np.matmul(xq.astype(np.int64),
+                                       wq.astype(np.int64)).astype(np.int32))
+    if code_dtype == "f32":
+        xc, wc, i4 = torch.from_numpy(xq), torch.from_numpy(wq), None
+    else:
+        xc = quant.pack_int4(torch.from_numpy(xq), -1)
+        wc = quant.pack_int4(torch.from_numpy(wq), -2)
+        i4 = 131
+    xs_t, ws_t = torch.from_numpy(xs), torch.from_numpy(ws)
+    raw = tk.tdvmm_matmul_raw(xc, wc, i4)
+    assert raw.dtype == (torch.float32 if code_dtype == "f32"
+                         else torch.int32)
+    np.testing.assert_array_equal(raw.numpy(), exact.numpy())
+    win = torch.from_numpy((0.7 * _zmax(xq.astype(np.int64),
+                                        wq.astype(np.int64), gain)
+                            ).astype(np.float32))
+    np.testing.assert_array_equal(
+        tk.tdvmm_fused(xc, wc, xs_t, ws_t, gain, 6, win, i4).numpy(),
+        tk.epilogue_plain(exact, xs_t, ws_t, gain, 6,
+                          win.reshape(-1, 1, 1)).numpy())
+    slots, nslots = tops._calib_slots(3, 130, tk.TILE_N, None)
+    np.testing.assert_array_equal(
+        tk.tdvmm_calibrated(xc, wc, xs_t, ws_t, slots, nslots, tk.TILE_N,
+                            gain, 6, i4).numpy(),
+        tops._epilogue(exact, xs_t, ws_t, gain, 6, None).numpy())
+    with pytest.raises(ValueError, match="int4_k"):
+        tk.tdvmm_matmul_raw(torch.from_numpy(xq).to(torch.int8),
+                            torch.from_numpy(wq).to(torch.int8), 131)
