@@ -10,14 +10,20 @@ Phases, each of which stops the script with a non-zero exit on failure:
 2. build: kernels B1 (``csrc/tdvmm.cu``), B2 (``csrc/tdvmm_calib.cu``), B3
    (``kernels/ssd/csrc/ssd.cu``) and B4 (``kernels/crossing/csrc/
    crossing.cu``) with ``nvcc`` from the checkout's sources, one process per
-   source, all started together;
+   source, all started together; one line per B1/B2 kernel instantiation
+   with its registers, shared memory and spills (``-Xptxas -v``) and the
+   tensor-core instructions of its SASS (``cuobjdump``), failing if a K
+   loop has no IMMA/HMMA or keeps an IDP4A;
 3. kernels: every mode of B1 (raw, fused without readout, scalar window,
    (E,) window, shared-x, per-column member windows of a ragged launch) and
    B2 (one slot, E slots, member slots) against its plain torch version on
    the card at the serving paths' shapes, bitwise (``max_abs_err == 0``),
    in each code storage: int8, float32 codes and int4-packed pairs, the
    MoE expert grid at mixtral-8x7b's prefill (E 8, M 2049) and decode (M 5)
-   shapes;
+   shapes, the edges of the two CTA tiles (``tile_edge_cases``: M 1, 16,
+   17, 129, 256, 257, ragged and unaligned operands) and of the float32
+   codes' exact envelope (|acc| 15,667,200 and 16,776,450); float32 rows also time a
+   TF32 ``bmm`` yardstick beside the full-float32 one;
    B3 against ``ssd_plain`` at full width in bfloat16 and float32 and on a
    small grouped case with a ragged length, within SSD_RTOL; B4 against
    ``crossing_plain`` at the physics path's three launches, within
@@ -75,6 +81,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 H100_HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 H100_INT8_OPS_PER_S = 1979e12       # dense int8 tensor-core rate
 H100_TF32_FLOPS_PER_S = 495e12      # dense TF32 tensor-core rate
+H100_BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core rate
 
 ARCH = "qwen1.5-0.5b"
 CHUNK, SLOTS, PAGE, NUM_PAGES = 64, 4, 16, 64
@@ -209,6 +216,96 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2: what the compiler made of B1 and B2
+# ---------------------------------------------------------------------------
+def _demangle(names: list[str]) -> list[str]:
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60,
+                             check=True).stdout.splitlines()
+        return out if len(out) == len(names) else names
+    except (OSError, subprocess.SubprocessError):
+        return names
+
+
+def tdvmm_build_report() -> None:
+    """One line per B1/B2 kernel instantiation: registers, static and
+    dynamic shared memory and spills (``-Xptxas -v``; the dynamic bytes from
+    the library), and the tensor-core instructions in its SASS
+    (``cuobjdump -sass``, from the toolkit of the ``nvcc`` that built it).
+    Fails if the SASS cannot be read, or if a B1/B2 K loop has no IMMA/HMMA
+    or still has IDP4A."""
+    import re
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.tdvmm import tdvmm as tk
+
+    smem = _build.load(tk.LIBRARIES["b1"]).tdvmm_smem_bytes
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    require(cuobjdump.exists(), f"{cuobjdump} not found: B1/B2's SASS "
+            "cannot be read")
+    for key, lib in tk.LIBRARIES.items():
+        log = _build.LOGS.get(lib.name, "")
+        entries: dict[str, dict] = {}
+        name = None
+        for line in log.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(_Z\w+)'?", line)
+            if m:
+                name = m.group(1)
+                entries.setdefault(name, {})
+                continue
+            if name is None:
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                entries[name]["regs"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                entries[name]["smem"] = int(sm.group(1)) if sm else 0
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                entries[name]["spill"] = int(m.group(1)) + int(m.group(2))
+        sass: dict[str, dict[str, int]] = {}
+        dump = subprocess.run(
+            [str(cuobjdump), "-sass", str(lib.path())],
+            capture_output=True, text=True, timeout=300).stdout
+        fn = None
+        for line in dump.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                sass[fn] = {"IMMA": 0, "HMMA": 0, "IDP4A": 0}
+                continue
+            if fn is not None:
+                for op in sass[fn]:
+                    if re.search(rf"\b{op}\b", line):
+                        sass[fn][op] += 1
+        require(any(("b1_kernel" in f or "b2_integrate" in f) for f in sass),
+                f"{key}: no B1/B2 kernel in the SASS of {lib.path().name}")
+        names = sorted(set(entries) | set(sass))
+        for mangled, pretty in zip(names, _demangle(names)):
+            pretty = pretty.split("(")[0]
+            info = entries.get(mangled, {})
+            ops_ = sass.get(mangled)
+            dyn = ""
+            m = re.search(r"<(\d+), (\d+)(?:, (\d+))?>", pretty)
+            if m and "b1_kernel" in pretty:
+                dyn = f" dynamic_smem={smem(int(m.group(3)), int(m.group(2)))}"
+            elif m and "b2_integrate" in pretty:
+                dyn = f" dynamic_smem={smem(int(m.group(2)), int(m.group(1)))}"
+            say("ptxas", f"{key} {pretty}: registers={info.get('regs')} "
+                f"static_smem={info.get('smem')}{dyn} "
+                f"spill_bytes={info.get('spill')}"
+                + ("" if ops_ is None else
+                   f" sass IMMA={ops_['IMMA']} HMMA={ops_['HMMA']} "
+                   f"IDP4A={ops_['IDP4A']}"))
+            if "b1_kernel" in pretty or "b2_integrate" in pretty:
+                require(ops_ is not None, f"{pretty}: not in the SASS")
+                require(ops_["IMMA"] + ops_["HMMA"] > 0 and ops_["IDP4A"] == 0,
+                        f"{pretty}: the K loop is not on the tensor cores")
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def device_profile(fn) -> tuple[float, dict[str, float], int]:
@@ -333,6 +430,52 @@ def kernel_cases() -> list[dict]:
                            mode="expert_slots"),
                       dict(small, kernel="tdvmm_fused",
                            mode="shared_x_window", ex=1)]
+    return cases + tile_edge_cases()
+
+
+def tile_edge_cases() -> list[dict]:
+    """B1/B2 at the edges of the two CTA tiles (``tdvmm.plan_tile``: 16
+    rows up to M 256, 128 rows above) and of the float32 codes' exact
+    envelope:
+
+    - M = 1, 16, 17, 129, 256, 257 at qwen's ffn.in shape (int8, scalar
+      window);
+    - ragged tiles in every storage: odd K 131 and N 70 at 33 rows (the
+      16-row tile) and 300 rows (the 128-row tile, shared-x too), int4
+      with odd K 1001 at the 128-row tile, and operands at an unaligned
+      base (element offset 1, so no 16-byte copies) at both tiles;
+    - float32 codes at the largest |acc| the layer accepts without a
+      warning: x = +255 and w = +15 everywhere at K 4096 (|acc| =
+      15,667,200, moe_mixed's worst case) and K 4386 (16,776,450, 766
+      below 2^24), and the same with x's sign alternating by row; B1 raw
+      at the 128-row tile, B1 fused and B2 at the 16-row one."""
+    k, n = FFN_SHAPES[0]
+    cases = [dict(kernel="tdvmm_fused", mode="scalar_window", e=1, ex=1, m=m,
+                  k=k, n=n) for m in (1, 16, 17, 129, 256, 257)]
+    for codes in ("int8", "f32", "int4"):
+        for m in (33, 300):
+            rag = dict(codes=codes, e=3, ex=3, m=m, k=131, n=70)
+            cases += [dict(rag, kernel="tdvmm_matmul_raw", mode="raw"),
+                      dict(rag, kernel="tdvmm_fused", mode="expert_windows"),
+                      dict(rag, kernel="tdvmm_calibrated",
+                           mode="expert_slots")]
+        cases += [dict(codes=codes, e=3, ex=1, m=300, k=131, n=200,
+                       kernel="tdvmm_fused", mode="shared_x_window"),
+                  *(dict(codes=codes, e=2, ex=2, m=m, k=256, n=128,
+                         kernel="tdvmm_fused", mode="expert_windows",
+                         unaligned=True) for m in (129, 300))]
+    odd4 = dict(codes="int4", e=2, ex=2, m=300, k=1001, n=256)
+    cases += [dict(odd4, kernel="tdvmm_matmul_raw", mode="raw"),
+              dict(odd4, kernel="tdvmm_calibrated", mode="expert_slots")]
+    for k in (4096, 4386):
+        for fill in ("max", "alt_rows"):
+            edge = dict(codes="f32", e=2, ex=2, k=k, n=192, fill=fill)
+            cases += [dict(edge, kernel="tdvmm_matmul_raw", mode="raw",
+                           m=300),
+                      dict(edge, kernel="tdvmm_fused", mode="expert_windows",
+                           m=5),
+                      dict(edge, kernel="tdvmm_calibrated",
+                           mode="expert_slots", m=129)]
     return cases
 
 
@@ -340,8 +483,8 @@ def bound(case: dict) -> tuple[float, str]:
     """Least time for the work: each input read once (int4 codes as packed
     pairs, f32 codes as 4 bytes), each output written once, against the
     operations at the int8 tensor-core rate for integer codes (the data
-    sheet gives no int4 rate for this card) and the TF32 rate for f32 codes
-    (integer codes up to 255 are exact in TF32)."""
+    sheet gives no int4 rate for this card) and the bf16 rate for f32 codes
+    (B1/B2 run them as bf16 MMAs, exact for integer codes up to 256)."""
     e, ex, m, k, n = (case[f] for f in ("e", "ex", "m", "k", "n"))
     codes = case.get("codes", "int8")
     kb = (k + 1) // 2 if codes == "int4" else k            # bytes per row
@@ -354,7 +497,7 @@ def bound(case: dict) -> tuple[float, str]:
     elif "window" in case["mode"]:
         nbytes += 4 * e
     t_bytes = nbytes / H100_HBM_BYTES_PER_S
-    t_ops = 2.0 * e * m * k * n / (H100_TF32_FLOPS_PER_S if codes == "f32"
+    t_ops = 2.0 * e * m * k * n / (H100_BF16_FLOPS_PER_S if codes == "f32"
                                    else H100_INT8_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -375,6 +518,12 @@ def run_case(case: dict, dev, seed: int) -> dict:
                       dtype=dtype)
     w = torch.randint(-lim_w, lim_w + 1, (e, k, n), generator=g, device=dev,
                       dtype=dtype)
+    if case.get("fill"):
+        # every product at +lim_x * lim_w: |acc| = lim_x lim_w K
+        x.fill_(lim_x)
+        w.fill_(lim_w)
+        if case["fill"] == "alt_rows":
+            x[:, 1::2] = -lim_x
     xs = torch.rand((ex, m), generator=g, device=dev) + 0.5
     ws = torch.rand((e, n), generator=g, device=dev) + 0.5
     gain = 1.0 / (float(lim_x) * float(lim_w) * 2.0 * k)
@@ -384,6 +533,12 @@ def run_case(case: dict, dev, seed: int) -> dict:
         xk = quant.pack_int4(x, axis=-1).contiguous()
         wk = quant.pack_int4(w, axis=-2).contiguous()
         i4 = k
+    if case.get("unaligned"):
+        # the same codes one element past an aligned base: contiguous, but
+        # not 16-byte aligned, so the kernels stage them element by element
+        xk, wk = (torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:]
+                  .view(t.shape).copy_(t) for t in (xk, wk))
+    max_code = max(lim_x, lim_w)
     mode = case["mode"]
     window, widths, members = None, None, None
     if n == sum(SSM_WIDTHS):
@@ -400,11 +555,11 @@ def run_case(case: dict, dev, seed: int) -> dict:
         del z
     bits = None if mode in ("raw", "no_readout") else 6
     if case["kernel"] == "tdvmm_matmul_raw":
-        kern = lambda: tk.tdvmm_matmul_raw(xk, wk, i4)            # noqa: E731
+        kern = lambda: tk.tdvmm_matmul_raw(xk, wk, i4, max_code)  # noqa: E731
         plain = lambda: tk.tdvmm_raw_plain(xk, wk, i4)            # noqa: E731
     elif case["kernel"] == "tdvmm_fused":
         kern = lambda: tk.tdvmm_fused(xk, wk, xs, ws, gain, bits,  # noqa: E731
-                                      window, i4)
+                                      window, i4, max_code)
         plain = lambda: tk.tdvmm_fused_plain(xk, wk, xs, ws, gain,  # noqa: E731
                                              bits, window, i4)
     else:
@@ -412,7 +567,7 @@ def run_case(case: dict, dev, seed: int) -> dict:
         slots = slots.contiguous().to(dev)
         bw = min(tk.TILE_N, n)
         kern = lambda: tk.tdvmm_calibrated(xk, wk, xs, ws, slots,  # noqa: E731
-                                           nslots, bw, gain, 6, i4)
+                                           nslots, bw, gain, 6, i4, max_code)
         plain = lambda: tk.tdvmm_calibrated_plain(              # noqa: E731
             xk, wk, xs, ws, slots, nslots, bw, gain, 6, i4)
     yk, yp = kern(), plain()
@@ -430,12 +585,23 @@ def run_case(case: dict, dev, seed: int) -> dict:
     # (it takes M > 16 only: fewer rows are zero-padded to 32 and sliced
     # back), or torch.bmm in float32 for f32 codes; plus the torch epilogue
     library, padded = None, codes != "f32" and m <= 16
+    library_tf32 = None
     if codes == "f32" or (k % 8 == 0 and n % 8 == 0):
         if codes == "f32":
             xb = x.expand(e, m, k)
 
             def lib_acc():
                 return torch.bmm(xb, w)
+
+            def lib_acc_tf32():
+                # the second yardstick: TF32 tensor cores, exact for integer
+                # codes up to 2048 inside the 2^24 envelope; allowed here
+                # only, and never called by the port
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    return torch.bmm(xb, w)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
         else:
             x2 = x
             if padded:
@@ -446,17 +612,24 @@ def run_case(case: dict, dev, seed: int) -> dict:
                 return torch.stack([torch._int_mm(x2[min(i, ex - 1)], w[i])
                                     for i in range(e)])[:, :m]
         lib_win = None if mode == "member_windows" else window
-        if case["kernel"] == "tdvmm_matmul_raw":
-            library = lib_acc
-        else:
-            library = lambda: ops._epilogue(                      # noqa: E731
-                lib_acc(), xs, ws, gain, bits, members, out_window=lib_win,
+
+        def with_epilogue(acc_fn):
+            if case["kernel"] == "tdvmm_matmul_raw":
+                return acc_fn
+            return lambda: ops._epilogue(                         # noqa: E731
+                acc_fn(), xs, ws, gain, bits, members, out_window=lib_win,
                 group_widths=widths)
-        ylib, yp = library(), plain()
-        torch.cuda.synchronize()
-        require(bool(torch.equal(ylib, yp)),
-                f"{case}: the library yardstick computes another function")
-        del ylib, yp
+        library = with_epilogue(lib_acc)
+        if codes == "f32":
+            library_tf32 = with_epilogue(lib_acc_tf32)
+        for fn in (library, library_tf32):
+            if fn is None:
+                continue
+            ylib, yp = fn(), plain()
+            torch.cuda.synchronize()
+            require(bool(torch.equal(ylib, yp)),
+                    f"{case}: the library yardstick computes another function")
+            del ylib, yp
     bound_ms, bound_by = bound(case)
     big = e * m * k * n > 1e11
     row = dict(case, codes=codes, max_abs_err=err,
@@ -465,7 +638,10 @@ def run_case(case: dict, dev, seed: int) -> dict:
                bound_by=bound_by,
                library_ms=None if library is None
                else time_ms(library, 3 if big else 10),
-               library_padded=library is not None and padded)
+               library_tf32_ms=None if library_tf32 is None
+               else time_ms(library_tf32, 3 if big else 10),
+               library_padded=library is not None and padded,
+               tile=tk.plan_tile(m).name)
     row.pop("rep", None)
     return row
 
@@ -1240,6 +1416,7 @@ def main() -> int:
     build_s = kernels.build_all(verbose=True)
     say("build", f"B1 + B2 (int8, int4 and f32 codes) + B3 + B4 built in "
         f"{build_s:.1f} s")
+    tdvmm_build_report()
 
     rows = []
     for i, case in enumerate(kernel_cases()):
@@ -1253,7 +1430,12 @@ def main() -> int:
             f"plain_ms={row['plain_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
             f"({row['bound_by']}) library_ms="
             f"{'n/a' if lib is None else format(lib, '.5f')}"
-            f"{' (rows padded to 32)' if row['library_padded'] else ''}")
+            f"{' (rows padded to 32)' if row['library_padded'] else ''}"
+            + ("" if row["library_tf32_ms"] is None else
+               f" library_tf32_ms={row['library_tf32_ms']:.5f}")
+            + f" tile={row['tile']}"
+            + (f" fill={row['fill']}" if row.get("fill") else "")
+            + (" unaligned" if row.get("unaligned") else ""))
     for i, case in enumerate(ssd_cases()):
         row = run_ssd_case(case, dev, seed=100 + i)
         rows.append((case, row))
@@ -1391,6 +1573,8 @@ def main() -> int:
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"],
+            **({"library_tf32_ms": rep["library_tf32_ms"]}
+               if rep.get("library_tf32_ms") is not None else {}),
             "shape": {k: rep[k] for k in SHAPE_KEYS.get(
                 name, ("codes", "mode", "e", "m", "k", "n"))}})
     say("done", "all phases passed")

@@ -141,7 +141,7 @@ def _latch_gain(levels_x: int, levels_w: int, k: int) -> float:
 
 def _record_window(cfg: TDVMMLayerConfig, x_codes: torch.Tensor,
                    w_codes: torch.Tensor, backend: str, code_dtype: str,
-                   gain: float, per_tile: bool = False,
+                   gain: float, max_code: int, per_tile: bool = False,
                    group_widths: Optional[tuple[int, ...]] = None) -> None:
     """Calibration capture: when a ``core.calibration`` collector is active
     and the site has a digital readout boundary, record its latch-normalized
@@ -155,7 +155,8 @@ def _record_window(cfg: TDVMMLayerConfig, x_codes: torch.Tensor,
     if not calibration.active() or not cfg.io_quantize:
         return
     from repro_torch.kernels.tdvmm import ops
-    acc = ops.codes_matmul(x_codes, w_codes, backend, code_dtype=code_dtype)
+    acc = ops.codes_matmul(x_codes, w_codes, backend, code_dtype=code_dtype,
+                           max_code=max_code)
     z = torch.abs(acc * _f32(gain))
     if group_widths is not None:
         # member g owns columns [off, off + width_g); pad columns are zero
@@ -213,7 +214,9 @@ def td_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TDVMMLayerConfig,
     out_bits, out_scale = _readout_args(cfg)
     out_scale, out_window = _runtime_override(cfg, out_bits, out_scale)
     x_codes = qx.codes.reshape(plan.m, plan.k)
-    _record_window(cfg, x_codes, qw.codes, plan.backend, plan.code_dtype, gain)
+    max_code = max(qx.levels, qw.levels)
+    _record_window(cfg, x_codes, qw.codes, plan.backend, plan.code_dtype, gain,
+                   max_code)
     y = ops.tdvmm_matmul(
         x_codes,
         qw.codes,
@@ -225,6 +228,7 @@ def td_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TDVMMLayerConfig,
         backend=plan.backend,
         code_dtype=plan.code_dtype,
         out_window=out_window,
+        max_code=max_code,
     )
     return y.reshape(plan.batch_shape + (plan.n,)).to(x.dtype)
 
@@ -260,8 +264,9 @@ def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
     out_bits, out_scale = _readout_args(cfg, n_experts=e)
     out_scale, out_window = _runtime_override(cfg, out_bits, out_scale)
     # each expert is its own analog tile: calibration records (E,) windows
+    max_code = max(qx.levels, qw.levels)
     _record_window(cfg, qx.codes, qw.codes, backend, code_dtype, gain,
-                   per_tile=True)
+                   max_code, per_tile=True)
     y = ops.tdvmm_matmul(
         qx.codes,
         qw.codes,
@@ -273,6 +278,7 @@ def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
         backend=backend,
         code_dtype=code_dtype,
         out_window=out_window,
+        max_code=max_code,
     )
     return y.to(x.dtype)
 
@@ -317,8 +323,9 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
     x_codes = qx.codes.reshape(plan.m, k)
     # each member's column span is its own analog tile: calibration records
     # one (G,) vector for the site
+    max_code = max(qx.levels, qw.levels)
     _record_window(cfg, x_codes, qw.codes, plan.backend, plan.code_dtype,
-                   gain, group_widths=widths)
+                   gain, max_code, group_widths=widths)
     y = ops.tdvmm_matmul(
         x_codes,
         qw.codes,
@@ -331,6 +338,7 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
         code_dtype=plan.code_dtype,
         group_widths=widths,
         out_window=out_window,
+        max_code=max_code,
     )                                                          # (M, n_total)
     outs, off = [], 0
     for n, wd in zip(ns, widths):
@@ -356,7 +364,8 @@ def calibrate_out_scale(x: torch.Tensor, w: torch.Tensor,
     qw = quant.program_weights(w, cfg.weight_bits, cfg.per_channel)
     from repro_torch.kernels.tdvmm import ops
     acc = ops.codes_matmul(qx.codes.reshape(plan.m, plan.k), qw.codes,
-                           plan.backend, code_dtype=plan.code_dtype)
+                           plan.backend, code_dtype=plan.code_dtype,
+                           max_code=max(qx.levels, qw.levels))
     gain = _latch_gain(qx.levels, qw.levels, plan.k)
     z_max = _max0(torch.abs(acc * _f32(gain)))
     return max(float(z_max), 1e-9)

@@ -44,6 +44,8 @@ class Library:
 
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+# the compiler's output of each library built by this process, by name
+LOGS: dict[str, str] = {}
 _LOCK = threading.Lock()
 
 
@@ -78,6 +80,7 @@ def build(libs: Iterable[Library], verbose: bool = False) -> float:
     failed = []
     for lib, proc, tmp, path in procs:
         out, _ = proc.communicate()
+        LOGS[lib.name] = out
         if verbose and out:
             print(f"[nvcc {lib.source.name}]\n{out}")
         if proc.returncode != 0:

@@ -30,7 +30,10 @@ and "int4" cast the codes to int8 and accumulate exactly in int32 — on the
 cuda route int4 packs both operands two codes per byte
 (``quant.pack_int4``, as the JAX package's Pallas path does) and B1/B2
 unpack on chip; "f32" casts both operands to float32 and accumulates in
-float32 (exact for integer codes while worst |acc| < 2^24).
+float32 (exact for integer codes while worst |acc| < 2^24).  On the card
+the f32 codes run on bf16 tensor cores, so ``max_code`` (the largest |code|
+of either operand, which ``core.layers`` knows from the bit widths) must be
+given and at most 256; the kernels raise otherwise.
 """
 from __future__ import annotations
 
@@ -195,7 +198,7 @@ def _operands(x_codes, w_codes, code_dtype: str):
 
 def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
                 out_scale, out_window, backend, code_dtype,
-                fused_calibration, group_widths=None):
+                fused_calibration, group_widths=None, max_code=None):
     ex, m, k = x_codes.shape
     e, _, n = w_codes.shape
     if min(e, m, k, n) == 0:
@@ -222,7 +225,7 @@ def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
             else:
                 window = _f32(out_scale, xi.device)
         return tdvmm.tdvmm_fused(xi, wi, x_scale, w_scale, gain, out_bits,
-                                 window, int4_k)
+                                 window, int4_k, max_code)
     if fused_calibration:
         # every member span is a multiple of the 128 lane, so no 64-column
         # tile of B2 straddles two members' readout slots
@@ -230,17 +233,20 @@ def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
                                             xi.device)
         return tdvmm.tdvmm_calibrated(
             xi, wi, x_scale, w_scale, slots, nslots,
-            min(tdvmm.TILE_N, n), gain, out_bits, int4_k)
-    acc = tdvmm.tdvmm_matmul_raw(xi, wi, int4_k)
+            min(tdvmm.TILE_N, n), gain, out_bits, int4_k, max_code)
+    acc = tdvmm.tdvmm_matmul_raw(xi, wi, int4_k, max_code)
     return _epilogue(acc, x_scale, w_scale, gain, out_bits, out_scale,
                      out_window, group_widths)
 
 
 def codes_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
-                 backend: str, code_dtype: str = "auto") -> torch.Tensor:
+                 backend: str, code_dtype: str = "auto",
+                 max_code: Optional[int] = None) -> torch.Tensor:
     """Raw (.., M, K) @ (.., K, N) charge accumulation as f32 (B1 raw mode
     on the cuda route).  A 2-D x against a 3-D (G, K, N) bank runs shared-x:
-    one code matrix against G tiles, returning (G, M, N) (no squeeze)."""
+    one code matrix against G tiles, returning (G, M, N) (no squeeze).
+    ``max_code``: the largest |code| of either operand (f32 codes on the
+    card need it)."""
     squeeze = x_codes.dim() == 2 and w_codes.dim() == 2
     x3 = x_codes[None] if x_codes.dim() == 2 else x_codes
     w3 = w_codes[None] if w_codes.dim() == 2 else w_codes
@@ -250,7 +256,8 @@ def codes_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
         xi, wi, _ = _operands(x3, w3, "f32" if code_dtype == "f32" else "int8")
         acc = tdvmm.acc_plain(xi, wi)
     else:
-        acc = tdvmm.tdvmm_matmul_raw(*_operands(x3, w3, code_dtype))
+        acc = tdvmm.tdvmm_matmul_raw(*_operands(x3, w3, code_dtype),
+                                     max_code=max_code)
     acc = acc.to(torch.float32)
     return acc[0] if squeeze else acc
 
@@ -268,6 +275,7 @@ def tdvmm_matmul(
     group_widths: Optional[tuple[int, ...]] = None,
     fused_calibration: bool = True,
     out_window: Optional[torch.Tensor] = None,
+    max_code: Optional[int] = None,
 ) -> torch.Tensor:
     """Quantized four-quadrant TD-VMM: codes matmul + readout + scale epilogue.
 
@@ -281,6 +289,9 @@ def tdvmm_matmul(
     (M, K) x (K, sum N_g) launch as the column concat of G same-input
     members; readout windows (tuple ``out_scale``, ``out_window`` or data
     calibration) resolve per member column span instead of per launch.
+
+    ``max_code`` is the largest |code| of either operand; float32 codes on
+    the card need it (``tdvmm.check_code_width``).
     """
     backend = resolve_backend(backend)
     squeeze = x_codes.dim() == 2 and w_codes.dim() == 2
@@ -339,5 +350,5 @@ def tdvmm_matmul(
     w_scale = w_scale.reshape(e, n).to(torch.float32).contiguous()
     y = _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
                     out_scale, out_window, backend, code_dtype,
-                    bool(fused_calibration), group_widths)
+                    bool(fused_calibration), group_widths, max_code)
     return y[0] if squeeze else y

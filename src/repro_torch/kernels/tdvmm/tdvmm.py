@@ -2,8 +2,9 @@
 launch counters.
 
 B1 (``csrc/tdvmm.cu``) replaces the Pallas ``tdvmm._kernel``: charge
-accumulation with the K walk inside the CTA, and the fused gain -> optional
-p-bit readout -> rescale epilogue in registers.  Modes: raw accumulator out
+accumulation with the K walk inside the CTA on Hopper's tensor cores
+(``mma.sync``), and the fused gain -> optional p-bit readout -> rescale
+epilogue straight from the accumulator fragments.  Modes: raw accumulator out
 (``tdvmm_matmul_raw``), fused with or without a readout over a fixed
 per-column window (``tdvmm_fused``).  B2 (``csrc/tdvmm_calib.cu``) replaces
 ``tdvmm._calib_kernel``: the data-calibrated readout, as two launches over
@@ -11,12 +12,25 @@ one output buffer (``tdvmm_calibrated``).  Both take batched
 (E, M, K) x (E, K, N) codes (the MoE expert grid) or shared-x
 (1, M, K) x (E, K, N), in the Pallas kernel's three code storages:
 
-    int8   int8 codes, exact int32 accumulation (p <= 7);
+    int8   int8 codes, s8 x s8 -> s32 MMA, exact int32 accumulation
+           (p <= 7);
     int4   p <= 3 codes packed two per byte along K (``quant.pack_int4``;
-           pass the code depth as ``int4_k``), unpacked on chip, exact int32
-           accumulation, bitwise the int8 result;
-    f32    integer-valued float32 codes (p = 8), float32 accumulation, exact
-           while worst |acc| < 2^24 (the envelope ``core.layers`` warns on).
+           pass the code depth as ``int4_k``), streamed packed and unpacked
+           on chip into the same s8 MMA, bitwise the int8 result;
+    f32    integer-valued float32 codes (p = 8), streamed as float32 and
+           rounded to bf16 on chip for a bf16 x bf16 -> f32 MMA.  Exact
+           while every code fits bf16 (|code| <= 256: ``check_code_width``
+           raises otherwise, from the ``max_code`` the caller passes) and
+           worst |acc| < 2^24 (the envelope ``core.layers`` warns on): every
+           product and every partial sum is then an integer float32 holds.
+           So float32 codes of 9-11 bits (|code| up to 2047, exact in
+           TF32 or on CUDA cores) raise on the card; no plan uses them.
+
+Each launch takes one of two CTA tiles, chosen by M alone
+(``plan_tile``): 16 x 64 up to 256 rows, 128 x 128 beyond.  What bounds
+them on the card: device-memory bytes at decode (the weight codes); at
+thousands of rows, staging the codes through shared memory (for float32
+codes, their 4 bytes each), well below the tensor-core rate.
 
 Every wrapper follows one rule: a tensor on the CPU goes to the plain
 version beside it (same arithmetic in torch ops, exact accumulation); a
@@ -43,9 +57,53 @@ from repro_torch.kernels import _build
 
 LANE = 128
 CSRC = Path(__file__).parent / "csrc"
-# Output columns per CTA (kBN in csrc/tdvmm_tile.cuh): B2 folds each CTA's
-# max|z| into one readout slot, so a slot spans whole 64-column tiles.
+# Columns of a readout-slot block (kSlotCols in csrc/tdvmm_tile.cuh): B2
+# folds max|z| per 64-column block of its CTA tile into that block's slot,
+# so a slot spans whole 64-column blocks.
 TILE_N = 64
+# Largest |code| a bf16 operand holds exactly (8 significant bits): the
+# f32-code tensor-core path takes codes up to p = 8 (255).
+BF16_EXACT_MAX = 256
+
+
+class Tile(NamedTuple):
+    """One CTA tile of B1/B2 (``Tile<>`` in csrc/tdvmm_tile.cuh)."""
+    index: int          # the C entry points' ``tile`` argument
+    name: str
+    rows: int
+    cols: int
+
+
+TILES = (Tile(0, "small", 16, 64), Tile(1, "large", 128, 128))
+# Most rows the small tile takes (``plan_tile``).
+SMALL_TILE_MAX_ROWS = 256
+
+
+def plan_tile(m: int) -> Tile:
+    """The CTA tile for M rows, by M alone: 16 x 64 while M <= 256, 128 x
+    128 above.  Measured on an H100 (``scripts/tdvmm_tile_ab.py``): the
+    small tile's many CTAs win at decode and at qwen's 64-row chunks and
+    128-row captures, the large tile's reuse of each staged code at the
+    2048-row prefills and the MoE dispatch buffer; between 256 and 1024
+    rows the winner depends on N (no serving shape has those rows)."""
+    return TILES[0] if m <= SMALL_TILE_MAX_ROWS else TILES[1]
+
+
+def check_code_width(codes: str, max_code: Optional[int]) -> None:
+    """Raise unless the tensor cores hold every code exactly: float32 codes
+    round to bf16 on chip, exact for |code| <= ``BF16_EXACT_MAX``; int8 and
+    int4 codes are exact by their storage."""
+    if codes != "f32":
+        return
+    if max_code is None:
+        raise ValueError("float32 codes on the card need max_code (the "
+                         "largest |code|) to check that bf16 holds them")
+    if not 0 <= int(max_code) <= BF16_EXACT_MAX:
+        bits = int(max_code).bit_length()
+        raise ValueError(
+            f"float32 codes up to |{int(max_code)}| ({bits}-bit code width) "
+            f"do not fit the f32-code tensor-core path, which rounds codes "
+            f"to bf16 (exact up to |{BF16_EXACT_MAX}|, p <= 8)")
 
 # Code storages, as the kernels number them.
 CODES = {"int8": 0, "int4": 1, "f32": 2}
@@ -75,14 +133,16 @@ def padded_size(size: int, block: int, tile: int) -> int:
 def _bind_b1(lib: ctypes.CDLL) -> None:
     vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     lib.tdvmm_b1.argtypes = [vp, vp, vp, vp, vp, ll, ll, vp,
-                             i, i, i, i, i, i, i, i, i, f, f, f, vp]
+                             i, i, i, i, i, i, i, i, i, i, f, f, f, vp]
     lib.tdvmm_b1.restype = i
+    lib.tdvmm_smem_bytes.argtypes = [i, i]
+    lib.tdvmm_smem_bytes.restype = i
 
 
 def _bind_b2(lib: ctypes.CDLL) -> None:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tdvmm_b2.argtypes = [vp, vp, vp, vp, vp, i, i, vp, vp,
-                             i, i, i, i, i, i, i, i, f, f, f, vp]
+                             i, i, i, i, i, i, i, i, i, f, f, f, vp]
     lib.tdvmm_b2.restype = i
 
 
@@ -173,8 +233,15 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def _vec(t: torch.Tensor, minor: int) -> int:
-    return int(minor % 4 == 0 and t.data_ptr() % 4 == 0)
+def _vec(t: torch.Tensor, row_bytes: int) -> int:
+    """1 when the kernels may stage ``t`` by 16-byte copies: every row a
+    multiple of 16 bytes and the base 16-byte aligned."""
+    return int(row_bytes % 16 == 0 and t.data_ptr() % 16 == 0)
+
+
+def _vecs(x: torch.Tensor, w: torch.Tensor, g: "Launch") -> tuple[int, int]:
+    eb = 4 if g.codes == "f32" else 1
+    return _vec(x, eb * x.shape[-1]), _vec(w, eb * g.n)
 
 
 def _out_dtype(codes: str) -> torch.dtype:
@@ -310,12 +377,15 @@ def _window_3d(window: Optional[torch.Tensor], e: int, n: int) -> torch.Tensor:
 # Wrappers (kernel on the card, plain version on the CPU)
 # ---------------------------------------------------------------------------
 def tdvmm_matmul_raw(x: torch.Tensor, w: torch.Tensor,
-                     int4_k: Optional[int] = None) -> torch.Tensor:
+                     int4_k: Optional[int] = None,
+                     max_code: Optional[int] = None) -> torch.Tensor:
     """B1 raw mode: (E, M, N) charge accumulation, int32 for integer codes,
-    float32 for float32 codes."""
+    float32 for float32 codes.  ``max_code``: the largest |code| of either
+    operand (needed for float32 codes on the card, ``check_code_width``)."""
     if not _kernel_device(x):
         return tdvmm_raw_plain(x, w, int4_k)
     g = _check_codes(x, w, int4_k)
+    check_code_width(g.codes, max_code)
     _contig(x, w)
     out = torch.empty((g.e, g.m, g.n), dtype=_out_dtype(g.codes),
                       device=x.device)
@@ -323,8 +393,8 @@ def tdvmm_matmul_raw(x: torch.Tensor, w: torch.Tensor,
         return out
     err = _lib("b1").tdvmm_b1(
         x.data_ptr(), w.data_ptr(), None, None, None, 0, 0, out.data_ptr(),
-        g.e, g.m, g.k, g.n, int(g.shared_x), _vec(x, x.shape[-1]),
-        _vec(w, g.n), 0, CODES[g.codes], 1.0, 0.0, 0.0, _stream())
+        g.e, g.m, g.k, g.n, int(g.shared_x), *_vecs(x, w, g), 0,
+        CODES[g.codes], plan_tile(g.m).index, 1.0, 0.0, 0.0, _stream())
     _raise_on(err, "tdvmm_matmul_raw")
     _count("raw", g.codes)
     return out
@@ -334,16 +404,19 @@ def tdvmm_fused(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
                 w_scale: torch.Tensor, gain: float = 1.0,
                 out_bits: Optional[int] = None,
                 window: Optional[torch.Tensor] = None,
-                int4_k: Optional[int] = None) -> torch.Tensor:
+                int4_k: Optional[int] = None,
+                max_code: Optional[int] = None) -> torch.Tensor:
     """B1 fused: integrate + gain -> optional readout over a fixed window
     -> per-row x per-column rescale, float32 (E, M, N) out.
 
     x_scale (E|1, M), w_scale (E, N) float32; ``window`` (with ``out_bits``)
-    is (), (E,), (E, 1, 1) or (E, 1, N) float32."""
+    is (), (E,), (E, 1, 1) or (E, 1, N) float32; ``max_code`` as for
+    ``tdvmm_matmul_raw``."""
     if not _kernel_device(x):
         return tdvmm_fused_plain(x, w, x_scale, w_scale, gain, out_bits,
                                  window, int4_k)
     g = _check_codes(x, w, int4_k)
+    check_code_width(g.codes, max_code)
     e, m, n = g.e, g.m, g.n
     _check_f32("x_scale", x_scale, (x.shape[0], m), x.device)
     _check_f32("w_scale", w_scale, (e, n), x.device)
@@ -362,9 +435,9 @@ def tdvmm_fused(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
     err = _lib("b1").tdvmm_b1(
         x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
         None if win is None else win.data_ptr(), se, sn, out.data_ptr(),
-        e, m, g.k, n, int(g.shared_x), _vec(x, x.shape[-1]), _vec(w, n), mode,
-        CODES[g.codes], float(np.float32(gain)), levels, inv_levels,
-        _stream())
+        e, m, g.k, n, int(g.shared_x), *_vecs(x, w, g), mode,
+        CODES[g.codes], plan_tile(m).index, float(np.float32(gain)), levels,
+        inv_levels, _stream())
     _raise_on(err, "tdvmm_fused")
     _count("fused", g.codes)
     return out
@@ -374,16 +447,19 @@ def tdvmm_calibrated(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
                      w_scale: torch.Tensor, slots: torch.Tensor, nslots: int,
                      slot_bw: int, gain: float = 1.0,
                      out_bits: int = 6,
-                     int4_k: Optional[int] = None) -> torch.Tensor:
+                     int4_k: Optional[int] = None,
+                     max_code: Optional[int] = None) -> torch.Tensor:
     """B2: integrate + data-calibrated readout, float32 (E, M, N) out.
 
     ``slots`` (E, ceil(N / slot_bw)) int32 is the readout-slot id of every
     ``slot_bw``-wide column block (``ops._calib_slots``); each slot's window
-    is max(max|z| over its columns, 1e-9)."""
+    is max(max|z| over its columns, 1e-9).  ``max_code`` as for
+    ``tdvmm_matmul_raw``."""
     if not _kernel_device(x):
         return tdvmm_calibrated_plain(x, w, x_scale, w_scale, slots, nslots,
                                       slot_bw, gain, out_bits, int4_k)
     g = _check_codes(x, w, int4_k)
+    check_code_width(g.codes, max_code)
     e, m, n = g.e, g.m, g.n
     _check_f32("x_scale", x_scale, (x.shape[0], m), x.device)
     _check_f32("w_scale", w_scale, (e, n), x.device)
@@ -403,8 +479,8 @@ def tdvmm_calibrated(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
     err = _lib("b2").tdvmm_b2(
         x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
         slots.data_ptr(), nsb, slot_bw, slot_max.data_ptr(), out.data_ptr(),
-        e, m, g.k, n, int(g.shared_x), _vec(x, x.shape[-1]), _vec(w, n),
-        CODES[g.codes], float(np.float32(gain)), levels, inv_levels,
+        e, m, g.k, n, int(g.shared_x), *_vecs(x, w, g), CODES[g.codes],
+        plan_tile(m).index, float(np.float32(gain)), levels, inv_levels,
         _stream())
     _raise_on(err, "tdvmm_calibrated")
     _count("calibrated", g.codes)
