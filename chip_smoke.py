@@ -13,7 +13,9 @@ Phases, each of which stops the script with a non-zero exit on failure:
    source, all started together; one line per B1/B2 kernel instantiation
    with its registers, shared memory and spills (``-Xptxas -v``) and the
    tensor-core instructions of its SASS (``cuobjdump``), failing if a K
-   loop has no IMMA/HMMA or keeps an IDP4A;
+   loop has no IMMA/HMMA or keeps an IDP4A; the same line per B3 device
+   kernel, failing unless its three product kernels (C.B^T with the
+   prefix sums, the chunk states, the scan) have HMMA in both dtypes;
 3. kernels: every mode of B1 (raw, fused without readout, scalar window,
    (E,) window, shared-x, per-column member windows of a ragged launch) and
    B2 (one slot, E slots, member slots) against its plain torch version on
@@ -24,8 +26,12 @@ Phases, each of which stops the script with a non-zero exit on failure:
    17, 129, 256, 257, ragged and unaligned operands) and of the float32
    codes' exact envelope (|acc| 15,667,200 and 16,776,450); float32 rows also time a
    TF32 ``bmm`` yardstick beside the full-float32 one;
-   B3 against ``ssd_plain`` at full width in bfloat16 and float32 and on a
-   small grouped case with a ragged length, within SSD_RTOL; B4 against
+   B3 against ``ssd_plain`` at full width in bfloat16 and float32, on a
+   small grouped case with a ragged length and at its tiles' edges (rows
+   that 16-byte copies cannot take among them), within SSD_RTOL, the full
+   width rows beside the earlier CUDA-core kernel's time as read before
+   (not in this run) and the bfloat16 one with its device time by kernel;
+   shapes past B3's chunk or d_state limit must raise; B4 against
    ``crossing_plain`` at the physics path's three launches, within
    CROSSING_RTOL_T of the window T; each with kernel / plain / bound /
    library times;
@@ -103,10 +109,12 @@ SSM_WIDTHS = (4096, 4096, 128, 128, 128)
 SSM_IN, SSM_OUT = (2048, sum(SSM_WIDTHS)), (4096, 2048)
 SSM_PROFILE_STEPS = 8                            # decode steps
 # B3 against ssd_plain, max|kernel - plain| over max|plain|, for y and the
-# final state: both sum in float32 in different orders.  Measured on an
+# final state: both sum in float32 in different orders, and B3 multiplies
+# on the tensor cores in 3xTF32 (~2^-22 of each product).  Measured on an
 # NVIDIA H100 80GB HBM3 at 700 W, at the cases of ``ssd_cases``: float32 y
-# <= 6.4e-7, the state <= 1.4e-6.  bfloat16 y rounds once from float32 on both sides, so one
-# bf16 ulp (at most 2^-7 of |y|) can separate them; measured 2.6e-4.
+# <= 1.1e-6, the state <= 3.3e-7.  bfloat16 y rounds once from float32 on
+# both sides, so one bf16 ulp (at most 2^-7 of |y|) can separate them;
+# measured 5.3e-4.
 SSD_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7, "state": 1e-5}
 # Phase 5, mamba2 at smoke width, card against CPU logits relative to
 # max|logit|: the TD-VMM codes came out equal; B3 and the plain scan, the
@@ -228,81 +236,119 @@ def _demangle(names: list[str]) -> list[str]:
         return names
 
 
+def kernel_report(lib, ops: tuple[str, ...]) -> dict[str, dict]:
+    """What the compiler made of one built library, by demangled kernel
+    name: registers, static shared memory and spills (``-Xptxas -v``, from
+    the build's log) and the count of each SASS opcode of ``ops``
+    (``cuobjdump -sass``, from the toolkit of the ``nvcc`` that built it).
+    Fails if the SASS cannot be read."""
+    import re
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    require(cuobjdump.exists(), f"{cuobjdump} not found: the SASS of "
+            f"{lib.name} cannot be read")
+    entries: dict[str, dict] = {}
+    name = None
+    for line in _build.LOGS.get(lib.name, "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)'?", line)
+        if m:
+            name = m.group(1)
+            entries.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entries[name]["regs"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            entries[name]["smem"] = int(sm.group(1)) if sm else 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            entries[name]["spill"] = int(m.group(1)) + int(m.group(2))
+    sass: dict[str, dict[str, int]] = {}
+    dump = subprocess.run(
+        [str(cuobjdump), "-sass", str(lib.path())],
+        capture_output=True, text=True, timeout=300).stdout
+    fn = None
+    for line in dump.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            sass[fn] = dict.fromkeys(ops, 0)
+            continue
+        if fn is not None:
+            for op in ops:
+                if re.search(rf"\b{op}\b", line):
+                    sass[fn][op] += 1
+    require(bool(sass), f"no kernel in the SASS of {lib.path().name}")
+    names = sorted(set(entries) | set(sass))
+    return {pretty.split("(")[0]: dict(entries.get(mangled, {}),
+                                       sass=sass.get(mangled))
+            for mangled, pretty in zip(names, _demangle(names))}
+
+
+def report_line(key: str, pretty: str, info: dict, extra: str = "") -> None:
+    ops_ = info["sass"]
+    say("ptxas", f"{key} {pretty}: registers={info.get('regs')} "
+        f"static_smem={info.get('smem')}{extra} "
+        f"spill_bytes={info.get('spill')}"
+        + ("" if ops_ is None else " sass " + " ".join(
+            f"{op}={n}" for op, n in ops_.items())))
+
+
 def tdvmm_build_report() -> None:
     """One line per B1/B2 kernel instantiation: registers, static and
-    dynamic shared memory and spills (``-Xptxas -v``; the dynamic bytes from
-    the library), and the tensor-core instructions in its SASS
-    (``cuobjdump -sass``, from the toolkit of the ``nvcc`` that built it).
-    Fails if the SASS cannot be read, or if a B1/B2 K loop has no IMMA/HMMA
-    or still has IDP4A."""
+    dynamic shared memory and spills, and the tensor-core instructions in
+    its SASS.  Fails if a B1/B2 K loop has no IMMA/HMMA or still has
+    IDP4A."""
     import re
     from repro_torch.kernels import _build
     from repro_torch.kernels.tdvmm import tdvmm as tk
 
     smem = _build.load(tk.LIBRARIES["b1"]).tdvmm_smem_bytes
-    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    require(cuobjdump.exists(), f"{cuobjdump} not found: B1/B2's SASS "
-            "cannot be read")
     for key, lib in tk.LIBRARIES.items():
-        log = _build.LOGS.get(lib.name, "")
-        entries: dict[str, dict] = {}
-        name = None
-        for line in log.splitlines():
-            m = re.search(r"(?:Compiling entry function|Function properties "
-                          r"for) '?(_Z\w+)'?", line)
-            if m:
-                name = m.group(1)
-                entries.setdefault(name, {})
-                continue
-            if name is None:
-                continue
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                entries[name]["regs"] = int(m.group(1))
-                sm = re.search(r"(\d+) bytes smem", line)
-                entries[name]["smem"] = int(sm.group(1)) if sm else 0
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            if m:
-                entries[name]["spill"] = int(m.group(1)) + int(m.group(2))
-        sass: dict[str, dict[str, int]] = {}
-        dump = subprocess.run(
-            [str(cuobjdump), "-sass", str(lib.path())],
-            capture_output=True, text=True, timeout=300).stdout
-        fn = None
-        for line in dump.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                fn = m.group(1)
-                sass[fn] = {"IMMA": 0, "HMMA": 0, "IDP4A": 0}
-                continue
-            if fn is not None:
-                for op in sass[fn]:
-                    if re.search(rf"\b{op}\b", line):
-                        sass[fn][op] += 1
-        require(any(("b1_kernel" in f or "b2_integrate" in f) for f in sass),
+        rep = kernel_report(lib, ("IMMA", "HMMA", "IDP4A"))
+        require(any(("b1_kernel" in f or "b2_integrate" in f) for f in rep),
                 f"{key}: no B1/B2 kernel in the SASS of {lib.path().name}")
-        names = sorted(set(entries) | set(sass))
-        for mangled, pretty in zip(names, _demangle(names)):
-            pretty = pretty.split("(")[0]
-            info = entries.get(mangled, {})
-            ops_ = sass.get(mangled)
+        for pretty, info in rep.items():
             dyn = ""
             m = re.search(r"<(\d+), (\d+)(?:, (\d+))?>", pretty)
             if m and "b1_kernel" in pretty:
                 dyn = f" dynamic_smem={smem(int(m.group(3)), int(m.group(2)))}"
             elif m and "b2_integrate" in pretty:
                 dyn = f" dynamic_smem={smem(int(m.group(2)), int(m.group(1)))}"
-            say("ptxas", f"{key} {pretty}: registers={info.get('regs')} "
-                f"static_smem={info.get('smem')}{dyn} "
-                f"spill_bytes={info.get('spill')}"
-                + ("" if ops_ is None else
-                   f" sass IMMA={ops_['IMMA']} HMMA={ops_['HMMA']} "
-                   f"IDP4A={ops_['IDP4A']}"))
+            report_line(key, pretty, info, dyn)
             if "b1_kernel" in pretty or "b2_integrate" in pretty:
+                ops_ = info["sass"]
                 require(ops_ is not None, f"{pretty}: not in the SASS")
                 require(ops_["IMMA"] + ops_["HMMA"] > 0 and ops_["IDP4A"] == 0,
                         f"{pretty}: the K loop is not on the tensor cores")
+
+
+# B3's device kernels, whose products run on the tensor cores (csrc/ssd.cu)
+SSD_MMA_KERNELS = ("prep_kernel", "state_kernel", "scan_kernel")
+SSD_OPS = ("HMMA", "FFMA", "LDS", "LDGSTS")
+
+
+def ssd_build_report() -> dict[str, dict]:
+    """One line per B3 device kernel, as for B1/B2, with the counts of
+    HMMA, FFMA, shared-memory loads and cp.async copies in its SASS.  Fails
+    unless every instantiation of the three product kernels has HMMA."""
+    from repro_torch.kernels.ssd import ssd
+
+    rep = kernel_report(ssd.LIBRARIES["b3"], SSD_OPS)
+    for pretty, info in rep.items():
+        report_line("b3", pretty, info)
+    for kern in SSD_MMA_KERNELS:
+        mine = [info for pretty, info in rep.items() if kern in pretty]
+        require(len(mine) == 2, f"B3 {kern}: {len(mine)} instantiations in "
+                "the SASS, want float32 and bfloat16")
+        require(all(i["sass"] and i["sass"]["HMMA"] > 0 for i in mine),
+                f"B3 {kern}: its products are not on the tensor cores")
+    return rep
 
 
 # ---------------------------------------------------------------------------
@@ -652,12 +698,30 @@ def run_case(case: dict, dev, seed: int) -> dict:
 def ssd_cases() -> list[dict]:
     """mamba2-1.3b's prefill scan at full width (bfloat16, as served, and
     float32), and a small grouped case (G = 2 over H = 4) whose length is
-    not a multiple of the chunk."""
+    not a multiple of the chunk; then the tiles' edges: a sequence shorter
+    than the chunk (Q 13) with P over two 64-column blocks (80) and
+    S 64 (zamba2's d_state); bfloat16 P 24 (a partial 16-column tile of
+    48-byte rows, still 16-byte copies) with S 40 (a partial 16-column
+    step); and two cases marked ``unaligned`` whose x, B and C rows are
+    not multiples of 16 bytes (bfloat16 P 20, S 34: 40- and 68-byte rows;
+    float32 P 18, S 30: 72 and 120 bytes), so B3 reads them element by
+    element and writes y and the states (S not a multiple of 4) element by
+    element too.  ``earlier_ms``: the time of the kernel B3 replaced (CUDA
+    cores, one CTA per (row, head)) at the same case, as read before on
+    one NVIDIA H100 80GB HBM3 at 700 W; not measured in this run."""
     full = dict(kernel="ssd_scan", b=SSM_BATCH, l=SSM_PROMPT, h=64, p=64,
                 g=1, s=128, q=128)
-    return [dict(full, dtype="bfloat16", rep=True),
-            dict(full, dtype="float32"),
-            dict(full, b=2, l=300, h=4, g=2, dtype="float32")]
+    return [dict(full, dtype="bfloat16", rep=True, earlier_ms=1.70288),
+            dict(full, dtype="float32", earlier_ms=1.71904),
+            dict(full, b=2, l=300, h=4, g=2, dtype="float32",
+                 earlier_ms=0.64120),
+            dict(full, b=3, l=13, h=6, p=80, g=3, s=64, dtype="float32"),
+            dict(full, b=2, l=40, h=4, p=24, g=1, s=40, q=16,
+                 dtype="bfloat16"),
+            dict(full, b=2, l=70, h=4, p=20, g=2, s=34, q=32,
+                 dtype="bfloat16", unaligned=True),
+            dict(full, b=2, l=50, h=6, p=18, g=3, s=30, q=32,
+                 dtype="float32", unaligned=True)]
 
 
 def ssd_bound(case: dict) -> tuple[float, str]:
@@ -669,6 +733,7 @@ def ssd_bound(case: dict) -> tuple[float, str]:
     Q (Q + 1) P + 4 Q P S per (row, head, chunk) for the weighted x, the
     inter-chunk C.state^T and the state update."""
     b, l, h, p, g, s, q = (case[f] for f in "blhpgsq")
+    q = min(q, l)                  # the wrapper's chunk: Q = min(chunk, L)
     elt = 2 if case["dtype"] == "bfloat16" else 4
     nbytes = (2 * b * l * h * p * elt + 4 * b * l * h + 2 * b * l * g * s * elt
               + 4 * h + 4 * b * h * p * s)
@@ -681,11 +746,11 @@ def ssd_bound(case: dict) -> tuple[float, str]:
                                        else "operations")
 
 
-def run_ssd_case(case: dict, dev, seed: int) -> dict:
+def ssd_inputs(case: dict, dev, seed: int):
+    """(x, dt, a_log, b, c) of a B3 case, random from ``seed`` on ``dev``."""
     import torch
-    from repro_torch.kernels.ssd import ssd
 
-    b, l, h, p, g, s, q = (case[f] for f in "blhpgsq")
+    b, l, h, p, g, s = (case[f] for f in "blhpgs")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     dtype = getattr(torch, case["dtype"])
@@ -695,8 +760,21 @@ def run_ssd_case(case: dict, dev, seed: int) -> dict:
     a_log = torch.log(torch.arange(1, h + 1, dtype=torch.float32, device=dev))
     bb = (torch.randn((b, l, g, s), generator=gen, device=dev) * 0.3).to(dtype)
     cc = (torch.randn((b, l, g, s), generator=gen, device=dev) * 0.3).to(dtype)
+    return x, dt, a_log, bb, cc
+
+
+def run_ssd_case(case: dict, dev, seed: int) -> dict:
+    import torch
+    from repro_torch.kernels.ssd import ssd
+
+    q, dtype = case["q"], getattr(torch, case["dtype"])
+    x, dt, a_log, bb, cc = ssd_inputs(case, dev, seed)
     kern = lambda: ssd.ssd_scan(x, dt, a_log, bb, cc, q)           # noqa: E731
     plain = lambda: ssd.ssd_plain(x, dt, a_log, bb, cc, q)         # noqa: E731
+    if case.get("unaligned"):
+        elt = x.element_size()
+        require(ssd.staging(x, bb, cc) == (0, 0) and case["p"] * elt % 16
+                and case["s"] % 4, f"{case}: rows that 16-byte copies can take")
     (yk, sk), (yp, sp) = kern(), plain()
     torch.cuda.synchronize()
     require(yk.dtype == yp.dtype == dtype and yk.shape == yp.shape
@@ -716,8 +794,36 @@ def run_ssd_case(case: dict, dev, seed: int) -> dict:
                rel_err_state=rel_s, ms=time_ms(kern, 10),
                plain_ms=time_ms(plain, 3), bound_ms=bound_ms,
                bound_by=bound_by, library_ms=None)
-    row.pop("rep", None)
+    if case.get("rep"):
+        _, by_name, _ = device_profile(kern)
+        row["device_us"] = {k.split("(")[0].split("<")[0].split("::")[-1]: v
+                            for k, v in by_name.items() if "ssd::" in k}
+    for key in ("rep", "earlier_ms", "unaligned"):
+        row.pop(key, None)
     return row
+
+
+def ssd_limits(dev) -> None:
+    """A chunk or d_state past what B3 holds (``ssd.MAX_CHUNK``,
+    ``ssd.MAX_STATE``) raises on the card, with no launch."""
+    import torch
+    from repro_torch.kernels.ssd import ssd
+
+    base = dict(kernel="ssd_scan", b=1, h=2, p=64, g=1, dtype="float32")
+    for case in (dict(base, l=2 * ssd.MAX_CHUNK, s=64, q=2 * ssd.MAX_CHUNK),
+                 dict(base, l=64, s=ssd.MAX_STATE + 16, q=64)):
+        x, dt, a_log, bb, cc = ssd_inputs(case, dev, seed=0)
+        before = ssd.LAUNCHES["ssd"]
+        try:
+            ssd.ssd_scan(x, dt, a_log, bb, cc, case["q"])
+        except NotImplementedError:
+            pass
+        else:
+            raise SmokeFailure(f"B3 took Q={case['q']}, S={case['s']}")
+        torch.cuda.synchronize()
+        require(ssd.LAUNCHES["ssd"] == before, f"{case}: counted a launch")
+    say("kernel", f"ssd_scan refuses Q > {ssd.MAX_CHUNK} and S > "
+        f"{ssd.MAX_STATE} with no launch")
 
 
 # ---------------------------------------------------------------------------
@@ -1195,6 +1301,11 @@ def profile_static(args, steps: int) -> dict:
             device_busy_share=dev_us / 1e6 / wall,
             tdvmm_device_share=sum(v for k, v in by_name.items()
                                    if "tdvmm::" in k) / max(dev_us, 1e-9),
+            ssd_device_share=sum(v for k, v in by_name.items()
+                                 if "ssd::" in k) / max(dev_us, 1e-9),
+            ssd_device_ms=sum(v for k, v in by_name.items()
+                              if "ssd::" in k) / 1e3,
+            device_ms=dev_us / 1e3,
             top_kernels=[(k[:70], v / max(dev_us, 1e-9)) for k, v in top])
     return rows
 
@@ -1417,6 +1528,7 @@ def main() -> int:
     say("build", f"B1 + B2 (int8, int4 and f32 codes) + B3 + B4 built in "
         f"{build_s:.1f} s")
     tdvmm_build_report()
+    ssd_build_report()
 
     rows = []
     for i, case in enumerate(kernel_cases()):
@@ -1443,9 +1555,17 @@ def main() -> int:
             f"H={row['h']} P={row['p']} G={row['g']} S={row['s']} "
             f"Q={row['q']} max_abs_err={row['max_abs_err']:.3g} rel_err "
             f"y={row['rel_err_y']:.3g} state={row['rel_err_state']:.3g} "
-            f"kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+            f"kernel_ms={row['ms']:.5f} "
+            + ("" if "earlier_ms" not in case else
+               f"earlier_ms={case['earlier_ms']} (the CUDA-core kernel, read "
+               "before, not in this run) ")
+            + f"plain_ms={row['plain_ms']:.5f} "
             f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
-            "library_ms=none")
+            "library_ms=none"
+            + (" unaligned" if case.get("unaligned") else "")
+            + ("" if "device_us" not in row else " device_us " + ", ".join(
+                f"{k} {v:.1f}" for k, v in row["device_us"].items())))
+    ssd_limits(dev)
     for i, case in enumerate(crossing_cases()):
         row = run_crossing_case(case, dev, seed=200 + i)
         rows.append((case, row))
@@ -1493,7 +1613,11 @@ def main() -> int:
     for name, r in prof.items():
         say("profile", f"ssm_unchained {name}: {r['steps']} step(s) in "
             f"{r['wall_s']:.3f} s, {r['kernels_per_step']:.1f} device "
-            f"kernels per step, device busy {r['device_busy_share']:.3f}; "
+            f"kernels per step, device busy {r['device_busy_share']:.3f} "
+            f"({r['device_ms']:.3f} device ms), B3 kernels "
+            f"{r['ssd_device_share']:.4f} ({r['ssd_device_ms']:.3f} ms) "
+            "and TD-VMM kernels "
+            f"{r['tdvmm_device_share']:.3f} of device time; "
             "top " + "; ".join(f"{k} {v:.3f}" for k, v in r["top_kernels"]))
     del ssm["args"], prof
     torch.cuda.empty_cache()

@@ -2,10 +2,12 @@
 version; a launch counter.
 
 B3 (``csrc/ssd.cu``) replaces the Pallas ``ssd._kernel``
-(``repro/kernels/ssd/ssd.py``): one CTA per (batch row, head) walks the
-chunks in order with the (P, S) state in shared memory, and writes y and,
-once at the end, the final state.  ``ssd_plain`` is the same function in
-torch ops: the JAX package's ``models/ssm.ssd_chunked``, term for term.
+(``repro/kernels/ssd/ssd.py``) with Mamba-2's chunked decomposition on the
+tensor cores: C.B^T once per (row, group, chunk) and the prefix sums of
+dt * a; the state carried over the chunks; then y, every chunk in parallel
+(three device kernels, one ``ssd_scan`` call; 3xTF32 products, see the
+source).  ``ssd_plain`` is the same function in torch ops: the JAX
+package's ``models/ssm.ssd_chunked``, term for term.
 
 Layouts are the JAX package's: x (B, L, H, P), dt (B, L, H) float32,
 a_log (H,) float32, b and c (B, L, G, S) with G dividing H; the result is
@@ -40,13 +42,14 @@ def reset_launches() -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_b3.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                           i, i, i, i, i, i, i, i, vp]
+    lib.ssd_b3.argtypes = [vp] * 11 + [i] * 10 + [vp]
     lib.ssd_b3.restype = i
 
 
 # no --use_fast_math: expf, not __expf
 LIBRARIES = {"b3": _build.Library("ssd_b3", CSRC / "ssd.cu", (), _bind)}
+# what B3 takes on the card (``ssd::kMaxQ``, ``ssd::kMaxS`` in csrc/ssd.cu)
+MAX_CHUNK, MAX_STATE = 128, 128
 
 
 def _pad_len(x, dt, b, c, chunk: int):
@@ -140,6 +143,17 @@ def ssd_plain(x, dt, a_log, b, c, chunk: int = 128):
 # ---------------------------------------------------------------------------
 # Wrapper (kernel on the card, plain version on the CPU)
 # ---------------------------------------------------------------------------
+def staging(x, b, c) -> tuple[int, int]:
+    """(vec_x, vec_bc): whether B3 may copy x's rows, and b's and c's rows,
+    as 16-byte ``cp.async`` copies (rows of a multiple of 16 bytes on a
+    16-byte aligned base); where not, it copies them element by element."""
+    elt = x.element_size()
+    vec_x = int(x.data_ptr() % 16 == 0 and x.shape[-1] * elt % 16 == 0)
+    vec_bc = int(b.data_ptr() % 16 == 0 and c.data_ptr() % 16 == 0
+                 and b.shape[-1] * elt % 16 == 0)
+    return vec_x, vec_bc
+
+
 def ssd_scan(x, dt, a_log, b, c, chunk: int = 128):
     """B3: the chunked SSD scan.  Returns (y (B, L, H, P) in x's dtype,
     final_state (B, H, P, S) float32).
@@ -165,19 +179,31 @@ def ssd_scan(x, dt, a_log, b, c, chunk: int = 128):
     if L == 0:
         return torch.empty_like(x), state.zero_()
     xp, dtp, bp, cp, q = _pad_len(x, dt, b, c, chunk)
+    if q > MAX_CHUNK or S > MAX_STATE:
+        raise NotImplementedError(
+            f"B3 takes a chunk of at most {MAX_CHUNK} and d_state of at most "
+            f"{MAX_STATE}, got Q={q}, S={S}")
     xp, dtp, bp, cp = (t.contiguous() for t in (xp, dtp, bp, cp))
     a_log = a_log.contiguous()
     L_pad = xp.shape[1]
+    nc, qp = L_pad // q, -(-q // 16) * 16
     y = torch.empty((bsz, L_pad, H, Pd), dtype=x.dtype, device=x.device)
+    # scratch: C.B^T per (row, group, chunk); prefix sums and dt per (row,
+    # chunk, head); the state carried into each chunk
+    f32 = dict(dtype=torch.float32, device=x.device)
+    gmat = torch.empty(bsz * G * nc * qp * qp, **f32)
+    cum = torch.empty(bsz * nc * H * qp, **f32)
+    dtc = torch.empty_like(cum)
+    states = torch.empty(bsz * nc * H * Pd * S, **f32)
+    vec_x, vec_bc = staging(xp, bp, cp)
     err = _build.load(LIBRARIES["b3"]).ssd_b3(
         xp.data_ptr(), dtp.data_ptr(), a_log.data_ptr(), bp.data_ptr(),
-        cp.data_ptr(), y.data_ptr(), state.data_ptr(), bsz, L_pad, H, Pd, G,
-        S, q, 0 if x.dtype == torch.float32 else 1,
+        cp.data_ptr(), y.data_ptr(), state.data_ptr(), gmat.data_ptr(),
+        cum.data_ptr(), dtc.data_ptr(), states.data_ptr(), bsz, L_pad, H, Pd,
+        G, S, q, 0 if x.dtype == torch.float32 else 1, vec_x, vec_bc,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:
-        # 9 (cudaErrorInvalidConfiguration): P, S and Q need more shared
-        # memory than a block has (``ssd::smem_bytes`` in csrc/ssd.cu)
-        raise RuntimeError(f"ssd_scan: CUDA error {err} at launch (P={Pd}, "
-                           f"S={S}, Q={q})")
+        raise RuntimeError(f"ssd_scan: CUDA error {err} at launch (B={bsz}, "
+                           f"L={L_pad}, H={H}, P={Pd}, G={G}, S={S}, Q={q})")
     LAUNCHES["ssd"] += 1
     return (y if L_pad == L else y[:, :L]), state

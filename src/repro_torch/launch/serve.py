@@ -13,6 +13,12 @@ such as mixtral-8x7b, as in the JAX package:
         --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
         --static --tdvmm 'moe.*' --calibrate --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large \\
+        --static --smoke --device cpu
+
+(the embedding-input archs, llava-next-mistral-7b and musicgen-large, take
+a random normal (batch, prompt_len, d_model) prompt and one (batch, 1,
+d_model) decode input, as the JAX package's ``serve()`` does)
 
 (mixtral-8x7b's published 32 layers, ~93 GB in bf16, exceed one 80 GB card;
 ``chip_smoke.py`` serves it at full width with 8.)
@@ -92,22 +98,39 @@ def _sync(device: torch.device) -> None:
 
 def serve_static(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
                  calibrate: bool = False, calib=None, device=None,
-                 params=None, prompts=None) -> dict:
+                 params=None, prompts=None, decode_inputs=None) -> dict:
     """Uniform-batch prefill + greedy decode (the JAX package's ``serve()``
     without a mesh).  ``calibrate=True`` runs the model-wide readout-window
     pass on the prompt batch first and serves with every TD-VMM site's
     window pinned; ``calib`` passes a captured state instead.  ``params``
-    and ``prompts`` ((batch, prompt_len) token ids) default to random ones
-    from ``seed``.  Returns the (batch, gen) tokens and the times."""
+    and ``prompts`` default to random ones from ``seed``: (batch,
+    prompt_len) token ids, or for ``input_mode == "embeddings"`` archs a
+    (batch, prompt_len, d_model) float32 normal draw.  Those archs feed one
+    (batch, 1, d_model) input, ``decode_inputs`` (drawn after the prompt
+    when not given), at every decode step, as the reference reuses one key.
+    Returns the (batch, gen) tokens and the times."""
     device = common.resolve_device(device)
     if params is None:
         params = model.init_params(seed, cfg, device=device)
+    embeds = cfg.input_mode == "embeddings"
+    g = torch.Generator().manual_seed(seed)
     if prompts is None:
-        g = torch.Generator().manual_seed(seed)
-        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                                generator=g)
+        prompts = (torch.randn((batch, prompt_len, cfg.d_model), generator=g)
+                   if embeds else
+                   torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                                 generator=g))
     prompts = torch.as_tensor(prompts).to(device)
-    batch, prompt_len = prompts.shape
+    batch, prompt_len = prompts.shape[:2]
+    if embeds:
+        if decode_inputs is None:
+            decode_inputs = torch.randn((batch, 1, cfg.d_model), generator=g)
+        decode_inputs = torch.as_tensor(decode_inputs).to(device)
+        if tuple(decode_inputs.shape) != (batch, 1, cfg.d_model):
+            raise ValueError(f"decode_inputs: want {(batch, 1, cfg.d_model)}, "
+                             f"got {tuple(decode_inputs.shape)}")
+    elif decode_inputs is not None:
+        raise ValueError(f"{cfg.name} takes tokens: its decode steps feed "
+                         "back the sampled token, not decode_inputs")
     with torch.no_grad():
         if calibrate and calib is None:
             calib = model.calibrate(params, {"inputs": prompts}, cfg,
@@ -124,8 +147,9 @@ def serve_static(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
         out, nan_steps = [tok], torch.isnan(logits).any().to(torch.int32)
         t0 = time.perf_counter()
         for _ in range(gen - 1):
-            logits, caches = model.decode_step(params, {"inputs": tok},
-                                               caches, cfg, calib=calib)
+            logits, caches = model.decode_step(
+                params, {"inputs": decode_inputs if embeds else tok}, caches,
+                cfg, calib=calib)
             nan_steps = nan_steps + torch.isnan(logits).any()
             tok = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
             out.append(tok)
