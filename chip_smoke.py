@@ -15,7 +15,9 @@ Phases, each of which stops the script with a non-zero exit on failure:
    tensor-core instructions of its SASS (``cuobjdump``), failing if a K
    loop has no IMMA/HMMA or keeps an IDP4A; the same line per B3 device
    kernel, failing unless its three product kernels (C.B^T with the
-   prefix sums, the chunk states, the scan) have HMMA in both dtypes;
+   prefix sums, the chunk states, the scan) have HMMA in both dtypes; the
+   same line per B4 device kernel (prep, fused), failing unless the fused
+   kernel (the 3xTF32 product t_on . I, then the bisection) has HMMA;
 3. kernels: every mode of B1 (raw, fused without readout, scalar window,
    (E,) window, shared-x, per-column member windows of a ragged launch) and
    B2 (one slot, E slots, member slots) against its plain torch version on
@@ -32,9 +34,11 @@ Phases, each of which stops the script with a non-zero exit on failure:
    width rows beside the earlier CUDA-core kernel's time as read before
    (not in this run) and the bfloat16 one with its device time by kernel;
    shapes past B3's chunk or d_state limit must raise; B4 against
-   ``crossing_plain`` at the physics path's three launches, within
-   CROSSING_RTOL_T of the window T; each with kernel / plain / bound /
-   library times;
+   ``crossing_plain`` at the physics path's three launches, a built case
+   whose steps all fall below the row's last onset (the general step) and
+   one whose crossings fall exactly on it, within CROSSING_RTOL_T of the
+   window T and bitwise equal over two calls; each with kernel / plain /
+   bound / library times;
 4. serving: qwen1.5-0.5b at full width (24 layers, d_model 1024, bf16,
    random weights from seed 0) under the ``ffn_unchained`` and
    ``ffn_chained`` plans: one calibration pass, then the paged engine
@@ -127,21 +131,26 @@ SMALL_SSM_LOGIT_RTOL = 1e-5
 # samples.
 PHYS_N, PHYS_BATCH = 1024, 4096
 CASE_N, CASE_BATCH = 10, 64
-# B4 against crossing_plain, max|t_kernel - t_plain| / T: the two sum Q over
-# K in other orders, so where Q(mid) lies within that rounding of the charge
-# they may take different halves; both still bracket the crossing, so they
-# differ by at most the last bracket (2T * 2^-24) plus the sum's rounding
-# over Q's slope.  Measured on an NVIDIA H100 80GB HBM3 at 700 W: 4.4e-7 T
-# at the perceptron's launches, 8.9e-7 T at the array's (a few float32 ulps
-# of t in [T, 2T]).  The gate, ~2.8x that, keeps float32 rounding apart
-# from a kernel short of steps: after 18 of 24 the last bracket is 7.6e-6 T
-# and its midpoint is off by up to 3.8e-6 T.
+# B4 against crossing_plain, max|t_kernel - t_plain| / T: B4 takes Q past
+# the row's last onset as mid * S - M (M = t_on . I in 3xTF32) and sums it
+# over K in another order below, so where Q(mid) lies within that rounding
+# of the charge the two may take different halves; both still bracket the
+# crossing, so they differ by at most the last bracket (2T * 2^-24) plus
+# the rounding over Q's slope.  Measured on an NVIDIA H100 80GB HBM3 at
+# 700 W: 4.4e-7 T at the perceptron's launches, 8.9e-7 T at the array's (a
+# few float32 ulps of t in [T, 2T]), as with the earlier CUDA-core
+# kernel, and 2.4e-7 T at the general-step and t_max cases.  The
+# gate, ~2.8x that, keeps float32 rounding apart from a kernel short of
+# steps (after 18 of 24 the last bracket is 7.6e-6 T and its midpoint is
+# off by up to 3.8e-6 T) and from a product summed in the tensor cores'
+# truncating accumulator over all of K (3.55e-6 T at the array).
 CROSSING_RTOL_T = 2.5e-6
 # decoded output against the closed form (Eq. 1) in float64, and card
 # against the CPU plain path: float32 onsets, currents and charge sums, and
-# the bisection's last bracket (2^-23 of T).  Measured on the same card:
-# 5.6e-7 (perceptron), 6.7e-7 (array), 8.9e-7 (card against CPU).  Gated
-# at ~2.8x that, for the same reason as CROSSING_RTOL_T.
+# the bisection's last bracket (2^-23 of T).  Measured on the same card
+# with the redesigned B4: 7.4e-7 (perceptron), 1.17e-6 (array), 8.9e-7
+# (card against CPU); 5.6e-7, 6.7e-7 and 8.9e-7 with the earlier kernel.
+# Gated at 2.5e-6, for the same reason as CROSSING_RTOL_T.
 TD_ATOL = 2.5e-6
 H100_F32_FLOPS_PER_S = 67e12        # float32 on CUDA cores (data sheet)
 
@@ -189,7 +198,7 @@ CODE_LIMITS = {"int8": (63, 63), "f32": (255, 15), "int4": (7, 7)}
 
 
 SHAPE_KEYS = {"ssd_scan": ("dtype", "b", "l", "h", "p", "g", "s", "q"),
-              "crossing": ("quadrants", "b", "k", "n", "iters")}
+              "crossing": ("case", "quadrants", "b", "k", "n", "iters")}
 
 
 def entry_name(case: dict) -> str:
@@ -348,6 +357,21 @@ def ssd_build_report() -> dict[str, dict]:
                 "the SASS, want float32 and bfloat16")
         require(all(i["sass"] and i["sass"]["HMMA"] > 0 for i in mine),
                 f"B3 {kern}: its products are not on the tensor cores")
+    return rep
+
+
+def crossing_build_report() -> dict[str, dict]:
+    """One line per B4 device kernel (prep, fused), as for B3.  Fails
+    unless the fused kernel's product is on the tensor cores (HMMA)."""
+    from repro_torch.kernels.crossing import crossing
+
+    rep = kernel_report(crossing.LIBRARIES["b4"], SSD_OPS)
+    for pretty, info in rep.items():
+        report_line("b4", pretty, info)
+    fused = [info for pretty, info in rep.items() if "fused_kernel" in pretty]
+    require(len(fused) == 1, f"B4: {len(fused)} fused kernels in the SASS")
+    require(bool(fused[0]["sass"]) and fused[0]["sass"]["HMMA"] > 0,
+            "B4 fused_kernel: its product is not on the tensor cores")
     return rep
 
 
@@ -832,21 +856,35 @@ def ssd_limits(dev) -> None:
 def crossing_cases() -> list[dict]:
     """B4's launches on the physics path: the perceptron's four-quadrant
     layer (K 21, N 20) and two-quadrant layer (K 11, N 20) on a batch of
-    64, and the array's four-quadrant launch (K 2049, N 2048) on 4096 rows."""
-    return [dict(kernel="crossing", quadrants=4, b=CASE_BATCH, n_in=CASE_N,
-                 n_out=CASE_N),
-            dict(kernel="crossing", quadrants=2, b=CASE_BATCH, n_in=CASE_N,
-                 n_out=CASE_N),
-            dict(kernel="crossing", quadrants=4, b=PHYS_BATCH, n_in=PHYS_N,
-                 n_out=PHYS_N, rep=True)]
+    64, and the array's four-quadrant launch (K 2049, N 2048) on 4096 rows;
+    then two built cases that the physics path never gives it: most
+    crossings before the row's last onset (the general step, B 256, K 513,
+    N 512) and crossings exactly at the last onset (``edge``, on ragged
+    tiles: B 100 and N 126 are no multiples of 64 and 128, and N, no
+    multiple of 4, takes the currents in 4-byte copies)."""
+    return [dict(kernel="crossing", case="physics", quadrants=4,
+                 b=CASE_BATCH, n_in=CASE_N, n_out=CASE_N),
+            dict(kernel="crossing", case="physics", quadrants=2,
+                 b=CASE_BATCH, n_in=CASE_N, n_out=CASE_N),
+            dict(kernel="crossing", case="physics", quadrants=4,
+                 b=PHYS_BATCH, n_in=PHYS_N, n_out=PHYS_N, rep=True),
+            dict(kernel="crossing", case="general", quadrants=None, b=256,
+                 k=513, n=512),
+            dict(kernel="crossing", case="edge", quadrants=None, b=100,
+                 k=129, n=126)]
 
 
-def crossing_bound(b: int, k: int, n: int, iters: int) -> tuple[float, str]:
+def crossing_bound(b: int, k: int, n: int, general: int) -> tuple[float, str]:
     """Least time for the solve: onsets and currents read once, the times
-    written once, against a subtract, a max and an FMA (4 flops) per
-    (row, column, source, iteration) at the float32 CUDA-core rate."""
+    written once, against the operations: the product t_on . I in 3xTF32
+    (3 x 2 B K N at the TF32 rate) plus, for the ``general`` (row, column,
+    step) triples whose mid lies below the row's last onset, a subtract, a
+    max and an FMA (4 flops) per source at the float32 CUDA-core rate.
+    The earlier design's basis, 4 flops per (row, column, source, step) at
+    67 TFLOP/s, was 24.628 ms at the array's launch."""
     t_bytes = 4.0 * (b * k + k * n + b * n) / H100_HBM_BYTES_PER_S
-    t_ops = 4.0 * b * n * k * iters / H100_F32_FLOPS_PER_S
+    t_ops = (3 * 2.0 * b * k * n / H100_TF32_FLOPS_PER_S
+             + 4.0 * general * k / H100_F32_FLOPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -868,46 +906,90 @@ def time_long_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def run_crossing_case(case: dict, dev, seed: int) -> dict:
-    """B4 on the operands the physics path gives it: weights and inputs
-    U(-1, 1) (inputs U(0, 1) for the two-quadrant layer), programmed and
-    encoded by ``core/tdcore``, the bias source as the last row."""
+def crossing_operands(case: dict, dev, seed: int):
+    """(t_on, currents, k_charge, T) of a B4 case.  ``physics``: weights and
+    inputs U(-1, 1) (inputs U(0, 1) for the two-quadrant layer), programmed
+    and encoded by ``core/tdcore``, the bias source as the last row.
+    ``general``: onsets U(0, 2), currents U(0.01, 1), charge 0.1 K, T 1.
+    ``edge``: every row's onsets a permutation of the same multiples of
+    1/64 (one of them 1, one 0), column currents (1 + n mod 4) / 4 constant
+    over the sources, and the charge Q(1) of the columns at 1/2: those
+    cross exactly at t_max = 1, exact in float32 in any order."""
     import torch
     from repro_torch.core import tdcore
-    from repro_torch.kernels.crossing import crossing, ref
     from repro_torch.launch.perceptron import SPEC
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    w = torch.rand((case["n_in"], case["n_out"]), generator=gen,
-                   device=dev) * 2 - 1
-    x = torch.rand((case["b"], case["n_in"]), generator=gen, device=dev)
-    operands = (tdcore.four_quadrant_operands(x * 2 - 1, w, SPEC)
-                if case["quadrants"] == 4
-                else tdcore.two_quadrant_operands(x, w, SPEC))
-    t_on, i_full = tdcore.with_bias_source(*operands[:3])
-    k_charge, t_window, iters = operands[3], SPEC.t_window_s, 24
+    if case["case"] == "physics":
+        w = torch.rand((case["n_in"], case["n_out"]), generator=gen,
+                       device=dev) * 2 - 1
+        x = torch.rand((case["b"], case["n_in"]), generator=gen, device=dev)
+        operands = (tdcore.four_quadrant_operands(x * 2 - 1, w, SPEC)
+                    if case["quadrants"] == 4
+                    else tdcore.two_quadrant_operands(x, w, SPEC))
+        t_on, i_full = tdcore.with_bias_source(*operands[:3])
+        return t_on, i_full, operands[3], SPEC.t_window_s
+    b, k, n = case["b"], case["k"], case["n"]
+    if case["case"] == "general":
+        t_on = torch.rand((b, k), generator=gen, device=dev) * 2
+        cur = torch.rand((k, n), generator=gen, device=dev) * 0.99 + 0.01
+        return t_on, cur, 0.1 * k, 1.0
+    base = torch.randint(0, 65, (k,), generator=gen, device=dev).float() / 64
+    base[:2] = torch.tensor([0.0, 1.0], device=dev)
+    order = torch.argsort(torch.rand((b, k), generator=gen, device=dev), 1)
+    t_on = base[order]
+    c = (1 + torch.arange(n, device=dev) % 4).float() / 4
+    cur = c.expand(k, n).contiguous()
+    return t_on, cur, float(0.5 * (1.0 - base.double()).sum()), 1.0
+
+
+def run_crossing_case(case: dict, dev, seed: int) -> dict:
+    """B4 against crossing_plain within CROSSING_RTOL_T of T, twice with
+    bitwise equal results; the steps below the last onset (none on the
+    physics path); its time, the plain version's and the bound."""
+    import torch
+    from repro_torch.kernels.crossing import crossing, ref
+
+    t_on, i_full, k_charge, t_window = crossing_operands(case, dev, seed)
+    iters = 24
     b, k = t_on.shape
     n = i_full.shape[1]
     args = (t_on, i_full, k_charge, 0.0, 2.0 * t_window, iters)
     kern = lambda: crossing.crossing_kernel(*args)                # noqa: E731
     plain = lambda: ref.crossing_plain(*args)                     # noqa: E731
-    tk, tp = kern(), plain()
+    tk, tk2, tp = kern(), kern(), plain()
     torch.cuda.synchronize()
     require(tk.shape == tp.shape == (b, n) and tk.dtype == torch.float32,
             f"{case}: kernel {tk.dtype}{tuple(tk.shape)} vs plain "
             f"{tp.dtype}{tuple(tp.shape)}")
+    require(torch.equal(tk, tk2), f"{case}: two calls differ")
     require(bool(torch.isfinite(tp).all()), f"{case}: non-finite plain times")
     err = float((tk.double() - tp.double()).abs().max())
     rel = err / t_window
     require(rel <= CROSSING_RTOL_T,
             f"{case}: kernel differs from plain by {rel:.3g} T")
-    bound_ms, bound_by = crossing_bound(b, k, n, iters)
+    general = ref.general_steps(*args)
+    if case["case"] == "physics":
+        require(general == 0, f"{case}: {general} steps below the last onset")
+    if case["case"] == "general":
+        require(general > b * n * iters // 2,
+                f"{case}: only {general} general steps")
+    if case["case"] == "edge":
+        at_max = (torch.arange(n, device=dev) % 4) == 1
+        require(bool(((tk[:, at_max] - 1.0).abs()
+                      <= CROSSING_RTOL_T).all()),
+                f"{case}: the crossings at t_max = 1 came out elsewhere")
+        # no step: the middle of [t_lo, t_hi], without the product
+        none = crossing.crossing_kernel(*args[:5], 0)
+        require(torch.equal(none, ref.crossing_plain(*args[:5], 0)),
+                f"{case}: iters = 0 differs from the plain version")
+    bound_ms, bound_by = crossing_bound(b, k, n, general)
     # the plain version launches ~7 kernels per bisection step: one call
-    # fits the card's queue at the perceptron's shapes
+    # fits the card's queue below the array's shape
     big = b * k * n > 1 << 28
-    row = dict(case, k=k, n=n, iters=iters, max_abs_err=err, rel_err_t=rel,
-               ms=time_ms(kern, 3 if big else 20),
+    row = dict(case, k=k, n=n, iters=iters, general_steps=general,
+               max_abs_err=err, rel_err_t=rel, ms=time_ms(kern, 20),
                plain_ms=time_long_ms(plain) if big else time_ms(plain, 1),
                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     row.pop("rep", None)
@@ -1529,6 +1611,7 @@ def main() -> int:
         f"{build_s:.1f} s")
     tdvmm_build_report()
     ssd_build_report()
+    crossing_build_report()
 
     rows = []
     for i, case in enumerate(kernel_cases()):
@@ -1569,9 +1652,13 @@ def main() -> int:
     for i, case in enumerate(crossing_cases()):
         row = run_crossing_case(case, dev, seed=200 + i)
         rows.append((case, row))
-        say("kernel", f"crossing {row['quadrants']}-quadrant B={row['b']} "
+        what = (f"{row['quadrants']}-quadrant" if row["case"] == "physics"
+                else row["case"])
+        say("kernel", f"crossing {what} B={row['b']} "
             f"K={row['k']} N={row['n']} iters={row['iters']} "
-            f"max|dt|/T={row['rel_err_t']:.3g} kernel_ms={row['ms']:.5f} "
+            f"general_steps={row['general_steps']} "
+            f"max|dt|/T={row['rel_err_t']:.3g} (two calls equal) "
+            f"kernel_ms={row['ms']:.5f} "
             f"plain_ms={row['plain_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
             f"({row['bound_by']}) library_ms=none")
 

@@ -8,12 +8,20 @@ runs ``iters`` bisection steps of the monotone
 [t_lo, t_hi] and returns the middle of the last bracket.  Its plain version
 is ``ref.crossing_plain``.
 
+The kernel takes the same brackets but evaluates Q another way where that
+is exact: for mid at or past the row's last onset every relu is the
+identity, so Q(mid) = mid * S[n] - M[b, n] with S the column sums and
+M = t_on @ I, one product on the tensor cores in 3xTF32; below the last
+onset it sums the relus over K.  ``crossing_kernel`` counts one launch per
+call, whatever number of device kernels it runs (a prep kernel for the row
+maxima and column sums, then the fused product and bisection).
+
 ``crossing_kernel`` follows the port's one rule: a CPU tensor goes to the
 plain version, a tensor on the card to the kernel or an exception.  The
-kernel sums over K in another order than the plain version, so where
-Q(mid) lies within that rounding of k_charge the two may take different
-halves; both still bracket the crossing, so they agree within about
-t_hi * 2^-iters plus the sum's rounding over Q's slope, not bitwise.
+kernel rounds Q otherwise than the plain version, so where Q(mid) lies
+within that rounding of k_charge the two may take different halves; both
+still bracket the crossing, so they agree within about t_hi * 2^-iters plus
+the rounding over Q's slope, not bitwise.
 """
 from __future__ import annotations
 
@@ -40,11 +48,11 @@ def reset_launches() -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.crossing_b4.argtypes = [vp, vp, vp, i, i, i, f, f, f, i, vp]
+    lib.crossing_b4.argtypes = [vp, vp, vp, vp, i, i, i, f, f, f, i, vp]
     lib.crossing_b4.restype = i
 
 
-# no --use_fast_math: the plain version's IEEE float32 adds and fmaxf
+# no --use_fast_math: IEEE float32 adds, products and fmaxf
 LIBRARIES = {"b4": _build.Library("crossing_b4", CSRC / "crossing.cu", (),
                                   _bind)}
 
@@ -86,8 +94,11 @@ def crossing_kernel(t_on: torch.Tensor, currents: torch.Tensor,
     out = torch.empty((b, n), dtype=torch.float32, device=t_on.device)
     if b == 0 or n == 0:
         return out
+    # the prep kernel's row maxima (B) and column sums (N)
+    scratch = torch.empty(b + n, dtype=torch.float32, device=t_on.device)
     err = _build.load(LIBRARIES["b4"]).crossing_b4(
-        t_on.data_ptr(), currents.data_ptr(), out.data_ptr(), b, k, n,
+        t_on.data_ptr(), currents.data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), b, k, n,
         f32(k_charge), f32(t_lo), f32(t_hi), iters,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:

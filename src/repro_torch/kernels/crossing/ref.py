@@ -15,6 +15,9 @@ the latch firing time of the charge-integration column (paper Eq. 4).
   [t_lo, t_hi].  A crossing beyond t_hi comes back as t_hi to within the
   last bracket, (t_hi - t_lo) * 2^-iters (the bisection never leaves its
   bracket), where ``crossing_exact`` extrapolates the last segment.
+* ``general_steps`` counts the steps of that bisection on which B4 sums
+  over K (mid below the row's last onset); ``chip_smoke.py`` prices them
+  in B4's bound.
 """
 from __future__ import annotations
 
@@ -56,18 +59,37 @@ def crossing_plain(t_on: torch.Tensor, currents: torch.Tensor,
                    iters: int = 24) -> torch.Tensor:
     """B4's bisection in torch ops, on rows in chunks.  t_on (B, K) and
     currents (K, N) float32; returns (B, N) float32."""
+    return _bisect(t_on, currents, k_charge, t_lo, t_hi, iters)[0]
+
+
+def general_steps(t_on: torch.Tensor, currents: torch.Tensor,
+                  k_charge: float, t_lo: float = 0.0, t_hi: float = 1.0,
+                  iters: int = 24) -> int:
+    """The (row, column, step) triples of ``crossing_plain``'s bisection
+    whose mid lies below the row's last onset: the steps on which kernel B4
+    sums the relus over K (at every other step Q is linear in mid).  B4's
+    brackets may part from the plain version's where Q(mid) lies within
+    rounding of the charge, so this counts the plain trajectory's steps."""
+    return _bisect(t_on, currents, k_charge, t_lo, t_hi, iters, True)[1]
+
+
+def _bisect(t_on, currents, k_charge, t_lo, t_hi, iters, count=False):
     b, k = t_on.shape
     n = currents.shape[1]
     k_charge, t_lo, t_hi = f32(k_charge), f32(t_lo), f32(t_hi)
     out = torch.empty((b, n), dtype=torch.float32, device=t_on.device)
+    general = 0
     rows = max(1, PLAIN_CHUNK_BYTES // max(4 * k * n, 1))
     for r0 in range(0, b, rows):
         t = t_on[r0:r0 + rows]
+        t_max = t.max(dim=1, keepdim=True).values if count and k else None
         lo = torch.full((t.shape[0], n), t_lo, dtype=torch.float32,
                         device=t.device)
         hi = torch.full_like(lo, t_hi)
         for _ in range(iters):
             mid = 0.5 * (lo + hi)
+            if t_max is not None:
+                general += int((mid < t_max).sum())
             # Q(mid) per column: sum_k I[k,n] * relu(mid[n] - t_on[k]);
             # the (rows, K, N) temporary is updated in place
             dt = torch.clamp_(mid[:, None, :] - t[:, :, None], min=0.0)
@@ -76,4 +98,4 @@ def crossing_plain(t_on: torch.Tensor, currents: torch.Tensor,
             lo = torch.where(too_low, mid, lo)
             hi = torch.where(too_low, hi, mid)
         out[r0:r0 + t.shape[0]] = 0.5 * (lo + hi)
-    return out
+    return out, general
