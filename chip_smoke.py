@@ -17,7 +17,9 @@ Phases, each of which stops the script with a non-zero exit on failure:
    kernel, failing unless its three product kernels (C.B^T with the
    prefix sums, the chunk states, the scan) have HMMA in both dtypes; the
    same line per B4 device kernel (prep, fused), failing unless the fused
-   kernel (the 3xTF32 product t_on . I, then the bisection) has HMMA;
+   kernel (the 3xTF32 product t_on . I, then the bisection) has HMMA; and
+   every B1/B2 instantiation of the 3xTF32 storage has HMMA and no FFMA
+   beyond its bf16 twin's (the readout's IEEE division);
 3. kernels: every mode of B1 (raw, fused without readout, scalar window,
    (E,) window, shared-x, per-column member windows of a ragged launch) and
    B2 (one slot, E slots, member slots) against its plain torch version on
@@ -27,7 +29,13 @@ Phases, each of which stops the script with a non-zero exit on failure:
    shapes, the edges of the two CTA tiles (``tile_edge_cases``: M 1, 16,
    17, 129, 256, 257, ragged and unaligned operands) and of the float32
    codes' exact envelope (|acc| 15,667,200 and 16,776,450); float32 rows also time a
-   TF32 ``bmm`` yardstick beside the full-float32 one;
+   TF32 ``bmm`` yardstick beside the full-float32 one; B1/B2's 3xTF32
+   storage (``f32x3_cases``) at qwen's QAT shapes (2048 rows, ffn.in and
+   the grouped q/k/v launch) and the tiles' edges, on noisy codes against
+   the exact float64 product (accumulator within ``tdvmm.F32X3_RTOL`` of
+   sum|x||w|, readout levels within the exact one's rounding:
+   ``tdvmm.check_readout``) and on p = 9 and p = 11 integer codes bitwise,
+   two calls bitwise equal;
    B3 against ``ssd_plain`` at full width in bfloat16 and float32, on a
    small grouped case with a ragged length and at its tiles' edges (rows
    that 16-byte copies cannot take among them), within SSD_RTOL, the full
@@ -64,10 +72,25 @@ Phases, each of which stops the script with a non-zero exit on failure:
    four-quadrant array on 4096 samples, each within TD_ATOL of its closed
    form, with exactly 2 B4 launches per perceptron forward and 1 per array
    forward;
+   Then training: qwen1.5-0.5b at full width (24 layers, d_model 1024,
+   d_ff 2816, vocab 151936, bf16, random weights from seed 0), every linear
+   a 6-bit TD-VMM site (QAT: B2 in every forward, the straight-through
+   custom gradient in the backward), through ``launch/train.train_loop``:
+   AdamW (lr 1e-3, 2 warmup steps), SyntheticLM seed 0, 4 x 512 tokens a
+   step, 8 steps, remat "minimal"; every loss and gradient norm finite, the
+   last loss below the first, exactly sites x layers x (steps + recomputes)
+   B2 launches; one more step under the profiler.  Two noisy steps at the
+   same width (programming noise at every site, ``loss_fn`` with a key):
+   every launch in the 3xTF32 storage, counted.  The case study's QAT half
+   (``launch/perceptron.qat_case_study``): the 10 x 10 x 10 perceptron
+   trained on the card, deployed through B4 with DIBL, digital twin >= 0.9
+   and circuit > 0.8;
 5. small input: the card's kernel path against the CPU plain path at smoke
    width, same weights, for qwen, for mamba2, for mixtral under both MoE
-   plans (a prompt longer than its window of 8), and for the perceptron and
-   a 64 x 64 array.
+   plans (a prompt longer than its window of 8), for the perceptron and
+   a 64 x 64 array, and for 3 training steps of the smoke qwen under the
+   global TD-VMM config and under ``ffn_chained`` (step-0 loss and
+   gradients, then the losses).
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Without a CUDA device, or run from a
@@ -77,8 +100,10 @@ no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
+import tempfile
 import sys
 import time
 from pathlib import Path
@@ -154,6 +179,25 @@ CROSSING_RTOL_T = 2.5e-6
 TD_ATOL = 2.5e-6
 H100_F32_FLOPS_PER_S = 67e12        # float32 on CUDA cores (data sheet)
 
+# Training at full width (qwen1.5-0.5b, every linear a TD-VMM site):
+# ShapeConfig train_4k's 256 x 4096 cut to 4 x 512 (4096-token sequences
+# need flash attention, ROADMAP A5; the batch for time), 8 steps.
+QAT_BATCH, QAT_SEQ, QAT_STEPS = 4, 512, 8
+QAT_ROWS = QAT_BATCH * QAT_SEQ
+QKV_WIDTHS = (1024, 1024, 1024)                   # q, k, v at d_model 1024
+# the 3xTF32 storage's integer cases: p = 9 inputs x 4-bit weights and
+# p = 11 inputs x 3-bit weights (random codes, |acc| far below 2^24)
+F32X3_INT = {"p9": (511, 15), "p11": (2047, 7)}
+# Phase 5, training at smoke width, card against CPU: the TD-VMM codes are
+# the same on both, attention, norms and the float32 gradient products sum
+# in other orders.  Step 0: the loss relative (1e-6) and each leaf's
+# gradient relative to its max|g| (1e-5); the losses of 3 AdamW steps
+# relative (1e-5, as tests/test_torch_train.py holds 3 steps of train_loop
+# to the JAX package's).
+SMALL_TRAIN_LOSS_RTOL0 = 1e-6
+SMALL_TRAIN_GRAD_RTOL = 1e-5
+SMALL_TRAIN_LOSS_RTOL = 1e-5
+
 # mixtral-8x7b (arXiv:2401.04088) at full width: 8 of its 32 layers (one
 # layer is ~2.9 GB in bf16, 32 would be ~93 GB on an 80 GB card), capacity
 # factor n_experts / top_k = 4.0, so capacity is T + 1 and no token drops
@@ -192,6 +236,12 @@ for _kern in ("tdvmm_fused", "tdvmm_matmul_raw", "tdvmm_calibrated"):
         SOURCES[f"{_kern}_{_codes}"] = SOURCES[_kern]
         REPLACES[f"{_kern}_{_codes}"] = REPLACES[_kern]
         COUNTER[f"{_kern}_{_codes}"] = f"{COUNTER[_kern]}_{_codes}"
+# B1/B2 in the 3xTF32 storage (float32 codes off the integer grid): the
+# fused and B2 wrappers launch it on the noisy training steps
+for _kern in ("tdvmm_fused", "tdvmm_calibrated"):
+    SOURCES[f"{_kern}_f32x3"] = SOURCES[_kern]
+    REPLACES[f"{_kern}_f32x3"] = REPLACES[_kern]
+    COUNTER[f"{_kern}_f32x3"] = f"{COUNTER[_kern]}_f32x3"
 # code ranges: p = 6 codes, moe_mixed's p = 8 x 4-bit weights (f32 codes)
 # and 3-bit x 3-bit (int4 pairs)
 CODE_LIMITS = {"int8": (63, 63), "f32": (255, 15), "int4": (7, 7)}
@@ -312,14 +362,19 @@ def tdvmm_build_report() -> None:
     """One line per B1/B2 kernel instantiation: registers, static and
     dynamic shared memory and spills, and the tensor-core instructions in
     its SASS.  Fails if a B1/B2 K loop has no IMMA/HMMA or still has
-    IDP4A."""
+    IDP4A, or if a 3xTF32 instantiation (code storage 3) has no HMMA or
+    more FFMA than the bf16 float32 instantiation of the same mode and tile
+    (its products must all be on the tensor cores: the only FFMA of these
+    kernels are the readout division's, ``--fmad=false`` leaves none
+    elsewhere)."""
     import re
     from repro_torch.kernels import _build
     from repro_torch.kernels.tdvmm import tdvmm as tk
 
     smem = _build.load(tk.LIBRARIES["b1"]).tdvmm_smem_bytes
+    ffma = {}           # (kernel, mode and tile, storage) -> FFMA count
     for key, lib in tk.LIBRARIES.items():
-        rep = kernel_report(lib, ("IMMA", "HMMA", "IDP4A"))
+        rep = kernel_report(lib, ("IMMA", "HMMA", "IDP4A", "FFMA"))
         require(any(("b1_kernel" in f or "b2_integrate" in f) for f in rep),
                 f"{key}: no B1/B2 kernel in the SASS of {lib.path().name}")
         for pretty, info in rep.items():
@@ -335,6 +390,21 @@ def tdvmm_build_report() -> None:
                 require(ops_ is not None, f"{pretty}: not in the SASS")
                 require(ops_["IMMA"] + ops_["HMMA"] > 0 and ops_["IDP4A"] == 0,
                         f"{pretty}: the K loop is not on the tensor cores")
+                args = [int(v) for v in m.groups() if v is not None]
+                b1 = "b1_kernel" in pretty
+                codes = args.pop(1 if b1 else 0)
+                if codes in (tk.CODES["f32"], tk.CODES["f32x3"]):
+                    ffma[(b1, tuple(args), codes)] = ops_["FFMA"]
+    # B1: 3 modes x 2 tiles; B2's integrate: 2 tiles
+    x3 = {k: v for k, v in ffma.items() if k[2] == tk.CODES["f32x3"]}
+    require(len(x3) == 8, f"{len(x3)} 3xTF32 instantiations in the SASS, "
+            "want 8")
+    for (b1, args, _), n in x3.items():
+        bf16 = ffma.get((b1, args, tk.CODES["f32"]))
+        require(bf16 is not None and n <= bf16,
+                f"{'b1_kernel' if b1 else 'b2_integrate'}{list(args)}: "
+                f"3xTF32 has {n} FFMA, its bf16 twin {bf16}: a K loop off "
+                "the tensor cores")
 
 
 # B3's device kernels, whose products run on the tensor cores (csrc/ssd.cu)
@@ -1446,6 +1516,436 @@ def small_physics_agreement(dev) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3: B1/B2's 3xTF32 storage against the plain versions
+# ---------------------------------------------------------------------------
+def f32x3_cases() -> list[dict]:
+    """The 3xTF32 storage at qwen1.5-0.5b's QAT shapes (M = B x S = 2048
+    rows; ffn.in 1024 x 2816 and the grouped q/k/v launch 1024 x 3 x 1024
+    with per-member windows and slots), raw, fused and B2, on noisy codes
+    (p = 6 inputs, p = 6 weights with programming noise) and on integer
+    codes of p = 9 and p = 11; then noisy codes at the tiles' edges (M 1,
+    17, 257; K 131; N 70), shared-x with (E,) windows and B2 with expert
+    slots at 300 rows.  ``rep`` marks the rows of the kernels line."""
+    cases = []
+    for (k, n), widths in (((1024, 2816), None),
+                           ((1024, sum(QKV_WIDTHS)), QKV_WIDTHS)):
+        for data in ("noisy", "p9", "p11"):
+            base = dict(codes="f32x3", data=data, e=1, ex=1, m=QAT_ROWS, k=k,
+                        n=n, widths=widths,
+                        rep=widths is None and data == "noisy")
+            cases += [
+                dict(base, kernel="tdvmm_matmul_raw", mode="raw"),
+                dict(base, kernel="tdvmm_fused",
+                     mode="member_windows" if widths else "scalar_window"),
+                dict(base, kernel="tdvmm_calibrated",
+                     mode="member_slots" if widths else "one_slot")]
+    for m in (1, 17, 257):
+        edge = dict(codes="f32x3", data="noisy", e=1, ex=1, m=m, k=131, n=70,
+                    widths=None)
+        cases += [dict(edge, kernel="tdvmm_matmul_raw", mode="raw"),
+                  dict(edge, kernel="tdvmm_fused", mode="scalar_window"),
+                  dict(edge, kernel="tdvmm_calibrated", mode="one_slot")]
+    cases += [dict(codes="f32x3", data="noisy", e=3, ex=1, m=17, k=131, n=70,
+                   widths=None, kernel="tdvmm_fused", mode="expert_windows"),
+              dict(codes="f32x3", data="noisy", e=3, ex=3, m=300, k=131,
+                   n=70, widths=None, kernel="tdvmm_calibrated",
+                   mode="expert_slots")]
+    return cases
+
+
+def f32x3_bound(case: dict) -> tuple[float, str]:
+    """Float32 codes read once (4 bytes each), the output written once,
+    scales and windows; against 3 x 2 M K N at the TF32 tensor-core rate
+    (three products per 8-deep block)."""
+    e, ex, m, k, n = (case[f] for f in ("e", "ex", "m", "k", "n"))
+    nbytes = 4 * (ex * m * k + e * k * n + e * m * n)
+    if case["mode"] != "raw":
+        nbytes += 4 * (ex * m + e * n)
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S
+    t_ops = 3 * 2.0 * e * m * k * n / H100_TF32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _slot_windows64(acc64, absacc64, gain, slots, nslots, bw, rtol):
+    """The exact per-column window of a B2 launch, (E, 1, N) float64, and
+    its relative error bound when read from a float32 accumulation within
+    ``rtol`` of the exact one."""
+    import torch
+    e, _, n = acc64.shape
+    col = slots.repeat_interleave(bw, dim=1)[:, :n].long()
+    zc = torch.amax(torch.abs(acc64) * gain, dim=1)
+    ac = torch.amax(absacc64, dim=1) * gain
+    smax = torch.stack([torch.amax(torch.where(col == i, zc, 0.0))
+                        for i in range(nslots)]).clamp_min(1e-9)
+    amax = torch.stack([torch.amax(torch.where(col == i, ac, 0.0))
+                        for i in range(nslots)])
+    s64 = smax[col].reshape(e, 1, n)
+    return s64, (rtol * amax[col]).reshape(e, 1, n) / s64
+
+
+def run_f32x3_case(case: dict, dev, seed: int) -> dict:
+    """One 3xTF32 case: two kernel calls bitwise equal; integer codes
+    bitwise the plain version; noisy codes held to the exact (float64)
+    product: the raw accumulator within F32X3_RTOL x sum|x||w|, each
+    readout level within the rounding of the exact one
+    (``tdvmm.check_readout``: a level may move by one only at a tie), the
+    plain version's too."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.core.constants import TDVMMSpec
+    from repro_torch.kernels.tdvmm import ops, tdvmm as tk
+
+    import numpy as np
+    e, ex, m, k, n = (case[f] for f in ("e", "ex", "m", "k", "n"))
+    data, widths, mode = case["data"], case["widths"], case["mode"]
+    lim_x, lim_w = F32X3_INT.get(data, (63, 63))
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randint(-lim_x, lim_x + 1, (ex, m, k), generator=g,
+                      device=dev).to(torch.float32)
+    w = torch.randint(-lim_w, lim_w + 1, (e, k, n), generator=g,
+                      device=dev).to(torch.float32)
+    noisy = data == "noisy"
+    if noisy:
+        # the programming noise of training (DIBL and tuning), as the layer
+        # draws it
+        w = quant.program_noise(quant.QuantizedTensor(
+            w, torch.ones((), device=dev), 6), TDVMMSpec(), seed).codes
+    max_code = None if noisy else max(lim_x, lim_w)
+    xs = torch.rand((ex, m), generator=g, device=dev) + 0.5
+    ws = torch.rand((e, n), generator=g, device=dev) + 0.5
+    gain = 1.0 / (float(lim_x) * float(lim_w) * 2.0 * k)
+    acc64 = torch.matmul(x.double(), w.double())
+    absacc64 = torch.matmul(x.abs().double(), w.abs().double())
+    rtol = tk.F32X3_RTOL
+    window = members = None
+    if mode == "member_windows":
+        z = torch.abs(acc64[0] * gain)
+        members = tuple(float(np.float32(float(torch.amax(t)) * 0.7))
+                        for t in torch.split(z, list(widths), dim=1))
+        window = ops._member_window_cols(members, widths, n, x.device)
+        s64, s_rel = window.double(), 0.0
+    elif "window" in mode:
+        zmax = (torch.amax(torch.abs(acc64 * gain), dim=(1, 2))
+                * 0.7).to(torch.float32)
+        window = zmax if mode == "expert_windows" else zmax[0].reshape(())
+        s64 = window.double().reshape(-1, 1, 1)
+        s_rel = 0.0
+    bits = None if mode == "raw" else 6
+    if case["kernel"] == "tdvmm_matmul_raw":
+        kern = lambda: tk.tdvmm_matmul_raw(x, w, None, max_code,  # noqa: E731
+                                           noisy)
+        plain = lambda: tk.tdvmm_raw_plain(x, w)                  # noqa: E731
+    elif case["kernel"] == "tdvmm_fused":
+        kern = lambda: tk.tdvmm_fused(x, w, xs, ws, gain, bits,  # noqa: E731
+                                      window, None, max_code, noisy)
+        plain = lambda: tk.tdvmm_fused_plain(x, w, xs, ws, gain,  # noqa: E731
+                                             bits, window)
+    else:
+        slots, nslots = ops._calib_slots(e, n, tk.TILE_N, widths)
+        slots = slots.contiguous().to(dev)
+        bw = min(tk.TILE_N, n)
+        s64, s_rel = _slot_windows64(acc64, absacc64, gain, slots, nslots,
+                                     bw, rtol)
+        kern = lambda: tk.tdvmm_calibrated(x, w, xs, ws, slots,  # noqa: E731
+                                           nslots, bw, gain, 6, None,
+                                           max_code, noisy)
+        plain = lambda: tk.tdvmm_calibrated_plain(              # noqa: E731
+            x, w, xs, ws, slots, nslots, bw, gain, 6)
+    reset_all_launches()
+    yk, yk2, yp = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    launched = launches_now()
+    counter = COUNTER[case["kernel"]] + "_f32x3"
+    require(launched[counter] == 2 and sum(launched.values()) == 2,
+            f"{case}: launches {launched}, want 2 x {counter}")
+    require(bool(torch.equal(yk, yk2)), f"{case}: two calls differ")
+    require(bool(torch.isfinite(yp).all()), f"{case}: non-finite plain")
+    err = float((yk.double() - yp.double()).abs().max())
+    flips = flips_plain = 0
+    acc_rel = acc_rel_plain = None
+    if not noisy:
+        require(err == 0.0, f"{case}: integer codes differ from plain by "
+                f"{err}")
+    if mode == "raw":
+        for name, y in (("kernel", yk), ("plain", yp)):
+            rel = float(((y.double() - acc64).abs()
+                         / absacc64.clamp_min(1e-30)).max())
+            require(rel <= rtol, f"{case}: {name} accumulator {rel:.3g} of "
+                    f"sum|x||w| from the exact product (> {rtol:.3g})")
+            if name == "kernel":
+                acc_rel = rel
+            else:
+                acc_rel_plain = rel
+    else:
+        (flips, bad), (flips_plain, bad_p) = (
+            tk.check_readout(y, acc64, absacc64, xs, ws, gain, 6, s64, s_rel)
+            for y in (yk, yp))
+        require(bad == 0 and bad_p == 0,
+                f"{case}: {bad} kernel and {bad_p} plain outputs off the "
+                "exact readout beyond its rounding")
+    del yk, yk2, yp, acc64, absacc64
+
+    # the yardstick: float32 torch.bmm (TF32 off), plus the torch epilogue
+    xb = x.expand(e, m, k)
+
+    def library():
+        acc = torch.bmm(xb, w)
+        if case["kernel"] == "tdvmm_matmul_raw":
+            return acc
+        if case["kernel"] == "tdvmm_calibrated":
+            return ops._epilogue(acc, xs, ws, gain, 6, None,
+                                 group_widths=widths)
+        return ops._epilogue(acc, xs, ws, gain, bits, members,
+                             out_window=None if members else window,
+                             group_widths=widths)
+    bound_ms, bound_by = f32x3_bound(case)
+    row = dict(case, max_abs_err=err, acc_rel_err=acc_rel,
+               acc_rel_err_plain=acc_rel_plain, gate=rtol,
+               flips=flips,
+               flips_plain=flips_plain, ms=time_ms(kern, 20),
+               plain_ms=time_ms(plain, 5), bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=time_ms(library, 10),
+               library_tf32_ms=None, library_padded=False,
+               tile=tk.plan_tile(m).name)
+    row.pop("rep", None)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: training at full width (QAT), noisy steps, the case study
+# ---------------------------------------------------------------------------
+def qat_config(**tdvmm):
+    from repro_torch.configs import get_config
+    from repro_torch.core.layers import TDVMMLayerConfig
+    return get_config(ARCH).replace(
+        remat_policy="minimal",
+        tdvmm=TDVMMLayerConfig(enabled=True, bits=6, weight_bits=6, **tdvmm))
+
+
+def qat_sites(cfg) -> int:
+    """TD-VMM launches of one layer's forward: attn.qkv (one grouped
+    launch), attn.out, ffn.in (gate and up), ffn.out."""
+    return 2 + (2 if cfg.act == "silu_glu" else 1) + 1
+
+
+def train_full_width(dev, workdir: Path) -> dict:
+    """qwen1.5-0.5b at full width (24 layers, bf16, random weights from
+    seed 0), every linear a 6-bit TD-VMM site (the CLI's --tdvmm), trained
+    through ``launch/train.train_loop``: AdamW at lr 1e-3 with 2 warmup
+    steps, SyntheticLM seed 0, 4 x 512 tokens a step, 8 steps, remat
+    "minimal".  Every loss and gradient norm finite, the last loss below the
+    first, and B2 launched exactly sites x layers x (steps + recomputes):
+    each block's forward runs once and once more when the backward
+    recomputes it, and nothing else launches."""
+    import torch
+    from repro_torch.configs import OptimizerConfig, RunConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import train
+
+    cfg = qat_config()
+    shape = ShapeConfig("qat", QAT_SEQ, QAT_BATCH, "train",
+                        microbatch_per_shard=QAT_BATCH)
+    run = RunConfig(model=cfg, shape=shape, seed=0,
+                    optimizer=OptimizerConfig(lr=1e-3, warmup_steps=2,
+                                              total_steps=QAT_STEPS),
+                    checkpoint_dir=str(workdir / "qat"),
+                    checkpoint_every=10 * QAT_STEPS)
+    reset_all_launches()
+    out = train.train_loop(run, QAT_STEPS, log_every=1, device=dev)
+    torch.cuda.synchronize()
+    launches = launches_now()
+    hist = out["history"]
+    require(len(hist) == QAT_STEPS, f"qat: {len(hist)} logged steps")
+    for h in hist:
+        require(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
+                f"qat step {h['step']}: loss {h['loss']}, gnorm "
+                f"{h['grad_norm']}")
+    require(hist[-1]["loss"] < hist[0]["loss"],
+            f"qat: loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
+    per_fwd = qat_sites(cfg) * cfg.n_layers
+    want = dict.fromkeys(launches, 0) | {"calibrated": per_fwd * 2 * QAT_STEPS}
+    require(launches == want, f"qat launches {launches} != {want}")
+    return dict(cfg=cfg, run=run, out=out, launches=launches,
+                formula=f"{qat_sites(cfg)} sites x {cfg.n_layers} layers x "
+                f"({QAT_STEPS} steps + {QAT_STEPS} recomputes)")
+
+
+def profile_train_step(res: dict) -> dict:
+    """One more training step of the full-width QAT run under the
+    profiler: ms per step, device-busy share, the largest device kernels."""
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+    from repro_torch.launch import steps
+    from repro_torch.optim.optimizer import make_optimizer
+
+    run, state = res["run"], res["out"]["state"]
+    step_fn = steps.make_train_step(res["cfg"], run,
+                                    make_optimizer(run.optimizer))
+    batch = make_pipeline(res["cfg"], run.shape,
+                          DataConfig(seed=run.seed)).batch_at(QAT_STEPS)
+    step_fn(state, batch)                                  # warm
+    wall, by_name, kernels = device_profile(lambda: step_fn(state, batch))
+    dev_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(ms_per_step=wall * 1e3, kernels=kernels,
+                device_busy_share=dev_us / 1e6 / wall,
+                device_ms=dev_us / 1e3,
+                tdvmm_device_share=sum(v for k, v in by_name.items()
+                                       if "tdvmm::" in k) / max(dev_us, 1e-9),
+                top_kernels=[(k[:70], v / max(dev_us, 1e-9))
+                             for k, v in top])
+
+
+def noisy_steps(dev, params) -> dict:
+    """Two noisy training steps (loss and gradients) of the full-width qwen
+    with programming noise at every site, through ``models/model.loss_fn``
+    with a key: every site's codes are float32 off the integer grid, so
+    every launch takes the 3xTF32 storage.  The first step under the global
+    config (B2 at every site), the second with ffn.in chained into ffn.out
+    (ffn.in then has no readout: B1 fused)."""
+    import torch
+    from repro_torch.configs import TDVMMPlan, tdvmm_rule
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import model
+    from repro_torch.tree import leaves
+
+    cfg = qat_config(noise=True)
+    chained = cfg.replace(tdvmm_plan=TDVMMPlan(
+        rules=(tdvmm_rule("ffn.in", chain=True),)))
+    n_in = 2 if cfg.act == "silu_glu" else 1
+    per = cfg.n_layers * 2                 # a forward and its recompute
+    batch = make_pipeline(cfg, ShapeConfig("qat", QAT_SEQ, QAT_BATCH,
+                                           "train"),
+                          DataConfig(seed=1)).batch_at(0)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    out = {"losses": [], "launches": dict.fromkeys(launches_now(), 0)}
+    ps = leaves(params)
+    for key, (name, c, want) in enumerate((
+            ("global", cfg, {"calibrated_f32x3": qat_sites(cfg) * per}),
+            ("ffn_chained", chained,
+             {"fused_f32x3": n_in * per,
+              "calibrated_f32x3": (qat_sites(cfg) - n_in) * per}))):
+        reset_all_launches()
+        for p in ps:
+            p.requires_grad_(True)
+        total, metrics = model.loss_fn(params, batch, c, key=key + 1)
+        grads = torch.autograd.grad(total, ps)
+        for p in ps:
+            p.requires_grad_(False)
+        torch.cuda.synchronize()
+        got = launches_now()
+        want = dict.fromkeys(got, 0) | want
+        require(got == want, f"noisy {name}: launches {got} != {want}")
+        require(math.isfinite(float(total.detach())),
+                f"noisy {name}: loss {float(total.detach())}")
+        require(all(bool(torch.isfinite(g).all()) for g in grads),
+                f"noisy {name}: non-finite gradients")
+        out["losses"].append((name, float(metrics["loss"])))
+        out["launches"] = {k: out["launches"][k] + got[k] for k in got}
+        del grads
+    return out
+
+
+def qat_case_study(dev) -> dict:
+    """The paper's case study end to end on the card: the 10 x 10 x 10
+    perceptron trained with TD-VMM QAT (300 SGD steps, B2 at both layers of
+    every forward), then deployed through B4 with DIBL.  Digital twin >=
+    0.9, circuit > 0.8 (the example's own assert), exact launch counts."""
+    from repro_torch.launch import perceptron
+
+    reset_all_launches()
+    out = perceptron.qat_case_study(dev)
+    launches = launches_now()
+    want = dict.fromkeys(launches, 0) | {
+        "calibrated": 2 * (perceptron.QAT_STEPS + 1), "crossing": 2}
+    require(launches == want, f"qat case study: launches {launches} != "
+            f"{want}")
+    require(out["acc_digital"] >= 0.9,
+            f"qat case study: digital twin {out['acc_digital']:.3f} < 0.9")
+    require(out["acc_circuit"] > 0.8,
+            f"qat case study: circuit {out['acc_circuit']:.3f} <= 0.8")
+    require(out["max_err"] <= TD_ATOL,
+            f"qat case study: circuit {out['max_err']:.3g} from the closed "
+            "form")
+    out["launches"] = launches
+    return out
+
+
+def small_train_agreement(dev) -> dict:
+    """Smoke-width qwen (2 layers, float32), the same weights and batches
+    on the card (B1/B2) and on the CPU (plain versions), under the global
+    --tdvmm config and under ffn_chained (B1 no-readout into B2): the
+    step-0 loss within SMALL_TRAIN_LOSS_RTOL0 and every leaf's step-0
+    gradient within SMALL_TRAIN_GRAD_RTOL of its max|g|; then 3 steps of
+    the train step (AdamW), each loss within SMALL_TRAIN_LOSS_RTOL."""
+    import torch
+    from repro_torch.configs import (OptimizerConfig, RunConfig, get_config,
+                                     smoke)
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.layers import TDVMMLayerConfig
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    from repro_torch.optim.optimizer import make_optimizer
+    from repro_torch.tree import leaves_with_paths
+
+    base = smoke(get_config(ARCH))
+    out = {}
+    for name, cfg in (
+            ("tdvmm", base.replace(tdvmm=TDVMMLayerConfig(
+                enabled=True, bits=6, weight_bits=6))),
+            ("ffn_chained", base.replace(tdvmm_plan=plans()["ffn_chained"]))):
+        run = RunConfig(model=cfg, shape=ShapeConfig("small", 16, 4, "train",
+                                                     microbatch_per_shard=4),
+                        optimizer=OptimizerConfig(lr=1e-3, warmup_steps=2,
+                                                  total_steps=3))
+        pipe = make_pipeline(cfg, run.shape, DataConfig(seed=0))
+        p_cpu = model.init_params(0, cfg, device="cpu")
+        res = {}
+        for d, p in (("cpu", p_cpu), ("card", _to(p_cpu, dev))):
+            named = leaves_with_paths(p)
+            for _, t in named:
+                t.requires_grad_(True)
+            batch = {k: torch.as_tensor(v).to(p["ln_f"]["scale"].device)
+                     for k, v in pipe.batch_at(0).items()}
+            total, _ = model.loss_fn(p, batch, cfg)
+            grads = torch.autograd.grad(total, [t for _, t in named])
+            for _, t in named:
+                t.requires_grad_(False)
+            opt = make_optimizer(run.optimizer)
+            step_fn = steps.make_train_step(cfg, run, opt)
+            st = steps.TrainState(p, opt.init(p))
+            losses = []
+            for i in range(3):
+                st, m = step_fn(st, pipe.batch_at(i))
+                losses.append(float(m["loss"]))
+            res[d] = (float(total), {n: g.detach().cpu() for (n, _), g in
+                                     zip(named, grads)}, losses)
+        (l_c, g_c, ls_c), (l_d, g_d, ls_d) = res["cpu"], res["card"]
+        loss0 = abs(l_d - l_c) / abs(l_c)
+        require(loss0 <= SMALL_TRAIN_LOSS_RTOL0,
+                f"small train {name}: step-0 loss {l_d} vs cpu {l_c}")
+        grad = 0.0
+        for n, gc in g_c.items():
+            scale = float(gc.abs().max())
+            if scale == 0.0:
+                require(float(g_d[n].abs().max()) == 0.0,
+                        f"small train {name}: {n} gradient")
+                continue
+            rel = float((g_d[n] - gc).abs().max()) / scale
+            require(rel <= SMALL_TRAIN_GRAD_RTOL,
+                    f"small train {name}: {n} gradient {rel:.3g} of max|g|")
+            grad = max(grad, rel)
+        later = max(abs(a - b) / abs(b) for a, b in zip(ls_d, ls_c))
+        require(later <= SMALL_TRAIN_LOSS_RTOL,
+                f"small train {name}: losses {ls_d} vs cpu {ls_c}")
+        out[name] = dict(loss0=loss0, grad=grad, losses=later)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: the card's kernel path against the CPU plain path, small input
 # ---------------------------------------------------------------------------
 def small_input_agreement(dev) -> float:
@@ -1603,7 +2103,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     # deterministic kernels for the batched == solo check, without the
     # NaN fill of every fresh allocation that the mode adds by default
-    torch.use_deterministic_algorithms(True)
+    # (warn_only: the training phases' backward may reach an op without a
+    # deterministic kernel; serving's ops all have one)
+    torch.use_deterministic_algorithms(True, warn_only=True)
     torch.utils.deterministic.fill_uninitialized_memory = False
 
     build_s = kernels.build_all(verbose=True)
@@ -1631,6 +2133,23 @@ def main() -> int:
             + f" tile={row['tile']}"
             + (f" fill={row['fill']}" if row.get("fill") else "")
             + (" unaligned" if row.get("unaligned") else ""))
+    for i, case in enumerate(f32x3_cases()):
+        row = run_f32x3_case(case, dev, seed=300 + i)
+        rows.append((case, row))
+        say("kernel", f"{row['kernel']:<17} f32x3 {row['data']:<5} "
+            f"{row['mode']:<15} E={row['e']} x{row['ex']} M={row['m']:<4} "
+            f"K={row['k']:<5} N={row['n']:<5} two calls equal, "
+            + ("bitwise the plain version" if row["data"] != "noisy" else
+               "within the exact readout's rounding")
+            + (f", accumulator {row['acc_rel_err']:.3g} of sum|x||w| "
+               f"(plain {row['acc_rel_err_plain']:.3g}, gate "
+               f"{row['gate']:.3g})" if row["acc_rel_err"] is not None
+               else f", readout flips at ties: kernel {row['flips']}, plain "
+                    f"{row['flips_plain']}")
+            + f" max_abs_err={row['max_abs_err']:.3g} "
+            f"kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+            f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
+            f"library_ms={row['library_ms']:.5f} tile={row['tile']}")
     for i, case in enumerate(ssd_cases()):
         row = run_ssd_case(case, dev, seed=100 + i)
         rows.append((case, row))
@@ -1757,6 +2276,47 @@ def main() -> int:
         "forward, 1 per array forward)")
     del phys["case"], phys["array"]
 
+    with tempfile.TemporaryDirectory() as workdir:
+        qat = train_full_width(dev, Path(workdir))
+    served.append({"launches": qat["launches"]})
+    hist = qat["out"]["history"]
+    say("train", f"qat: {ARCH} full width ({qat['cfg'].n_layers} layers, "
+        f"d_model {qat['cfg'].d_model}, d_ff {qat['cfg'].d_ff}, vocab "
+        f"{qat['cfg'].vocab_size}, {qat['cfg'].dtype}), every linear 6-bit "
+        f"TD-VMM, {QAT_BATCH} x {QAT_SEQ} tokens a step, remat minimal: "
+        "loss " + " ".join(f"{h['loss']:.4f}" for h in hist)
+        + "; gnorm " + " ".join(f"{h['grad_norm']:.3f}" for h in hist)
+        + "; step s " + " ".join(f"{h['dt']:.3f}" for h in hist)
+        + f"; {qat['out']['total_s']:.1f} s with the checkpoint; B2 "
+        f"launches {qat['launches']['calibrated']} = {qat['formula']}")
+    prof = profile_train_step(qat)
+    say("profile", f"qat train step: {prof['ms_per_step']:.1f} ms, "
+        f"{prof['kernels']} device kernels, device busy "
+        f"{prof['device_busy_share']:.3f} ({prof['device_ms']:.1f} device "
+        f"ms), TD-VMM kernels {prof['tdvmm_device_share']:.3f} of device "
+        "time; top " + "; ".join(f"{k} {v:.3f}"
+                                 for k, v in prof["top_kernels"]))
+    noisy = noisy_steps(dev, qat["out"]["state"].params)
+    served.append({"launches": noisy["launches"]})
+    say("train", "noisy: two steps with programming noise at every site, "
+        "losses " + ", ".join(f"{n} {v:.4f}" for n, v in noisy["losses"])
+        + f"; 3xTF32 launches fused {noisy['launches']['fused_f32x3']}, "
+        f"B2 {noisy['launches']['calibrated_f32x3']}, no other storage")
+    del qat, noisy
+    torch.cuda.empty_cache()
+    case_qat = qat_case_study(dev)
+    served.append({"launches": case_qat["launches"]})
+    say("train", f"perceptron QAT: {case_qat['steps']} steps, loss "
+        f"{case_qat['loss_first']:.4f} -> {case_qat['loss_last']:.4f} in "
+        f"{case_qat['train_s']:.2f} s; digital-twin test accuracy "
+        f"{case_qat['acc_digital']:.3f}, circuit (B4, DIBL "
+        f"{case_qat['dibl_error'] * 100:.1f}%) {case_qat['acc_circuit']:.3f},"
+        f" drop {case_qat['drop']:+.3f}; circuit vs closed form "
+        f"{case_qat['max_err']:.3g}; launches B2 "
+        f"{case_qat['launches']['calibrated']}, B4 "
+        f"{case_qat['launches']['crossing']}")
+    del case_qat["logits"]
+
     worst = small_input_agreement(dev)
     say("small", "qwen card vs cpu plain path: equal greedy tokens, logits "
         f"within {worst:.3g} of max|logit|")
@@ -1770,6 +2330,10 @@ def main() -> int:
     worst = small_physics_agreement(dev)
     say("small", "perceptron and 64 x 64 array card vs cpu plain path: "
         f"decoded outputs within {worst:.3g}")
+    for name, r in small_train_agreement(dev).items():
+        say("small", f"qwen training {name} card vs cpu: step-0 loss "
+            f"{r['loss0']:.3g} relative, gradients within {r['grad']:.3g} of "
+            f"max|g| per leaf, 3 AdamW steps' losses within {r['losses']:.3g}")
 
     kernels = []
     for name in SOURCES:

@@ -48,8 +48,9 @@ class TDVMMLayerConfig:
     *exact* int32 accumulation for any K, so both backends are bit-for-bit
     identical with no envelope caveat.  p <= 3 on both operands packs two
     codes per byte (int4), still exact; p = 8 stores integer-valued float32
-    codes, exact while worst |acc| < 2^24.  Noisy codes (training) are not
-    ported and raise.
+    codes, exact while worst |acc| < 2^24.  Noisy codes (``noise`` with a
+    key: programming noise during training) are float32 off the integer
+    grid; on the card they run in B1/B2's 3xTF32 storage.
 
     ``out_scale`` caches a calibration-time readout window (see
     ``TDVMMLinear.calibrate`` / ``calibrate_out_scale`` / the model-wide

@@ -22,10 +22,17 @@ one ragged concat launch.
 
 Code storage follows the JAX package's rule (``_plan_code_dtype``): int8
 for p <= 7 on both operands, int4-packed pairs for p <= 3 on both, float32
-codes for p = 8 (warning where the worst |acc| reaches 2^24, beyond which
-the float32 sums may round).  The layer serves only: there is no gradient
-path, and programming noise (``cfg.noise`` with a key, a training feature)
-raises ``NotImplementedError``.
+codes for p = 8 or with programming noise (warning where the worst |acc|
+reaches 2^24, beyond which the float32 sums may round).
+
+Gradients (QAT): straight-through estimators on every quantizer
+(``quant.QuantizedTensor.view``) and the JAX package's custom VJP on the
+integrate stage (``kernels/tdvmm/ops._TDVMMCore``): when x or w needs a
+gradient the layer hands the kernels the float32 straight-through views,
+else the stored codes.  Programming noise (``cfg.noise`` with a ``key``:
+an int seed or ``quant.NoiseDraws``) perturbs the programmed currents
+(``quant.program_noise``): the codes are then float32 off the integer grid
+and run in B1/B2's 3xTF32 storage on the card.
 """
 from __future__ import annotations
 
@@ -40,10 +47,6 @@ from repro_torch.core import quant
 
 __all__ = ["TDVMMLayerConfig", "td_matmul", "td_expert_matmul",
            "td_grouped_matmul", "calibrate_out_scale"]
-
-_NOISE = ("programming noise (cfg.noise with a key) is a training feature "
-          "the port does not have yet (ROADMAP A.11)")
-
 
 class MatmulPlan(NamedTuple):
     """Shape/backend/storage bookkeeping for one td_matmul call."""
@@ -78,7 +81,8 @@ def _plan_code_dtype(cfg: TDVMMLayerConfig, k: int, noisy: bool) -> str:
     return "f32"
 
 
-def plan_matmul(x_shape, w_shape, cfg: TDVMMLayerConfig) -> MatmulPlan:
+def plan_matmul(x_shape, w_shape, cfg: TDVMMLayerConfig,
+                noisy: bool = False) -> MatmulPlan:
     k, n = w_shape
     if x_shape[-1] != k:
         raise ValueError(f"td_matmul shapes {tuple(x_shape)} x {tuple(w_shape)}")
@@ -86,7 +90,7 @@ def plan_matmul(x_shape, w_shape, cfg: TDVMMLayerConfig) -> MatmulPlan:
     m = 1
     for d in batch_shape:
         m *= d
-    code_dtype = _plan_code_dtype(cfg, k, False)
+    code_dtype = _plan_code_dtype(cfg, k, noisy)
     from repro_torch.kernels.tdvmm import ops
     return MatmulPlan(batch_shape, m, k, n, ops.resolve_backend(cfg.backend),
                       code_dtype)
@@ -141,7 +145,8 @@ def _latch_gain(levels_x: int, levels_w: int, k: int) -> float:
 
 def _record_window(cfg: TDVMMLayerConfig, x_codes: torch.Tensor,
                    w_codes: torch.Tensor, backend: str, code_dtype: str,
-                   gain: float, max_code: int, per_tile: bool = False,
+                   gain: float, max_code: Optional[int], noisy: bool,
+                   per_tile: bool = False,
                    group_widths: Optional[tuple[int, ...]] = None) -> None:
     """Calibration capture: when a ``core.calibration`` collector is active
     and the site has a digital readout boundary, record its latch-normalized
@@ -155,8 +160,10 @@ def _record_window(cfg: TDVMMLayerConfig, x_codes: torch.Tensor,
     if not calibration.active() or not cfg.io_quantize:
         return
     from repro_torch.kernels.tdvmm import ops
-    acc = ops.codes_matmul(x_codes, w_codes, backend, code_dtype=code_dtype,
-                           max_code=max_code)
+    with torch.no_grad():
+        acc = ops.codes_matmul(x_codes, w_codes, backend,
+                               code_dtype=code_dtype, max_code=max_code,
+                               noisy=noisy)
     z = torch.abs(acc * _f32(gain))
     if group_widths is not None:
         # member g owns columns [off, off + width_g); pad columns are zero
@@ -181,9 +188,23 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
-def _refuse_noise(cfg: TDVMMLayerConfig, key) -> None:
-    if cfg.noise and key is not None:
-        raise NotImplementedError(f"site {cfg.site or '<unnamed>'}: {_NOISE}")
+def _operands(qx: quant.QuantizedTensor, qw: quant.QuantizedTensor,
+              *inputs: torch.Tensor):
+    """What the kernels get: the float32 straight-through views when an
+    input (x or a weight) needs a gradient (QAT), else the stored codes."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return qx.view(), qw.view()
+    return qx.codes, qw.codes
+
+
+def _noise(cfg: TDVMMLayerConfig, key) -> bool:
+    return bool(cfg.noise and key is not None)
+
+
+def _max_code(qx, qw, noisy: bool) -> Optional[int]:
+    """The largest |code| of the two operands, for integer codes; None for
+    noisy ones (off the integer grid)."""
+    return None if noisy else max(qx.levels, qw.levels)
 
 
 def _max0(z: torch.Tensor) -> torch.Tensor:
@@ -193,18 +214,20 @@ def _max0(z: torch.Tensor) -> torch.Tensor:
 
 
 def td_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TDVMMLayerConfig,
-              key=None) -> torch.Tensor:
+              key: Optional[quant.NoiseKey] = None) -> torch.Tensor:
     """Four-quadrant TD-VMM fast path.  x: (..., N_in), w: (N_in, N_out).
 
-    ``key`` stands for the JAX package's noise key; noisy codes are not
-    ported, so an enabled site with ``cfg.noise`` and a key raises."""
+    ``key`` with ``cfg.noise`` perturbs the programmed currents
+    (``quant.program_noise``)."""
     if not cfg.enabled:
         return x @ w
-    _refuse_noise(cfg, key)
-    plan = plan_matmul(x.shape, w.shape, cfg)
+    noisy = _noise(cfg, key)
+    plan = plan_matmul(x.shape, w.shape, cfg, noisy=noisy)
 
     qx = quant.encode_input(x, cfg.bits)
     qw = quant.program_weights(w, cfg.weight_bits, cfg.per_channel)
+    if noisy:
+        qw = quant.program_noise(qw, cfg.spec, key)
 
     from repro_torch.kernels.tdvmm import ops
     gain = _latch_gain(qx.levels, qw.levels, plan.k)
@@ -213,13 +236,14 @@ def td_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TDVMMLayerConfig,
         qw.scale.reshape(-1) * _f32(2.0 * plan.k), (plan.n,))
     out_bits, out_scale = _readout_args(cfg)
     out_scale, out_window = _runtime_override(cfg, out_bits, out_scale)
-    x_codes = qx.codes.reshape(plan.m, plan.k)
-    max_code = max(qx.levels, qw.levels)
-    _record_window(cfg, x_codes, qw.codes, plan.backend, plan.code_dtype, gain,
-                   max_code)
+    xc, wc = _operands(qx, qw, x, w)
+    xc = xc.reshape(plan.m, plan.k)
+    max_code = _max_code(qx, qw, noisy)
+    _record_window(cfg, xc.detach(), wc.detach(), plan.backend,
+                   plan.code_dtype, gain, max_code, noisy)
     y = ops.tdvmm_matmul(
-        x_codes,
-        qw.codes,
+        xc,
+        wc,
         qx.scale.reshape(plan.m),
         w_scale,
         gain=gain,
@@ -229,12 +253,14 @@ def td_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TDVMMLayerConfig,
         code_dtype=plan.code_dtype,
         out_window=out_window,
         max_code=max_code,
+        noisy=noisy,
     )
     return y.reshape(plan.batch_shape + (plan.n,)).to(x.dtype)
 
 
 def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
-                     cfg: TDVMMLayerConfig, key=None) -> torch.Tensor:
+                     cfg: TDVMMLayerConfig,
+                     key: Optional[quant.NoiseKey] = None) -> torch.Tensor:
     """Batched four-quadrant TD-VMM: one analog tile per expert.
 
     x (E, C, N_in) is the MoE dispatch buffer, w (E, N_in, N_out) the
@@ -250,13 +276,15 @@ def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
     if e != e2 or k != k2:
         raise ValueError(f"td_expert_matmul shapes {tuple(x.shape)} x "
                          f"{tuple(w.shape)}")
-    _refuse_noise(cfg, key)
-    code_dtype = _plan_code_dtype(cfg, k, False)
+    noisy = _noise(cfg, key)
+    code_dtype = _plan_code_dtype(cfg, k, noisy)
     from repro_torch.kernels.tdvmm import ops
     backend = ops.resolve_backend(cfg.backend)
 
     qx = quant.encode_input(x, cfg.bits)                       # scale (E, C, 1)
     qw = quant.program_weights(w, cfg.weight_bits, cfg.per_channel)
+    if noisy:
+        qw = quant.program_noise(qw, cfg.spec, key)
     gain = _latch_gain(qx.levels, qw.levels, k)
     # qw.scale is (E, 1, N) per-channel or (E, 1, 1) per-tensor
     w_scale = torch.broadcast_to(
@@ -264,12 +292,13 @@ def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
     out_bits, out_scale = _readout_args(cfg, n_experts=e)
     out_scale, out_window = _runtime_override(cfg, out_bits, out_scale)
     # each expert is its own analog tile: calibration records (E,) windows
-    max_code = max(qx.levels, qw.levels)
-    _record_window(cfg, qx.codes, qw.codes, backend, code_dtype, gain,
-                   max_code, per_tile=True)
+    max_code = _max_code(qx, qw, noisy)
+    xc, wc = _operands(qx, qw, x, w)
+    _record_window(cfg, xc.detach(), wc.detach(), backend, code_dtype, gain,
+                   max_code, noisy, per_tile=True)
     y = ops.tdvmm_matmul(
-        qx.codes,
-        qw.codes,
+        xc,
+        wc,
         qx.scale.reshape(e, c),
         w_scale,
         gain=gain,
@@ -279,12 +308,14 @@ def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
         code_dtype=code_dtype,
         out_window=out_window,
         max_code=max_code,
+        noisy=noisy,
     )
     return y.to(x.dtype)
 
 
 def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
-                      key=None) -> tuple[torch.Tensor, ...]:
+                      key: Optional[quant.NoiseKey] = None
+                      ) -> tuple[torch.Tensor, ...]:
     """Grouped four-quadrant TD-VMM: G same-input projections, one launch.
 
     ``x`` (..., N_in) is encoded once and the G matrices (N_in, N_g) run as
@@ -293,7 +324,8 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
     Per-member per-channel weight scales concatenate into the epilogue's
     per-column scale row, and per-member readout windows resolve by column
     span (``group_widths``), so the launch is bitwise the G sequential calls
-    whenever the windows match.  Returns G tensors shaped (..., N_g)."""
+    whenever the windows match.  Programming noise perturbs the concat bank
+    (as the JAX package does).  Returns G tensors shaped (..., N_g)."""
     ws = tuple(ws)
     if not ws:
         return ()
@@ -305,8 +337,8 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
         if w.dim() != 2 or w.shape[0] != k:
             raise ValueError(f"grouped member {tuple(w.shape)} for an input "
                              f"of width {k}")
-    _refuse_noise(cfg, key)
-    plan = plan_matmul(x.shape, (k, sum(ns)), cfg)
+    noisy = _noise(cfg, key)
+    plan = plan_matmul(x.shape, (k, sum(ns)), cfg, noisy=noisy)
     from repro_torch.kernels.tdvmm import ops, tdvmm
     # per-member column spans: each member rounds to the 128 lane only
     widths = tuple(tdvmm.padded_size(n, tdvmm.LANE, tdvmm.LANE) for n in ns)
@@ -316,19 +348,23 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
     qw = quant.concat_group(
         [quant.program_weights(w, cfg.weight_bits, cfg.per_channel)
          for w in ws], widths)
+    if noisy:
+        qw = quant.program_noise(qw, cfg.spec, key)
     gain = _latch_gain(qx.levels, qw.levels, k)
     w_scale = qw.scale.reshape(n_total) * _f32(2.0 * k)
     out_bits, out_scale = _readout_args(cfg, n_experts=len(ws))
     out_scale, out_window = _runtime_override(cfg, out_bits, out_scale)
-    x_codes = qx.codes.reshape(plan.m, k)
+    xc, wc = _operands(qx, qw, x, *ws)
+    xc = xc.reshape(plan.m, k)
     # each member's column span is its own analog tile: calibration records
     # one (G,) vector for the site
-    max_code = max(qx.levels, qw.levels)
-    _record_window(cfg, x_codes, qw.codes, plan.backend, plan.code_dtype,
-                   gain, max_code, group_widths=widths)
+    max_code = _max_code(qx, qw, noisy)
+    _record_window(cfg, xc.detach(), wc.detach(), plan.backend,
+                   plan.code_dtype, gain, max_code, noisy,
+                   group_widths=widths)
     y = ops.tdvmm_matmul(
-        x_codes,
-        qw.codes,
+        xc,
+        wc,
         qx.scale.reshape(plan.m),
         w_scale,
         gain=gain,
@@ -339,6 +375,7 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
         group_widths=widths,
         out_window=out_window,
         max_code=max_code,
+        noisy=noisy,
     )                                                          # (M, n_total)
     outs, off = [], 0
     for n, wd in zip(ns, widths):
@@ -349,23 +386,29 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
 
 
 def calibrate_out_scale(x: torch.Tensor, w: torch.Tensor,
-                        cfg: TDVMMLayerConfig, key=None) -> float:
+                        cfg: TDVMMLayerConfig,
+                        key: Optional[quant.NoiseKey] = None) -> float:
     """Serving-path readout calibration: capture the ADC window once.
 
     Runs encode -> program -> integrate on a representative batch and returns
     max|z| of the latch-normalized accumulation (the §3.1 output-window
     calibration) as a Python float; store it with
-    ``cfg.replace(out_scale=...)`` to pin the window."""
+    ``cfg.replace(out_scale=...)`` to pin the window.  With ``cfg.noise``
+    and a ``key`` the window is captured over the noisy codes the site will
+    integrate (a noise-free one would clip them)."""
     if not cfg.enabled:
         raise ValueError("calibrate_out_scale needs an enabled TD-VMM config")
-    _refuse_noise(cfg, key)
-    plan = plan_matmul(x.shape, w.shape, cfg)
-    qx = quant.encode_input(x, cfg.bits)
-    qw = quant.program_weights(w, cfg.weight_bits, cfg.per_channel)
-    from repro_torch.kernels.tdvmm import ops
-    acc = ops.codes_matmul(qx.codes.reshape(plan.m, plan.k), qw.codes,
-                           plan.backend, code_dtype=plan.code_dtype,
-                           max_code=max(qx.levels, qw.levels))
+    noisy = _noise(cfg, key)
+    plan = plan_matmul(x.shape, w.shape, cfg, noisy=noisy)
+    with torch.no_grad():
+        qx = quant.encode_input(x, cfg.bits)
+        qw = quant.program_weights(w, cfg.weight_bits, cfg.per_channel)
+        if noisy:
+            qw = quant.program_noise(qw, cfg.spec, key)
+        from repro_torch.kernels.tdvmm import ops
+        acc = ops.codes_matmul(qx.codes.reshape(plan.m, plan.k), qw.codes,
+                               plan.backend, code_dtype=plan.code_dtype,
+                               max_code=_max_code(qx, qw, noisy), noisy=noisy)
     gain = _latch_gain(qx.levels, qw.levels, plan.k)
     z_max = _max0(torch.abs(acc * _f32(gain)))
     return max(float(z_max), 1e-9)

@@ -21,15 +21,27 @@ scalar arithmetic sneaks in.  ``concat_group`` joins G programmed members
 into the ragged bank of a grouped launch.
 
 Storage: int8 for p <= 7; integer-valued float32 for p = 8 (``signed_codes``,
-written as the JAX package's straight-through form ``lin + (q - lin)``, whose
+the JAX package's straight-through form ``lin + detach(q - lin)``, whose
 forward value is the rounded code).  ``pack_int4`` / ``unpack_int4`` hold
 p <= 3 codes two per byte, the layout kernel B1 streams in its int4 mode.
-There is no gradient path: the port serves only.
+
+Gradients (QAT): every quantizer is a straight-through estimator.  When the
+input needs a gradient, ``encode_input`` / ``program_weights`` keep the
+unrounded linear term ``x * L`` beside int8 codes, and
+``QuantizedTensor.view()`` splices it in as ``qf + (ste - detach(ste))``:
+forward the integer code bit for bit, backward the identity.  Scales are
+detached.  ``program_noise`` perturbs programmed currents (DIBL and tuning
+noise): its codes are float32 and not integers.  A noise ``key`` is an int
+seed (the draws come from a generator seeded by it, so the same key draws
+the same noise, also when a checkpointed block is recomputed) or a
+``NoiseDraws`` pair handed in from outside.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -50,19 +62,38 @@ def storage_dtype(bits: int) -> torch.dtype:
 class QuantizedTensor:
     """Integer codes + the scale that maps them back to model units.
 
-    codes:  int8 in [-levels, levels] (p <= 7), else integer-valued f32.
+    codes:  int8 in [-levels, levels] (p <= 7), else float32: integer
+            valued, straight-through wrapped, or (``program_noise``) not on
+            the integer grid.
     scale:  f32, per-row ``(..., 1)`` for activations, per-channel ``(1, N)``
-            or per-tensor ``(1, 1)`` for weights.
+            or per-tensor ``(1, 1)`` for weights; detached.
     bits:   code width p.
+    ste:    the unrounded float32 linear term ``x * L`` kept beside int8
+            codes when the input needs a gradient (QAT), else None.
     """
 
     codes: torch.Tensor
     scale: torch.Tensor
     bits: int
+    ste: Optional[torch.Tensor] = None
 
     @property
     def levels(self) -> int:
         return (1 << self.bits) - 1
+
+    def view(self) -> torch.Tensor:
+        """float32 straight-through view of the codes: forward the stored
+        codes, backward the identity (through ``ste`` when present)."""
+        if self.codes.dtype.is_floating_point:
+            return self.codes          # float32 codes carry their STE
+        qf = self.codes.to(torch.float32)
+        if self.ste is None:
+            return qf
+        # qf + (ste - detach(ste)), not ste + detach(qf - ste): the
+        # correction is exactly +0.0, so the forward value is the integer
+        # code and float sums over integer products stay order-free (the
+        # other form rounds twice and lands an ulp off the grid)
+        return qf + (self.ste - self.ste.detach())
 
 
 def pack_int4(codes: torch.Tensor, axis: int) -> torch.Tensor:
@@ -95,23 +126,35 @@ def unpack_int4(packed: torch.Tensor, k: int, axis: int) -> torch.Tensor:
     return out.reshape(shape).narrow(axis, 0, k)
 
 
+def ste(x_quant: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Straight-through estimator: forward ``x_quant``, backward identity."""
+    return x + (x_quant - x).detach()
+
+
 def signed_codes(x: torch.Tensor, bits: int) -> torch.Tensor:
     """Value in [-1, 1] -> integer-valued float32 code in [-L, L].
 
-    The JAX package writes this as a straight-through estimator,
-    ``lin + stop_gradient(q - lin)`` with ``lin = x * L``; the same float32
-    expression is evaluated here so the codes are bitwise equal."""
-    lin = x * float((1 << bits) - 1)
+    A straight-through estimator in the code domain, as the JAX package
+    writes it: ``lin + detach(q - lin)`` with ``lin = x * L``, so the
+    forward value is the rounded code (bitwise the JAX package's) and
+    d(code)/dx = L."""
+    levels = float((1 << bits) - 1)
     q = enc.quantize_code_signed(x, bits).to(torch.float32)
-    return lin + (q - lin)
+    return ste(q, x * levels)
 
 
-def _store(normalized: torch.Tensor, bits: int) -> torch.Tensor:
-    """Codes for a normalized value in [-1, 1]: int8 when the signed range
-    fits, else integer-valued float32 (``signed_codes``)."""
+def _store(normalized: torch.Tensor, bits: int
+           ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(codes, ste) for a normalized value in [-1, 1]: int8 codes, with the
+    float32 linear term when a gradient is needed; else straight-through
+    float32 codes (``signed_codes``) and no separate term."""
     if storage_dtype(bits) == torch.int8:
-        return enc.quantize_code_signed(normalized, bits).to(torch.int8)
-    return signed_codes(normalized, bits)
+        codes = enc.quantize_code_signed(normalized, bits).to(torch.int8)
+        lin = None
+        if normalized.requires_grad and torch.is_grad_enabled():
+            lin = normalized * float((1 << bits) - 1)
+        return codes, lin
+    return signed_codes(normalized, bits), None
 
 
 def _floor(t: torch.Tensor, value: float) -> torch.Tensor:
@@ -138,8 +181,9 @@ def encode_input(x: torch.Tensor, bits: int, axis: int = -1) -> QuantizedTensor:
     analog front-end normalizes each sample into the [0, T] window).
     """
     xf = x.to(torch.float32)
-    s = _floor(_absmax(xf, (axis,)), 1e-6)
-    return QuantizedTensor(codes=_store(xf / s, bits), scale=s, bits=bits)
+    s = _floor(_absmax(xf.detach(), (axis,)), 1e-6)
+    codes, lin = _store(xf / s, bits)
+    return QuantizedTensor(codes=codes, scale=s, bits=bits, ste=lin)
 
 
 def program_weights(
@@ -152,9 +196,12 @@ def program_weights(
     """
     wf = w.to(torch.float32)
     dims = (-2,) if per_channel else (-2, -1)
-    w_max = _floor(_absmax(wf, dims), 1e-6)
-    return QuantizedTensor(codes=_store(wf / w_max, bits), scale=w_max,
-                           bits=bits)
+    w_max = _floor(_absmax(wf.detach(), dims), 1e-6)
+    # no clip here: the stored code clips to the code range, and the STE
+    # linear term stays unclipped (a clip would halve the gradient of every
+    # per-channel max-magnitude weight, a min/max tie at |w| == w_max)
+    codes, lin = _store(wf / w_max, bits)
+    return QuantizedTensor(codes=codes, scale=w_max, bits=bits, ste=lin)
 
 
 def concat_group(qws, widths: tuple[int, ...]) -> QuantizedTensor:
@@ -186,15 +233,78 @@ def concat_group(qws, widths: tuple[int, ...]) -> QuantizedTensor:
         torch.broadcast_to(q.scale, (1, q.codes.shape[-1])),
         (0, wd - q.codes.shape[-1]), value=1.0)
         for q, wd in zip(qws, widths)], dim=-1)
-    return QuantizedTensor(codes=codes, scale=scale, bits=bits)
+    stes = None
+    if all(q.ste is not None for q in qws):
+        stes = torch.cat([F.pad(q.ste, (0, wd - q.ste.shape[-1]))
+                          for q, wd in zip(qws, widths)], dim=-1)
+    return QuantizedTensor(codes=codes, scale=scale, bits=bits, ste=stes)
+
+
+class NoiseDraws(NamedTuple):
+    """The two draws of ``program_noise``, handed in from outside: ``u``
+    uniform in [-1, 1) and ``normal`` standard normal, both float32 of the
+    programmed codes' shape (a test feeds the JAX package's own draws)."""
+    u: torch.Tensor
+    normal: torch.Tensor
+
+
+NoiseKey = Union[int, NoiseDraws]
+
+
+def split_key(key: int, n: int) -> tuple[int, ...]:
+    """``n`` independent int keys derived from ``key`` (the counterpart of
+    ``jax.random.split``: a function of the key alone)."""
+    state = np.random.SeedSequence(int(key)).generate_state(n, np.uint64)
+    return tuple(int(v) >> 1 for v in state)
+
+
+def noise_draws(key: NoiseKey, shape, device) -> NoiseDraws:
+    """The draws for one programmed bank: those handed in, or two draws
+    from a generator on ``device`` seeded by ``key`` alone."""
+    if isinstance(key, NoiseDraws):
+        if tuple(key.u.shape) != tuple(shape) or \
+                tuple(key.normal.shape) != tuple(shape):
+            raise ValueError(f"noise draws of shape {tuple(key.u.shape)} and "
+                             f"{tuple(key.normal.shape)} for codes {tuple(shape)}")
+        return NoiseDraws(key.u.to(device, torch.float32),
+                          key.normal.to(device, torch.float32))
+    if isinstance(key, bool) or not isinstance(key, int):
+        raise TypeError(f"a noise key is an int seed or NoiseDraws, got "
+                        f"{type(key).__name__}")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(key)
+    u = torch.rand(tuple(shape), generator=gen, dtype=torch.float32,
+                   device=device) * 2.0 - 1.0
+    normal = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                         device=device)
+    return NoiseDraws(u, normal)
+
+
+def program_noise(qw: QuantizedTensor, spec, key: NoiseKey) -> QuantizedTensor:
+    """Stochastic DIBL + FG tuning noise on programmed current codes:
+    ``codes = view * (1 + err * u) * exp(0.003 * normal)``.
+
+    Multiplicative, so it is the same in the code and value domains; the
+    perturbed codes are not integers (analog currents), so the result
+    always carries float32 codes, through which the straight-through
+    gradient of ``view()`` flows."""
+    from repro_torch.core import nonideal
+
+    err = float(nonideal.relative_error(spec.i_max, spec.v_sg, spec.delta_vd))
+    view = qw.view()
+    d = noise_draws(key, view.shape, view.device)
+    codes = view * (1.0 + float(np.float32(err)) * d.u)
+    codes = codes * torch.exp(float(np.float32(0.003)) * d.normal)
+    return QuantizedTensor(codes=codes, scale=qw.scale, bits=qw.bits)
 
 
 def readout(y: torch.Tensor, bits: int, scale=None) -> torch.Tensor:
     """Readout stage (Eq. 3 / section 4.2): p-bit ADC over the output window,
     in the value domain.  ``scale=None`` calibrates the window to
-    max(max|y|, 1e-9) (section 3.1); a float or tensor fixes it."""
+    max(max|y|, 1e-9) (section 3.1, detached); a float or tensor fixes it.
+    Forward the quantized value, backward the identity (STE)."""
     if scale is None:
-        scale = _floor(_absmax(y.to(torch.float32), tuple(range(y.dim()))),
-                       1e-9).reshape(())
+        scale = _floor(_absmax(y.detach().to(torch.float32),
+                               tuple(range(y.dim()))), 1e-9).reshape(())
     levels = float((1 << bits) - 1)
     return signed_codes(y / scale, bits) * (scale / levels)

@@ -4,7 +4,9 @@
 // tdvmm_matmul_kernel, raw mode, and tdvmm_fused_kernel).  One CTA per
 // (e, m-tile, n-tile); the K walk runs inside the block on the tensor cores
 // (tdvmm_tile.cuh: mma.sync s8 for int8 codes and int4 pairs, bf16 with a
-// float32 accumulator for float32 codes), and the finished tile goes
+// float32 accumulator for integer float32 codes up to |256|, 3xTF32 for
+// float32 codes off the integer grid or up to |2047|), and the finished
+// tile goes
 // through the epilogue straight from the accumulator fragments, so every
 // output element is written to device memory exactly once:
 //
@@ -131,7 +133,7 @@ static int launch_mode(int mode, int tile, const TileArgs& a, int E,
 }  // namespace tdvmm
 
 // Plain C entry points (bound with ctypes).  ``codes``: 0 int8, 1 int4
-// pairs, 2 float32; ``tile``: 0 small (16 rows), 1 large (128); K is the
+// pairs, 2 float32 (bf16 tile), 3 float32 (3xTF32); ``tile``: 0 small (16 rows), 1 large (128); K is the
 // code depth (int4 rows hold (K + 1) / 2 bytes).  Returns
 // the cudaError_t of the launch; the caller raises on a non-zero value.
 extern "C" int tdvmm_b1(const void* x, const void* w, const void* xs,
@@ -141,7 +143,7 @@ extern "C" int tdvmm_b1(const void* x, const void* w, const void* xs,
                         int codes, int tile, float gain, float levels,
                         float inv_levels, void* stream) {
   using namespace tdvmm;
-  if (mode < 0 || mode > 2 || codes < 0 || codes > 2 || tile < 0 || tile > 1)
+  if (mode < 0 || mode > 2 || codes < 0 || codes > 3 || tile < 0 || tile > 1)
     return (int)cudaErrorInvalidValue;
   const TileArgs a = tile_args(x, w, M, K, N, shared_x, vec_x, vec_w, codes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -154,21 +156,27 @@ extern "C" int tdvmm_b1(const void* x, const void* w, const void* xs,
   if (codes == kInt4)
     return launch_mode<kInt4>(mode, tile, a, E, fxs, fws, fwin, win_se,
                               win_sn, out, gain, levels, inv_levels, s);
-  return launch_mode<kF32>(mode, tile, a, E, fxs, fws, fwin, win_se, win_sn,
-                           out, gain, levels, inv_levels, s);
+  if (codes == kF32)
+    return launch_mode<kF32>(mode, tile, a, E, fxs, fws, fwin, win_se,
+                             win_sn, out, gain, levels, inv_levels, s);
+  return launch_mode<kF32x3>(mode, tile, a, E, fxs, fws, fwin, win_se, win_sn,
+                             out, gain, levels, inv_levels, s);
 }
 
 // Dynamic shared memory of one CTA, in bytes, for a tile and code storage
 // (-1 for an unknown pair): what ``-Xptxas -v`` cannot report.
 extern "C" int tdvmm_smem_bytes(int tile, int codes) {
   using namespace tdvmm;
-  switch (tile * 3 + codes) {
-    case kSmall * 3 + kInt8: return Geometry<kSmall, kInt8>::SMEM;
-    case kSmall * 3 + kInt4: return Geometry<kSmall, kInt4>::SMEM;
-    case kSmall * 3 + kF32: return Geometry<kSmall, kF32>::SMEM;
-    case kLarge * 3 + kInt8: return Geometry<kLarge, kInt8>::SMEM;
-    case kLarge * 3 + kInt4: return Geometry<kLarge, kInt4>::SMEM;
-    case kLarge * 3 + kF32: return Geometry<kLarge, kF32>::SMEM;
+  if (tile < 0 || tile > 1 || codes < 0 || codes > 3) return -1;
+  switch (tile * 4 + codes) {
+    case kSmall * 4 + kInt8: return Geometry<kSmall, kInt8>::SMEM;
+    case kSmall * 4 + kInt4: return Geometry<kSmall, kInt4>::SMEM;
+    case kSmall * 4 + kF32: return Geometry<kSmall, kF32>::SMEM;
+    case kSmall * 4 + kF32x3: return Geometry<kSmall, kF32x3>::SMEM;
+    case kLarge * 4 + kInt8: return Geometry<kLarge, kInt8>::SMEM;
+    case kLarge * 4 + kInt4: return Geometry<kLarge, kInt4>::SMEM;
+    case kLarge * 4 + kF32: return Geometry<kLarge, kF32>::SMEM;
+    case kLarge * 4 + kF32x3: return Geometry<kLarge, kF32x3>::SMEM;
     default: return -1;
   }
 }

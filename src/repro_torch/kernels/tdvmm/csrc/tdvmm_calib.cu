@@ -9,7 +9,9 @@
 //
 //   (i)  b2_integrate: the shared tensor-core tile walk (tdvmm_tile.cuh:
 //        mma.sync s8 for int8 codes and int4 pairs, bf16 with a float32
-//        accumulator for float32 codes); each CTA parks its raw
+//        accumulator for integer float32 codes up to |256|, 3xTF32 for
+//        float32 codes off the integer grid or up to |2047|); each CTA
+//        parks its raw
 //        accumulators in the float32 output (an int32 accumulator as its
 //        bit pattern, as the Pallas kernel parks it; a float32 one, from
 //        f32 codes, as it is).  It folds max |f32(acc) * gain| over each
@@ -136,7 +138,8 @@ static int integrate_tile_choice(int tile, const TileArgs& a, int E,
 }  // namespace tdvmm
 
 // Plain C entry point (bound with ctypes): both launches on ``stream``.
-// ``codes``: 0 int8, 1 int4 pairs, 2 float32; ``tile``: 0 small, 1 large;
+// ``codes``: 0 int8, 1 int4 pairs, 2 float32 (bf16 tile), 3 float32
+// (3xTF32); ``tile``: 0 small, 1 large;
 // K is the code depth.  ``slot_bw`` is a multiple of 64 unless one
 // slot block spans all N columns.  ``slot_max`` (nslots float32) must be
 // zeroed by the caller.  Returns the first non-zero cudaError_t, else 0.
@@ -147,7 +150,7 @@ extern "C" int tdvmm_b2(const void* x, const void* w, const void* xs,
                         int codes, int tile, float gain, float levels,
                         float inv_levels, void* stream) {
   using namespace tdvmm;
-  if (slot_bw < 1 || codes < 0 || codes > 2 || tile < 0 || tile > 1)
+  if (slot_bw < 1 || codes < 0 || codes > 3 || tile < 0 || tile > 1)
     return (int)cudaErrorInvalidValue;
   const TileArgs a = tile_args(x, w, M, K, N, shared_x, vec_x, vec_w, codes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -160,9 +163,12 @@ extern "C" int tdvmm_b2(const void* x, const void* w, const void* xs,
   else if (codes == kInt4)
     err = integrate_tile_choice<kInt4>(tile, a, E, islots, nsb, slot_bw, fmax,
                                        out, gain, s);
-  else
+  else if (codes == kF32)
     err = integrate_tile_choice<kF32>(tile, a, E, islots, nsb, slot_bw, fmax,
                                       out, gain, s);
+  else
+    err = integrate_tile_choice<kF32x3>(tile, a, E, islots, nsb, slot_bw,
+                                        fmax, out, gain, s);
   if (err) return err;
   const size_t total = (size_t)E * M * N;
   size_t blocks = (total + 255) / 256;
@@ -171,7 +177,7 @@ extern "C" int tdvmm_b2(const void* x, const void* w, const void* xs,
   float* fout = static_cast<float*>(out);
   const float* fxs = static_cast<const float*>(xs);
   const float* fws = static_cast<const float*>(ws);
-  if (codes == kF32)
+  if (codes == kF32 || codes == kF32x3)
     b2_readout<true><<<(unsigned)blocks, 256, 0, s>>>(
         fout, fxs, fws, islots, nsb, slot_bw, fmax, E, M, N, shared_x, gain,
         levels, inv_levels);

@@ -57,8 +57,24 @@
 //          (worst |acc| < 2^24) every partial sum is an integer that float32
 //          holds exactly, so the tensor cores' float32 sums are bitwise the
 //          plain version's whatever their order or internal alignment.
-//          Codes with programming noise are not integers; they are refused
-//          above the kernels (core/layers.py), never fed to this tile.
+//          Codes with programming noise are not integers; they go to kF32x3.
+//   kF32x3 float32 codes on the TF32 tensor cores, three products:
+//          mma.sync m16n8k8 tf32 x tf32 -> f32.  Staged as kF32 stages them;
+//          as each fragment loads, every code v is split into TF32 parts
+//          hi = tf32(v), lo = tf32(v - hi) (to nearest, ties away from zero,
+//          as cvt.rna rounds a finite v), and each 8-deep block is summed as
+//          lo.hi + hi.lo + hi.hi.  The tensor cores add into their
+//          accumulator truncating, not to nearest (B4's finding, PR 17's
+//          crossing.cu), so each 32-code K stage is summed on them from zero
+//          and then added into the running total with one IEEE add.  This
+//          takes codes the bf16 tile cannot: codes off the integer grid
+//          (programming noise during training), within float32 rounding of
+//          the plain version (the dropped lo.lo and the split's residual are
+//          ~2^-22 of each product; tdvmm.F32X3_RTOL bounds the sum), and
+//          integer codes up to |2047| (p = 9-11), which TF32 holds exactly:
+//          their lo parts are 0, every product and partial sum is an integer
+//          below 2^24, and the result is bitwise the plain version's.  No
+//          atomics: two calls are bitwise equal.
 //
 // What bounds it: at decode, device-memory bytes (the weight codes); the
 // small tile's ring keeps up to three K steps of weights in flight per CTA.
@@ -79,7 +95,7 @@
 
 namespace tdvmm {
 
-enum Codes { kInt8 = 0, kInt4 = 1, kF32 = 2 };
+enum Codes { kInt8 = 0, kInt4 = 1, kF32 = 2, kF32x3 = 3 };
 enum TileId { kSmall = 0, kLarge = 1 };
 
 // Output columns per readout-slot block (tdvmm.TILE_N): B2 keeps one
@@ -90,6 +106,8 @@ template <int CODES>
 struct AccType { using T = int; };
 template <>
 struct AccType<kF32> { using T = float; };
+template <>
+struct AccType<kF32x3> { using T = float; };
 
 // Per storage: EB bytes per stored element; KS stored elements per K step
 // along a row of x (= rows of w per step; 64 codes for the integer
@@ -109,6 +127,8 @@ template <>
 struct Storage<kF32> {
   static constexpr int EB = 4, KS = 32, XROW = 128 + 32, WPAD = 16;
 };
+template <>
+struct Storage<kF32x3> : Storage<kF32> {};
 
 // Pitch of the on-chip int8 code rows (the transposed w, the unpacked int4
 // x): 64 codes + 16 bytes, conflict-free for the fragment loads.
@@ -138,7 +158,8 @@ struct Geometry {
   static constexpr int SX = BM * S::XROW;           // raw x stage bytes
   static constexpr int SW = S::KS * WROW;           // raw w stage bytes
   static constexpr int STAGE = SX + SW;
-  static constexpr int WT = CODES == kF32 ? 0 : BN * kCodeRow;
+  static constexpr bool FLOAT = CODES == kF32 || CODES == kF32x3;
+  static constexpr int WT = FLOAT ? 0 : BN * kCodeRow;
   static constexpr int XC = CODES == kInt4 ? BM * kCodeRow : 0;
   static constexpr int SMEM = STAGES * STAGE + WT + XC;
   static constexpr int HALVES = BN / kSlotCols;     // slot blocks per tile
@@ -413,6 +434,67 @@ __device__ __forceinline__ void mma_step_f32(
   }
 }
 
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v rounded to TF32 as cvt.rna.tf32.f32 rounds a finite v (to nearest, ties
+// away from zero), in two integer operations; codes are finite
+__device__ __forceinline__ uint32_t tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(v);
+  lo = tf32(__fsub_rn(v, __uint_as_float(hi)));
+}
+
+// Float32 codes in 3xTF32 (kF32x3): one staged K step of 32 codes as four
+// k8 blocks into ``part`` (zeroed by the caller), the small terms first.
+// Fragments (g = lane / 4, tg = lane % 4): A (16 x 8) a0 (g, tg), a1 (g+8,
+// tg), a2 (g, tg+4), a3 (g+8, tg+4); B (8 x 8) b0 (k tg, n g), b1 (k tg+4,
+// n g); C as the m16n8 map of FragCoords.
+template <int TILE>
+__device__ __forceinline__ void mma_step_f32x3(
+    const char* stage, int wm0, int wn0,
+    float (&part)[Geometry<TILE, kF32x3>::MT][Geometry<TILE, kF32x3>::NT][4]) {
+  using G = Geometry<TILE, kF32x3>;
+  constexpr int XP = Storage<kF32x3>::XROW / 4;  // floats per x row
+  constexpr int WP = G::WROW / 4;                // floats per w row
+  const float* sx = reinterpret_cast<const float*>(stage);
+  const float* sw = reinterpret_cast<const float*>(stage + G::SX);
+  const int lane = threadIdx.x % 32, g = lane / 4, tg = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {              // four k8 blocks of 32 codes
+    uint32_t ah[G::MT][4], al[G::MT][4];
+#pragma unroll
+    for (int i = 0; i < G::MT; ++i) {
+      const float* p = sx + (wm0 + 16 * i + g) * XP + 8 * kk + tg;
+      split(p[0], ah[i][0], al[i][0]);
+      split(p[8 * XP], ah[i][1], al[i][1]);
+      split(p[4], ah[i][2], al[i][2]);
+      split(p[8 * XP + 4], ah[i][3], al[i][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < G::NT; ++j) {
+      const float* p = sw + (8 * kk + tg) * WP + wn0 + 8 * j + g;
+      uint32_t bh0, bl0, bh1, bl1;
+      split(p[0], bh0, bl0);
+      split(p[4 * WP], bh1, bl1);
+#pragma unroll
+      for (int i = 0; i < G::MT; ++i) {
+        mma_tf32(part[i][j], al[i], bh0, bh1);
+        mma_tf32(part[i][j], ah[i], bl0, bl1);
+        mma_tf32(part[i][j], ah[i], bh0, bh1);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The K walk
 // ---------------------------------------------------------------------------
@@ -483,6 +565,23 @@ __device__ __forceinline__ void integrate_tile(
     const char* stage = smem + (kt % G::STAGES) * G::STAGE;
     if constexpr (CODES == kF32) {
       mma_step_f32<TILE>(stage, wm0, wn0, acc);
+    } else if constexpr (CODES == kF32x3) {
+      // the stage's sum on the tensor cores from zero, then one IEEE add
+      float part[G::MT][G::NT][4];
+#pragma unroll
+      for (int i = 0; i < G::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < G::NT; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) part[i][j][r] = 0.0f;
+      mma_step_f32x3<TILE>(stage, wm0, wn0, part);
+#pragma unroll
+      for (int i = 0; i < G::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < G::NT; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            acc[i][j][r] = __fadd_rn(acc[i][j][r], part[i][j][r]);
     } else {
       convert_stage<TILE, CODES>(stage, wt, xc);
       __syncthreads();

@@ -31,9 +31,23 @@ cuda route int4 packs both operands two codes per byte
 (``quant.pack_int4``, as the JAX package's Pallas path does) and B1/B2
 unpack on chip; "f32" casts both operands to float32 and accumulates in
 float32 (exact for integer codes while worst |acc| < 2^24).  On the card
-the f32 codes run on bf16 tensor cores, so ``max_code`` (the largest |code|
-of either operand, which ``core.layers`` knows from the bit widths) must be
-given and at most 256; the kernels raise otherwise.
+integer f32 codes need ``max_code`` (the largest |code| of either operand,
+which ``core.layers`` knows from the bit widths): up to 256 they run on the
+bf16 tile, up to 2047 in 3xTF32, wider ones raise.  Codes with programming
+noise are not integers (``noisy=True``) and run in 3xTF32.
+
+Gradients: float32 codes (the straight-through views of QAT) go through
+``_TDVMMCore``, a ``torch.autograd.Function`` around every mode (raw,
+no-readout, fixed window, data-calibrated B2, ragged ``group_widths``,
+expert-batched, shared-x), on the card and on the CPU alike.  Its backward
+is the JAX package's custom VJP (``_tdvmm_core_bwd``), never autograd of
+the forward (whose rounding has no useful derivative): the readout and the
+latch gain pass the gradient straight through, ``z = y / (xs·ws)`` is
+recovered behind the ``denom == 0`` guard, a shared-x launch sums the x
+cotangent over its group, and the window gets none.  Its products are
+float32 matmuls (TF32 off on the card), as the JAX package leaves them to
+XLA outside its Pallas kernel.  Integer codes carry no gradient and go
+straight to the kernels.
 """
 from __future__ import annotations
 
@@ -198,7 +212,8 @@ def _operands(x_codes, w_codes, code_dtype: str):
 
 def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
                 out_scale, out_window, backend, code_dtype,
-                fused_calibration, group_widths=None, max_code=None):
+                fused_calibration, group_widths=None, max_code=None,
+                noisy=False):
     ex, m, k = x_codes.shape
     e, _, n = w_codes.shape
     if min(e, m, k, n) == 0:
@@ -225,7 +240,7 @@ def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
             else:
                 window = _f32(out_scale, xi.device)
         return tdvmm.tdvmm_fused(xi, wi, x_scale, w_scale, gain, out_bits,
-                                 window, int4_k, max_code)
+                                 window, int4_k, max_code, noisy)
     if fused_calibration:
         # every member span is a multiple of the 128 lane, so no 64-column
         # tile of B2 straddles two members' readout slots
@@ -233,32 +248,129 @@ def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
                                             xi.device)
         return tdvmm.tdvmm_calibrated(
             xi, wi, x_scale, w_scale, slots, nslots,
-            min(tdvmm.TILE_N, n), gain, out_bits, int4_k, max_code)
-    acc = tdvmm.tdvmm_matmul_raw(xi, wi, int4_k, max_code)
+            min(tdvmm.TILE_N, n), gain, out_bits, int4_k, max_code, noisy)
+    acc = tdvmm.tdvmm_matmul_raw(xi, wi, int4_k, max_code, noisy)
     return _epilogue(acc, x_scale, w_scale, gain, out_bits, out_scale,
                      out_window, group_widths)
 
 
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A float32 product of the backward: full float32 on the card (TF32
+    off, PyTorch's default, which the port never changes)."""
+    if a.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TD-VMM gradients are float32 products: turn "
+                           "torch.backends.cuda.matmul.allow_tf32 off")
+    return torch.matmul(a, b)
+
+
+def _code_grads(dacc: torch.Tensor, xf: torch.Tensor, wf: torch.Tensor,
+                need_x: bool, need_w: bool):
+    """(gx, gw) of acc = x @ w for the accumulator's cotangent ``dacc``
+    (E, M, N); x (E|1, M, K), w (E, K, N).  A shared-x launch (one x batch
+    entry against G tiles) sums the x cotangent over the group axis."""
+    gx = gw = None
+    if xf.shape[0] == 1 and dacc.shape[0] > 1:
+        g_, m, n = dacc.shape
+        if need_x:
+            gx = _matmul_f32(dacc.permute(1, 0, 2).reshape(m, g_ * n),
+                             wf.permute(0, 2, 1).reshape(g_ * n, -1))[None]
+        if need_w:
+            gw = _matmul_f32(xf[0].transpose(0, 1), dacc)
+    else:
+        if need_x:
+            gx = _matmul_f32(dacc, wf.transpose(-1, -2))
+        if need_w:
+            gw = _matmul_f32(xf.transpose(-1, -2), dacc)
+    return gx, gw
+
+
+class _TDVMMCore(torch.autograd.Function):
+    """Differentiable integrate + epilogue on (E|1, M, K) x (E, K, N) float32
+    codes: the forward is ``_tdvmm_impl`` (the kernels on the card), the
+    backward the JAX package's ``_tdvmm_core_bwd`` formula."""
+
+    @staticmethod
+    def forward(ctx, x_codes, w_codes, x_scale, w_scale, out_window, static):
+        (gain, out_bits, out_scale, backend, code_dtype, fused_calibration,
+         group_widths, max_code, noisy) = static
+        y = _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
+                        out_scale, out_window, backend, code_dtype,
+                        fused_calibration, group_widths, max_code, noisy)
+        ctx.save_for_backward(x_codes, w_codes, x_scale, w_scale, y)
+        ctx.gain = gain
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x_codes, w_codes, x_scale, w_scale, y = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        denom = x_scale[..., :, None] * w_scale[..., None, :]
+        # identity through the readout quantizer (STE) and the latch gain
+        dacc = g * denom * float(np.float32(ctx.gain))
+        gx, gw = _code_grads(dacc, x_codes.to(torch.float32),
+                             w_codes.to(torch.float32), need[0], need[1])
+        gxs = gws = None
+        if need[2] or need[3]:
+            # the post-readout latch value; callers clamp scales >= 1e-6,
+            # so the guard only covers direct calls with zero scales
+            z = torch.where(denom == 0.0, 0.0, y / denom)
+            if need[2]:
+                gxs = torch.sum(g * z * w_scale[..., None, :], dim=-1)
+                if x_codes.shape[0] == 1 and g.shape[0] > 1:
+                    gxs = torch.sum(gxs, dim=0, keepdim=True)
+            if need[3]:
+                gws = torch.sum(g * z * x_scale[..., :, None], dim=-2)
+        # the window is calibration state, not a trainable: no cotangent
+        return gx, gw, gxs, gws, None, None
+
+
+class _CodesMatmul(torch.autograd.Function):
+    """Raw float32 codes product (B1 raw mode on the card) with the plain
+    matmul cotangents."""
+
+    @staticmethod
+    def forward(ctx, x3, w3, backend, code_dtype, max_code, noisy):
+        ctx.save_for_backward(x3, w3)
+        return _raw_acc(x3, w3, backend, code_dtype, max_code, noisy)
+
+    @staticmethod
+    def backward(ctx, g):
+        x3, w3 = ctx.saved_tensors
+        gx, gw = _code_grads(g, x3, w3, ctx.needs_input_grad[0],
+                             ctx.needs_input_grad[1])
+        return gx, gw, None, None, None, None
+
+
+def _raw_acc(x3, w3, backend, code_dtype, max_code, noisy) -> torch.Tensor:
+    if backend == "jnp":
+        xi, wi, _ = _operands(x3, w3, "f32" if code_dtype == "f32" else "int8")
+        acc = tdvmm.acc_plain(xi, wi)
+    else:
+        acc = tdvmm.tdvmm_matmul_raw(*_operands(x3, w3, code_dtype),
+                                     max_code=max_code, noisy=noisy)
+    return acc.to(torch.float32)
+
+
 def codes_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
                  backend: str, code_dtype: str = "auto",
-                 max_code: Optional[int] = None) -> torch.Tensor:
+                 max_code: Optional[int] = None,
+                 noisy: bool = False) -> torch.Tensor:
     """Raw (.., M, K) @ (.., K, N) charge accumulation as f32 (B1 raw mode
     on the cuda route).  A 2-D x against a 3-D (G, K, N) bank runs shared-x:
     one code matrix against G tiles, returning (G, M, N) (no squeeze).
-    ``max_code``: the largest |code| of either operand (f32 codes on the
-    card need it)."""
+    ``max_code``: the largest |code| of either operand (integer f32 codes on
+    the card need it); ``noisy``: f32 codes off the integer grid.  Float32
+    codes are differentiable (plain matmul cotangents)."""
     squeeze = x_codes.dim() == 2 and w_codes.dim() == 2
     x3 = x_codes[None] if x_codes.dim() == 2 else x_codes
     w3 = w_codes[None] if w_codes.dim() == 2 else w_codes
     if code_dtype == "auto":
         code_dtype = "int8" if not x3.dtype.is_floating_point else "f32"
-    if resolve_backend(backend) == "jnp":
-        xi, wi, _ = _operands(x3, w3, "f32" if code_dtype == "f32" else "int8")
-        acc = tdvmm.acc_plain(xi, wi)
+    backend = resolve_backend(backend)
+    if x3.dtype.is_floating_point:
+        acc = _CodesMatmul.apply(x3, w3, backend, code_dtype, max_code, noisy)
     else:
-        acc = tdvmm.tdvmm_matmul_raw(*_operands(x3, w3, code_dtype),
-                                     max_code=max_code)
-    acc = acc.to(torch.float32)
+        acc = _raw_acc(x3, w3, backend, code_dtype, max_code, noisy)
     return acc[0] if squeeze else acc
 
 
@@ -276,6 +388,7 @@ def tdvmm_matmul(
     fused_calibration: bool = True,
     out_window: Optional[torch.Tensor] = None,
     max_code: Optional[int] = None,
+    noisy: bool = False,
 ) -> torch.Tensor:
     """Quantized four-quadrant TD-VMM: codes matmul + readout + scale epilogue.
 
@@ -290,8 +403,12 @@ def tdvmm_matmul(
     members; readout windows (tuple ``out_scale``, ``out_window`` or data
     calibration) resolve per member column span instead of per launch.
 
-    ``max_code`` is the largest |code| of either operand; float32 codes on
-    the card need it (``tdvmm.check_code_width``).
+    ``max_code`` is the largest |code| of either operand; integer float32
+    codes on the card need it, and ``noisy`` marks float32 codes off the
+    integer grid (``tdvmm.check_code_width`` picks the storage from both).
+
+    Float32 codes (straight-through views) are differentiable through
+    ``_TDVMMCore``; integer codes are not.
     """
     backend = resolve_backend(backend)
     squeeze = x_codes.dim() == 2 and w_codes.dim() == 2
@@ -348,7 +465,14 @@ def tdvmm_matmul(
         code_dtype = "int8" if not x_codes.dtype.is_floating_point else "f32"
     x_scale = x_scale.reshape(ex, m).to(torch.float32).contiguous()
     w_scale = w_scale.reshape(e, n).to(torch.float32).contiguous()
-    y = _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
-                    out_scale, out_window, backend, code_dtype,
-                    bool(fused_calibration), group_widths, max_code)
+    if x_codes.dtype.is_floating_point:
+        y = _TDVMMCore.apply(
+            x_codes, w_codes, x_scale, w_scale, out_window,
+            (gain, out_bits, out_scale, backend, code_dtype,
+             bool(fused_calibration), group_widths, max_code, bool(noisy)))
+    else:
+        y = _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
+                        out_scale, out_window, backend, code_dtype,
+                        bool(fused_calibration), group_widths, max_code,
+                        bool(noisy))
     return y[0] if squeeze else y

@@ -19,12 +19,19 @@ one output buffer (``tdvmm_calibrated``).  Both take batched
            on chip into the same s8 MMA, bitwise the int8 result;
     f32    integer-valued float32 codes (p = 8), streamed as float32 and
            rounded to bf16 on chip for a bf16 x bf16 -> f32 MMA.  Exact
-           while every code fits bf16 (|code| <= 256: ``check_code_width``
-           raises otherwise, from the ``max_code`` the caller passes) and
-           worst |acc| < 2^24 (the envelope ``core.layers`` warns on): every
-           product and every partial sum is then an integer float32 holds.
-           So float32 codes of 9-11 bits (|code| up to 2047, exact in
-           TF32 or on CUDA cores) raise on the card; no plan uses them.
+           while every code fits bf16 (|code| <= 256, from the ``max_code``
+           the caller passes) and worst |acc| < 2^24 (the envelope
+           ``core.layers`` warns on): every product and every partial sum
+           is then an integer float32 holds;
+    f32x3  float32 codes on the TF32 tensor cores in three products
+           (3xTF32: each code split into TF32 hi and lo parts, lo.hi +
+           hi.lo + hi.hi), each 32-deep K stage summed from zero and added
+           into the total with one IEEE add.  It takes the codes the bf16
+           tile cannot: codes off the integer grid (programming noise,
+           ``noisy=True``), within float32 rounding of the plain version
+           (``F32X3_RTOL``), and integer codes up to |2047| (p = 9-11),
+           which TF32 holds exactly (the lo parts are zero), bitwise while
+           worst |acc| < 2^24.  ``check_code_width`` picks the storage.
 
 Each launch takes one of two CTA tiles, chosen by M alone
 (``plan_tile``): 16 x 64 up to 256 rows, 128 x 128 beyond.  What bounds
@@ -62,8 +69,22 @@ CSRC = Path(__file__).parent / "csrc"
 # so a slot spans whole 64-column blocks.
 TILE_N = 64
 # Largest |code| a bf16 operand holds exactly (8 significant bits): the
-# f32-code tensor-core path takes codes up to p = 8 (255).
+# f32-code bf16 tile takes codes up to p = 8 (255).
 BF16_EXACT_MAX = 256
+# Largest |code| the 3xTF32 storage holds bitwise: p = 11 (TF32 keeps 11
+# significant bits, so integers up to 2048 are exact and their lo parts 0).
+TF32_EXACT_MAX = 2047
+# The gate of a float32 accumulation on codes off the integer grid, the
+# 3xTF32 storage's and the plain version's alike: |acc - exact| <=
+# F32X3_RTOL * sum_k |x_k| |w_k| per output.  Per product the dropped lo.lo
+# term and the split's residual are ~2^-22 of |x||w|; each 8-deep MMA adds
+# into its stage accumulator truncating, each 32-deep stage goes into the
+# total to nearest.  chip_smoke.py's noisy cases (p = 6 codes, NVIDIA H100
+# 80GB HBM3 at 700 W) measure <= 9.1e-8 for the kernel and <= 2.9e-7 for
+# the plain float32 GEMM; the CPU emulation of the kernel's arithmetic
+# (tests/test_torch_qat.py) <= 5.7e-8 at qwen's QAT shapes.  A single TF32
+# product misses the gate by ~30x.
+F32X3_RTOL = 2.0 ** -20
 
 
 class Tile(NamedTuple):
@@ -89,26 +110,69 @@ def plan_tile(m: int) -> Tile:
     return TILES[0] if m <= SMALL_TILE_MAX_ROWS else TILES[1]
 
 
-def check_code_width(codes: str, max_code: Optional[int]) -> None:
-    """Raise unless the tensor cores hold every code exactly: float32 codes
-    round to bf16 on chip, exact for |code| <= ``BF16_EXACT_MAX``; int8 and
-    int4 codes are exact by their storage."""
+def check_code_width(codes: str, max_code: Optional[int],
+                     noisy: bool = False) -> str:
+    """The kernels' storage for ``codes`` ("int8", "int4" or "f32"), or
+    raise unless the tensor cores hold every code exactly.  int8 and int4
+    codes are exact by their storage.  float32 codes off the integer grid
+    (``noisy``) take the 3xTF32 storage "f32x3"; integer float32 codes take
+    the bf16 tile "f32" up to |``BF16_EXACT_MAX``| and "f32x3" up to
+    |``TF32_EXACT_MAX``|, from ``max_code``, the largest |code| of either
+    operand."""
     if codes != "f32":
-        return
+        return codes
+    if noisy:
+        return "f32x3"
     if max_code is None:
-        raise ValueError("float32 codes on the card need max_code (the "
-                         "largest |code|) to check that bf16 holds them")
-    if not 0 <= int(max_code) <= BF16_EXACT_MAX:
+        raise ValueError("integer float32 codes on the card need max_code "
+                         "(the largest |code|) to pick an exact storage")
+    if not 0 <= int(max_code) <= TF32_EXACT_MAX:
         bits = int(max_code).bit_length()
         raise ValueError(
             f"float32 codes up to |{int(max_code)}| ({bits}-bit code width) "
-            f"do not fit the f32-code tensor-core path, which rounds codes "
-            f"to bf16 (exact up to |{BF16_EXACT_MAX}|, p <= 8)")
+            f"do not fit the tensor cores exactly: the bf16 tile holds "
+            f"|{BF16_EXACT_MAX}| (p <= 8), the 3xTF32 storage "
+            f"|{TF32_EXACT_MAX}| (p <= 11)")
+    return "f32" if int(max_code) <= BF16_EXACT_MAX else "f32x3"
+
+def check_readout(y: torch.Tensor, acc64: torch.Tensor,
+                  absacc64: torch.Tensor, x_scale: torch.Tensor,
+                  w_scale: torch.Tensor, gain: float, out_bits: int,
+                  s64: torch.Tensor, s_rel: torch.Tensor,
+                  acc_rtol: float = F32X3_RTOL) -> tuple[int, int]:
+    """Hold a readout output ``y`` (E, M, N) whose float32 accumulator lies
+    within ``acc_rtol * absacc64`` of the exact ``acc64`` (float64 sums of
+    the codes and of their magnitudes) to the exact readout.
+
+    ``s64`` is the exact window, broadcastable to (E, 1, N), and ``s_rel``
+    (same shape) bounds the relative error of the window ``y`` was read
+    out over (0 for a fixed window; for a data-calibrated one, the
+    accumulator's bound at the slot's max over the window).  Each output's
+    level q (recovered from y) must lie within 0.5 + d of the exact
+    c = clip(acc64 gain / s64, -1, 1) L, d the bound carried through: q is
+    round(c), or its neighbour where c lies within d of a half-integer (a
+    readout flip at a tie), and nothing else; and y must equal
+    q xs ws s / L within the window's error and a few float32 roundings.
+    Returns (flips, outputs out of the gate)."""
+    levels = float((1 << out_bits) - 1)
+    xs = x_scale.to(torch.float64)[..., :, None]
+    ws = w_scale.to(torch.float64)[..., None, :]
+    step = xs * ws * (s64 / levels)
+    c = torch.clamp(acc64 * gain / s64, -1.0, 1.0) * levels
+    d = levels * (acc_rtol * absacc64 * gain / s64 + s_rel) + 1e-9
+    yd = y.to(torch.float64)
+    q = torch.round(yd / torch.where(step == 0, 1.0, step))
+    level_ok = (q - c).abs() <= 0.5 + d
+    value_ok = (yd - q * step).abs() <= q.abs() * step * (s_rel + 2.0 ** -21)
+    flips = int((q != torch.round(c)).sum())
+    return flips, int((~(level_ok & value_ok)).sum())
+
 
 # Code storages, as the kernels number them.
-CODES = {"int8": 0, "int4": 1, "f32": 2}
+CODES = {"int8": 0, "int4": 1, "f32": 2, "f32x3": 3}
 # Kernel launches per wrapper and code storage (a B2 call is one count for
-# its two launches); int8 keeps the bare wrapper name.
+# its two launches); int8 keeps the bare wrapper name, "f32x3" counts the
+# 3xTF32 storage.
 LAUNCHES = {f"{kind}{'' if codes == 'int8' else '_' + codes}": 0
             for kind in ("raw", "fused", "calibrated") for codes in CODES}
 
@@ -240,13 +304,13 @@ def _vec(t: torch.Tensor, row_bytes: int) -> int:
 
 
 def _vecs(x: torch.Tensor, w: torch.Tensor, g: "Launch") -> tuple[int, int]:
-    eb = 4 if g.codes == "f32" else 1
+    eb = 4 if g.codes.startswith("f32") else 1
     return _vec(x, eb * x.shape[-1]), _vec(w, eb * g.n)
 
 
 def _out_dtype(codes: str) -> torch.dtype:
     """The raw accumulator's dtype: int32 for integer codes, else float32."""
-    return torch.float32 if codes == "f32" else torch.int32
+    return torch.float32 if codes.startswith("f32") else torch.int32
 
 
 def _levels(out_bits: Optional[int]) -> tuple[float, float]:
@@ -378,14 +442,16 @@ def _window_3d(window: Optional[torch.Tensor], e: int, n: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def tdvmm_matmul_raw(x: torch.Tensor, w: torch.Tensor,
                      int4_k: Optional[int] = None,
-                     max_code: Optional[int] = None) -> torch.Tensor:
+                     max_code: Optional[int] = None,
+                     noisy: bool = False) -> torch.Tensor:
     """B1 raw mode: (E, M, N) charge accumulation, int32 for integer codes,
     float32 for float32 codes.  ``max_code``: the largest |code| of either
-    operand (needed for float32 codes on the card, ``check_code_width``)."""
+    operand, for integer float32 codes; ``noisy``: float32 codes off the
+    integer grid (both pick the storage, ``check_code_width``)."""
     if not _kernel_device(x):
         return tdvmm_raw_plain(x, w, int4_k)
     g = _check_codes(x, w, int4_k)
-    check_code_width(g.codes, max_code)
+    codes = check_code_width(g.codes, max_code, noisy)
     _contig(x, w)
     out = torch.empty((g.e, g.m, g.n), dtype=_out_dtype(g.codes),
                       device=x.device)
@@ -394,9 +460,9 @@ def tdvmm_matmul_raw(x: torch.Tensor, w: torch.Tensor,
     err = _lib("b1").tdvmm_b1(
         x.data_ptr(), w.data_ptr(), None, None, None, 0, 0, out.data_ptr(),
         g.e, g.m, g.k, g.n, int(g.shared_x), *_vecs(x, w, g), 0,
-        CODES[g.codes], plan_tile(g.m).index, 1.0, 0.0, 0.0, _stream())
+        CODES[codes], plan_tile(g.m).index, 1.0, 0.0, 0.0, _stream())
     _raise_on(err, "tdvmm_matmul_raw")
-    _count("raw", g.codes)
+    _count("raw", codes)
     return out
 
 
@@ -405,18 +471,19 @@ def tdvmm_fused(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
                 out_bits: Optional[int] = None,
                 window: Optional[torch.Tensor] = None,
                 int4_k: Optional[int] = None,
-                max_code: Optional[int] = None) -> torch.Tensor:
+                max_code: Optional[int] = None,
+                noisy: bool = False) -> torch.Tensor:
     """B1 fused: integrate + gain -> optional readout over a fixed window
     -> per-row x per-column rescale, float32 (E, M, N) out.
 
     x_scale (E|1, M), w_scale (E, N) float32; ``window`` (with ``out_bits``)
-    is (), (E,), (E, 1, 1) or (E, 1, N) float32; ``max_code`` as for
-    ``tdvmm_matmul_raw``."""
+    is (), (E,), (E, 1, 1) or (E, 1, N) float32; ``max_code`` and ``noisy``
+    as for ``tdvmm_matmul_raw``."""
     if not _kernel_device(x):
         return tdvmm_fused_plain(x, w, x_scale, w_scale, gain, out_bits,
                                  window, int4_k)
     g = _check_codes(x, w, int4_k)
-    check_code_width(g.codes, max_code)
+    codes = check_code_width(g.codes, max_code, noisy)
     e, m, n = g.e, g.m, g.n
     _check_f32("x_scale", x_scale, (x.shape[0], m), x.device)
     _check_f32("w_scale", w_scale, (e, n), x.device)
@@ -436,10 +503,10 @@ def tdvmm_fused(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
         x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
         None if win is None else win.data_ptr(), se, sn, out.data_ptr(),
         e, m, g.k, n, int(g.shared_x), *_vecs(x, w, g), mode,
-        CODES[g.codes], plan_tile(m).index, float(np.float32(gain)), levels,
+        CODES[codes], plan_tile(m).index, float(np.float32(gain)), levels,
         inv_levels, _stream())
     _raise_on(err, "tdvmm_fused")
-    _count("fused", g.codes)
+    _count("fused", codes)
     return out
 
 
@@ -448,18 +515,19 @@ def tdvmm_calibrated(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
                      slot_bw: int, gain: float = 1.0,
                      out_bits: int = 6,
                      int4_k: Optional[int] = None,
-                     max_code: Optional[int] = None) -> torch.Tensor:
+                     max_code: Optional[int] = None,
+                     noisy: bool = False) -> torch.Tensor:
     """B2: integrate + data-calibrated readout, float32 (E, M, N) out.
 
     ``slots`` (E, ceil(N / slot_bw)) int32 is the readout-slot id of every
     ``slot_bw``-wide column block (``ops._calib_slots``); each slot's window
-    is max(max|z| over its columns, 1e-9).  ``max_code`` as for
-    ``tdvmm_matmul_raw``."""
+    is max(max|z| over its columns, 1e-9).  ``max_code`` and ``noisy`` as
+    for ``tdvmm_matmul_raw``."""
     if not _kernel_device(x):
         return tdvmm_calibrated_plain(x, w, x_scale, w_scale, slots, nslots,
                                       slot_bw, gain, out_bits, int4_k)
     g = _check_codes(x, w, int4_k)
-    check_code_width(g.codes, max_code)
+    codes = check_code_width(g.codes, max_code, noisy)
     e, m, n = g.e, g.m, g.n
     _check_f32("x_scale", x_scale, (x.shape[0], m), x.device)
     _check_f32("w_scale", w_scale, (e, n), x.device)
@@ -479,9 +547,9 @@ def tdvmm_calibrated(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
     err = _lib("b2").tdvmm_b2(
         x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
         slots.data_ptr(), nsb, slot_bw, slot_max.data_ptr(), out.data_ptr(),
-        e, m, g.k, n, int(g.shared_x), *_vecs(x, w, g), CODES[g.codes],
+        e, m, g.k, n, int(g.shared_x), *_vecs(x, w, g), CODES[codes],
         plan_tile(m).index, float(np.float32(gain)), levels, inv_levels,
         _stream())
     _raise_on(err, "tdvmm_calibrated")
-    _count("calibrated", g.codes)
+    _count("calibrated", codes)
     return out

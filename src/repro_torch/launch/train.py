@@ -1,0 +1,172 @@
+"""Training driver — torch port of ``repro.launch.train``: config -> state
+-> fault-tolerant loop, on one device (the mesh belongs to the port's
+distributed slice, ROADMAP A8).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
+        --smoke --tdvmm --steps 3 --device cpu     # reduced config, CPU
+
+(``--smoke`` also cuts the batch to 4 x 64 unless ``--batch``/``--seq``
+say otherwise: ``train_4k``'s 4096-token sequences need flash attention,
+which the port does not have yet.)
+
+Without ``--device`` it runs on the card, and raises when there is none.
+What it exercises, as the JAX package's driver does:
+  * gradient-accumulation microbatching (float32 gradient sums);
+  * the deterministic resumable data pipeline (``data/pipeline``);
+  * atomic checkpoint/restore with auto-resume, keep-k and a non-blocking
+    save (``checkpoint/checkpoint``);
+  * the preemption guard (SIGTERM -> save + clean exit), step retry, the
+    straggler monitor and the heartbeat (``runtime/fault``).
+With ``--tdvmm`` every linear runs through the TD-VMM layer (QAT): on the
+card each site's forward is kernel B2 (the data-calibrated readout), or B1
+where a site has no readout, and the backward is the straight-through
+custom gradient of ``kernels/tdvmm/ops``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import tempfile
+import time
+
+from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.configs import (SHAPES, OptimizerConfig, RunConfig,
+                                 get_config, smoke)
+from repro_torch.data.pipeline import DataConfig, make_pipeline
+from repro_torch.launch import steps
+from repro_torch.models import common
+from repro_torch.optim.optimizer import make_optimizer
+from repro_torch.runtime import fault
+
+SMOKE_BATCH = (4, 64)                # --smoke: global batch x sequence
+
+
+def build(run: RunConfig, accum: int | None = None, device=None):
+    """Returns (train_step, state, accum) on ``device`` (the card unless
+    given)."""
+    device = common.resolve_device(device)
+    optimizer = make_optimizer(run.optimizer)
+    if accum is None:
+        accum = steps.grad_accum_steps(run, 1)
+    step_fn = steps.make_train_step(run.model, run, optimizer, accum)
+    state = steps.init_train_state(run.seed, run.model, optimizer, device)
+    return step_fn, state, accum
+
+
+def train_loop(run: RunConfig, total_steps: int, accum: int | None = None,
+               log_every: int = 10, device=None) -> dict:
+    """Train to ``total_steps``, resuming from the latest checkpoint in
+    ``run.checkpoint_dir``; returns the logged history (float metrics per
+    logged step), whether a preemption stopped it, the step reached, the
+    wall seconds and the straggler count."""
+    cfg = run.model
+    step_fn, state, accum = build(run, accum, device)
+    pipe = make_pipeline(cfg, run.shape, DataConfig(seed=run.seed))
+
+    # --- auto-resume -------------------------------------------------------
+    start_step = 0
+    if ckpt.latest_step(run.checkpoint_dir) is not None:
+        state, start_step = ckpt.restore(state, run.checkpoint_dir)
+        print(f"[resume] from step {start_step}")
+
+    guard = fault.PreemptionGuard().install()
+    monitor = fault.StragglerMonitor()
+    hb = fault.Heartbeat(os.path.join(run.checkpoint_dir, "heartbeat.json"),
+                         every_s=10)
+    history = []
+    t_start = time.time()
+    step = start_step
+    try:
+        while step < total_steps:
+            batch = pipe.batch_at(step)
+            t0 = time.time()
+            state, metrics = fault.retry_step(step_fn, state, batch)
+            m = {k: float(v) for k, v in metrics.items()}  # waits for the step
+            dt = time.time() - t0
+            monitor.record(step, dt)
+            hb.beat(step)
+            if step % log_every == 0 or step == total_steps - 1:
+                m.update(step=step, dt=round(dt, 3))
+                history.append(m)
+                print(f"[train] step={step} loss={m['loss']:.4f} "
+                      f"gnorm={m['grad_norm']:.3f} dt={dt:.2f}s", flush=True)
+            step += 1
+            if guard.requested:
+                print("[preempt] SIGTERM received — checkpointing and "
+                      "exiting")
+                ckpt.save(state, run.checkpoint_dir, step,
+                          keep=run.keep_checkpoints)
+                return {"history": history, "preempted": True, "step": step}
+            if step % run.checkpoint_every == 0:
+                ckpt.save(state, run.checkpoint_dir, step,
+                          keep=run.keep_checkpoints, blocking=False)
+        ckpt.save(state, run.checkpoint_dir, step, keep=run.keep_checkpoints)
+    finally:
+        guard.uninstall()
+    return {
+        "history": history,
+        "preempted": False,
+        "step": step,
+        "total_s": time.time() - t_start,
+        "stragglers": monitor.stragglers,
+        "state": state,
+    }
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default="train_4k")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config and, unless --batch or "
+                         "--seq say otherwise, a 4 x 64 batch (CPU-runnable)")
+    ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--seq", type=int, default=None)
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--tdvmm", action="store_true",
+                    help="run all linears through the TD-VMM layer (QAT)")
+    ap.add_argument("--tdvmm-bits", type=int, default=6)
+    ap.add_argument("--device", default=None,
+                    help="cpu runs the plain torch path; default: the card")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke(cfg)
+    if args.tdvmm:
+        from repro_torch.core.layers import TDVMMLayerConfig
+        cfg = cfg.replace(tdvmm=TDVMMLayerConfig(
+            enabled=True, bits=args.tdvmm_bits, weight_bits=args.tdvmm_bits))
+    shape = SHAPES[args.shape]
+    if args.smoke and not (args.batch or args.seq):
+        # the train shape's 256 x 4096 tokens need flash attention, which
+        # is not ported (ROADMAP A5)
+        args.batch, args.seq = SMOKE_BATCH
+    if args.batch or args.seq:
+        shape = dataclasses.replace(
+            shape,
+            global_batch=args.batch or shape.global_batch,
+            seq_len=args.seq or shape.seq_len)
+    run = RunConfig(model=cfg, shape=shape,
+                    optimizer=OptimizerConfig(lr=args.lr,
+                                              total_steps=args.steps),
+                    checkpoint_dir=args.ckpt_dir,
+                    checkpoint_every=args.ckpt_every)
+    out = train_loop(run, args.steps, device=args.device)
+    if out["history"]:
+        print(f"[done] steps={out['step']} loss "
+              f"{out['history'][0]['loss']:.3f} -> "
+              f"{out['history'][-1]['loss']:.3f}")
+    else:
+        print(f"[done] steps={out['step']}: nothing left to train (resumed "
+              f"at the last step from {args.ckpt_dir})")
+    return out
+
+
+if __name__ == "__main__":
+    main()

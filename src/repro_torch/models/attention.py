@@ -3,7 +3,7 @@
 
 Weights are stored flattened, (d_model, n_heads*head_dim).  Attention is
 plain torch (it is plain ``jnp`` in the JAX package too, not a Pallas
-kernel): the same f32 softmax and the same ``-1e30`` mask value.  Sliding
+kernel); ``apply_train`` is the training forward over a whole sequence: the same f32 softmax and the same ``-1e30`` mask value.  Sliding
 windows (``cfg.swa_window``, Mistral/Mixtral) run in the dense cache: a ring
 of ``min(max_len, window)`` slots in which absolute position p lives at slot
 p % size.  The paged cache refuses them, as the JAX package's does.  Not
@@ -96,6 +96,28 @@ def _causal_mask(sq: int, skv: int, offset: int, window, device
     if window is not None:
         m &= kpos > qpos - window
     return m[None, None]
+
+
+# --------------------------------------------------------------------------
+# Training: full-sequence causal attention, no cache
+# --------------------------------------------------------------------------
+def apply_train(params, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor, key=None) -> torch.Tensor:
+    """Full-sequence causal (optionally sliding-window) attention through
+    the grouped ``attn.qkv`` launch; x (B, S, d), positions (B, S).  Up to
+    ``FLASH_THRESHOLD`` tokens only: flash attention is not ported."""
+    s = x.shape[1]
+    if s > FLASH_THRESHOLD:
+        raise NotImplementedError(
+            f"sequence of {s} tokens: flash attention (S > "
+            f"{FLASH_THRESHOLD}) is not ported yet")
+    q, k, v = _qkv(params, x, cfg, key)
+    q = common.apply_rope(q, positions, cfg.rope_theta)
+    k = common.apply_rope(k, positions, cfg.rope_theta)
+    out = _attend(q, k, v, _causal_mask(s, s, 0, cfg.swa_window, x.device),
+                  cfg)
+    return common.dense_tp_reduce(params["wo"], _merge_heads(out),
+                                  cfg.site_tdvmm("attn.out"), key)
 
 
 # --------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""LM wrapper: embedding, stack, head; serving entry points — torch port of
+"""LM wrapper: embedding, stack, head; the training forward and loss
+(``forward``, ``loss_fn``) and the serving entry points — torch port of
 ``repro.models.model`` (dense, MoE and SSM token-input models; the paged
 steps serve dense models only: the JAX package's also serve MoE models
 without a sliding window, which the port's engine does not yet).
@@ -72,6 +73,49 @@ def _head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ params["embed"]["table"].T
     return common.dense(params["head"], x, cfg.site_tdvmm("head"))
+
+
+# --------------------------------------------------------------------------
+# Training
+# --------------------------------------------------------------------------
+def forward(params, batch: dict, cfg: ModelConfig, key=None):
+    """Training forward: full-sequence causal.  Returns (logits (B, S, V),
+    aux losses).  ``key`` (an int seed) draws programming noise at the
+    TD-VMM sites whose config sets ``noise``."""
+    x = _embed(params, batch, cfg)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    x, aux = transformer.apply_train(params["blocks"], x, cfg, positions, key)
+    x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    return _head(params, x, cfg), aux
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig, key=None,
+            lb_coef: float = 0.01, z_coef: float = 1e-3):
+    """Next-token cross-entropy with a padding mask; targets (B, S), the
+    positions with target < 0 masked out.  Returns (total loss, metrics):
+    the total adds ``lb_coef`` x the load-balance and ``z_coef`` x the
+    router z loss; metrics hold the loss, both aux losses and the token
+    count (all float32 tensors)."""
+    logits, aux = forward(params, batch, cfg, key)
+    targets = torch.as_tensor(batch["targets"], device=logits.device)
+    mask = (targets >= 0).to(torch.float32)
+    safe_t = torch.clamp_min(targets, 0).long()
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    # the gold logit by index (its backward accumulates deterministically on
+    # the card, where gather's would scatter with atomics)
+    flat = logits.reshape(-1, logits.shape[-1])
+    gold = flat[torch.arange(flat.shape[0], device=flat.device),
+                safe_t.reshape(-1)].reshape(safe_t.shape)
+    nll = (logz - gold) * mask
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    loss = nll.sum() / denom
+    total = loss + lb_coef * aux["lb_loss"] + z_coef * aux["z_loss"]
+    metrics = {"loss": loss, "lb_loss": aux["lb_loss"],
+               "z_loss": aux["z_loss"], "tokens": mask.sum()}
+    return total, metrics
 
 
 # --------------------------------------------------------------------------

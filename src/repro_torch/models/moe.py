@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import layers as td_layers
+from repro_torch.core import quant
 from repro_torch.models import common
 
 
@@ -61,8 +62,13 @@ def _expert_ffn(bank, x: torch.Tensor, cfg: ModelConfig, key=None,
     td_in = cfg.site_tdvmm(site_prefix + ".in")
     td_out = cfg.site_tdvmm(site_prefix + ".out")
 
+    # independent noise per projection (gate, up, down), as the JAX package
+    # splits its key
+    keys = iter(quant.split_key(key, 3)) if key is not None else None
+
     def mm(a, wmat, td):
-        return td_layers.td_expert_matmul(a, wmat, td, key)
+        k = next(keys) if keys is not None and td.enabled else None
+        return td_layers.td_expert_matmul(a, wmat, td, k)
 
     if "w_gate" in bank:
         h = common.activation("silu", mm(x, bank["w_gate"], td_in))
@@ -146,18 +152,29 @@ def _moe_local(params, x_flat: torch.Tensor, cfg: ModelConfig, key=None):
 
 def apply(params, x: torch.Tensor, cfg: ModelConfig, key=None,
           mesh=None) -> tuple[torch.Tensor, dict]:
-    """x: (B, S, d) -> (y, aux losses).  ``key`` stands for the JAX
-    package's noise key (programming noise is not ported: a noisy enabled
-    site raises in ``td_expert_matmul``)."""
+    """x: (B, S, d) -> (y, aux losses).  ``key`` (an int seed) draws
+    programming noise at the expert sites whose config sets ``noise``; the
+    aux losses (``lb_loss``, ``z_loss``) carry gradients to the router."""
     if mesh is not None:
         raise NotImplementedError(
             "MoE over a device mesh (expert parallelism, _moe_ep) is not "
             "ported yet (ROADMAP A.14)")
     m = cfg.moe
     b, s, d = x.shape
+
+    def noisy(prefix):
+        return any(td.enabled and td.noise for td in
+                   (cfg.site_tdvmm(prefix + ".in"),
+                    cfg.site_tdvmm(prefix + ".out")))
+
+    # routed and shared experts draw independent noise
+    k_shared = k_routed = None
+    if key is not None and (noisy("moe.expert") or noisy("moe.shared")):
+        k_shared, k_routed = quant.split_key(key, 2)
     shared_y = 0.0
     if m.n_shared_experts:
         shared_y = _expert_ffn(params["shared"], x.reshape(1, b * s, d), cfg,
-                               key, site_prefix="moe.shared").reshape(b, s, d)
-    y, aux = _moe_local(params, x.reshape(-1, d), cfg, key)
+                               k_shared, site_prefix="moe.shared"
+                               ).reshape(b, s, d)
+    y, aux = _moe_local(params, x.reshape(-1, d), cfg, k_routed)
     return y.reshape(b, s, d) + shared_y, aux

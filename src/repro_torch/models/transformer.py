@@ -2,19 +2,27 @@
 ``attn_ffn`` segments, the MoE family's ``first_k_dense`` ``attn_ffn``
 layers followed by ``attn_moe`` layers, and the SSM family's ``ssm``
 (Mamba-2) segments.  The hybrid family (zamba2) belongs to a later slice.
-Serving drops the MoE router's auxiliary losses (they only enter training).
+Serving drops the MoE router's auxiliary losses; training (``apply_train``)
+sums them over the ``attn_moe`` layers, as the JAX package's ``apply`` does
+in its ``"train"`` mode.  The SSM family's training forward
+(``ssm.apply_train``) is not ported.
 
 The JAX package stacks each segment's layer parameters along a leading axis
 and ``lax.scan``s over them; here a segment is a list of per-layer parameter
 dicts and a Python loop.  Caches stay stacked along a leading layer axis
 (one tensor per field), and each layer reads and writes its own slice of
-them in place.
+them in place.  ``cfg.remat_policy`` other than ``"none"`` checkpoints each
+training block (``torch.utils.checkpoint``, non-reentrant): its activations
+are recomputed in the backward pass, as ``jax.checkpoint`` does; the JAX
+package's ``"save_dots"`` keeps the matmul outputs, here they are recomputed
+too (the same values, more time).
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, ffn, moe, ssm
@@ -43,6 +51,30 @@ def attn_ffn_block(params, x, cfg: ModelConfig, mode: str, cache, positions,
     else:
         f = ffn.apply(params["ffn"], h, cfg, key)
     return x + f, new_cache
+
+
+def attn_ffn_train(params, x, cfg: ModelConfig, positions, key=None):
+    """One attention + FFN (or MoE) block over a whole sequence: (x, lb_loss,
+    z_loss), the aux losses zero for an FFN block."""
+    x = common.constrain_batch(x)
+    h = common.rmsnorm(params["ln1"], x, cfg.norm_eps)
+    x = x + attention.apply_train(params["attn"], h, cfg, positions, key)
+    h = common.rmsnorm(params["ln2"], x, cfg.norm_eps)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "moe" in params:
+        f, aux = moe.apply(params["moe"], h, cfg, key)
+        return x + f, aux["lb_loss"], aux["z_loss"]
+    return x + ffn.apply(params["ffn"], h, cfg, key), zero, zero
+
+
+def _remat(fn, cfg: ModelConfig):
+    if cfg.remat_policy == "none":
+        return fn
+
+    def checkpointed(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return checkpointed
 
 
 def ssm_block(params, x, cfg: ModelConfig, mode: str, cache, key=None):
@@ -146,3 +178,26 @@ def apply(params, x: torch.Tensor, cfg: ModelConfig, mode: str,
             seg_cache = seg_cache._replace(pos=torch.stack(pos_out))
         new_caches[f"seg{i}"] = seg_cache
     return x, new_caches
+
+
+def apply_train(params, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor, key=None
+                ) -> tuple[torch.Tensor, dict]:
+    """The training forward of the full stack (the JAX package's ``apply``
+    in ``"train"`` mode).  Returns (x, {"lb_loss", "z_loss"}), the MoE
+    router's aux losses summed over the ``attn_moe`` layers."""
+    lb, zl = [], []
+    for i, (kind, _) in enumerate(segments(cfg)):
+        if kind == "ssm":
+            raise NotImplementedError(
+                "training the SSM family (ssm.apply_train) is not ported yet")
+        block = _remat(lambda p, h, _k=key: attn_ffn_train(
+            p, h, cfg, positions, _k), cfg)
+        for p in params[f"seg{i}"]:
+            x, lb_i, z_i = block(p, x)
+            if kind == "attn_moe":
+                lb.append(lb_i)
+                zl.append(z_i)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, {"lb_loss": torch.sum(torch.stack(lb)) if lb else zero,
+               "z_loss": torch.sum(torch.stack(zl)) if zl else zero}

@@ -82,3 +82,31 @@ def test_static_entry_point_refuses_a_missing_card(monkeypatch):
         out = serve.serve_static(smoke(get_config(arch)), 2, 5, 2,
                                  device="cpu")
         assert tuple(out["tokens"].shape) == (2, 2)
+
+
+TRAINING_MODULES = (
+    "repro_torch.tree", "repro_torch.optim.optimizer",
+    "repro_torch.data.pipeline", "repro_torch.checkpoint.checkpoint",
+    "repro_torch.runtime.fault", "repro_torch.launch.steps",
+    "repro_torch.launch.train", "repro_torch.launch.train_lm")
+
+
+@pytest.mark.parametrize("name", TRAINING_MODULES)
+def test_training_modules_are_in_the_isolation_scan(name):
+    # the import check above walks every module of the package; the source
+    # check reads every file
+    assert name in _modules()
+    path = PORT.joinpath(*name.split(".")[1:]).with_suffix(".py")
+    assert not FORBIDDEN.search(path.read_text()), path
+
+
+def test_training_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.launch import perceptron, train, train_lm
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen1.5-0.5b", "--smoke", "--tdvmm",
+                    "--steps", "1", "--ckpt-dir", str(tmp_path / "a")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_lm.main(["--steps", "1", "--ckpt-dir", str(tmp_path / "b")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        perceptron.main(["--qat"])

@@ -152,10 +152,11 @@ def test_td_expert_matmul_empty_capacity_and_refusals():
     with pytest.raises(ValueError, match="shapes"):
         tlayers.td_expert_matmul(torch.zeros((3, 2, 16)),
                                  torch.ones((2, 16, 8)), cfg)
-    with pytest.raises(NotImplementedError, match="noise"):
-        tlayers.td_expert_matmul(torch.zeros((3, 2, 16)),
+    # programming noise is no refusal any more: the codes go float32
+    y = tlayers.td_expert_matmul(torch.zeros((3, 2, 16)),
                                  torch.ones((3, 16, 8)),
                                  cfg.replace(noise=True), key=0)
+    assert tuple(y.shape) == (3, 2, 8) and bool(torch.isfinite(y).all())
 
 
 # ---------------------------------------------------------------------------

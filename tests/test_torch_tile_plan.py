@@ -41,14 +41,18 @@ def test_plan_tile_by_rows(m, name, rows, cols):
 @pytest.mark.parametrize("max_code", [255, 256, 63, 0])
 def test_code_width_accepts_bf16_exact_codes(max_code):
     # p = 8 inputs x 4-bit weights: max(255, 15) = 255
-    tk.check_code_width("f32", max_code)
+    assert tk.check_code_width("f32", max_code) == "f32"
 
 
 @pytest.mark.parametrize("max_code,bits", [(257, 9), (511, 9), (1023, 10),
                                            (2047, 11)])
 def test_code_width_raises_for_wide_f32_codes(max_code, bits):
-    with pytest.raises(ValueError, match=f"{bits}-bit code width"):
-        tk.check_code_width("f32", max_code)
+    # p = 9-11 codes take the 3xTF32 storage, which holds |2047| exactly;
+    # the same width four bits wider is past TF32's 11 bits and raises
+    assert tk.check_code_width("f32", max_code) == "f32x3"
+    wide = max_code * 16 + 15
+    with pytest.raises(ValueError, match=f"{bits + 4}-bit code width"):
+        tk.check_code_width("f32", wide)
 
 
 def test_code_width_needs_max_code_for_f32_only():

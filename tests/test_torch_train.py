@@ -1,0 +1,485 @@
+"""The port's training path against the JAX package's, on the CPU at smoke
+width in float32: ``loss_fn`` (value, metrics, per-leaf gradients, the MoE
+aux losses), the optimizers and their schedule and clip, the data pipeline,
+three steps of ``train_loop``; and the port's own invariants, held exactly:
+microbatch accumulation, remat, checkpoint resume.  Then the entry points
+(``launch/train``, ``launch/train_lm``, ``launch/perceptron --qat``) and the
+fault helpers.
+
+The reference's TD-VMM sites run with ``backend="jnp"`` (its Pallas B2
+fails under this jax); the port's wrappers take their plain versions for CPU
+tensors."""
+import functools
+import json
+import signal
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import OptimizerConfig as JOpt
+from repro.configs import RunConfig as JRun
+from repro.configs import get_config as jget
+from repro.configs import smoke as jsmoke
+from repro.configs.base import ShapeConfig as JShape
+from repro.core.layers import TDVMMLayerConfig as JLayer
+from repro.data import pipeline as jpipe
+from repro.launch import train as jtrain
+from repro.models import model as jmodel
+from repro.optim import optimizer as jopt
+from repro_torch import convert
+from repro_torch.checkpoint import checkpoint as tckpt
+from repro_torch.configs import OptimizerConfig as TOpt
+from repro_torch.configs import RunConfig as TRun
+from repro_torch.configs import get_config as tget
+from repro_torch.configs import smoke as tsmoke
+from repro_torch.configs.base import ShapeConfig as TShape
+from repro_torch.core.layers import TDVMMLayerConfig as TLayer
+from repro_torch.data import pipeline as tpipe
+from repro_torch.launch import steps as tsteps
+from repro_torch.launch import train as ttrain
+from repro_torch.models import model as tmodel
+from repro_torch.optim import optimizer as topt
+from repro_torch.runtime import fault as tfault
+from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+# loss_fn, port against the JAX package with the same converted weights:
+# the TD-VMM codes and readouts are bitwise the reference's, attention,
+# norms, the head and the loss reduce float32 in other orders.  Measured:
+# losses and metrics <= 1e-7 relative; gradients <= 1.3e-6 of each leaf's
+# max|g|.
+LOSS_RTOL = 1e-6
+GRAD_RTOL = 1e-5
+# three steps of train_loop: losses and gradient norms relative; the
+# AdamW updates carry the float32 differences above into the next steps'
+# weights.  Measured <= 5.5e-7 (the gradient norm; the losses <= 7.8e-8).
+TRAIN_RTOL = 1e-5
+# one optimizer update: the same float32 expressions; pow, sqrt and cos
+# may round differently in the two packages.  Measured <= 2.2e-7.
+OPT_RTOL = 1e-6
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _f32_mode():
+    # tests/test_tdcore.py turns on jax x64 at import; the port is float32
+    old = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", False)
+    yield
+    jax.config.update("jax_enable_x64", old)
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    scale = np.abs(b).max()
+    return float(np.abs(a - b).max() / scale) if scale else float(
+        np.abs(a).max())
+
+
+ARCHS = ("qwen1.5-0.5b", "mixtral-8x7b")
+
+
+@functools.lru_cache(maxsize=None)
+def _models(arch: str):
+    """(jax cfg, port cfg, jax params, port params as numpy): smoke width,
+    float32, every linear a 6-bit TD-VMM site."""
+    jc = jsmoke(jget(arch)).replace(tdvmm=JLayer(enabled=True, backend="jnp"))
+    tc = tsmoke(tget(arch)).replace(tdvmm=TLayer(enabled=True))
+    pj = jmodel.init_params(jax.random.PRNGKey(0), jc)
+    return jc, tc, pj, jax.tree.map(np.asarray, pj)
+
+
+def _port_params(arch):
+    jc, tc, _, pn = _models(arch)
+    return convert.params_from_numpy(pn, tc, "cpu")
+
+
+def _ref_leaf(tree_np, path: str):
+    """The JAX package's leaf for a port leaf path: a layer index in the
+    port's path ("blocks/seg0/1/...") picks a row of the stacked leaf."""
+    parts, node, idx = path.split("/"), tree_np, None
+    for p in parts:
+        if p.isdigit() and isinstance(node, dict) and p not in node:
+            idx = int(p)
+            continue
+        node = node[p]
+    return node if idx is None else node[idx]
+
+
+def _batch(cfg, b=2, s=13, seed=0):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    tg = np.roll(toks, -1, axis=1)
+    tg[0, :3] = -1                           # masked positions
+    return {"inputs": toks, "targets": tg}
+
+
+# ---------------------------------------------------------------------------
+# loss_fn
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_fn_value_metrics_and_gradients_match_reference(arch):
+    jc, tc, pj, pn = _models(arch)
+    batch = _batch(tc)
+    (lj, mj), gj = jax.value_and_grad(
+        lambda p: jmodel.loss_fn(p, {k: jnp.asarray(v)
+                                     for k, v in batch.items()}, jc),
+        has_aux=True)(pj)
+    pt = _port_params(arch)
+    named = leaves_with_paths(pt)
+    for _, t in named:
+        t.requires_grad_(True)
+    lt, mt = tmodel.loss_fn(pt, {k: torch.from_numpy(v)
+                                 for k, v in batch.items()}, tc)
+    grads = torch.autograd.grad(lt, [t for _, t in named])
+    lt = lt.detach()
+    assert abs(float(lt) - float(lj)) <= LOSS_RTOL * abs(float(lj))
+    assert set(mt) == set(mj)
+    for k in mj:
+        assert abs(float(mt[k].detach()) - float(mj[k])) <= \
+            LOSS_RTOL * max(abs(float(mj[k])), 1.0), k
+    if arch.startswith("mixtral"):
+        assert float(mt["lb_loss"]) > 0 and float(mt["z_loss"]) > 0
+    gn = jax.tree.map(np.asarray, gj)
+    for (path, _), g in zip(named, grads):
+        assert _rel(g.numpy(), _ref_leaf(gn, path)) <= GRAD_RTOL, path
+
+
+def test_moe_aux_losses_carry_gradients_to_the_router():
+    _, tc, _, _ = _models("mixtral-8x7b")
+    pt = _port_params("mixtral-8x7b")
+    router = pt["blocks"]["seg0"][0]["moe"]["router"]["w"].requires_grad_(True)
+    _, aux = tmodel.forward(pt, {"inputs": torch.from_numpy(
+        _batch(tc)["inputs"])}, tc)
+    g = torch.autograd.grad(aux["lb_loss"] + aux["z_loss"], router)[0]
+    assert float(g.abs().max()) > 0
+
+
+def test_loss_fn_masks_negative_targets():
+    _, tc, _, _ = _models("qwen1.5-0.5b")
+    pt = _port_params("qwen1.5-0.5b")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(tc).items()}
+    _, m = tmodel.loss_fn(pt, batch, tc)
+    assert float(m["tokens"]) == batch["targets"].numel() - 3
+    batch["targets"] = torch.full_like(batch["targets"], -1)
+    total, m = tmodel.loss_fn(pt, batch, tc)
+    assert float(m["tokens"]) == 0 and float(total) == 0.0
+
+
+def test_train_forward_refuses_what_is_not_ported():
+    _, tc, _, _ = _models("qwen1.5-0.5b")
+    pt = _port_params("qwen1.5-0.5b")
+    with pytest.raises(NotImplementedError, match="flash attention"):
+        tmodel.forward(pt, {"inputs": torch.zeros((1, 2049),
+                                                  dtype=torch.long)}, tc)
+    ssm = tsmoke(tget("mamba2-1.3b"))
+    with pytest.raises(NotImplementedError, match="apply_train"):
+        tmodel.forward(tmodel.init_params(0, ssm, device="cpu"),
+                       {"inputs": torch.zeros((1, 4), dtype=torch.long)}, ssm)
+
+
+# ---------------------------------------------------------------------------
+# Optimizers
+# ---------------------------------------------------------------------------
+def _tree(seed):
+    rng = np.random.default_rng(seed)
+    return {"a": rng.standard_normal((4, 6)).astype(np.float32),
+            "b": {"c": rng.standard_normal((6,)).astype(np.float32),
+                  "d": rng.standard_normal((2, 3, 5)).astype(np.float32)}}
+
+
+def _torch_tree(t):
+    return tree_map(torch.from_numpy, t)
+
+
+@pytest.mark.parametrize("name,moments", [("adamw", "float32"),
+                                          ("adamw", "bfloat16"),
+                                          ("adafactor", "float32")])
+def test_optimizer_update_matches_reference(name, moments):
+    kw = dict(name=name, lr=1e-2, warmup_steps=2, total_steps=10,
+              moment_dtype=moments, grad_clip=0.5)
+    oj, ot = jopt.make_optimizer(JOpt(**kw)), topt.make_optimizer(TOpt(**kw))
+    p, g1, g2 = _tree(0), _tree(1), _tree(2)
+    sj, st = oj.init(jax.tree.map(jnp.asarray, p)), ot.init(_torch_tree(p))
+    pj, pt = jax.tree.map(jnp.asarray, p), _torch_tree(p)
+    for g in (g1, g2):                     # two updates: a nonzero state
+        pj, sj, mj = oj.update(jax.tree.map(jnp.asarray, g), sj, pj)
+        pt, st, mt = ot.update(_torch_tree(g), st, pt)
+    assert int(st.step) == int(sj.step) == 2
+    for k in ("grad_norm", "lr"):
+        assert abs(float(mt[k]) - float(mj[k])) <= OPT_RTOL * float(mj[k])
+    for a, b in zip(leaves(pt), jax.tree.leaves(pj)):
+        assert a.dtype == torch.float32
+        assert _rel(a.numpy(), b) <= OPT_RTOL
+    inner_j = jax.tree.map(np.asarray, sj.inner)
+    for path, a in leaves_with_paths(st.inner):
+        b = _ref_leaf(inner_j, path)
+        assert str(a.dtype).split(".")[-1] == str(b.dtype), path
+        assert _rel(a.float().numpy(), np.asarray(b, np.float32)) <= \
+            (2.0 ** -8 if moments == "bfloat16" else OPT_RTOL), path
+
+
+@pytest.mark.parametrize("step", [0, 1, 2, 5, 9, 10, 14])
+def test_lr_schedule_matches_reference(step):
+    cfg = dict(lr=3e-4, warmup_steps=3, total_steps=10)
+    a = float(topt.lr_schedule(TOpt(**cfg), torch.tensor(step,
+                                                         dtype=torch.int32)))
+    b = float(jopt.lr_schedule(JOpt(**cfg), jnp.int32(step)))
+    assert abs(a - b) <= OPT_RTOL * b
+
+
+@pytest.mark.parametrize("max_norm", [0.1, 100.0])
+def test_clip_by_global_norm_matches_reference(max_norm):
+    g = _tree(3)
+    cj, nj = jopt.clip_by_global_norm(jax.tree.map(jnp.asarray, g), max_norm)
+    ct, nt = topt.clip_by_global_norm(_torch_tree(g), max_norm)
+    assert abs(float(nt) - float(nj)) <= OPT_RTOL * float(nj)
+    for a, b in zip(leaves(ct), jax.tree.leaves(cj)):
+        assert _rel(a.numpy(), b) <= OPT_RTOL
+
+
+def test_grad_compression_waits_for_the_distributed_slice():
+    with pytest.raises(NotImplementedError, match="A8"):
+        topt.make_optimizer(TOpt(grad_compression="int8"))
+
+
+# ---------------------------------------------------------------------------
+# Data pipeline
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch,dp", [("qwen1.5-0.5b", (0, 1)),
+                                     ("qwen1.5-0.5b", (1, 2)),
+                                     ("musicgen-large", (0, 1))])
+def test_synthetic_batch_at_is_bitwise_the_reference(arch, dp):
+    shape = dict(name="t", seq_len=16, global_batch=4, kind="train")
+    jd = jpipe.DataConfig(seed=3, dp_rank=dp[0], dp_size=dp[1])
+    td = tpipe.DataConfig(seed=3, dp_rank=dp[0], dp_size=dp[1])
+    pj = jpipe.make_pipeline(jsmoke(jget(arch)), JShape(**shape), jd)
+    pt = tpipe.make_pipeline(tsmoke(tget(arch)), TShape(**shape), td)
+    for step in (0, 7):
+        a, b = pt.batch_at(step), pj.batch_at(step)
+        assert set(a) == set(b)
+        for k in a:
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+
+
+def test_mmap_batch_at_is_bitwise_the_reference(tmp_path):
+    toks = np.random.default_rng(0).integers(0, 60000, 5000)
+    path = str(tmp_path / "tok.bin")
+    tpipe.write_token_file(path, toks)
+    shape = dict(name="t", seq_len=32, global_batch=4, kind="train")
+    pj = jpipe.make_pipeline(jsmoke(jget("qwen1.5-0.5b")), JShape(**shape),
+                             jpipe.DataConfig(source="mmap", path=path))
+    pt = tpipe.make_pipeline(tsmoke(tget("qwen1.5-0.5b")), TShape(**shape),
+                             tpipe.DataConfig(source="mmap", path=path))
+    for step in (0, 3):
+        a, b = pt.batch_at(step), pj.batch_at(step)
+        for k in a:
+            assert np.array_equal(a[k], b[k])
+    with pytest.raises(ValueError, match="does not split"):
+        tpipe.SyntheticLM(tsmoke(tget("qwen1.5-0.5b")), TShape(**shape),
+                          tpipe.DataConfig(dp_size=3))
+
+
+# ---------------------------------------------------------------------------
+# train_loop against the reference's
+# ---------------------------------------------------------------------------
+SMALL_SHAPE = dict(name="small", seq_len=16, global_batch=4, kind="train",
+                   microbatch_per_shard=4)
+SMALL_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=3)
+
+
+def test_train_loop_three_steps_match_reference(tmp_path, monkeypatch):
+    jc, tc, pj, _ = _models("qwen1.5-0.5b")
+    jrun = JRun(model=jc, shape=JShape(**SMALL_SHAPE),
+                optimizer=JOpt(**SMALL_OPT),
+                checkpoint_dir=str(tmp_path / "jax"))
+    trun = TRun(model=tc, shape=TShape(**SMALL_SHAPE),
+                optimizer=TOpt(**SMALL_OPT),
+                checkpoint_dir=str(tmp_path / "torch"))
+    ref = jtrain.train_loop(jrun, 3, log_every=1)
+    # start from the reference's weights (its init draws jax.random bits)
+
+    def init_state(seed, cfg, optimizer, device=None):
+        params = _port_params("qwen1.5-0.5b")
+        return tsteps.TrainState(params, optimizer.init(params))
+    monkeypatch.setattr(tsteps, "init_train_state", init_state)
+    out = ttrain.train_loop(trun, 3, log_every=1, device="cpu")
+    assert len(out["history"]) == len(ref["history"]) == 3
+    for a, b in zip(out["history"], ref["history"]):
+        assert a["step"] == b["step"]
+        for k in ("loss", "grad_norm", "lr", "tokens"):
+            assert abs(a[k] - b[k]) <= TRAIN_RTOL * abs(b[k]), (a, b, k)
+    assert out["step"] == 3 and tckpt.latest_step(trun.checkpoint_dir) == 3
+
+
+# ---------------------------------------------------------------------------
+# The port's own invariants
+# ---------------------------------------------------------------------------
+class _Spy:
+    """An optimizer that records the gradients it is handed."""
+
+    def __init__(self, inner):
+        self.inner, self.grads = inner, None
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, grads, state, params):
+        self.grads = grads
+        return self.inner.update(grads, state, params)
+
+
+def test_accum_2_equals_accum_1():
+    """Two microbatches of a fixed-window site (row-independent readouts)
+    give the one-batch gradient within float32 rounding."""
+    tc = tsmoke(tget("qwen1.5-0.5b")).replace(tdvmm=TLayer(
+        enabled=True, output_calibration=False))
+    run = TRun(model=tc, shape=TShape(**SMALL_SHAPE),
+               optimizer=TOpt(**SMALL_OPT))
+    batch = tpipe.make_pipeline(tc, run.shape, tpipe.DataConfig()).batch_at(0)
+    got = []
+    for accum in (1, 2):
+        spy = _Spy(topt.make_optimizer(run.optimizer))
+        step = tsteps.make_train_step(tc, run, spy, accum)
+        params = tmodel.init_params(0, tc, device="cpu")
+        _, m = step(tsteps.TrainState(params, spy.init(params)), batch)
+        got.append((spy.grads, m))
+    (g1, m1), (g2, m2) = got
+    assert float(m1["tokens"]) == float(m2["tokens"]) == 64
+    assert abs(float(m2["loss"]) - float(m1["loss"])) <= 1e-6 * float(
+        m1["loss"])
+    for a, b in zip(leaves(g2), leaves(g1)):
+        assert _rel(a.numpy(), b.float().numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("arch,noise", [("qwen1.5-0.5b", False),
+                                        ("qwen1.5-0.5b", True),
+                                        ("mixtral-8x7b", True)])
+def test_remat_on_equals_remat_off(arch, noise):
+    tc = tsmoke(tget(arch)).replace(tdvmm=TLayer(enabled=True, noise=noise))
+    params = tmodel.init_params(0, tc, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(tc).items()}
+    out = []
+    for policy in ("none", "minimal"):
+        ps = leaves(params)
+        for p in ps:
+            p.requires_grad_(True)
+        total, _ = tmodel.loss_fn(params, batch,
+                                  tc.replace(remat_policy=policy), key=5)
+        out.append((total.detach(), torch.autograd.grad(total, ps)))
+    (l0, g0), (l1, g1) = out
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+
+def test_save_restore_continue_equals_an_unbroken_run(tmp_path):
+    tc = tsmoke(tget("qwen1.5-0.5b")).replace(tdvmm=TLayer(enabled=True))
+
+    def run(d):
+        return TRun(model=tc, shape=TShape(**SMALL_SHAPE),
+                    optimizer=TOpt(lr=1e-3, warmup_steps=1, total_steps=4),
+                    checkpoint_dir=str(tmp_path / d), checkpoint_every=100)
+    whole = ttrain.train_loop(run("whole"), 4, log_every=1, device="cpu")
+    ttrain.train_loop(run("split"), 2, log_every=1, device="cpu")
+    resumed = ttrain.train_loop(run("split"), 4, log_every=1, device="cpu")
+    assert [h["step"] for h in resumed["history"]] == [2, 3]
+    assert [h["loss"] for h in resumed["history"]] == \
+        [h["loss"] for h in whole["history"][2:]]
+    a, b = leaves(whole["state"]), leaves(resumed["state"])
+    assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_checkpoint_keeps_k_saves_in_the_background_and_verifies(tmp_path):
+    tree = {"w": torch.arange(6.0).reshape(2, 3).to(torch.bfloat16),
+            "s": torch.tensor(4, dtype=torch.int32)}
+    for step in (1, 2, 3):
+        tckpt.save(tree, tmp_path, step, keep=2)
+    t = tckpt.save(tree_map(lambda v: v + 1, tree), tmp_path, 4, keep=2,
+                   blocking=False)
+    t.join(timeout=60)
+    assert not t.is_alive()
+    assert tckpt.latest_step(tmp_path) == 4
+    assert sorted(p.name for p in tmp_path.glob("step_*.done")) == [
+        "step_00000003.done", "step_00000004.done"]
+    got, step = tckpt.restore(tree, tmp_path)
+    assert step == 4 and got["w"].dtype == torch.bfloat16
+    assert torch.equal(got["w"], tree["w"] + 1)
+    (tmp_path / "step_00000004" / "state.pt").write_bytes(b"broken")
+    with pytest.raises(IOError, match="checksum"):
+        tckpt.restore(tree, tmp_path)
+    with pytest.raises(FileNotFoundError):
+        tckpt.restore(tree, tmp_path / "none")
+
+
+# ---------------------------------------------------------------------------
+# Fault helpers
+# ---------------------------------------------------------------------------
+def test_retry_step_retries_runtime_errors_and_passes_preemption():
+    calls, sleeps = [], []
+
+    def flaky():
+        calls.append(1)
+        if len(calls) < 3:
+            raise RuntimeError("transient")
+        return "ok"
+    assert tfault.retry_step(flaky, sleep=sleeps.append, jitter=0.0) == "ok"
+    assert len(calls) == 3 and sleeps
+    with pytest.raises(RuntimeError) as e:
+        tfault.retry_step(lambda: (_ for _ in ()).throw(RuntimeError("x")),
+                          retries=1, sleep=lambda s: None)
+    assert e.value.retry_attempts == 2
+    guard = tfault.PreemptionGuard()
+    guard.requested = True
+    with pytest.raises(tfault.Preempted):
+        tfault.retry_step(lambda: 1, guard=guard)
+    assert not issubclass(tfault.Preempted, RuntimeError)
+
+
+def test_guard_straggler_and_heartbeat(tmp_path):
+    before = signal.getsignal(signal.SIGTERM)
+    guard = tfault.PreemptionGuard().install()
+    assert signal.getsignal(signal.SIGTERM) != before
+    guard.uninstall()
+    assert signal.getsignal(signal.SIGTERM) == before
+    mon = tfault.StragglerMonitor()
+    flags = [mon.record(i, 1.0) for i in range(8)] + [mon.record(8, 5.0)]
+    assert flags == [False] * 8 + [True] and mon.stragglers == 1
+    hb = tfault.Heartbeat(tmp_path / "hb.json", every_s=60)
+    assert hb.beat(3) and not hb.beat(4)
+    assert json.loads((tmp_path / "hb.json").read_text())["step"] == 3
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+def test_train_cli_runs_on_the_cpu(tmp_path):
+    out = ttrain.main(["--arch", "qwen1.5-0.5b", "--smoke", "--tdvmm",
+                       "--steps", "3", "--device", "cpu", "--ckpt-dir",
+                       str(tmp_path)])
+    assert out["step"] == 3 and [h["step"] for h in out["history"]] == [0, 2]
+    assert all(np.isfinite(h["loss"]) for h in out["history"])
+    # the same directory again: resumed at step 3, nothing left to train
+    assert ttrain.main(["--arch", "qwen1.5-0.5b", "--smoke", "--steps", "3",
+                        "--tdvmm", "--device", "cpu", "--ckpt-dir",
+                        str(tmp_path)])["history"] == []
+
+
+def test_train_lm_profile_is_the_examples():
+    from repro_torch.launch import train_lm
+    run, steps = train_lm.run_config("quick", None, True, "unused")
+    assert steps == 300 and run.shape.seq_len == 256
+    cfg = run.model
+    assert (cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
+            cfg.d_ff, cfg.vocab_size) == (256, 4, 4, 2, 1024, 8192)
+    assert cfg.tdvmm.enabled and cfg.tdvmm.bits == 6
+    assert run.optimizer.warmup_steps == 30
+
+
+def test_perceptron_qat_case_study_on_the_cpu():
+    from repro_torch.launch import perceptron
+    out = perceptron.main(["--qat", "--device", "cpu"])["qat"]
+    # the example's figures: twin ~0.97, drop ~0
+    assert out["acc_digital"] >= 0.9 and out["acc_circuit"] > 0.8
+    assert out["loss_last"] < out["loss_first"]
+    assert abs(out["drop"]) <= 0.05 and out["max_err"] <= 2.5e-6
