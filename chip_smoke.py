@@ -29,9 +29,13 @@ Phases, each of which stops the script with a non-zero exit on failure:
    shapes, the edges of the two CTA tiles (``tile_edge_cases``: M 1, 16,
    17, 129, 256, 257, ragged and unaligned operands) and of the float32
    codes' exact envelope (|acc| 15,667,200 and 16,776,450); float32 rows also time a
-   TF32 ``bmm`` yardstick beside the full-float32 one; B1/B2's 3xTF32
-   storage (``f32x3_cases``) at qwen's QAT shapes (2048 rows, ffn.in and
-   the grouped q/k/v launch) and the tiles' edges, on noisy codes against
+   TF32 ``bmm`` yardstick beside the full-float32 one; the training path's
+   int8 launches (``qat_cases``: B2 at every site of the full-width qwen
+   QAT run, 2048 rows, B1 fused at the same shapes, the perceptron's B2 at
+   800 and 200 rows), bitwise; B1/B2's 3xTF32
+   storage (``f32x3_cases``) at qwen's QAT shapes (2048 rows, ffn.in, the
+   grouped q/k/v launch, ffn.out, attn.out) and the tiles' edges, on noisy
+   codes against
    the exact float64 product (accumulator within ``tdvmm.F32X3_RTOL`` of
    sum|x||w|, readout levels within the exact one's rounding:
    ``tdvmm.check_readout``) and on p = 9 and p = 11 integer codes bitwise,
@@ -185,6 +189,12 @@ H100_F32_FLOPS_PER_S = 67e12        # float32 on CUDA cores (data sheet)
 QAT_BATCH, QAT_SEQ, QAT_STEPS = 4, 512, 8
 QAT_ROWS = QAT_BATCH * QAT_SEQ
 QKV_WIDTHS = (1024, 1024, 1024)                   # q, k, v at d_model 1024
+# (K, N) and member widths of the QAT run's B2 launches: attn.qkv (one
+# grouped launch), ffn.in (gate and up), ffn.out and attn.out
+QAT_SHAPES = (((1024, sum(QKV_WIDTHS)), QKV_WIDTHS), ((1024, 2816), None),
+              ((2816, 1024), None), ((1024, 1024), None))
+# the perceptron's QAT: 800 training rows a step, 200 test rows, 10 x 10
+PERCEPTRON_QAT_ROWS = (800, 200)
 # the 3xTF32 storage's integer cases: p = 9 inputs x 4-bit weights and
 # p = 11 inputs x 3-bit weights (random codes, |acc| far below 2^24)
 F32X3_INT = {"p9": (511, 15), "p11": (2047, 7)}
@@ -570,7 +580,32 @@ def kernel_cases() -> list[dict]:
                            mode="expert_slots"),
                       dict(small, kernel="tdvmm_fused",
                            mode="shared_x_window", ex=1)]
-    return cases + tile_edge_cases()
+    return cases + qat_cases() + tile_edge_cases()
+
+
+def qat_cases() -> list[dict]:
+    """B1/B2 in int8 at the training path's shapes: every B2 launch of the
+    full-width qwen QAT run (M = B x S = 2048; the q/k/v launch with one
+    slot per member, ffn.in, ffn.out, attn.out), B1 fused at the same
+    shapes with a fixed window (per member at q/k/v) and without a readout
+    at ffn.in (the chained plan), the perceptron's two B2 shapes; and the
+    bf16 tile (f32 codes, p = 8) at ffn.in's shape beside the 3xTF32
+    storage's rows there."""
+    cases = []
+    for (k, n), widths in QAT_SHAPES:
+        big = dict(e=1, ex=1, m=QAT_ROWS, k=k, n=n, widths=widths)
+        cases += [
+            dict(big, kernel="tdvmm_calibrated",
+                 mode="member_slots" if widths else "one_slot"),
+            dict(big, kernel="tdvmm_fused",
+                 mode="member_windows" if widths else "scalar_window")]
+    ffn_in = dict(e=1, ex=1, m=QAT_ROWS, k=1024, n=2816)
+    cases += [dict(ffn_in, kernel="tdvmm_fused", mode="no_readout"),
+              dict(ffn_in, codes="f32", kernel="tdvmm_matmul_raw",
+                   mode="raw")]
+    cases += [dict(kernel="tdvmm_calibrated", mode="one_slot", e=1, ex=1,
+                   m=m, k=10, n=10) for m in PERCEPTRON_QAT_ROWS]
+    return cases
 
 
 def tile_edge_cases() -> list[dict]:
@@ -680,9 +715,9 @@ def run_case(case: dict, dev, seed: int) -> dict:
                   .view(t.shape).copy_(t) for t in (xk, wk))
     max_code = max(lim_x, lim_w)
     mode = case["mode"]
-    window, widths, members = None, None, None
-    if n == sum(SSM_WIDTHS):
-        widths = SSM_WIDTHS
+    window, members = None, None
+    widths = case.get("widths") or (SSM_WIDTHS if n == sum(SSM_WIDTHS)
+                                     else None)
     if mode == "member_windows":
         z = torch.abs(tk.acc_plain(x, w)[0].to(torch.float32) * float(gain))
         spans = torch.split(z, list(widths), dim=1)
@@ -1523,9 +1558,11 @@ def f32x3_cases() -> list[dict]:
     rows; ffn.in 1024 x 2816 and the grouped q/k/v launch 1024 x 3 x 1024
     with per-member windows and slots), raw, fused and B2, on noisy codes
     (p = 6 inputs, p = 6 weights with programming noise) and on integer
-    codes of p = 9 and p = 11; then noisy codes at the tiles' edges (M 1,
-    17, 257; K 131; N 70), shared-x with (E,) windows and B2 with expert
-    slots at 300 rows.  ``rep`` marks the rows of the kernels line."""
+    codes of p = 9 and p = 11; the noisy steps' other launches (B2 at
+    ffn.out and attn.out, B1 without a readout at the chained ffn.in); then
+    noisy codes at the tiles' edges (M 1, 17, 257; K 131; N 70), shared-x
+    with (E,) windows and B2 with expert slots at 300 rows.  ``rep`` marks
+    the rows of the kernels line."""
     cases = []
     for (k, n), widths in (((1024, 2816), None),
                            ((1024, sum(QKV_WIDTHS)), QKV_WIDTHS)):
@@ -1539,6 +1576,12 @@ def f32x3_cases() -> list[dict]:
                      mode="member_windows" if widths else "scalar_window"),
                 dict(base, kernel="tdvmm_calibrated",
                      mode="member_slots" if widths else "one_slot")]
+    noisy = dict(codes="f32x3", data="noisy", e=1, ex=1, m=QAT_ROWS,
+                 widths=None)
+    cases += [dict(noisy, kernel="tdvmm_calibrated", mode="one_slot", k=k,
+                   n=n) for k, n in ((2816, 1024), (1024, 1024))]
+    cases.append(dict(noisy, kernel="tdvmm_fused", mode="no_readout", k=1024,
+                      n=2816))
     for m in (1, 17, 257):
         edge = dict(codes="f32x3", data="noisy", e=1, ex=1, m=m, k=131, n=70,
                     widths=None)
@@ -1587,10 +1630,11 @@ def _slot_windows64(acc64, absacc64, gain, slots, nslots, bw, rtol):
 def run_f32x3_case(case: dict, dev, seed: int) -> dict:
     """One 3xTF32 case: two kernel calls bitwise equal; integer codes
     bitwise the plain version; noisy codes held to the exact (float64)
-    product: the raw accumulator within F32X3_RTOL x sum|x||w|, each
-    readout level within the rounding of the exact one
-    (``tdvmm.check_readout``: a level may move by one only at a tie), the
-    plain version's too."""
+    product: the raw accumulator within F32X3_RTOL x sum|x||w| (without a
+    readout, the scaled output within that and the epilogue's three float32
+    roundings, 2^-22), each readout level within the rounding of the exact
+    one (``tdvmm.check_readout``: a level may move by one only at a tie),
+    the plain version's too."""
     import torch
     from repro_torch.core import quant
     from repro_torch.core.constants import TDVMMSpec
@@ -1612,7 +1656,10 @@ def run_f32x3_case(case: dict, dev, seed: int) -> dict:
         # draws it
         w = quant.program_noise(quant.QuantizedTensor(
             w, torch.ones((), device=dev), 6), TDVMMSpec(), seed).codes
+    # noisy codes ask for the 3xTF32 storage; integer ones get it from
+    # their width (check_code_width)
     max_code = None if noisy else max(lim_x, lim_w)
+    storage = "f32x3" if noisy else None
     xs = torch.rand((ex, m), generator=g, device=dev) + 0.5
     ws = torch.rand((e, n), generator=g, device=dev) + 0.5
     gain = 1.0 / (float(lim_x) * float(lim_w) * 2.0 * k)
@@ -1632,14 +1679,14 @@ def run_f32x3_case(case: dict, dev, seed: int) -> dict:
         window = zmax if mode == "expert_windows" else zmax[0].reshape(())
         s64 = window.double().reshape(-1, 1, 1)
         s_rel = 0.0
-    bits = None if mode == "raw" else 6
+    bits = None if mode in ("raw", "no_readout") else 6
     if case["kernel"] == "tdvmm_matmul_raw":
         kern = lambda: tk.tdvmm_matmul_raw(x, w, None, max_code,  # noqa: E731
-                                           noisy)
+                                           storage)
         plain = lambda: tk.tdvmm_raw_plain(x, w)                  # noqa: E731
     elif case["kernel"] == "tdvmm_fused":
         kern = lambda: tk.tdvmm_fused(x, w, xs, ws, gain, bits,  # noqa: E731
-                                      window, None, max_code, noisy)
+                                      window, None, max_code, storage)
         plain = lambda: tk.tdvmm_fused_plain(x, w, xs, ws, gain,  # noqa: E731
                                              bits, window)
     else:
@@ -1650,7 +1697,7 @@ def run_f32x3_case(case: dict, dev, seed: int) -> dict:
                                      bw, rtol)
         kern = lambda: tk.tdvmm_calibrated(x, w, xs, ws, slots,  # noqa: E731
                                            nslots, bw, gain, 6, None,
-                                           max_code, noisy)
+                                           max_code, storage)
         plain = lambda: tk.tdvmm_calibrated_plain(              # noqa: E731
             x, w, xs, ws, slots, nslots, bw, gain, 6)
     reset_all_launches()
@@ -1665,15 +1712,21 @@ def run_f32x3_case(case: dict, dev, seed: int) -> dict:
     err = float((yk.double() - yp.double()).abs().max())
     flips = flips_plain = 0
     acc_rel = acc_rel_plain = None
+    gate = rtol
     if not noisy:
         require(err == 0.0, f"{case}: integer codes differ from plain by "
                 f"{err}")
-    if mode == "raw":
+    if bits is None:
+        scale = 1.0
+        if mode == "no_readout":
+            scale = (float(np.float32(gain)) * xs.double()[..., :, None]
+                     * ws.double()[..., None, :])
+            gate = rtol + 2.0 ** -22
         for name, y in (("kernel", yk), ("plain", yp)):
-            rel = float(((y.double() - acc64).abs()
-                         / absacc64.clamp_min(1e-30)).max())
-            require(rel <= rtol, f"{case}: {name} accumulator {rel:.3g} of "
-                    f"sum|x||w| from the exact product (> {rtol:.3g})")
+            rel = float(((y.double() - acc64 * scale).abs()
+                         / (absacc64 * scale).clamp_min(1e-30)).max())
+            require(rel <= gate, f"{case}: {name} accumulator {rel:.3g} of "
+                    f"sum|x||w| from the exact product (> {gate:.3g})")
             if name == "kernel":
                 acc_rel = rel
             else:
@@ -1702,7 +1755,7 @@ def run_f32x3_case(case: dict, dev, seed: int) -> dict:
                              group_widths=widths)
     bound_ms, bound_by = f32x3_bound(case)
     row = dict(case, max_abs_err=err, acc_rel_err=acc_rel,
-               acc_rel_err_plain=acc_rel_plain, gate=rtol,
+               acc_rel_err_plain=acc_rel_plain, gate=gate,
                flips=flips,
                flips_plain=flips_plain, ms=time_ms(kern, 20),
                plain_ms=time_ms(plain, 5), bound_ms=bound_ms,
@@ -2103,9 +2156,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     # deterministic kernels for the batched == solo check, without the
     # NaN fill of every fresh allocation that the mode adds by default
-    # (warn_only: the training phases' backward may reach an op without a
-    # deterministic kernel; serving's ops all have one)
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.use_deterministic_algorithms(True)
     torch.utils.deterministic.fill_uninitialized_memory = False
 
     build_s = kernels.build_all(verbose=True)

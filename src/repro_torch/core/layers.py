@@ -22,8 +22,9 @@ one ragged concat launch.
 
 Code storage follows the JAX package's rule (``_plan_code_dtype``): int8
 for p <= 7 on both operands, int4-packed pairs for p <= 3 on both, float32
-codes for p = 8 or with programming noise (warning where the worst |acc|
-reaches 2^24, beyond which the float32 sums may round).
+codes for p = 8 ("f32") or with programming noise ("f32x3": float32 codes
+off the integer grid, B1/B2's 3xTF32 storage on the card), warning where
+the worst |acc| reaches 2^24, beyond which the float32 sums may round.
 
 Gradients (QAT): straight-through estimators on every quantizer
 (``quant.QuantizedTensor.view``) and the JAX package's custom VJP on the
@@ -32,7 +33,7 @@ gradient the layer hands the kernels the float32 straight-through views,
 else the stored codes.  Programming noise (``cfg.noise`` with a ``key``:
 an int seed or ``quant.NoiseDraws``) perturbs the programmed currents
 (``quant.program_noise``): the codes are then float32 off the integer grid
-and run in B1/B2's 3xTF32 storage on the card.
+and take the "f32x3" storage.
 """
 from __future__ import annotations
 
@@ -55,13 +56,14 @@ class MatmulPlan(NamedTuple):
     k: int                           # N_in: sources per output column
     n: int
     backend: str                     # resolved: "jnp" | "cuda"
-    code_dtype: str                  # "int4" | "int8" | "f32" code storage
+    code_dtype: str                  # "int4" | "int8" | "f32" | "f32x3"
 
 
 def _plan_code_dtype(cfg: TDVMMLayerConfig, k: int, noisy: bool) -> str:
     """Pick the code storage for a K-deep accumulation (the JAX package's
     rule, kept so both packages agree on every site), warning only on the
-    f32 fallback."""
+    f32 fallback.  Noisy codes, float32 as in the JAX package, are "f32x3":
+    they are off the integer grid."""
     lx = (1 << cfg.bits) - 1
     lw = (1 << cfg.weight_bits) - 1
     worst = lx * lw * max(k, 1)
@@ -78,7 +80,7 @@ def _plan_code_dtype(cfg: TDVMMLayerConfig, k: int, noisy: bool) -> str:
             f"(2^{cfg.bits}-1)*(2^{cfg.weight_bits}-1)*K={worst} >= 2^24; "
             "charge sums can round and the kernel and plain routes may "
             "diverge", stacklevel=3)
-    return "f32"
+    return "f32x3" if noisy else "f32"
 
 
 def plan_matmul(x_shape, w_shape, cfg: TDVMMLayerConfig,
@@ -145,7 +147,7 @@ def _latch_gain(levels_x: int, levels_w: int, k: int) -> float:
 
 def _record_window(cfg: TDVMMLayerConfig, x_codes: torch.Tensor,
                    w_codes: torch.Tensor, backend: str, code_dtype: str,
-                   gain: float, max_code: Optional[int], noisy: bool,
+                   gain: float, max_code: Optional[int],
                    per_tile: bool = False,
                    group_widths: Optional[tuple[int, ...]] = None) -> None:
     """Calibration capture: when a ``core.calibration`` collector is active
@@ -162,8 +164,7 @@ def _record_window(cfg: TDVMMLayerConfig, x_codes: torch.Tensor,
     from repro_torch.kernels.tdvmm import ops
     with torch.no_grad():
         acc = ops.codes_matmul(x_codes, w_codes, backend,
-                               code_dtype=code_dtype, max_code=max_code,
-                               noisy=noisy)
+                               code_dtype=code_dtype, max_code=max_code)
     z = torch.abs(acc * _f32(gain))
     if group_widths is not None:
         # member g owns columns [off, off + width_g); pad columns are zero
@@ -201,10 +202,10 @@ def _noise(cfg: TDVMMLayerConfig, key) -> bool:
     return bool(cfg.noise and key is not None)
 
 
-def _max_code(qx, qw, noisy: bool) -> Optional[int]:
+def _max_code(qx, qw, code_dtype: str) -> Optional[int]:
     """The largest |code| of the two operands, for integer codes; None for
-    noisy ones (off the integer grid)."""
-    return None if noisy else max(qx.levels, qw.levels)
+    noisy ones ("f32x3", off the integer grid)."""
+    return None if code_dtype == "f32x3" else max(qx.levels, qw.levels)
 
 
 def _max0(z: torch.Tensor) -> torch.Tensor:
@@ -238,9 +239,9 @@ def td_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TDVMMLayerConfig,
     out_scale, out_window = _runtime_override(cfg, out_bits, out_scale)
     xc, wc = _operands(qx, qw, x, w)
     xc = xc.reshape(plan.m, plan.k)
-    max_code = _max_code(qx, qw, noisy)
+    max_code = _max_code(qx, qw, plan.code_dtype)
     _record_window(cfg, xc.detach(), wc.detach(), plan.backend,
-                   plan.code_dtype, gain, max_code, noisy)
+                   plan.code_dtype, gain, max_code)
     y = ops.tdvmm_matmul(
         xc,
         wc,
@@ -253,7 +254,6 @@ def td_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TDVMMLayerConfig,
         code_dtype=plan.code_dtype,
         out_window=out_window,
         max_code=max_code,
-        noisy=noisy,
     )
     return y.reshape(plan.batch_shape + (plan.n,)).to(x.dtype)
 
@@ -292,10 +292,10 @@ def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
     out_bits, out_scale = _readout_args(cfg, n_experts=e)
     out_scale, out_window = _runtime_override(cfg, out_bits, out_scale)
     # each expert is its own analog tile: calibration records (E,) windows
-    max_code = _max_code(qx, qw, noisy)
+    max_code = _max_code(qx, qw, code_dtype)
     xc, wc = _operands(qx, qw, x, w)
     _record_window(cfg, xc.detach(), wc.detach(), backend, code_dtype, gain,
-                   max_code, noisy, per_tile=True)
+                   max_code, per_tile=True)
     y = ops.tdvmm_matmul(
         xc,
         wc,
@@ -308,7 +308,6 @@ def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
         code_dtype=code_dtype,
         out_window=out_window,
         max_code=max_code,
-        noisy=noisy,
     )
     return y.to(x.dtype)
 
@@ -358,10 +357,9 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
     xc = xc.reshape(plan.m, k)
     # each member's column span is its own analog tile: calibration records
     # one (G,) vector for the site
-    max_code = _max_code(qx, qw, noisy)
+    max_code = _max_code(qx, qw, plan.code_dtype)
     _record_window(cfg, xc.detach(), wc.detach(), plan.backend,
-                   plan.code_dtype, gain, max_code, noisy,
-                   group_widths=widths)
+                   plan.code_dtype, gain, max_code, group_widths=widths)
     y = ops.tdvmm_matmul(
         xc,
         wc,
@@ -375,7 +373,6 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
         group_widths=widths,
         out_window=out_window,
         max_code=max_code,
-        noisy=noisy,
     )                                                          # (M, n_total)
     outs, off = [], 0
     for n, wd in zip(ns, widths):
@@ -408,7 +405,7 @@ def calibrate_out_scale(x: torch.Tensor, w: torch.Tensor,
         from repro_torch.kernels.tdvmm import ops
         acc = ops.codes_matmul(qx.codes.reshape(plan.m, plan.k), qw.codes,
                                plan.backend, code_dtype=plan.code_dtype,
-                               max_code=_max_code(qx, qw, noisy), noisy=noisy)
+                               max_code=_max_code(qx, qw, plan.code_dtype))
     gain = _latch_gain(qx.levels, qw.levels, plan.k)
     z_max = _max0(torch.abs(acc * _f32(gain)))
     return max(float(z_max), 1e-9)

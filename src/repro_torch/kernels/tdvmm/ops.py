@@ -34,7 +34,8 @@ float32 (exact for integer codes while worst |acc| < 2^24).  On the card
 integer f32 codes need ``max_code`` (the largest |code| of either operand,
 which ``core.layers`` knows from the bit widths): up to 256 they run on the
 bf16 tile, up to 2047 in 3xTF32, wider ones raise.  Codes with programming
-noise are not integers (``noisy=True``) and run in 3xTF32.
+noise are not integers: "f32x3" casts them to float32 as "f32" does and
+runs them in 3xTF32 on the card.
 
 Gradients: float32 codes (the straight-through views of QAT) go through
 ``_TDVMMCore``, a ``torch.autograd.Function`` around every mode (raw,
@@ -198,10 +199,10 @@ def _device_calib_slots(e: int, n: int, bn: int, group_widths,
 def _operands(x_codes, w_codes, code_dtype: str):
     """(x, w, int4_k) as the kernels take them: int8 codes for "int8";
     int4 pairs packed along K for "int4" (``int4_k`` the code depth);
-    float32 for "f32"."""
-    if code_dtype not in ("int8", "int4", "f32"):
+    float32 for "f32" and "f32x3"."""
+    if code_dtype not in ("int8", "int4", "f32", "f32x3"):
         raise ValueError(f"unknown code dtype {code_dtype!r}")
-    dtype = torch.float32 if code_dtype == "f32" else torch.int8
+    dtype = torch.float32 if code_dtype.startswith("f32") else torch.int8
     xi = x_codes.to(dtype).contiguous()
     wi = w_codes.to(dtype).contiguous()
     if code_dtype != "int4":
@@ -212,8 +213,7 @@ def _operands(x_codes, w_codes, code_dtype: str):
 
 def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
                 out_scale, out_window, backend, code_dtype,
-                fused_calibration, group_widths=None, max_code=None,
-                noisy=False):
+                fused_calibration, group_widths=None, max_code=None):
     ex, m, k = x_codes.shape
     e, _, n = w_codes.shape
     if min(e, m, k, n) == 0:
@@ -223,7 +223,7 @@ def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
     if backend == "jnp":
         # int4 codes accumulate unpacked, as int8 (the JAX package's jnp path)
         xi, wi, _ = _operands(x_codes, w_codes,
-                              "f32" if code_dtype == "f32" else "int8")
+                              "int8" if code_dtype == "int4" else code_dtype)
         return _epilogue(tdvmm.acc_plain(xi, wi), x_scale, w_scale, gain,
                          out_bits, out_scale, out_window, group_widths)
     xi, wi, int4_k = _operands(x_codes, w_codes, code_dtype)
@@ -240,7 +240,7 @@ def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
             else:
                 window = _f32(out_scale, xi.device)
         return tdvmm.tdvmm_fused(xi, wi, x_scale, w_scale, gain, out_bits,
-                                 window, int4_k, max_code, noisy)
+                                 window, int4_k, max_code, code_dtype)
     if fused_calibration:
         # every member span is a multiple of the 128 lane, so no 64-column
         # tile of B2 straddles two members' readout slots
@@ -248,8 +248,9 @@ def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
                                             xi.device)
         return tdvmm.tdvmm_calibrated(
             xi, wi, x_scale, w_scale, slots, nslots,
-            min(tdvmm.TILE_N, n), gain, out_bits, int4_k, max_code, noisy)
-    acc = tdvmm.tdvmm_matmul_raw(xi, wi, int4_k, max_code, noisy)
+            min(tdvmm.TILE_N, n), gain, out_bits, int4_k, max_code,
+            code_dtype)
+    acc = tdvmm.tdvmm_matmul_raw(xi, wi, int4_k, max_code, code_dtype)
     return _epilogue(acc, x_scale, w_scale, gain, out_bits, out_scale,
                      out_window, group_widths)
 
@@ -292,10 +293,10 @@ class _TDVMMCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x_codes, w_codes, x_scale, w_scale, out_window, static):
         (gain, out_bits, out_scale, backend, code_dtype, fused_calibration,
-         group_widths, max_code, noisy) = static
+         group_widths, max_code) = static
         y = _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
                         out_scale, out_window, backend, code_dtype,
-                        fused_calibration, group_widths, max_code, noisy)
+                        fused_calibration, group_widths, max_code)
         ctx.save_for_backward(x_codes, w_codes, x_scale, w_scale, y)
         ctx.gain = gain
         return y
@@ -329,38 +330,38 @@ class _CodesMatmul(torch.autograd.Function):
     matmul cotangents."""
 
     @staticmethod
-    def forward(ctx, x3, w3, backend, code_dtype, max_code, noisy):
+    def forward(ctx, x3, w3, backend, code_dtype, max_code):
         ctx.save_for_backward(x3, w3)
-        return _raw_acc(x3, w3, backend, code_dtype, max_code, noisy)
+        return _raw_acc(x3, w3, backend, code_dtype, max_code)
 
     @staticmethod
     def backward(ctx, g):
         x3, w3 = ctx.saved_tensors
         gx, gw = _code_grads(g, x3, w3, ctx.needs_input_grad[0],
                              ctx.needs_input_grad[1])
-        return gx, gw, None, None, None, None
+        return gx, gw, None, None, None
 
 
-def _raw_acc(x3, w3, backend, code_dtype, max_code, noisy) -> torch.Tensor:
+def _raw_acc(x3, w3, backend, code_dtype, max_code) -> torch.Tensor:
     if backend == "jnp":
-        xi, wi, _ = _operands(x3, w3, "f32" if code_dtype == "f32" else "int8")
+        xi, wi, _ = _operands(x3, w3,
+                              "int8" if code_dtype == "int4" else code_dtype)
         acc = tdvmm.acc_plain(xi, wi)
     else:
         acc = tdvmm.tdvmm_matmul_raw(*_operands(x3, w3, code_dtype),
-                                     max_code=max_code, noisy=noisy)
+                                     max_code=max_code, code_dtype=code_dtype)
     return acc.to(torch.float32)
 
 
 def codes_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
                  backend: str, code_dtype: str = "auto",
-                 max_code: Optional[int] = None,
-                 noisy: bool = False) -> torch.Tensor:
+                 max_code: Optional[int] = None) -> torch.Tensor:
     """Raw (.., M, K) @ (.., K, N) charge accumulation as f32 (B1 raw mode
     on the cuda route).  A 2-D x against a 3-D (G, K, N) bank runs shared-x:
     one code matrix against G tiles, returning (G, M, N) (no squeeze).
     ``max_code``: the largest |code| of either operand (integer f32 codes on
-    the card need it); ``noisy``: f32 codes off the integer grid.  Float32
-    codes are differentiable (plain matmul cotangents)."""
+    the card need it).  Float32 codes are differentiable (plain matmul
+    cotangents)."""
     squeeze = x_codes.dim() == 2 and w_codes.dim() == 2
     x3 = x_codes[None] if x_codes.dim() == 2 else x_codes
     w3 = w_codes[None] if w_codes.dim() == 2 else w_codes
@@ -368,9 +369,9 @@ def codes_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
         code_dtype = "int8" if not x3.dtype.is_floating_point else "f32"
     backend = resolve_backend(backend)
     if x3.dtype.is_floating_point:
-        acc = _CodesMatmul.apply(x3, w3, backend, code_dtype, max_code, noisy)
+        acc = _CodesMatmul.apply(x3, w3, backend, code_dtype, max_code)
     else:
-        acc = _raw_acc(x3, w3, backend, code_dtype, max_code, noisy)
+        acc = _raw_acc(x3, w3, backend, code_dtype, max_code)
     return acc[0] if squeeze else acc
 
 
@@ -388,7 +389,6 @@ def tdvmm_matmul(
     fused_calibration: bool = True,
     out_window: Optional[torch.Tensor] = None,
     max_code: Optional[int] = None,
-    noisy: bool = False,
 ) -> torch.Tensor:
     """Quantized four-quadrant TD-VMM: codes matmul + readout + scale epilogue.
 
@@ -404,8 +404,9 @@ def tdvmm_matmul(
     calibration) resolve per member column span instead of per launch.
 
     ``max_code`` is the largest |code| of either operand; integer float32
-    codes on the card need it, and ``noisy`` marks float32 codes off the
-    integer grid (``tdvmm.check_code_width`` picks the storage from both).
+    codes ("f32") on the card need it (``tdvmm.check_code_width`` picks
+    their storage from it).  ``code_dtype="f32x3"`` marks float32 codes
+    off the integer grid.
 
     Float32 codes (straight-through views) are differentiable through
     ``_TDVMMCore``; integer codes are not.
@@ -469,10 +470,9 @@ def tdvmm_matmul(
         y = _TDVMMCore.apply(
             x_codes, w_codes, x_scale, w_scale, out_window,
             (gain, out_bits, out_scale, backend, code_dtype,
-             bool(fused_calibration), group_widths, max_code, bool(noisy)))
+             bool(fused_calibration), group_widths, max_code))
     else:
         y = _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
                         out_scale, out_window, backend, code_dtype,
-                        bool(fused_calibration), group_widths, max_code,
-                        bool(noisy))
+                        bool(fused_calibration), group_widths, max_code)
     return y[0] if squeeze else y

@@ -27,11 +27,12 @@ one output buffer (``tdvmm_calibrated``).  Both take batched
            (3xTF32: each code split into TF32 hi and lo parts, lo.hi +
            hi.lo + hi.hi), each 32-deep K stage summed from zero and added
            into the total with one IEEE add.  It takes the codes the bf16
-           tile cannot: codes off the integer grid (programming noise,
-           ``noisy=True``), within float32 rounding of the plain version
-           (``F32X3_RTOL``), and integer codes up to |2047| (p = 9-11),
-           which TF32 holds exactly (the lo parts are zero), bitwise while
-           worst |acc| < 2^24.  ``check_code_width`` picks the storage.
+           tile cannot: codes off the integer grid (programming noise; the
+           caller asks for them with ``code_dtype="f32x3"``), within
+           float32 rounding of the plain version (``F32X3_RTOL``), and
+           integer codes up to |2047| (p = 9-11), which TF32 holds exactly
+           (the lo parts are zero), bitwise while worst |acc| < 2^24
+           (``check_code_width`` sends them here).
 
 Each launch takes one of two CTA tiles, chosen by M alone
 (``plan_tile``): 16 x 64 up to 256 rows, 128 x 128 beyond.  What bounds
@@ -110,19 +111,15 @@ def plan_tile(m: int) -> Tile:
     return TILES[0] if m <= SMALL_TILE_MAX_ROWS else TILES[1]
 
 
-def check_code_width(codes: str, max_code: Optional[int],
-                     noisy: bool = False) -> str:
-    """The kernels' storage for ``codes`` ("int8", "int4" or "f32"), or
-    raise unless the tensor cores hold every code exactly.  int8 and int4
-    codes are exact by their storage.  float32 codes off the integer grid
-    (``noisy``) take the 3xTF32 storage "f32x3"; integer float32 codes take
-    the bf16 tile "f32" up to |``BF16_EXACT_MAX``| and "f32x3" up to
-    |``TF32_EXACT_MAX``|, from ``max_code``, the largest |code| of either
-    operand."""
+def check_code_width(codes: str, max_code: Optional[int]) -> str:
+    """The kernels' storage for ``codes`` ("int8", "int4", "f32" or
+    "f32x3"), or raise unless the tensor cores hold every code exactly.
+    int8, int4 and f32x3 (float32 codes off the integer grid) are taken as
+    they are.  Integer float32 codes ("f32") take the bf16 tile "f32" up to
+    |``BF16_EXACT_MAX``| and "f32x3" up to |``TF32_EXACT_MAX``|, from
+    ``max_code``, the largest |code| of either operand."""
     if codes != "f32":
         return codes
-    if noisy:
-        return "f32x3"
     if max_code is None:
         raise ValueError("integer float32 codes on the card need max_code "
                          "(the largest |code|) to pick an exact storage")
@@ -239,10 +236,12 @@ class Launch(NamedTuple):
 
 
 def _check_codes(x: torch.Tensor, w: torch.Tensor,
-                 int4_k: Optional[int] = None) -> Launch:
+                 int4_k: Optional[int] = None,
+                 code_dtype: Optional[str] = None) -> Launch:
     """The launch geometry of x (E|1, M, K) against w (E, K, N), with the
     code storage from the dtypes: int8 x int8 (int4 pairs with ``int4_k``)
-    or float32 x float32."""
+    or float32 x float32; ``code_dtype`` (the caller's plan) must agree,
+    and "f32x3" takes float32 codes off the integer grid."""
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"batched codes expected: x (E|1, M, K), w (E, K, N); "
                          f"got {tuple(x.shape)} x {tuple(w.shape)}")
@@ -264,6 +263,10 @@ def _check_codes(x: torch.Tensor, w: torch.Tensor,
                          + ("" if int4_k is None else f" for int4_k={k}"))
     if x.device != w.device:
         raise ValueError(f"codes on {x.device} and {w.device}")
+    if code_dtype == "f32x3" and codes == "f32":
+        codes = code_dtype
+    elif code_dtype not in (None, codes):
+        raise ValueError(f"code storage {code_dtype!r} for {codes} codes")
     return Launch(e, m, k, n, ex == 1 and e > 1, codes)
 
 
@@ -443,15 +446,16 @@ def _window_3d(window: Optional[torch.Tensor], e: int, n: int) -> torch.Tensor:
 def tdvmm_matmul_raw(x: torch.Tensor, w: torch.Tensor,
                      int4_k: Optional[int] = None,
                      max_code: Optional[int] = None,
-                     noisy: bool = False) -> torch.Tensor:
+                     code_dtype: Optional[str] = None) -> torch.Tensor:
     """B1 raw mode: (E, M, N) charge accumulation, int32 for integer codes,
     float32 for float32 codes.  ``max_code``: the largest |code| of either
-    operand, for integer float32 codes; ``noisy``: float32 codes off the
-    integer grid (both pick the storage, ``check_code_width``)."""
+    operand, for integer float32 codes; ``code_dtype``: the caller's code
+    storage ("f32x3" for float32 codes off the integer grid), else taken
+    from the dtypes (``check_code_width`` picks the storage from both)."""
     if not _kernel_device(x):
         return tdvmm_raw_plain(x, w, int4_k)
-    g = _check_codes(x, w, int4_k)
-    codes = check_code_width(g.codes, max_code, noisy)
+    g = _check_codes(x, w, int4_k, code_dtype)
+    codes = check_code_width(g.codes, max_code)
     _contig(x, w)
     out = torch.empty((g.e, g.m, g.n), dtype=_out_dtype(g.codes),
                       device=x.device)
@@ -472,18 +476,18 @@ def tdvmm_fused(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
                 window: Optional[torch.Tensor] = None,
                 int4_k: Optional[int] = None,
                 max_code: Optional[int] = None,
-                noisy: bool = False) -> torch.Tensor:
+                code_dtype: Optional[str] = None) -> torch.Tensor:
     """B1 fused: integrate + gain -> optional readout over a fixed window
     -> per-row x per-column rescale, float32 (E, M, N) out.
 
     x_scale (E|1, M), w_scale (E, N) float32; ``window`` (with ``out_bits``)
-    is (), (E,), (E, 1, 1) or (E, 1, N) float32; ``max_code`` and ``noisy``
-    as for ``tdvmm_matmul_raw``."""
+    is (), (E,), (E, 1, 1) or (E, 1, N) float32; ``max_code`` and
+    ``code_dtype`` as for ``tdvmm_matmul_raw``."""
     if not _kernel_device(x):
         return tdvmm_fused_plain(x, w, x_scale, w_scale, gain, out_bits,
                                  window, int4_k)
-    g = _check_codes(x, w, int4_k)
-    codes = check_code_width(g.codes, max_code, noisy)
+    g = _check_codes(x, w, int4_k, code_dtype)
+    codes = check_code_width(g.codes, max_code)
     e, m, n = g.e, g.m, g.n
     _check_f32("x_scale", x_scale, (x.shape[0], m), x.device)
     _check_f32("w_scale", w_scale, (e, n), x.device)
@@ -516,18 +520,18 @@ def tdvmm_calibrated(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
                      out_bits: int = 6,
                      int4_k: Optional[int] = None,
                      max_code: Optional[int] = None,
-                     noisy: bool = False) -> torch.Tensor:
+                     code_dtype: Optional[str] = None) -> torch.Tensor:
     """B2: integrate + data-calibrated readout, float32 (E, M, N) out.
 
     ``slots`` (E, ceil(N / slot_bw)) int32 is the readout-slot id of every
     ``slot_bw``-wide column block (``ops._calib_slots``); each slot's window
-    is max(max|z| over its columns, 1e-9).  ``max_code`` and ``noisy`` as
-    for ``tdvmm_matmul_raw``."""
+    is max(max|z| over its columns, 1e-9).  ``max_code`` and ``code_dtype``
+    as for ``tdvmm_matmul_raw``."""
     if not _kernel_device(x):
         return tdvmm_calibrated_plain(x, w, x_scale, w_scale, slots, nslots,
                                       slot_bw, gain, out_bits, int4_k)
-    g = _check_codes(x, w, int4_k)
-    codes = check_code_width(g.codes, max_code, noisy)
+    g = _check_codes(x, w, int4_k, code_dtype)
+    codes = check_code_width(g.codes, max_code)
     e, m, n = g.e, g.m, g.n
     _check_f32("x_scale", x_scale, (x.shape[0], m), x.device)
     _check_f32("w_scale", w_scale, (e, n), x.device)

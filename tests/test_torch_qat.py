@@ -429,15 +429,14 @@ def test_noisy_sites_take_the_3xtf32_storage_and_no_max_code(monkeypatch):
     real = tops.tdvmm_matmul
 
     def spy(*args, **kw):
-        seen.append((kw.get("code_dtype"), kw.get("max_code"),
-                     kw.get("noisy")))
+        seen.append((kw.get("code_dtype"), kw.get("max_code")))
         return real(*args, **kw)
     monkeypatch.setattr(tops, "tdvmm_matmul", spy)
     x, w = torch.randn(3, 16), torch.randn(16, 8)
     tlayers.td_matmul(x, w, TLayer(enabled=True, noise=True), key=3)
     tlayers.td_matmul(x, w, TLayer(enabled=True))
-    assert seen == [("f32", None, True), ("int8", 63, False)]
-    assert tk.check_code_width("f32", None, noisy=True) == "f32x3"
+    assert seen == [("f32x3", None), ("int8", 63)]
+    assert tk.check_code_width("f32x3", None) == "f32x3"
     assert {"raw_f32x3", "fused_f32x3", "calibrated_f32x3"} <= set(
         tk.LAUNCHES)
 
