@@ -40,7 +40,11 @@ Phases, each of which stops the script with a non-zero exit on failure:
    sum|x||w|, readout levels within the exact one's rounding:
    ``tdvmm.check_readout``) and on p = 9 and p = 11 integer codes bitwise,
    two calls bitwise equal;
-   B3 against ``ssd_plain`` at full width in bfloat16 and float32, on a
+   zamba2-2.7b's launches (``ssm.in_proj`` as one ragged launch of
+   member widths 5120, 5120, 64, 64, 80 in 128-lane spans, ``hybrid.fuse``
+   at K 5120; 8192 prefill rows and 2 decode rows), bitwise;
+   B3 against ``ssd_plain`` at full width in bfloat16 and float32 (and at
+   zamba2's prefill: B 2, L 4096, H 80, G 1, S 64), on a
    small grouped case with a ragged length and at its tiles' edges (rows
    that 16-byte copies cannot take among them), within SSD_RTOL, the full
    width rows beside the earlier CUDA-core kernel's time as read before
@@ -50,14 +54,18 @@ Phases, each of which stops the script with a non-zero exit on failure:
    whose steps all fall below the row's last onset (the general step) and
    one whose crossings fall exactly on it, within CROSSING_RTOL_T of the
    window T and bitwise equal over two calls; each with kernel / plain /
-   bound / library times;
+   bound / library times; flash attention (``_attend_flash`` and
+   ``_attend_flash_blocks``) against the dense softmax at zamba2's shared
+   block, B 2 x S 4096 x 32 heads x 80 in float32, within FLASH_TOL, timed
+   in float32 and bfloat16;
 4. serving: qwen1.5-0.5b at full width (24 layers, d_model 1024, bf16,
    random weights from seed 0) under the ``ffn_unchained`` and
    ``ffn_chained`` plans: one calibration pass, then the paged engine
    serves 8 ragged requests; every request must finish with its full token
    budget, no NaN logits, its stream equal to the same request served alone,
-   and the kernel launch counts must match the plan's sites exactly.  Then
-   mamba2-1.3b at full width (48 layers, d_model 2048, 64 heads x 64,
+   and the kernel launch counts must match the plan's sites exactly; the
+   same for ``ffn_unchained`` with the int8 KV cache (int8 page pools).
+   Then mamba2-1.3b at full width (48 layers, d_model 2048, 64 heads x 64,
    d_state 128, chunk 128, vocab 50280, bf16, random weights from seed 0)
    under ``ssm_unchained``: one calibration pass over 4 x 512 tokens, then
    the static path serves 4 prompts x 512 tokens for 32 new tokens each;
@@ -70,7 +78,17 @@ Phases, each of which stops the script with a non-zero exit on failure:
    ``moe.expert.out``): one calibration pass over 4 x 512 tokens, then the
    static path serves 4 prompts x 512 tokens for 16 new tokens each; exact
    launch counts per code storage, (8,) windows, no NaN, reversed batch ==
-   reversed streams.  Then the paper's circuit
+   reversed streams.  Then zamba2-2.7b at full width and depth (54 Mamba-2
+   layers, d_model 2560, 80 heads x 64, d_state 64, chunk 128; 9 calls of
+   the shared attention block, 32 heads x 80, d_ff 10240, fed
+   fuse(concat(x, embed0)); vocab 32000, bf16, random weights from seed
+   0) under ``hybrid_unchained`` (ssm.*, ffn.*, hybrid.fuse at p = 6):
+   one calibration pass over 2 x 4096 tokens, then the static path serves
+   2 prompts x 4096 tokens (past FLASH_THRESHOLD: flash in every
+   shared-block prefill) for 16 new tokens each; exact launch counts
+   derived from the plan, the five calibrated sites, no NaN, reversed batch
+   == reversed streams; then the same with the int8 KV cache, and how many
+   tokens differ from the bf16 run.  Then the paper's circuit
    (``launch/perceptron.py``): the 10 x 10 x 10 perceptron on a batch of 64,
    clean and on DIBL-perturbed 6-bit weights, and a 1024 x 1024
    four-quadrant array on 4096 samples, each within TD_ATOL of its closed
@@ -91,7 +109,9 @@ Phases, each of which stops the script with a non-zero exit on failure:
    and circuit > 0.8;
 5. small input: the card's kernel path against the CPU plain path at smoke
    width, same weights, for qwen, for mamba2, for mixtral under both MoE
-   plans (a prompt longer than its window of 8), for the perceptron and
+   plans (a prompt longer than its window of 8), for zamba2 under
+   ``hybrid_unchained`` with the flash threshold lowered to 8 (flash in
+   every shared-block prefill), for the perceptron and
    a 64 x 64 array, and for 3 training steps of the smoke qwen under the
    global TD-VMM config and under ``ffn_chained`` (step-0 loss and
    gradients, then the losses).
@@ -226,6 +246,32 @@ MOE_PROFILE_STEPS = 4                            # decode steps
 # and norms sum in float32 in other orders.
 SMALL_MOE_LOGIT_RTOL = 1e-5
 
+# zamba2-2.7b (arXiv:2411.15242) at full width and depth: 54 Mamba-2 layers
+# (80 heads x 64, d_state 64, chunk 128) in 9 groups of 6, each group
+# followed by the shared attention + FFN block (32 heads x 80, d_ff 10240)
+# fed fuse(concat(x, embed0)); 2 prompts of 4096 tokens (its context, past
+# FLASH_THRESHOLD, so every shared-block prefill runs flash attention), 16
+# new tokens each.
+HYB_ARCH = "zamba2-2.7b"
+HYB_SITES = ("ssm.*", "ffn.*", "hybrid.fuse")
+HYB_BATCH, HYB_PROMPT, HYB_GEN = 2, 4096, 16
+HYB_ROWS = HYB_BATCH * HYB_PROMPT
+# ssm.in_proj: the five members z, x, B, C, dt (5120, 5120, 64, 64, 80),
+# each in a 128-lane span whose tail columns hold zero weight codes;
+# hybrid.fuse: (2 d_model, d_model)
+HYB_MEMBERS = (5120, 5120, 64, 64, 80)
+HYB_WIDTHS = (5120, 5120, 128, 128, 128)
+HYB_IN, HYB_FUSE = (2560, sum(HYB_WIDTHS)), (5120, 2560)
+HYB_PROFILE_STEPS = 4                            # decode steps
+# Flash attention against the dense softmax on float32 inputs: the JAX
+# package's own bound (tests/test_models.py::test_flash_matches_dense_
+# attention), elementwise |flash - dense| <= tol + tol |dense|.
+FLASH_TOL = 2e-3
+# Phase 5, zamba2 at smoke width (flash on: threshold 8, blocks of 4), card
+# against CPU logits relative to max|logit|: B1 codes bitwise, B3, flash,
+# the conv and the norms sum in float32 in other orders.
+SMALL_HYB_LOGIT_RTOL = 1e-5
+
 _TDVMM_SRC = "src/repro_torch/kernels/tdvmm/csrc/"
 SOURCES = {"tdvmm_fused": _TDVMM_SRC + "tdvmm.cu",
            "tdvmm_matmul_raw": _TDVMM_SRC + "tdvmm.cu",
@@ -270,6 +316,17 @@ def entry_name(case: dict) -> str:
 
 def say(tag: str, msg: str) -> None:
     print(f"[{tag}] t={time.perf_counter() - T_START:.0f}s {msg}", flush=True)
+
+
+PHASE_S: dict[str, float] = {}
+_PHASE_T = [T_START]
+
+
+def phase_done(name: str) -> None:
+    """Book the seconds since the previous phase ended to ``name``."""
+    now = time.perf_counter()
+    PHASE_S[name] = PHASE_S.get(name, 0.0) + now - _PHASE_T[0]
+    _PHASE_T[0] = now
 
 
 class SmokeFailure(RuntimeError):
@@ -552,6 +609,22 @@ def kernel_cases() -> list[dict]:
         cases.append(dict(kernel="tdvmm_calibrated",
                           mode="member_slots" if n == SSM_IN[1] else "one_slot",
                           e=1, ex=1, m=SSM_ROWS, k=k, n=n))
+    # zamba2-2.7b: ssm.in_proj as one ragged launch (the dt member 80
+    # columns wide in its 128-lane span) and hybrid.fuse (K = 2 d_model,
+    # concat(x, embed0)); the prefill's rows B*L (calibration capture, B2,
+    # serving) and the decode's B
+    for (k, n), mode, extra in (
+            (HYB_IN, "member_windows",
+             dict(widths=HYB_WIDTHS, members=HYB_MEMBERS)),
+            (HYB_FUSE, "scalar_window", {})):
+        for m in (HYB_ROWS, HYB_BATCH):
+            cases.append(dict(extra, kernel="tdvmm_fused", mode=mode, e=1,
+                              ex=1, m=m, k=k, n=n))
+        cases.append(dict(extra, kernel="tdvmm_matmul_raw", mode="raw", e=1,
+                          ex=1, m=HYB_ROWS, k=k, n=n))
+        cases.append(dict(extra, kernel="tdvmm_calibrated",
+                          mode="member_slots" if extra else "one_slot",
+                          e=1, ex=1, m=HYB_ROWS, k=k, n=n))
     # mixtral-8x7b's expert grid, E = 8 with (E,) windows and one B2 slot
     # per expert, in each storage at the sites that take it: int8 at both
     # (moe_unchained), f32 codes at moe.expert.in and int4 pairs at
@@ -693,6 +766,15 @@ def run_case(case: dict, dev, seed: int) -> dict:
                       dtype=dtype)
     w = torch.randint(-lim_w, lim_w + 1, (e, k, n), generator=g, device=dev,
                       dtype=dtype)
+    widths = case.get("widths") or (SSM_WIDTHS if n == sum(SSM_WIDTHS)
+                                     else None)
+    if case.get("members"):
+        # each member's columns past its own width are the 128-lane padding,
+        # whose weight codes the layer sets to zero
+        off = 0
+        for n_g, wd in zip(case["members"], widths):
+            w[:, :, off + n_g:off + wd] = 0
+            off += wd
     if case.get("fill"):
         # every product at +lim_x * lim_w: |acc| = lim_x lim_w K
         x.fill_(lim_x)
@@ -716,8 +798,6 @@ def run_case(case: dict, dev, seed: int) -> dict:
     max_code = max(lim_x, lim_w)
     mode = case["mode"]
     window, members = None, None
-    widths = case.get("widths") or (SSM_WIDTHS if n == sum(SSM_WIDTHS)
-                                     else None)
     if mode == "member_windows":
         z = torch.abs(tk.acc_plain(x, w)[0].to(torch.float32) * float(gain))
         spans = torch.split(z, list(widths), dim=1)
@@ -826,8 +906,9 @@ def run_case(case: dict, dev, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 def ssd_cases() -> list[dict]:
     """mamba2-1.3b's prefill scan at full width (bfloat16, as served, and
-    float32), and a small grouped case (G = 2 over H = 4) whose length is
-    not a multiple of the chunk; then the tiles' edges: a sequence shorter
+    float32), a small grouped case (G = 2 over H = 4) whose length is not a
+    multiple of the chunk, and zamba2-2.7b's prefill scan at full width (B
+    2, L 4096, H 80 over one group, S 64, bfloat16); then the tiles' edges: a sequence shorter
     than the chunk (Q 13) with P over two 64-column blocks (80) and
     S 64 (zamba2's d_state); bfloat16 P 24 (a partial 16-column tile of
     48-byte rows, still 16-byte copies) with S 40 (a partial 16-column
@@ -844,6 +925,8 @@ def ssd_cases() -> list[dict]:
             dict(full, dtype="float32", earlier_ms=1.71904),
             dict(full, b=2, l=300, h=4, g=2, dtype="float32",
                  earlier_ms=0.64120),
+            dict(full, b=HYB_BATCH, l=HYB_PROMPT, h=80, s=64,
+                 dtype="bfloat16"),
             dict(full, b=3, l=13, h=6, p=80, g=3, s=64, dtype="float32"),
             dict(full, b=2, l=40, h=4, p=24, g=1, s=40, q=16,
                  dtype="bfloat16"),
@@ -1150,11 +1233,24 @@ def expected_launches(cfg, plan: str, steps: int) -> dict:
             "serve": zero | {"fused": L * per_layer * steps}}
 
 
-def serve_plan(name: str, plan, dev, params_cache: dict) -> dict:
+def serve_plan(name: str, plan, dev, params_cache: dict,
+               kv_int8: bool = False) -> dict:
+    """qwen1.5-0.5b under ``plan`` through the paged engine (its page pools
+    int8 codes with per-(token, head) scales under ``kv_int8``)."""
+    from repro_torch.models import attention
+    attention.set_kv_cache_int8(kv_int8)
+    try:
+        out = _serve_plan(name, plan, dev, params_cache)
+    finally:
+        attention.set_kv_cache_int8(False)
+    return out | {"kv_int8": kv_int8}
+
+
+def _serve_plan(name: str, plan, dev, params_cache: dict) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.tdvmm import tdvmm as tk
-    from repro_torch.models import model
+    from repro_torch.models import attention, model
     from repro_torch.runtime.engine import Engine, EngineConfig, Request
     from repro_torch.runtime.paged_cache import pages_for
 
@@ -1183,6 +1279,11 @@ def serve_plan(name: str, plan, dev, params_cache: dict) -> dict:
     torch.cuda.synchronize()
     launches = dict(tk.LAUNCHES)
     serve_launches = {k: launches[k] - at_calib[k] for k in launches}
+    pool = engine._st.caches["seg0"]
+    require((pool.k.dtype == torch.int8) == attention.KV_CACHE_INT8
+            and (pool.k_scale is not None) == attention.KV_CACHE_INT8,
+            f"{name}: page pool {pool.k.dtype}, scales "
+            f"{pool.k_scale is not None}, int8 KV {attention.KV_CACHE_INT8}")
 
     steps = rep.prefill_steps + rep.decode_steps
     want = expected_launches(cfg, name, steps)
@@ -1495,6 +1596,224 @@ def profile_static(args, steps: int) -> dict:
             device_ms=dev_us / 1e3,
             top_kernels=[(k[:70], v / max(dev_us, 1e-9)) for k, v in top])
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: flash attention on the card
+# ---------------------------------------------------------------------------
+def flash_on_card(dev) -> dict:
+    """Flash attention at zamba2's shared block (B 2, S 4096, 32 heads x 80,
+    no grouping), float32 inputs: ``_attend_flash`` and
+    ``_attend_flash_blocks`` against the dense ``_attend`` within
+    FLASH_TOL, each timed beside the dense softmax; then the three again in
+    bfloat16, as served (times only)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+
+    cfg = get_config(HYB_ARCH)
+    b, s, d = HYB_BATCH, HYB_PROMPT, cfg.resolved_head_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    q = torch.randn((b, s, cfg.n_heads, d), generator=g, device=dev) * 0.5
+    k = torch.randn((b, s, cfg.n_kv_heads, d), generator=g, device=dev) * 0.5
+    v = torch.randn((b, s, cfg.n_kv_heads, d), generator=g, device=dev)
+    mask = attention._causal_mask(s, s, 0, cfg.swa_window, dev)
+    fns = {"dense": lambda q, k, v: attention._attend(q, k, v, mask, cfg),
+           "flash": lambda q, k, v: attention._attend_flash(q, k, v, cfg),
+           "flash_blocks": lambda q, k, v: attention._attend_flash_blocks(
+               q, k, v, cfg)}
+    want = fns["dense"](q, k, v)
+    out = {"err": {}, "ms": {}, "ms_bf16": {}}
+    for name in ("flash", "flash_blocks"):
+        got = fns[name](q, k, v)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        require(bool(torch.isfinite(got).all()
+                     and (diff <= FLASH_TOL + FLASH_TOL * want.abs()).all()),
+                f"{name}: differs from the dense softmax by up to "
+                f"{float(diff.max()):.3g}")
+        out["err"][name] = float(diff.max())
+        del got, diff
+    del want
+    # one call per timing: a flash call is ~400 launches (16 tile pairs),
+    # and more than the card's launch queue holds would block the host
+    # before the timed calls are all queued
+    for dtype, key in ((torch.float32, "ms"), (torch.bfloat16, "ms_bf16")):
+        args = tuple(t.to(dtype) for t in (q, k, v))
+        for name, fn in fns.items():
+            out[key][name] = time_ms(lambda: fn(*args), 1)
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: zamba2-2.7b at full width and depth through the static path
+# ---------------------------------------------------------------------------
+def hybrid_plan():
+    """hybrid_unchained: TD-VMM at ssm.*, ffn.* (the shared block's FFN) and
+    hybrid.fuse, p = 6 (int8 codes), every readout digital."""
+    from repro_torch.configs import TDVMMPlan, tdvmm_rule
+    return TDVMMPlan(rules=tuple(tdvmm_rule(p, enabled=True, backend="auto")
+                                 for p in HYB_SITES))
+
+
+def hybrid_expected_launches(cfg) -> dict:
+    """Exact kernel launches of the hybrid path, derived from the resolved
+    plan: a step launches every enabled site once per application (a
+    grouped site's members in one launch, ffn.in's gate and up in two), at
+    its per-token multiplicity (layers, or groups for the shared block);
+    B1 fused at every static step (the prefill and HYB_GEN - 1 decode
+    steps); in calibration each digital-boundary launch is captured (B1
+    raw) and read out data-calibrated (B2).  One B3 scan per layer per
+    prefill."""
+    from repro_torch.configs import plan as planlib
+    table = planlib.resolve_plan(cfg).table
+    per_step = readouts = 0
+    for site, info in planlib.site_linear_shapes(cfg).items():
+        sc = table.get(site)
+        if sc is None or not sc.enabled:
+            continue
+        n = (1 if site in planlib.GROUPED_SITES
+             else len(info["matrices"])) * info["per_token"]
+        per_step += n
+        readouts += n if sc.io_quantize else 0
+    zero = dict.fromkeys(launches_now(), 0)
+    return {"calibrate": zero | {"raw": readouts, "calibrated": readouts,
+                                 "fused": per_step - readouts,
+                                 "ssd": cfg.n_layers},
+            "serve": zero | {"fused": per_step * HYB_GEN,
+                             "ssd": cfg.n_layers}}
+
+
+def serve_hybrid(dev) -> dict:
+    """zamba2-2.7b under ``hybrid_unchained`` through the static path:
+    calibrate on one 2 x 4096 batch, serve another for 16 new tokens, then
+    the same batch in reverse order; then both again with the int8 KV
+    cache, counted as a path of its own."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, model
+
+    cfg = get_config(HYB_ARCH).replace(tdvmm_plan=hybrid_plan())
+    params = model.init_params(0, cfg, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    calib_tokens = torch.randint(0, cfg.vocab_size, (HYB_BATCH, HYB_PROMPT),
+                                 generator=g, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (HYB_BATCH, HYB_PROMPT),
+                            generator=g, device=dev)
+    want = hybrid_expected_launches(cfg)
+
+    # ---- the main path: counts at 0, calibrate, serve, read ---------------
+    reset_all_launches()
+    t0 = time.perf_counter()
+    calib = model.calibrate(params, {"inputs": calib_tokens}, cfg,
+                            max_len=HYB_PROMPT + HYB_GEN, device=dev)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    at_calib = launches_now()
+    out = serve.serve_static(cfg, HYB_BATCH, HYB_PROMPT, HYB_GEN, calib=calib,
+                             device=dev, params=params, prompts=prompts)
+    launches = launches_now()
+    serve_launches = {k: launches[k] - at_calib[k] for k in launches}
+    require(at_calib == want["calibrate"],
+            f"zamba2: calibration launches {at_calib} != {want['calibrate']}")
+    require(serve_launches == want["serve"],
+            f"zamba2: serving launches {serve_launches} != {want['serve']}")
+    require(set(calib.sites()) == {"ssm.in_proj", "ssm.out", "ffn.in",
+                                   "ffn.out", "hybrid.fuse"},
+            f"zamba2: calibrated sites {calib.sites()}")
+    require(tuple(calib.windows["ssm.in_proj"].shape) == (5,),
+            f"zamba2: in_proj window "
+            f"{tuple(calib.windows['ssm.in_proj'].shape)}")
+    for site, win in calib.windows.items():
+        require(bool(torch.isfinite(win).all() and (win > 0).all()),
+                f"zamba2: {site} window {win.tolist()}")
+
+    def check(res, what):
+        tokens = res["tokens"]
+        require(tuple(tokens.shape) == (HYB_BATCH, HYB_GEN),
+                f"zamba2 {what}: tokens {tuple(tokens.shape)}")
+        require(res["nan_steps"] == 0,
+                f"zamba2 {what}: {res['nan_steps']} NaN steps")
+        require(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+                f"zamba2 {what}: a token outside the vocabulary")
+        # the same batch in reverse order gives the reversed streams
+        rev = serve.serve_static(cfg, HYB_BATCH, HYB_PROMPT, HYB_GEN,
+                                 calib=calib, device=dev, params=params,
+                                 prompts=torch.flip(prompts, dims=(0,)))
+        require(torch.equal(rev["tokens"], torch.flip(tokens, dims=(0,))),
+                f"zamba2 {what}: the reversed batch did not give the "
+                "reversed streams")
+
+    check(out, "bf16 KV")
+    # ---- the int8 KV cache: counts at 0, serve, read ----------------------
+    attention.set_kv_cache_int8(True)
+    try:
+        caches = model.init_caches(cfg, 1, 8, dev)
+        require(caches["shared_attn"].k.dtype == torch.int8,
+                "zamba2: the int8 switch made no int8 cache")
+        del caches
+        reset_all_launches()
+        out8 = serve.serve_static(cfg, HYB_BATCH, HYB_PROMPT, HYB_GEN,
+                                  calib=calib, device=dev, params=params,
+                                  prompts=prompts)
+        launches8 = launches_now()
+        require(launches8 == want["serve"],
+                f"zamba2 int8 KV: serving launches {launches8} != "
+                f"{want['serve']}")
+        check(out8, "int8 KV")
+    finally:
+        attention.set_kv_cache_int8(False)
+    # where the two streams part: the first decode step's logits with
+    # either cache, after the same prefill token (the prefill attends over
+    # the full-precision keys in both), against the bf16 logits' own
+    # top-1 / top-2 margin; under the plan and with TD-VMM off (no 6-bit
+    # readout to turn the cache's rounding into whole-level steps)
+    step = {}
+    for name, c, cal in (("plan", cfg, calib),
+                         ("off", cfg.replace(tdvmm_plan=None), None)):
+        for int8 in (False, True):
+            attention.set_kv_cache_int8(int8)
+            try:
+                caches = model.init_caches(c, HYB_BATCH, HYB_PROMPT + 2, dev)
+                logits, caches = model.prefill_step(
+                    params, {"inputs": prompts}, caches, c, calib=cal)
+                tok = torch.argmax(logits[:, -1, :c.vocab_size], -1)[:, None]
+                logits, _ = model.decode_step(params, {"inputs": tok},
+                                              caches, c, calib=cal)
+                step[name, int8] = logits[:, -1, :c.vocab_size].float()
+                del caches
+            finally:
+                attention.set_kv_cache_int8(False)
+    rel, margin = {}, {}
+    for name in ("plan", "off"):
+        ref = step[name, False]
+        scale = float(ref.abs().max())
+        top2 = torch.topk(ref, 2, dim=-1).values
+        rel[name] = float((step[name, True] - ref).abs().max()) / scale
+        margin[name] = [float(m) / scale for m in top2[:, 0] - top2[:, 1]]
+    return dict(plan="hybrid_unchained", calibrate_s=t_cal,
+                int8_step_rel=rel, bf16_margin_rel=margin,
+                prefill_s=out["prefill_s"], decode_s=out["decode_s"],
+                decode_tok_per_s=out["decode_tok_per_s"],
+                prefill_s_int8=out8["prefill_s"],
+                decode_s_int8=out8["decode_s"],
+                decode_tok_per_s_int8=out8["decode_tok_per_s"],
+                tokens=out["tokens"][:, :8].tolist(),
+                tokens_int8=out8["tokens"][:, :8].tolist(),
+                int8_differ=int((out8["tokens"] != out["tokens"]).sum()),
+                int8_first_differ=[
+                    int(r.nonzero()[0]) if bool(r.any()) else None
+                    for r in out8["tokens"] != out["tokens"]],
+                launches=launches, launches_calibrate=at_calib,
+                launches_int8=launches8,
+                windows={s: [round(float(v), 6) for v in w.reshape(-1)]
+                         for s, w in calib.windows.items()},
+                args=(cfg, params, calib, prompts))
 
 
 # ---------------------------------------------------------------------------
@@ -2125,6 +2444,57 @@ def small_moe_agreement(dev, plan) -> float:
     return worst
 
 
+def small_hybrid_agreement(dev) -> float:
+    """Smoke-width zamba2 (4 layers, a shared block every 2, float32, chunk
+    8) under hybrid_unchained with FLASH_THRESHOLD lowered to 8 (blocks of
+    4), so every shared-block prefill of the 13-token prompt runs flash;
+    the same weights on the card (B1, B3) and on the CPU (plain versions):
+    equal greedy tokens, logits within SMALL_HYB_LOGIT_RTOL of
+    max|logit|."""
+    import torch
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import attention, model
+
+    cfg = smoke(get_config(HYB_ARCH)).replace(tdvmm_plan=hybrid_plan())
+    p_cpu = model.init_params(0, cfg, device="cpu")
+    p_dev = _to(p_cpu, dev)
+    prompt = torch.arange(3, 29).reshape(2, 13)
+    saved = {k: getattr(attention, k) for k in (
+        "FLASH_THRESHOLD", "FLASH_BLOCK_Q", "FLASH_BLOCK_KV")}
+    attention.FLASH_THRESHOLD, attention.FLASH_BLOCK_Q = 8, 4
+    attention.FLASH_BLOCK_KV = 4
+    try:
+        calib = model.calibrate(p_cpu, {"inputs": prompt}, cfg, device="cpu")
+        worst = 0.0
+        for p, d in ((p_cpu, "cpu"), (p_dev, dev)):
+            caches = model.init_caches(cfg, 2, 24, d)
+            logits, caches = model.prefill_step(p, {"inputs": prompt.to(d)},
+                                                caches, cfg, calib=calib)
+            rows, toks = [logits[:, -1].float().cpu()], []
+            for _ in range(7):
+                toks.append(torch.argmax(rows[-1][:, :cfg.vocab_size], -1))
+                logits, caches = model.decode_step(
+                    p, {"inputs": toks[-1][:, None].to(d)}, caches, cfg,
+                    calib=calib)
+                rows.append(logits[:, -1].float().cpu())
+            toks = torch.stack(toks, 1)
+            if d == "cpu":
+                ref_rows, ref_toks = torch.stack(rows), toks
+            else:
+                got = torch.stack(rows)
+                worst = float((got - ref_rows).abs().max()
+                              / ref_rows.abs().max())
+                require(torch.equal(toks, ref_toks),
+                        f"zamba2 card tokens {toks.tolist()} != cpu "
+                        f"{ref_toks.tolist()}")
+    finally:
+        for k, v in saved.items():
+            setattr(attention, k, v)
+    require(worst <= SMALL_HYB_LOGIT_RTOL,
+            f"zamba2 card logits differ from cpu by {worst:.3g}")
+    return worst
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -2159,12 +2529,14 @@ def main() -> int:
     torch.use_deterministic_algorithms(True)
     torch.utils.deterministic.fill_uninitialized_memory = False
 
+    phase_done("environment")
     build_s = kernels.build_all(verbose=True)
     say("build", f"B1 + B2 (int8, int4 and f32 codes) + B3 + B4 built in "
         f"{build_s:.1f} s")
     tdvmm_build_report()
     ssd_build_report()
     crossing_build_report()
+    phase_done("build")
 
     rows = []
     for i, case in enumerate(kernel_cases()):
@@ -2183,6 +2555,7 @@ def main() -> int:
                f" library_tf32_ms={row['library_tf32_ms']:.5f}")
             + f" tile={row['tile']}"
             + (f" fill={row['fill']}" if row.get("fill") else "")
+            + (f" members={row['members']}" if row.get("members") else "")
             + (" unaligned" if row.get("unaligned") else ""))
     for i, case in enumerate(f32x3_cases()):
         row = run_f32x3_case(case, dev, seed=300 + i)
@@ -2231,6 +2604,19 @@ def main() -> int:
             f"kernel_ms={row['ms']:.5f} "
             f"plain_ms={row['plain_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
             f"({row['bound_by']}) library_ms=none")
+    phase_done("kernels")
+    fl = flash_on_card(dev)
+    say("flash", f"{HYB_ARCH} shared block, B {HYB_BATCH} x S {HYB_PROMPT} x "
+        f"32 heads x 80, float32: flash within "
+        f"{fl['err']['flash']:.3g}, block-skip flash within "
+        f"{fl['err']['flash_blocks']:.3g} of the dense softmax (gate "
+        f"{FLASH_TOL} + {FLASH_TOL} |dense|); ms float32 "
+        + ", ".join(f"{k} {v:.3f}" for k, v in fl["ms"].items())
+        + "; ms bfloat16 "
+        + ", ".join(f"{k} {v:.3f}" for k, v in fl["ms_bf16"].items()))
+    del fl
+    torch.cuda.empty_cache()
+    phase_done("flash")
 
     served, cache = [], {}
     for name, plan in plans().items():
@@ -2254,8 +2640,18 @@ def main() -> int:
             f"{prof['tdvmm_device_share']:.3f} of device time; top "
             + "; ".join(f"{k} {v:.3f}" for k, v in prof["top_kernels"]))
         del out["engine_args"]
-    del cache
+    out = serve_plan("ffn_unchained", plans()["ffn_unchained"], dev, cache,
+                     kv_int8=True)
+    served.append(out)
+    say("serve", f"ffn_unchained + int8 KV: {out['generated_tokens']} tokens "
+        f"for {out['requests']} requests in {out['steps']} steps, every "
+        f"request its full budget, {out['tokens_per_s']:.2f} tokens/s "
+        f"({out['serve_s']:.2f} s), launches calibrate "
+        f"{out['launches_calibrate']} total {out['launches']}, int8 page "
+        "pools, batched == solo")
+    del out["engine_args"], cache
     torch.cuda.empty_cache()
+    phase_done("serve qwen")
 
     ssm = serve_ssm(dev)
     served.append(ssm)
@@ -2278,6 +2674,7 @@ def main() -> int:
             "top " + "; ".join(f"{k} {v:.3f}" for k, v in r["top_kernels"]))
     del ssm["args"], prof
     torch.cuda.empty_cache()
+    phase_done("serve mamba2")
 
     say("serve", f"{MOE_ARCH}: full width, depth cut to {MOE_LAYERS} of "
         f"{get_config(MOE_ARCH).n_layers} layers, capacity factor "
@@ -2306,6 +2703,45 @@ def main() -> int:
         del out["args"], prof
     del moe_cache
     torch.cuda.empty_cache()
+    phase_done("serve mixtral")
+
+    hyb = serve_hybrid(dev)
+    served.append({"launches": hyb["launches"]})
+    served.append({"launches": hyb["launches_int8"]})
+    say("serve", f"hybrid_unchained: {HYB_ARCH} full width and depth (54 "
+        f"layers, 9 shared-block calls), {HYB_BATCH} x {HYB_PROMPT} prompt "
+        f"tokens + {HYB_GEN} new each: calibrate {hyb['calibrate_s']:.3f} s, "
+        f"prefill {hyb['prefill_s']:.3f} s, decode {hyb['decode_s']:.3f} s "
+        f"({hyb['decode_tok_per_s']:.2f} tokens/s), launches calibrate "
+        f"{hyb['launches_calibrate']} total {hyb['launches']}, windows "
+        f"{hyb['windows']}, reversed batch == reversed streams, no NaN; "
+        f"first tokens {hyb['tokens']}")
+    say("serve", f"hybrid_unchained + int8 KV: prefill "
+        f"{hyb['prefill_s_int8']:.3f} s, decode {hyb['decode_s_int8']:.3f} s "
+        f"({hyb['decode_tok_per_s_int8']:.2f} tokens/s), launches "
+        f"{hyb['launches_int8']}, reversed batch == reversed streams, no NaN;"
+        f" {hyb['int8_differ']} of {HYB_BATCH * HYB_GEN} tokens differ from "
+        f"the bf16-KV run (first at step {hyb['int8_first_differ']} by "
+        "row); at the first decode step the int8-KV logits differ from "
+        "the bf16-KV ones by "
+        + "; ".join(f"{hyb['int8_step_rel'][k]:.3g} of max|logit| "
+                    f"({k}: the bf16 logits' top-1 over top-2 margin "
+                    + ", ".join(f"{m:.3g}" for m in hyb["bf16_margin_rel"][k])
+                    + " of it)" for k in ("plan", "off"))
+        + f"; first tokens {hyb['tokens_int8']}")
+    prof = profile_static(hyb["args"], HYB_PROFILE_STEPS)
+    for name, r in prof.items():
+        say("profile", f"hybrid_unchained {name}: {r['steps']} step(s) in "
+            f"{r['wall_s']:.3f} s, {r['kernels_per_step']:.1f} device "
+            f"kernels per step, device busy {r['device_busy_share']:.3f} "
+            f"({r['device_ms']:.3f} device ms), B3 kernels "
+            f"{r['ssd_device_share']:.4f} ({r['ssd_device_ms']:.3f} ms) "
+            "and TD-VMM kernels "
+            f"{r['tdvmm_device_share']:.3f} of device time; "
+            "top " + "; ".join(f"{k} {v:.3f}" for k, v in r["top_kernels"]))
+    del hyb, prof
+    torch.cuda.empty_cache()
+    phase_done("serve zamba2")
 
     phys = physics_path(dev)
     served.append(phys)
@@ -2327,6 +2763,7 @@ def main() -> int:
         "forward, 1 per array forward)")
     del phys["case"], phys["array"]
 
+    phase_done("physics")
     with tempfile.TemporaryDirectory() as workdir:
         qat = train_full_width(dev, Path(workdir))
     served.append({"launches": qat["launches"]})
@@ -2367,6 +2804,7 @@ def main() -> int:
         f"{case_qat['launches']['calibrated']}, B4 "
         f"{case_qat['launches']['crossing']}")
     del case_qat["logits"]
+    phase_done("train")
 
     worst = small_input_agreement(dev)
     say("small", "qwen card vs cpu plain path: equal greedy tokens, logits "
@@ -2378,6 +2816,9 @@ def main() -> int:
         worst = small_moe_agreement(dev, plan)
         say("small", f"mixtral {name} card vs cpu plain path: equal greedy "
             f"tokens, logits within {worst:.3g} of max|logit|")
+    worst = small_hybrid_agreement(dev)
+    say("small", "zamba2 (flash on) card vs cpu plain path: equal greedy "
+        f"tokens, logits within {worst:.3g} of max|logit|")
     worst = small_physics_agreement(dev)
     say("small", "perceptron and 64 x 64 array card vs cpu plain path: "
         f"decoded outputs within {worst:.3g}")
@@ -2403,6 +2844,8 @@ def main() -> int:
                if rep.get("library_tf32_ms") is not None else {}),
             "shape": {k: rep[k] for k in SHAPE_KEYS.get(
                 name, ("codes", "mode", "e", "m", "k", "n"))}})
+    phase_done("small")
+    say("phases", ", ".join(f"{k} {v:.1f} s" for k, v in PHASE_S.items()))
     say("done", "all phases passed")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,9 @@ returns, already turned into numpy arrays by the caller (for example with
 ``jax.tree.map(np.asarray, params)``), so this module never sees JAX.  The
 JAX package stacks each segment's layers along a leading axis
 (``params["blocks"]["seg0"]`` leaves are ``(L, ...)``); the port keeps a
-list of per-layer dicts.  Every leaf takes the model's dtype except the SSM
+list of per-layer dicts; every other entry of ``params["blocks"]`` (the
+hybrid family's shared block ``shared_attn`` and its ``fuse`` projection)
+converts as it is.  Every leaf takes the model's dtype except the SSM
 scan parameters (``dt_bias``, ``A_log``, ``D``) and the MoE router
 (``router``), which the JAX package keeps in float32 whatever the model's
 dtype.  MoE expert banks (``w_gate``, ``w_up``, ``w_down``, each (E, ...))
@@ -57,9 +59,13 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
                        device)
 
     out = {k: _map(v, conv) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = {}
-    for i, (_, n) in enumerate(transformer.segments(cfg)):
-        stacked = tree["blocks"][f"seg{i}"]
-        out["blocks"][f"seg{i}"] = [_map(layer, conv)
-                                    for layer in _unstack(stacked, n)]
+    segs = {f"seg{i}": n
+            for i, (_, n) in enumerate(transformer.segments(cfg))}
+    out["blocks"] = {
+        k: ([_map(layer, conv) for layer in _unstack(v, segs[k])]
+            if k in segs else _map(v, conv))
+        for k, v in tree["blocks"].items()}
+    missing = set(segs) - set(out["blocks"])
+    if missing:
+        raise ValueError(f"the parameter tree has no {sorted(missing)}")
     return out

@@ -6,7 +6,8 @@
 runs a seeded ragged trace through ``runtime.engine.Engine`` on the card.
 ``--static`` serves one uniform batch instead — one prefill, then greedy
 decode steps — the only path for SSM models and for sliding-window models
-such as mixtral-8x7b, as in the JAX package:
+such as mixtral-8x7b, and for the hybrid zamba2-2.7b, as in the JAX
+package:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
         --static --tdvmm 'ssm.*' --calibrate --batch 4 --prompt-len 512 \\
@@ -15,6 +16,8 @@ such as mixtral-8x7b, as in the JAX package:
         --static --tdvmm 'moe.*' --calibrate --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large \\
         --static --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+        --static --kv-int8 --smoke --device cpu
 
 (the embedding-input archs, llava-next-mistral-7b and musicgen-large, take
 a random normal (batch, prompt_len, d_model) prompt and one (batch, 1,
@@ -22,6 +25,12 @@ d_model) decode input, as the JAX package's ``serve()`` does)
 
 (mixtral-8x7b's published 32 layers, ~93 GB in bf16, exceed one 80 GB card;
 ``chip_smoke.py`` serves it at full width with 8.)
+
+zamba2-2.7b (the hybrid family: Mamba-2 groups with a shared attention
+block) is served by the static path only, as in the JAX package; prompts
+past 2048 tokens run its shared block through flash attention.
+``--kv-int8`` stores every KV cache, the dense one and the engine's page
+pools, as int8 codes with per-(token, head) scales.
 
 ``--device cpu`` runs the plain torch path on the CPU; add ``--smoke`` for
 the reduced same-family model.  Weights are random, drawn from ``--seed``.
@@ -35,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import TDVMMPlan, get_config, smoke as smoke_cfg, tdvmm_rule
-from repro_torch.models import common, model
+from repro_torch.models import attention, common, model
 from repro_torch.runtime.engine import Engine, EngineConfig, Request
 from repro_torch.runtime.paged_cache import pages_for
 
@@ -170,7 +179,8 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--static", action="store_true",
                     help="uniform batch: one prefill + greedy decode steps "
-                         "(the only path for SSM and sliding-window archs)")
+                         "(the only path for SSM, hybrid and sliding-window "
+                         "archs)")
     ap.add_argument("--batch", type=int, default=4,
                     help="--static: sequences in the batch")
     ap.add_argument("--smoke", action="store_true",
@@ -194,6 +204,9 @@ def main(argv=None):
     ap.add_argument("--chain", action="store_true",
                     help="time-domain chain ffn.in -> ffn.out (no "
                          "intermediate p-bit readout)")
+    ap.add_argument("--kv-int8", action="store_true",
+                    help="store the KV caches as int8 codes with per-(token, "
+                         "head) scales")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain path)")
@@ -208,12 +221,16 @@ def main(argv=None):
         rules.append(tdvmm_rule("ffn.in", chain=True))
     if rules:
         cfg = cfg.replace(tdvmm_plan=TDVMMPlan(rules=tuple(rules)))
-    if not args.static:
-        serve_engine(cfg, args)
-        return
-    out = serve_static(cfg, args.batch, args.prompt_len, args.gen,
-                       seed=args.seed, calibrate=args.calibrate,
-                       device=args.device)
+    attention.set_kv_cache_int8(args.kv_int8)
+    try:
+        if not args.static:
+            serve_engine(cfg, args)
+            return
+        out = serve_static(cfg, args.batch, args.prompt_len, args.gen,
+                           seed=args.seed, calibrate=args.calibrate,
+                           device=args.device)
+    finally:
+        attention.set_kv_cache_int8(False)
     print(f"[serve] {args.arch} batch={args.batch} "
           f"prefill={out['prefill_s']:.3f}s decode={out['decode_s']:.3f}s "
           f"({out['decode_tok_per_s']:.1f} tok/s)")

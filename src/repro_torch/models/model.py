@@ -1,13 +1,14 @@
 """LM wrapper: embedding, stack, head; the training forward and loss
 (``forward``, ``loss_fn``) and the serving entry points — torch port of
-``repro.models.model`` (dense, MoE and SSM token-input models; the paged
-steps serve dense models only: the JAX package's also serve MoE models
-without a sliding window, which the port's engine does not yet).
+``repro.models.model`` (dense, MoE, SSM and hybrid models; the paged steps
+serve dense models only: the JAX package's also serve MoE models without a
+sliding window, which the port's engine does not yet).
 
 Parameters are a plain dict::
 
     {"embed": {"table": (V_pad, d)},
-     "blocks": {"seg0": [layer params, ...]},
+     "blocks": {"seg0": [layer params, ...],
+                "shared_attn": {...}, "fuse": {"w": (2d, d)}},  # hybrid
      "ln_f": {"scale": (d,)},
      "head": {"w": (d, V_pad)}}          # absent with tied embeddings
 
@@ -121,21 +122,34 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, key=None,
 # --------------------------------------------------------------------------
 # Dense-cache serving (calibration pass and the solo greedy oracle)
 # --------------------------------------------------------------------------
+def _stack(one, n: int):
+    """n copies of a one-layer cache along a new leading axis."""
+    return type(one)(*(None if t is None else
+                       t.unsqueeze(0).repeat((n,) + (1,) * t.dim())
+                       for t in one))
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
     """Stacked caches, one leading layer axis per segment: KV caches of the
     attention segments {"seg<i>": KVCache((L, B, S, kv, hd) x 2, pos (L, B))}
-    (S = min(max_len, window) for a sliding window), SSM caches
-    {"seg<i>": SSMCache(conv (L, B, d_conv-1, C), state (L, B, H, P, S),
-    pos (L, B))} (``max_len`` does not size an SSM cache)."""
+    (S = min(max_len, window) for a sliding window; int8 codes plus
+    (L, B, S, kv) float32 scales under ``attention.set_kv_cache_int8``), SSM
+    caches {"seg<i>": SSMCache(conv (L, B, d_conv-1, C), state (L, B, H, P,
+    S), pos (L, B))} (``max_len`` does not size an SSM cache); the hybrid
+    family's SSM layers the same, and its shared block one KV cache per
+    group, {"shared_attn": KVCache((G, B, S, kv, hd) ...)}."""
     dtype = common.resolve_dtype(cfg.dtype)
     caches = {}
     for i, (kind, n) in enumerate(transformer.segments(cfg)):
-        if kind == "ssm":
+        if kind in ("ssm", "hybrid"):
             one = ssm.init_cache(cfg, batch, dtype, device)
         else:
             one = attention.init_cache(cfg, batch, max_len, dtype, device)
-        caches[f"seg{i}"] = type(one)(
-            *(t.unsqueeze(0).repeat((n,) + (1,) * t.dim()) for t in one))
+        caches[f"seg{i}"] = _stack(one, n)
+        if kind == "hybrid" and cfg.hybrid_attn_every:
+            groups, _ = transformer.hybrid_groups(cfg, n)
+            caches["shared_attn"] = _stack(attention.init_cache(
+                cfg, batch, max_len, dtype, device), groups)
     return caches
 
 
@@ -146,7 +160,8 @@ def prefill_step(params, batch: dict, caches: dict, cfg: ModelConfig,
     readout window."""
     cfg = calibration.apply_calibration(cfg, calib)
     x = _embed(params, batch, cfg)
-    x, caches = transformer.apply(params["blocks"], x, cfg, "prefill", caches)
+    x, caches = transformer.apply(params["blocks"], x, cfg, "prefill", caches,
+                                  embed0=x)
     x = common.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
     return _head(params, x, cfg), caches
 
@@ -157,7 +172,8 @@ def decode_step(params, batch: dict, caches: dict, cfg: ModelConfig,
     (logits (B, 1, V), caches)."""
     cfg = calibration.apply_calibration(cfg, calib)
     x = _embed(params, batch, cfg)
-    x, caches = transformer.apply(params["blocks"], x, cfg, "decode", caches)
+    x, caches = transformer.apply(params["blocks"], x, cfg, "decode", caches,
+                                  embed0=x)
     x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return _head(params, x, cfg), caches
 
@@ -168,22 +184,21 @@ def decode_step(params, batch: dict, caches: dict, cfg: ModelConfig,
 def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
                       device) -> dict:
     """Stacked page pools for every attention layer: {"seg<i>":
-    PagedKVCache((L, num_pages + 1, page_size, kv, hd) x 2)}.  All layers
-    share one logical page allocation."""
+    PagedKVCache((L, num_pages + 1, page_size, kv, hd) x 2)}, int8 codes
+    plus (L, num_pages + 1, page_size, kv) float32 scales under
+    ``attention.set_kv_cache_int8``.  All layers share one logical page
+    allocation."""
     if cfg.family not in ("dense", "vlm", "audio"):
         raise NotImplementedError(
             f"paged serving supports dense attention families, not "
-            f"{cfg.family!r} (SSM state is O(1) per slot; the MoE family's "
-            "paged steps are not ported yet, ROADMAP A.8; use the static "
-            "path)")
+            f"{cfg.family!r} (SSM and hybrid state is O(1) per slot: use "
+            "the static path, launch.serve --static; the MoE family's paged "
+            "steps are not ported yet, ROADMAP A4)")
     dtype = common.resolve_dtype(cfg.dtype)
     caches = {}
     for i, (_, n) in enumerate(transformer.segments(cfg)):
-        one = attention.init_paged_cache(cfg, num_pages, page_size, dtype,
-                                         device)
-        caches[f"seg{i}"] = attention.PagedKVCache(
-            *(torch.zeros((n,) + tuple(t.shape), dtype=t.dtype, device=device)
-              for t in one))
+        caches[f"seg{i}"] = _stack(attention.init_paged_cache(
+            cfg, num_pages, page_size, dtype, device), n)
     return caches
 
 

@@ -1,21 +1,25 @@
 """Layer stacks — torch port of ``repro.models.transformer``: dense
 ``attn_ffn`` segments, the MoE family's ``first_k_dense`` ``attn_ffn``
-layers followed by ``attn_moe`` layers, and the SSM family's ``ssm``
-(Mamba-2) segments.  The hybrid family (zamba2) belongs to a later slice.
+layers followed by ``attn_moe`` layers, the SSM family's ``ssm`` (Mamba-2)
+segments, and the hybrid family's (zamba2) ``hybrid`` segment: groups of
+``hybrid_attn_every`` Mamba-2 layers, each followed by ONE shared
+attention + FFN block (a single parameter set, reused by every group),
+fed ``fuse(concat(x, embed0))`` when ``hybrid_concat_embed`` is set.
 Serving drops the MoE router's auxiliary losses; training (``apply_train``)
 sums them over the ``attn_moe`` layers, as the JAX package's ``apply`` does
-in its ``"train"`` mode.  The SSM family's training forward
-(``ssm.apply_train``) is not ported.
+in its ``"train"`` mode.  The training forward of the SSM and hybrid
+families (``ssm.apply_train``) is not ported.
 
 The JAX package stacks each segment's layer parameters along a leading axis
 and ``lax.scan``s over them; here a segment is a list of per-layer parameter
-dicts and a Python loop.  Caches stay stacked along a leading layer axis
-(one tensor per field), and each layer reads and writes its own slice of
-them in place.  ``cfg.remat_policy`` other than ``"none"`` checkpoints each
-training block (``torch.utils.checkpoint``, non-reentrant): its activations
-are recomputed in the backward pass, as ``jax.checkpoint`` does; the JAX
-package's ``"save_dots"`` keeps the matmul outputs, here they are recomputed
-too (the same values, more time).
+dicts and a Python loop (hybrid group g is layers ``[g·every, (g+1)·every)``
+of its list).  Caches stay stacked along a leading layer axis (one tensor
+per field; the shared block's along the group axis), and each layer reads
+and writes its own slice of them in place.  ``cfg.remat_policy`` other than
+``"none"`` checkpoints each training block (``torch.utils.checkpoint``,
+non-reentrant): its activations are recomputed in the backward pass, as
+``jax.checkpoint`` does; the JAX package's ``"save_dots"`` keeps the matmul
+outputs, here they are recomputed too (the same values, more time).
 """
 from __future__ import annotations
 
@@ -103,10 +107,7 @@ def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
     if cfg.family == "ssm":
         return [("ssm", cfg.n_layers)]
     if cfg.family == "hybrid":
-        raise NotImplementedError(
-            "the hybrid family (zamba2: SSM groups with a shared attention "
-            "block) is not ported yet; it follows the paper-physics slice "
-            "(ROADMAP A.12)")
+        return [("hybrid", cfg.n_layers)]
     raise NotImplementedError(
         f"model family {cfg.family!r} is not ported yet")
 
@@ -137,46 +138,97 @@ def _init_ssm(gen, cfg: ModelConfig, dtype, device) -> dict:
 
 
 _INIT = {"attn_ffn": _init_attn_ffn, "attn_moe": _init_attn_moe,
-         "ssm": _init_ssm}
+         "ssm": _init_ssm, "hybrid": _init_ssm}
+
+
+def hybrid_groups(cfg: ModelConfig, n: int) -> tuple[int, int]:
+    """(groups, layers per group) of a hybrid segment of n SSM layers."""
+    every = cfg.hybrid_attn_every or n
+    if n % every:
+        raise ValueError(f"hybrid segment of {n} layers is not a whole "
+                         f"number of groups of {every}")
+    return n // every, every
 
 
 def init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
-    """{"seg<i>": [per-layer params, ...]} for every segment."""
-    return {f"seg{i}": [_INIT[kind](gen, cfg, dtype, device)
-                        for _ in range(n)]
-            for i, (kind, n) in enumerate(segments(cfg))}
+    """{"seg<i>": [per-layer params, ...]} for every segment; the hybrid
+    family adds the shared block ``"shared_attn"`` and, with
+    ``hybrid_concat_embed``, the 2·d -> d ``"fuse"`` projection."""
+    params: dict[str, Any] = {
+        f"seg{i}": [_INIT[kind](gen, cfg, dtype, device) for _ in range(n)]
+        for i, (kind, n) in enumerate(segments(cfg))}
+    if cfg.family == "hybrid" and cfg.hybrid_attn_every:
+        params["shared_attn"] = _init_attn_ffn(gen, cfg, dtype, device)
+        if cfg.hybrid_concat_embed:
+            params["fuse"] = common.dense_init(gen, 2 * cfg.d_model,
+                                               cfg.d_model, dtype, device)
+    return params
 
 
 def _layer_cache(seg_cache, i: int):
-    """Layer i's view of a stacked cache (a NamedTuple of (L, ...) tensors)."""
-    return type(seg_cache)(*(t[i] for t in seg_cache))
+    """Layer i's view of a stacked cache (a NamedTuple of (L, ...) tensors,
+    None for a field the cache does not hold)."""
+    return type(seg_cache)(*(None if t is None else t[i] for t in seg_cache))
+
+
+def _advance(stacked, pos_out: list):
+    """A stacked cache with its per-layer ``pos`` advanced (paged pools,
+    which have none, come back as they are)."""
+    if pos_out:
+        return stacked._replace(pos=torch.stack(pos_out))
+    return stacked
 
 
 def apply(params, x: torch.Tensor, cfg: ModelConfig, mode: str,
-          caches: Optional[dict], positions=None, key=None,
+          caches: Optional[dict], positions=None, embed0=None, key=None,
           page_ctx=None) -> tuple[torch.Tensor, dict]:
     """Run the full stack.  Returns (x, caches); the caches are updated in
     place and returned with their per-layer ``pos`` fields advanced.
 
-    ``page_ctx`` (``runtime.paged_cache.PrefillChunkCtx`` / ``DecodeCtx``)
-    rides alongside the paged modes: the block table and positions are the
-    same for every layer."""
+    ``embed0`` is the step's input embedding, which the hybrid family's
+    shared block takes in beside x.  ``page_ctx``
+    (``runtime.paged_cache.PrefillChunkCtx`` / ``DecodeCtx``) rides
+    alongside the paged modes: the block table and positions are the same
+    for every layer."""
     new_caches: dict[str, Any] = {}
     for i, (kind, n) in enumerate(segments(cfg)):
         seg_cache = caches[f"seg{i}"]
+        layers = params[f"seg{i}"]
         pos_out = []
-        for li, p in enumerate(params[f"seg{i}"]):
-            layer_cache = _layer_cache(seg_cache, li)
-            if kind == "ssm":
-                x, c = ssm_block(p, x, cfg, mode, layer_cache, key)
-            else:
-                x, c = attn_ffn_block(p, x, cfg, mode, layer_cache, positions,
+
+        def ssm_layer(li, x):
+            x, c = ssm_block(layers[li], x, cfg, mode,
+                             _layer_cache(seg_cache, li), key)
+            pos_out.append(c.pos)
+            return x
+
+        if kind == "ssm":
+            for li in range(n):
+                x = ssm_layer(li, x)
+        elif kind == "hybrid":
+            n_groups, every = hybrid_groups(cfg, n)
+            shared = caches["shared_attn"]
+            shared_pos = []
+            for g in range(n_groups):
+                for li in range(g * every, (g + 1) * every):
+                    x = ssm_layer(li, x)
+                if cfg.hybrid_concat_embed and embed0 is not None:
+                    x = common.dense(params["fuse"],
+                                     torch.cat([x, embed0], dim=-1),
+                                     cfg.site_tdvmm("hybrid.fuse"), key)
+                x, c = attn_ffn_block(params["shared_attn"], x, cfg, mode,
+                                      _layer_cache(shared, g), positions, key,
+                                      page_ctx=page_ctx)
+                shared_pos.append(c.pos)
+            new_caches["shared_attn"] = _advance(shared, shared_pos)
+        else:
+            for li, p in enumerate(layers):
+                x, c = attn_ffn_block(p, x, cfg, mode,
+                                      _layer_cache(seg_cache, li), positions,
                                       key, page_ctx=page_ctx)
-            if isinstance(c, (attention.KVCache, ssm.SSMCache)):
-                pos_out.append(c.pos)
-        if pos_out:
-            seg_cache = seg_cache._replace(pos=torch.stack(pos_out))
-        new_caches[f"seg{i}"] = seg_cache
+                if isinstance(c, attention.KVCache):
+                    pos_out.append(c.pos)
+        new_caches[f"seg{i}"] = _advance(seg_cache, pos_out)
     return x, new_caches
 
 
@@ -188,9 +240,10 @@ def apply_train(params, x: torch.Tensor, cfg: ModelConfig,
     router's aux losses summed over the ``attn_moe`` layers."""
     lb, zl = [], []
     for i, (kind, _) in enumerate(segments(cfg)):
-        if kind == "ssm":
+        if kind in ("ssm", "hybrid"):
             raise NotImplementedError(
-                "training the SSM family (ssm.apply_train) is not ported yet")
+                f"training the {cfg.family} family (ssm.apply_train) is not "
+                "ported yet")
         block = _remat(lambda p, h, _k=key: attn_ffn_train(
             p, h, cfg, positions, _k), cfg)
         for p in params[f"seg{i}"]:

@@ -10,7 +10,9 @@ a ragged request stream is multiplexed through:
   * a fixed pool of B decode **slots**, admitted FIFO by arrival
     (``runtime/scheduler.py``);
   * a **paged** KV cache: attention KV lives in fixed-size pages owned per
-    request via block tables (``runtime/paged_cache.py``), updated in place;
+    request via block tables (``runtime/paged_cache.py``), updated in place
+    (int8 codes with per-(token, head) scales under
+    ``models.attention.set_kv_cache_int8``);
   * **chunked prefill**: prompts are absorbed ``chunk`` tokens per step,
     interleaved with decode.
 
@@ -49,7 +51,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import energy as energy_model
 from repro_torch.core.calibration import CalibrationState, apply_calibration
-from repro_torch.models import common, model
+from repro_torch.models import attention, common, model
 from repro_torch.runtime.paged_cache import PagePool, pages_for
 from repro_torch.runtime.scheduler import (Request, RequestRecord, Slot,
                                            SlotScheduler, static_baseline)
@@ -139,7 +141,8 @@ class Engine:
                  calib: Optional[CalibrationState] = None, device=None):
         if cfg.family not in ("dense", "vlm", "audio"):
             raise NotImplementedError(
-                f"engine serves dense attention models, not {cfg.family!r}")
+                f"engine serves dense attention models, not {cfg.family!r} "
+                "(use launch.serve --static for SSM and hybrid models)")
         if cfg.input_mode != "tokens":
             raise NotImplementedError("engine serves token-input models")
         if cfg.swa_window is not None:
@@ -155,11 +158,15 @@ class Engine:
             self.cfg_serving, engine_cfg.tile_n)
         self._windows = calib.as_arrays(self.device) if calib is not None \
             else {}
-        # Per-page bytes across all layers (for the high-water stat).
-        itemsize = torch.empty((), dtype=common.resolve_dtype(
-            cfg.dtype)).element_size()
+        # Per-page bytes across all layers (for the high-water stat): keys
+        # and values, or their int8 codes and float32 per-(token, head)
+        # scales under attention.set_kv_cache_int8.
+        per_head = cfg.resolved_head_dim * torch.empty(
+            (), dtype=common.resolve_dtype(cfg.dtype)).element_size()
+        if attention.KV_CACHE_INT8:
+            per_head = cfg.resolved_head_dim + 4
         self.page_bytes = (2 * cfg.n_layers * engine_cfg.page_size
-                           * cfg.n_kv_heads * cfg.resolved_head_dim * itemsize)
+                           * cfg.n_kv_heads * per_head)
         self._st: Optional[RunState] = None
         self._shapes: set = set()
 

@@ -160,5 +160,11 @@ def test_ssm_caches_and_paged_refusal():
     assert params["blocks"]["seg0"][0]["ssm"]["A_log"].dtype == torch.float32
     with pytest.raises(NotImplementedError, match="dense attention"):
         Engine(tc, params, EngineConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        tmodel.init_params(0, tsmoke(tget("zamba2-2.7b")), device="cpu")
+    # the hybrid family is served by the static path only, as in the JAX
+    # package: the engine and the page pools refuse it
+    hc = tsmoke(tget("zamba2-2.7b"))
+    with pytest.raises(NotImplementedError, match="'hybrid'.*static"):
+        Engine(hc, tmodel.init_params(0, hc, device="cpu"), EngineConfig(),
+               device="cpu")
+    with pytest.raises(NotImplementedError, match="'hybrid'.*static path"):
+        tmodel.init_paged_caches(hc, 8, 4, "cpu")
