@@ -51,7 +51,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import energy as energy_model
 from repro_torch.core.calibration import CalibrationState, apply_calibration
-from repro_torch.models import attention, common, model
+from repro_torch.models import model
 from repro_torch.runtime.paged_cache import PagePool, pages_for
 from repro_torch.runtime.scheduler import (Request, RequestRecord, Slot,
                                            SlotScheduler, static_baseline)
@@ -158,15 +158,14 @@ class Engine:
             self.cfg_serving, engine_cfg.tile_n)
         self._windows = calib.as_arrays(self.device) if calib is not None \
             else {}
-        # Per-page bytes across all layers (for the high-water stat): keys
-        # and values, or their int8 codes and float32 per-(token, head)
-        # scales under attention.set_kv_cache_int8.
-        per_head = cfg.resolved_head_dim * torch.empty(
-            (), dtype=common.resolve_dtype(cfg.dtype)).element_size()
-        if attention.KV_CACHE_INT8:
-            per_head = cfg.resolved_head_dim + 4
-        self.page_bytes = (2 * cfg.n_layers * engine_cfg.page_size
-                           * cfg.n_kv_heads * per_head)
+        # Per-page bytes across all layers (for the high-water stat), from
+        # the pools' own tensors, made on the meta device (no storage).
+        pools = model.init_paged_caches(cfg, engine_cfg.num_pages,
+                                        engine_cfg.page_size,
+                                        torch.device("meta"))
+        total = sum(t.nbytes for pool in pools.values() for t in pool
+                    if t is not None)
+        self.page_bytes = total // (engine_cfg.num_pages + 1)
         self._st: Optional[RunState] = None
         self._shapes: set = set()
 

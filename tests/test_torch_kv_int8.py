@@ -262,6 +262,38 @@ def test_zamba2_static_serve_int8(int8_kv):
     np.testing.assert_array_equal(out["tokens"].numpy(), toks_j)
 
 
+def test_zamba2_int8_under_tdvmm_plan_matches_reference(int8_kv):
+    """The int8 cache combined with 6-bit readouts: smoke(zamba2-2.7b) with
+    TD-VMM at ``ssm.*``, ``ffn.*`` and ``hybrid.fuse`` and the reference's
+    windows pinned on both sides (calibrated with int8 KV on), a 13-token
+    prompt and 6 greedy tokens: the reference's int8 tokens, logits within
+    LOGIT_RTOL of max|logit|.  A fault in the int8 path that only shows
+    where the readouts turn the cache's rounding into whole levels moves a
+    code here."""
+    sites = ("ssm.*", "ffn.*", "hybrid.fuse")
+    jc = jsmoke(jget("zamba2-2.7b")).replace(tdvmm_plan=JPlan(tuple(
+        jrule(p, enabled=True, backend="jnp") for p in sites)))
+    tc = tsmoke(tget("zamba2-2.7b")).replace(tdvmm_plan=TPlan(tuple(
+        trule(p, enabled=True) for p in sites)))
+    jparams = jmodel.init_params(jax.random.PRNGKey(0), jc)
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams), tc,
+                                        "cpu")
+    rng = np.random.default_rng(4)
+    calib_tokens = rng.integers(0, jc.vocab_size, (2, 13))
+    jcal = jmodel.calibrate(jparams, {"inputs": jnp.asarray(calib_tokens)},
+                            jc)
+    tcal = CalibrationState(windows={
+        s: torch.from_numpy(np.array(v, np.float32))
+        for s, v in jcal.windows.items()})
+    assert set(jcal.windows) == {"ssm.in_proj", "ssm.out", "ffn.in",
+                                 "ffn.out", "hybrid.fuse"}
+    prompts = rng.integers(0, jc.vocab_size, (2, 13))
+    toks_t, lt = _greedy(_port_steps(tc, tparams, 2, 19, tcal), prompts, 6)
+    toks_j, lj = _greedy(_ref_steps(jc, jparams, 2, 19, jcal), prompts, 6)
+    np.testing.assert_array_equal(toks_t, toks_j)
+    assert _rel(lt, lj) <= LOGIT_RTOL
+
+
 def test_cli_kv_int8_static_and_engine(capsys):
     """``launch.serve --kv-int8`` on the CPU, through the static path
     (zamba2) and the engine (qwen); the switch is off again after each
