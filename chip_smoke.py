@@ -57,7 +57,10 @@ Phases, each of which stops the script with a non-zero exit on failure:
    bound / library times; flash attention (``_attend_flash`` and
    ``_attend_flash_blocks``) against the dense softmax at zamba2's shared
    block, B 2 x S 4096 x 32 heads x 80 in float32, within FLASH_TOL, timed
-   in float32 and bfloat16;
+   in float32 and bfloat16, and its backward: the gradients of q, k, v,
+   the block's input and weights through ``attention.apply_train`` with
+   flash against the dense softmax's, within FLASH_TOL elementwise, each
+   forward + backward timed;
 4. serving: qwen1.5-0.5b at full width (24 layers, d_model 1024, bf16,
    random weights from seed 0) under the ``ffn_unchained`` and
    ``ffn_chained`` plans: one calibration pass, then the paged engine
@@ -65,6 +68,18 @@ Phases, each of which stops the script with a non-zero exit on failure:
    budget, no NaN logits, its stream equal to the same request served alone,
    and the kernel launch counts must match the plan's sites exactly; the
    same for ``ffn_unchained`` with the int8 KV cache (int8 page pools).
+   Then the engine's fault tolerance on that model, params, calibration
+   and trace (``fault_qwen``): killed mid-prefill, at the first decode and
+   late in decode, each snapshot saved to disk, restored into a fresh
+   engine and resumed to the unbroken run's streams, finish reasons and
+   steps, with bf16 and with int8 page pools (snapshot bytes, save and
+   restore seconds printed); a transient step failure retried once with
+   the streams unchanged; a persistent one failing exactly one request,
+   its neighbours unchanged and its stream a prefix of the unbroken one;
+   injected drift recalibrating in place under a drift probe of 2 x 128
+   tokens every 8 steps (the window tensors keep their storage, step
+   shapes 2, B1 raw and B2 launches exactly sites x probes), and the same
+   probes without drift reproducing the pinned windows bitwise.
    Then mamba2-1.3b at full width (48 layers, d_model 2048, 64 heads x 64,
    d_state 128, chunk 128, vocab 50280, bf16, random weights from seed 0)
    under ``ssm_unchained``: one calibration pass over 4 x 512 tokens, then
@@ -148,6 +163,9 @@ CALIB_BATCH = (2, 64)
 CALIB_ROWS = CALIB_BATCH[0] * CALIB_BATCH[1]
 FFN_SHAPES = ((1024, 2816), (2816, 1024))       # ffn.in (K, N), ffn.out
 PROFILE_SKIP, PROFILE_STEPS = 16, 12             # engine ticks
+# the fault phase's drift probe: a (batch, tokens) batch, every N steps
+FAULT_PROBE, FAULT_CHECK_EVERY = (2, 128), 8
+FAULT_ROWS = FAULT_PROBE[0] * FAULT_PROBE[1]
 # Phase 5, card against CPU logits relative to max|logit|: the TD-VMM codes
 # are bitwise on both, so only float32 reductions outside the kernels
 # (attention, norms, the head) differ; measured 6e-7 on an H100.
@@ -204,8 +222,8 @@ TD_ATOL = 2.5e-6
 H100_F32_FLOPS_PER_S = 67e12        # float32 on CUDA cores (data sheet)
 
 # Training at full width (qwen1.5-0.5b, every linear a TD-VMM site):
-# ShapeConfig train_4k's 256 x 4096 cut to 4 x 512 (4096-token sequences
-# need flash attention, ROADMAP A5; the batch for time), 8 steps.
+# ShapeConfig train_4k's 256 x 4096 cut to 4 x 512 and 8 steps, for the
+# script's time limit.
 QAT_BATCH, QAT_SEQ, QAT_STEPS = 4, 512, 8
 QAT_ROWS = QAT_BATCH * QAT_SEQ
 QKV_WIDTHS = (1024, 1024, 1024)                   # q, k, v at d_model 1024
@@ -574,21 +592,24 @@ def time_ms(fn, iters: int) -> float:
 
 def kernel_cases() -> list[dict]:
     """Every kernel mode at the serving path's shapes: M = prefill chunk C,
-    decode batch B, calibration rows; (K, N) of ffn.in and ffn.out; one
-    ragged shape.  ``rep`` marks the row a kernel's JSON entry reports."""
+    decode batch B, calibration rows, drift-probe rows; (K, N) of ffn.in
+    and ffn.out; one ragged shape.  ``rep`` marks the row a kernel's JSON
+    entry reports."""
     cases = []
     for k, n in FFN_SHAPES:
-        cases.append(dict(kernel="tdvmm_matmul_raw", mode="raw", e=1, ex=1,
-                          m=CALIB_ROWS, k=k, n=n, rep=(k, n) == FFN_SHAPES[0]))
+        for m in (CALIB_ROWS, FAULT_ROWS):
+            cases.append(dict(kernel="tdvmm_matmul_raw", mode="raw", e=1,
+                              ex=1, m=m, k=k, n=n,
+                              rep=(m, k, n) == (CALIB_ROWS,) + FFN_SHAPES[0]))
+            cases.append(dict(kernel="tdvmm_calibrated", mode="one_slot",
+                              e=1, ex=1, m=m, k=k, n=n,
+                              rep=(m, k, n) == (CALIB_ROWS,) + FFN_SHAPES[0]))
         for m in (CHUNK, SLOTS):
             cases.append(dict(kernel="tdvmm_fused", mode="no_readout", e=1,
                               ex=1, m=m, k=k, n=n))
             cases.append(dict(kernel="tdvmm_fused", mode="scalar_window",
                               e=1, ex=1, m=m, k=k, n=n,
                               rep=(m, k, n) == (CHUNK,) + FFN_SHAPES[0]))
-        cases.append(dict(kernel="tdvmm_calibrated", mode="one_slot", e=1,
-                          ex=1, m=CALIB_ROWS, k=k, n=n,
-                          rep=(k, n) == FFN_SHAPES[0]))
     k, n = FFN_SHAPES[0]
     cases += [
         dict(kernel="tdvmm_fused", mode="expert_windows", e=3, ex=3,
@@ -1314,7 +1335,8 @@ def serve_plan(name: str, plan, dev, params_cache: dict) -> dict:
                 tokens_per_s=rep.generated_tokens / rep.wall_s,
                 fj_per_op=rep.fj_per_op, utilization=rep.utilization,
                 launches=launches, launches_calibrate=at_calib,
-                engine_args=(cfg, params, ecfg, calib), trace=trace)
+                engine_args=(cfg, params, ecfg, calib), trace=trace,
+                report=rep)
 
 
 def profile_plan(out: dict) -> dict:
@@ -1645,6 +1667,288 @@ def flash_on_card(dev) -> dict:
             out[key][name] = time_ms(lambda: fn(*args), 1)
         del args
         torch.cuda.empty_cache()
+    return out
+
+
+def flash_grad_on_card(dev) -> dict:
+    """Flash attention's backward at zamba2's shared block, float32: the
+    gradients of q, k and v through ``_self_attend`` (B 2, S 4096, 32 heads
+    x 80) and of x and the block's weights through ``attention.apply_train``
+    (d_model 2560), with flash (S past FLASH_THRESHOLD) against the dense
+    softmax (the threshold raised past S), each within FLASH_TOL
+    elementwise; each forward + backward timed on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    cfg = get_config(HYB_ARCH)
+    b, s, h, d = HYB_BATCH, HYB_PROMPT, cfg.n_heads, cfg.resolved_head_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    qkv = [torch.randn((b, s, n, d), generator=g, device=dev) * 0.5
+           for n in (h, cfg.n_kv_heads, cfg.n_kv_heads)]
+    ct_heads = torch.randn((b, s, h, d), generator=g, device=dev)
+    params = attention.init(g, cfg, torch.float32, dev)
+    x = torch.randn((b, s, cfg.d_model), generator=g, device=dev)
+    ct = torch.randn((b, s, cfg.d_model), generator=g, device=dev)
+    positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+
+    def core():
+        leaves = [t.clone().requires_grad_() for t in qkv]
+        (attention._self_attend(*leaves, cfg) * ct_heads).sum().backward()
+        return {n: t.grad for n, t in zip("qkv", leaves)}
+
+    def block():
+        p = tree_map(lambda t: t.clone().requires_grad_(), params)
+        xx = x.clone().requires_grad_()
+        (attention.apply_train(p, xx, cfg, positions) * ct).sum().backward()
+        return {"x": xx.grad, **{name: t.grad
+                                 for name, t in leaves_with_paths(p)}}
+
+    old = attention.FLASH_THRESHOLD
+    grads, ms = {}, {}
+    try:
+        for name, threshold in (("flash", s - 1), ("dense", s)):
+            attention.FLASH_THRESHOLD = threshold
+            grads[name] = {**core(), **block()}
+            torch.cuda.synchronize()
+            # forward + backward launch more kernels than the card's queue
+            # holds: CUDA events around one call
+            ms[name] = {"core": time_long_ms(core),
+                        "block": time_long_ms(block)}
+    finally:
+        attention.FLASH_THRESHOLD = old
+    gap = {}
+    for leaf, want in grads["dense"].items():
+        got = grads["flash"][leaf]
+        diff = (got - want).abs()
+        require(bool(torch.isfinite(got).all()
+                     and (diff <= FLASH_TOL + FLASH_TOL * want.abs()).all()),
+                f"flash gradient {leaf}: differs from the dense softmax's by "
+                f"up to {float(diff.max()):.3g}")
+        gap[leaf] = (float(diff.max()),
+                     float((diff / want.abs().clamp_min(1e-30)).max()),
+                     float(want.abs().max()))
+    del grads
+    torch.cuda.empty_cache()
+    return {"gap": gap, "ms": ms}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the qwen engine's fault tolerance and drift recalibration
+# ---------------------------------------------------------------------------
+def step_kinds(engine_args, trace) -> tuple[list, object]:
+    """(kinds, report): an unbroken run of ``trace`` tick by tick, with
+    (step, "prefill" | "decode", a slot mid-prefill before it) for every
+    engine step — the kill points come from it."""
+    from repro_torch.runtime.engine import Engine
+
+    cfg, params, ecfg, calib = engine_args
+    eng = Engine(cfg, params, ecfg, calib=calib)
+    eng.start(trace)
+    st, kinds = eng._st, []
+    while True:
+        k, p0 = st.steps, st.prefill_steps
+        mid = any(0 < sl.prefill_done < sl.prompt_len
+                  for sl in st.sched.occupied())
+        if not eng.tick():
+            break
+        if st.steps != k:
+            kinds.append((k, "prefill" if st.prefill_steps > p0 else
+                          "decode", mid))
+    return kinds, eng.report()
+
+
+def same_streams(a, b, what: str) -> None:
+    for ra, rb in zip(a.requests, b.requests):
+        require(ra["tokens"] == rb["tokens"]
+                and ra["finish_reason"] == rb["finish_reason"]
+                and ra["finished_step"] == rb["finished_step"],
+                f"{what}: request {ra['rid']} differs from the unbroken run")
+    require(a.steps == b.steps,
+            f"{what}: {a.steps} steps, the unbroken run {b.steps}")
+
+
+def kill_and_resume(engine_args, trace, base, kills: dict) -> list[dict]:
+    """Preempt at each kill point with a snapshot on disk, restore it into
+    a fresh Engine and resume: the streams, finish reasons and steps must
+    be the unbroken run's."""
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.runtime import faultinject as fi
+    from repro_torch.runtime.engine import Engine, FaultConfig
+
+    cfg, params, ecfg, calib = engine_args
+    save = ckpt.save_engine_snapshot
+    saved: list[float] = []
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        out = save(*args, **kw)
+        saved.append(time.perf_counter() - t0)
+        return out
+
+    rows = []
+    ckpt.save_engine_snapshot = timed_save
+    try:
+        for where, k in kills.items():
+            with tempfile.TemporaryDirectory() as snap_dir:
+                victim = Engine(cfg, params, ecfg, calib=calib)
+                rep = victim.run(trace, FaultConfig(
+                    injector=fi.FaultInjector([fi.PreemptAt(k)]),
+                    snapshot_dir=snap_dir, snapshot_keep=1))
+                require(rep.preempted and rep.steps == k,
+                        f"kill at {k} ({where}): stopped at {rep.steps}")
+                mid = [sl for sl in victim._st.sched.occupied()
+                       if 0 < sl.prefill_done < sl.prompt_len]
+                require(bool(mid) == (where == "mid-prefill"),
+                        f"kill at {k} ({where}): {len(mid)} slots "
+                        "mid-prefill")
+                del victim
+                size = (Path(rep.snapshot_path) / "state.pt").stat().st_size
+                t0 = time.perf_counter()
+                flat, step = ckpt.load_engine_snapshot(snap_dir)
+                survivor = Engine(cfg, params, ecfg, calib=calib)
+                survivor.restore(flat)
+                torch.cuda.synchronize()
+                t_restore = time.perf_counter() - t0
+                require(step == k, f"snapshot step {step} != {k}")
+                del flat
+                resumed = survivor.resume()
+                same_streams(resumed, base, f"resume at {k} ({where})")
+                require(resumed.step_shapes <= 2,
+                        f"resume at {k}: {resumed.step_shapes} step shapes")
+                rows.append(dict(where=where, step=k, bytes=size,
+                                 save_s=saved[-1], restore_s=t_restore))
+    finally:
+        ckpt.save_engine_snapshot = save
+    return rows
+
+
+def fault_qwen(dev, bf16: dict, int8: dict) -> dict:
+    """qwen1.5-0.5b at full width under ``ffn_unchained`` with the params,
+    calibration and trace of the serving phase (``bf16`` and ``int8``: its
+    outputs with bf16 and int8 page pools).  (a) Killed mid-prefill, at the
+    first decode and late in decode, snapshotted to disk, restored into a
+    fresh Engine and resumed: the unbroken run's streams, in both pool
+    dtypes.  (b) A transient step failure is retried with the streams
+    unchanged; a persistent one fails exactly one request, its neighbours'
+    streams unchanged and its own a prefix of its unbroken stream.  (c)
+    Windows pinned on the FAULT_PROBE probe batch itself; injected drift
+    (sigma 0.5, 3 repeats) under a DriftConfig probing that batch every
+    FAULT_CHECK_EVERY steps recalibrates in place (the window tensors keep
+    their storage, their values move, the step shapes stay 2), with B1 raw
+    and B2 launched exactly sites x probes; the same probes without drift
+    reproduce the pinned windows bitwise (no clip, every ratio 1)."""
+    import torch
+    from repro_torch.kernels.tdvmm import tdvmm as tk
+    from repro_torch.models import attention, model
+    from repro_torch.runtime import faultinject as fi
+    from repro_torch.runtime.engine import DriftConfig, Engine, FaultConfig
+
+    engine_args, trace = bf16["engine_args"], bf16["trace"]
+    cfg, params, ecfg, calib = engine_args
+    kinds, base = step_kinds(engine_args, trace)
+    same_streams(base, bf16["report"], "tick-by-tick run")
+    decode = [k for k, kind, _ in kinds if kind == "decode"]
+    kills = {"mid-prefill": next(k for k, _, mid in kinds if mid),
+             "first decode": decode[0], "late decode": decode[-3]}
+    out = {"kills": kills, "steps": base.steps}
+    out["resume"] = kill_and_resume(engine_args, trace, base, kills)
+    attention.set_kv_cache_int8(True)
+    try:
+        out["resume_int8"] = kill_and_resume(
+            int8["engine_args"], trace, int8["report"], kills)
+    finally:
+        attention.set_kv_cache_int8(False)
+
+    # (b) failures through the retry boundary
+    rep = Engine(cfg, params, ecfg, calib=calib).run(trace, FaultConfig(
+        injector=fi.FaultInjector([fi.FailStep(
+            step=kills["first decode"], kind="any", times=1)]),
+        retries=2, backoff_s=0.001))
+    require(rep.step_retries == 1 and rep.failed == 0,
+            f"transient failure: {rep.step_retries} retries, {rep.failed} "
+            "failed")
+    same_streams(rep, base, "transient failure")
+    rep = Engine(cfg, params, ecfg, calib=calib).run(trace, FaultConfig(
+        injector=fi.FaultInjector([fi.FailStep(
+            step=kills["late decode"], kind="decode", times=2)]),
+        retries=1, backoff_s=0.001))
+    failed = [r for r in rep.requests if r["finish_reason"] == "failed"]
+    require(len(failed) == 1 and rep.failed == 1 and rep.step_retries == 1,
+            f"persistent failure: {len(failed)} failed, {rep.step_retries} "
+            "retries")
+    by_rid = {r["rid"]: r for r in base.requests}
+    for r in rep.requests:
+        want = by_rid[r["rid"]]
+        require(r["tokens"] == (want["tokens"] if r is not failed[0] else
+                                want["tokens"][:len(r["tokens"])]),
+                f"persistent failure: request {r['rid']}'s stream changed")
+    out["failed_rid"] = failed[0]["rid"]
+    out["failed_tokens"] = (len(failed[0]["tokens"]),
+                            len(by_rid[failed[0]["rid"]]["tokens"]))
+
+    # (c) drift and online recalibration
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    probe = {"inputs": torch.randint(0, cfg.vocab_size, FAULT_PROBE,
+                                     generator=g, device=dev)}
+    probe_calib = model.calibrate(params, probe, cfg)
+    per_probe = expected_launches(cfg, "ffn_unchained", 0)["calibrate"]
+    for name, events in (("drift", [fi.DriftAt(
+            step=kills["first decode"], sigma=0.5, repeats=3)]),
+                         ("no drift", [])):
+        eng = Engine(cfg, params, ecfg, calib=probe_calib)
+        ptrs = {site: t.data_ptr() for site, t in eng._windows.items()}
+        reset_all_launches()
+        rep = eng.run(trace, FaultConfig(
+            injector=fi.FaultInjector(events),
+            drift=DriftConfig(probe_batch=probe,
+                              check_every=FAULT_CHECK_EVERY)))
+        torch.cuda.synchronize()
+        launches = dict(tk.LAUNCHES)
+        probes = rep.drift_checks
+        n = len(probes)
+        want = expected_launches(cfg, "ffn_unchained",
+                                 rep.prefill_steps + rep.decode_steps)
+        want = {k: want["serve"][k] + n * per_probe[k] for k in want["serve"]}
+        require(launches == want,
+                f"{name}: launches {launches} != {want} ({n} probes)")
+        require(rep.step_shapes == 2 and rep.nan_logit_steps == 0,
+                f"{name}: {rep.step_shapes} step shapes, "
+                f"{rep.nan_logit_steps} NaN steps")
+        require({s: t.data_ptr() for s, t in eng._windows.items()} == ptrs,
+                f"{name}: a window tensor was replaced")
+        moved = eng.pinned_calibration().drift_ratios(probe_calib)
+        if events:
+            require(rep.recalibrations >= 1 and len(rep.drift_events) >= 1,
+                    f"drift: {rep.recalibrations} recalibrations")
+            require(any(abs(math.log(max(r, 1e-12))) > 1e-6
+                        for r in moved.values()),
+                    f"drift: the pinned windows did not move {moved}")
+            out["drift_events"] = [
+                (ev["step"], round(ev["max_clip_rate"], 6),
+                 round(ev["max_log_ratio"], 4))
+                for ev in rep.drift_events]
+        else:
+            require(rep.recalibrations == 0 and rep.drift_events == []
+                    and all(p["max_clip_rate"] == 0.0
+                            and p["max_log_ratio"] == 0.0 for p in probes),
+                    f"no drift: {len(rep.drift_events)} drift events, "
+                    f"probes {probes}")
+            require(all(r == 1.0 for r in moved.values()),
+                    f"no drift: the windows moved {moved}")
+        out[name] = dict(probes=n, launches=launches,
+                         recalibrations=rep.recalibrations,
+                         probe_s=[p["seconds"] for p in probes],
+                         max_clip=max((p["max_clip_rate"] for p in probes),
+                                      default=0.0),
+                         max_log_ratio=max((p["max_log_ratio"]
+                                            for p in probes), default=0.0),
+                         serve_s=rep.wall_s)
+    out["launches"] = out["drift"]["launches"]
     return out
 
 
@@ -2622,6 +2926,18 @@ def main() -> int:
         + ", ".join(f"{k} {v:.3f}" for k, v in fl["ms_bf16"].items()))
     del fl
     torch.cuda.empty_cache()
+    fg = flash_grad_on_card(dev)
+    say("flash", f"{HYB_ARCH} shared block backward, B {HYB_BATCH} x S "
+        f"{HYB_PROMPT}, float32: gradients through flash against the dense "
+        f"softmax's (gate {FLASH_TOL} + {FLASH_TOL} |g|), max |gap| / max "
+        "relative gap / max |g_dense|: "
+        + "; ".join(f"{k} {a:.3g} / {r:.3g} / {m:.3g}"
+                    for k, (a, r, m) in fg["gap"].items())
+        + "; forward + backward ms: "
+        + ", ".join(f"{n} q/k/v {t['core']:.3f} block {t['block']:.3f}"
+                    for n, t in fg["ms"].items()))
+    del fg
+    torch.cuda.empty_cache()
     phase_done("flash")
 
     served, cache = [], {}
@@ -2645,7 +2961,6 @@ def main() -> int:
             f"device busy {prof['device_busy_share']:.3f}, TD-VMM kernels "
             f"{prof['tdvmm_device_share']:.3f} of device time; top "
             + "; ".join(f"{k} {v:.3f}" for k, v in prof["top_kernels"]))
-        del out["engine_args"]
     attention.set_kv_cache_int8(True)
     try:
         out = serve_plan("ffn_unchained", plans()["ffn_unchained"], dev, cache)
@@ -2658,9 +2973,40 @@ def main() -> int:
         f"({out['serve_s']:.2f} s), launches calibrate "
         f"{out['launches_calibrate']} total {out['launches']}, int8 page "
         "pools, batched == solo")
-    del out["engine_args"], cache
-    torch.cuda.empty_cache()
     phase_done("serve qwen")
+
+    fq = fault_qwen(dev, served[0], out)
+    served.append({"launches": fq["launches"]})
+    for tag in ("resume", "resume_int8"):
+        say("fault", f"ffn_unchained {'bf16' if tag == 'resume' else 'int8'}"
+            " page pools, killed, snapshotted to disk, restored into a fresh "
+            "engine and resumed: unbroken streams, finish reasons and "
+            f"{fq['steps']} steps at " + "; ".join(
+                f"{r['where']} (step {r['step']}): {r['bytes']} bytes, save "
+                f"{r['save_s']:.3f} s, restore {r['restore_s']:.3f} s"
+                for r in fq[tag]))
+    say("fault", f"transient step failure at step "
+        f"{fq['kills']['first decode']}: 1 retry, streams unchanged; "
+        f"persistent at step {fq['kills']['late decode']}: request "
+        f"{fq['failed_rid']} failed after {fq['failed_tokens'][0]} of "
+        f"{fq['failed_tokens'][1]} tokens (a prefix), its neighbours "
+        "unchanged")
+    for name in ("drift", "no drift"):
+        r = fq[name]
+        say("fault", f"{name}: {r['probes']} probes of {FAULT_PROBE[0]} x "
+            f"{FAULT_PROBE[1]} tokens every {FAULT_CHECK_EVERY} steps "
+            f"({min(r['probe_s']):.3f}-{max(r['probe_s']):.3f} s each), "
+            f"max clip rate {r['max_clip']:.4g}, max |log window ratio| "
+            f"{r['max_log_ratio']:.4g}, {r['recalibrations']} "
+            "recalibrations in place (window tensors kept, step shapes 2), "
+            f"launches {r['launches']}, serve {r['serve_s']:.2f} s"
+            + (f"; events (step, clip rate, log ratio) {fq['drift_events']}"
+               if name == "drift" else "; no events"))
+    for o in served:
+        o.pop("engine_args", None)
+    del out, fq, cache
+    torch.cuda.empty_cache()
+    phase_done("fault qwen")
 
     ssm = serve_ssm(dev)
     served.append(ssm)

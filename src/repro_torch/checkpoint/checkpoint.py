@@ -1,6 +1,8 @@
-"""Atomic training checkpoints — the part of ``repro.checkpoint.checkpoint``
-that the train loop uses (``save``, ``latest_step``, ``restore``), in the
-port's own format.
+"""Atomic checkpoints — torch port of ``repro.checkpoint.checkpoint`` in
+the port's own format: the training state (``save``, ``latest_step``,
+``restore``), the calibration windows (``save_calibration``,
+``restore_calibration``) and the serving engine's snapshots
+(``save_engine_snapshot``, ``load_engine_snapshot``).
 
 Layout of one checkpoint::
 
@@ -18,11 +20,11 @@ Properties, as in the JAX package:
   * non-blocking: ``save(blocking=False)`` snapshots every leaf to host
     memory first, then writes in a background thread (returned, so the
     caller may join it).
-Leaves are named by their tree path (``tree.leaves_with_paths``), so a
-restore into a tree of the same structure puts every tensor back, bitwise,
-on the device and in the dtype of the leaf it replaces.  The calibration
-and engine snapshots of the JAX package's module wait for the port's fault
-and telemetry slice.
+Leaves are named by their tree path (``leaf_paths``), so a restore into a
+tree of the same structure puts every tensor back, bitwise, on the device
+and in the dtype of the leaf it replaces; ``load_flat`` returns the
+name -> CPU tensor dict itself, for a caller that rebuilds its own
+structure (``runtime.engine.Engine.restore``).
 """
 from __future__ import annotations
 
@@ -37,7 +39,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.tree import leaves_with_paths, unflatten
+# (name, leaf) pairs with "/"-joined tree paths, the names of every leaf in
+# this layout; a flat dict whose keys hold "/" gives the same names
+from repro_torch.tree import leaves_with_paths as leaf_paths, unflatten
 
 _SAVE_LOCK = threading.Lock()   # serializes concurrent saves (async + final)
 
@@ -49,7 +53,7 @@ def save(tree, directory: str | Path, step: int, keep: int = 3,
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     snap = {name: leaf.detach().to("cpu", copy=True)
-            for name, leaf in leaves_with_paths(tree)}
+            for name, leaf in leaf_paths(tree)}
 
     def _write():
         with _SAVE_LOCK:
@@ -100,11 +104,11 @@ def latest_step(directory: str | Path) -> Optional[int]:
     return int(done[-1].stem.split("_")[1])
 
 
-def restore(tree_like, directory: str | Path, step: Optional[int] = None,
-            verify: bool = True):
-    """(tree, step): the checkpoint at ``step`` (default the latest) in the
-    structure of ``tree_like``, each leaf on the device and in the dtype of
-    the leaf it replaces."""
+def load_flat(directory: str | Path, step: Optional[int] = None,
+              verify: bool = True) -> tuple[dict, int]:
+    """({leaf name: CPU tensor}, step) of the checkpoint at ``step``
+    (default the latest), its checksum verified — no template tree
+    needed."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -115,10 +119,18 @@ def restore(tree_like, directory: str | Path, step: Optional[int] = None,
     raw = (cdir / "state.pt").read_bytes()
     if verify and zlib.crc32(raw) != manifest["crc32"]:
         raise IOError(f"checksum mismatch in {cdir}")
-    leaves = torch.load(cdir / "state.pt", map_location="cpu",
-                        weights_only=True)
+    return torch.load(cdir / "state.pt", map_location="cpu",
+                      weights_only=True), step
+
+
+def restore(tree_like, directory: str | Path, step: Optional[int] = None,
+            verify: bool = True):
+    """(tree, step): the checkpoint at ``step`` (default the latest) in the
+    structure of ``tree_like``, each leaf on the device and in the dtype of
+    the leaf it replaces."""
+    leaves, step = load_flat(directory, step, verify)
     out = []
-    for name, like in leaves_with_paths(tree_like):
+    for name, like in leaf_paths(tree_like):
         if name not in leaves:
             raise KeyError(f"checkpoint missing leaf {name}")
         t = leaves[name]
@@ -127,3 +139,64 @@ def restore(tree_like, directory: str | Path, step: Optional[int] = None,
                              f"{tuple(t.shape)} != {tuple(like.shape)}")
         out.append(t.to(device=like.device, dtype=like.dtype))
     return unflatten(tree_like, out), step
+
+
+# ---------------------------------------------------------------------------
+# TD-VMM calibration state (site-keyed readout windows)
+# ---------------------------------------------------------------------------
+# Saved under the conventional sub-directory, so a serving restart finds the
+# windows next to the weights; leaves are named "windows/<site>", as in the
+# JAX package.
+_CALIB_SUBDIR = "calibration"
+
+
+def save_calibration(calib, directory: str | Path, step: int = 0,
+                     keep: int = 3, blocking: bool = True):
+    """Persist a ``core.calibration.CalibrationState`` under
+    ``<directory>/calibration/step_XXXXXXXX`` (atomic, checksummed)."""
+    return save({"windows": calib.windows}, Path(directory) / _CALIB_SUBDIR,
+                step, keep=keep, blocking=blocking)
+
+
+def restore_calibration(calib_like, directory: str | Path,
+                        step: Optional[int] = None):
+    """(CalibrationState, step) saved by ``save_calibration``;
+    ``calib_like`` supplies the site names and window shapes (the state
+    ``models.model.calibrate`` returns for the same model config)."""
+    tree, step = restore({"windows": calib_like.windows},
+                         Path(directory) / _CALIB_SUBDIR, step=step)
+    return type(calib_like)(windows=tree["windows"]), step
+
+
+def latest_calibration_step(directory: str | Path) -> Optional[int]:
+    return latest_step(Path(directory) / _CALIB_SUBDIR)
+
+
+# ---------------------------------------------------------------------------
+# Serving-engine snapshots (the whole in-flight state)
+# ---------------------------------------------------------------------------
+# ``Engine.snapshot()`` is one tree — the page pools, the pinned windows and
+# a uint8 "meta" tensor holding the host-side structures as JSON — saved in
+# the same atomic, checksummed layout and loaded flat: the engine rebuilds
+# its own structure from the names.
+_ENGINE_SUBDIR = "engine"
+
+
+def save_engine_snapshot(snap, directory: str | Path, step: int,
+                         keep: int = 3, blocking: bool = True):
+    """Persist an ``Engine.snapshot()`` tree under
+    ``<directory>/engine/step_XXXXXXXX`` (atomic, checksummed)."""
+    return save(snap, Path(directory) / _ENGINE_SUBDIR, step, keep=keep,
+                blocking=blocking)
+
+
+def load_engine_snapshot(directory: str | Path, step: Optional[int] = None,
+                         verify: bool = True) -> tuple[dict, int]:
+    """Flat-load the latest (or the given step's) engine snapshot saved by
+    ``save_engine_snapshot``; ``Engine.restore`` takes the dict."""
+    return load_flat(Path(directory) / _ENGINE_SUBDIR, step=step,
+                     verify=verify)
+
+
+def latest_engine_snapshot_step(directory: str | Path) -> Optional[int]:
+    return latest_step(Path(directory) / _ENGINE_SUBDIR)

@@ -157,7 +157,12 @@ def _record_window(cfg: TDVMMLayerConfig, x_codes: torch.Tensor,
     launch's column spans (``group_widths``) — exactly the window per-call
     data calibration would use.  Costs one extra codes matmul (B1 raw mode
     on the card) per site, paid only during the one-time calibration
-    pass."""
+    pass.
+
+    Under ``collect(pinned=...)`` (a drift probe) the same pass also
+    tallies the site's readout clip count — how many |z| elements exceed
+    the pinned window — on the device, in the comparison ``z > window``
+    the JAX package makes on the same float32 z."""
     from repro_torch.core import calibration
     if not calibration.active() or not cfg.io_quantize:
         return
@@ -166,6 +171,24 @@ def _record_window(cfg: TDVMMLayerConfig, x_codes: torch.Tensor,
         acc = ops.codes_matmul(x_codes, w_codes, backend,
                                code_dtype=code_dtype, max_code=max_code)
     z = torch.abs(acc * _f32(gain))
+    ref = calibration.clip_reference(cfg.site)
+    if ref is not None:
+        ref = ref.to(z.device)
+        if group_widths is not None:
+            # per-member windows expand to per-column thresholds; pad
+            # columns threshold at +inf (zero charge, never a clip)
+            cols = [ref.reshape(-1)[g].expand(wd)
+                    for g, wd in enumerate(group_widths)]
+            tail = z.shape[-1] - sum(group_widths)
+            if tail > 0:
+                cols.append(torch.full((tail,), float("inf"),
+                                       device=z.device))
+            thresh = torch.cat(cols)
+        elif per_tile:
+            thresh = ref.reshape(-1, 1, 1)
+        else:
+            thresh = ref.reshape(())
+        calibration.record_clip(cfg.site, torch.sum(z > thresh), z.numel())
     if group_widths is not None:
         # member g owns columns [off, off + width_g); pad columns are zero
         # charge, so the span max equals the member's standalone max

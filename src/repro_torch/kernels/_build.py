@@ -6,6 +6,10 @@ for ``sm_90a`` into one shared library with a plain C interface, under
 library's file name carries a hash of its flags and of every file in its
 ``csrc/`` directory, so an edited source or header is rebuilt.  ``build``
 starts one ``nvcc`` per missing library, all together, and waits for all.
+
+A failed build raises ``BuildError``; a wrapper whose launch returns a CUDA
+error raises ``LaunchError`` with the ``cudaError_t`` number, and
+``poisons_context`` says, by that number, whether the context is lost.
 """
 from __future__ import annotations
 
@@ -43,6 +47,53 @@ class Library:
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 
 
+class BuildError(Exception):
+    """A kernel library that could not be built.  Not a RuntimeError, so a
+    caller that retries failing work or blames it on one request (the
+    serving engine) cannot swallow it."""
+
+
+class LaunchError(RuntimeError):
+    """A kernel launch whose ``cudaGetLastError`` was not ``cudaSuccess``;
+    ``code`` is the ``cudaError_t`` number."""
+
+    def __init__(self, what: str, code: int):
+        super().__init__(f"{what}: CUDA error {code} at launch")
+        self.code = code
+
+
+# the cudaError_t numbers after which the context cannot be used, with the
+# text cudaGetErrorString (and so torch's own CUDA errors) gives for each
+STICKY_CUDA_ERRORS = {
+    214: "uncorrectable ECC error encountered",
+    700: "an illegal memory access was encountered",
+    702: "the launch timed out and was terminated",
+    710: "device-side assert triggered",
+    714: "hardware stack error",
+    715: "an illegal instruction was encountered",
+    716: "misaligned address",
+    717: "operation not supported on global/shared address space",
+    718: "invalid program counter",
+    719: "unspecified launch failure",
+}
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise ``LaunchError`` for a launch's nonzero ``cudaError_t``."""
+    if err != 0:
+        raise LaunchError(what, err)
+
+
+def poisons_context(e: BaseException) -> bool:
+    """Whether ``e`` is a CUDA error that leaves the context unusable: a
+    ``LaunchError`` by its number, torch's own CUDA errors by their text."""
+    if isinstance(e, LaunchError):
+        return e.code in STICKY_CUDA_ERRORS
+    msg = str(e)
+    return "CUDA error" in msg and any(
+        m in msg for m in STICKY_CUDA_ERRORS.values())
+
+
 _LOADED: dict[str, ctypes.CDLL] = {}
 # the compiler's output of each library built by this process, by name
 LOGS: dict[str, str] = {}
@@ -52,7 +103,7 @@ _LOCK = threading.Lock()
 def _nvcc() -> str:
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the port's kernels are built with "
+        raise BuildError("nvcc not found: the port's kernels are built with "
                            "the CUDA toolkit on the machine with the card")
     return found
 
@@ -88,7 +139,7 @@ def build(libs: Iterable[Library], verbose: bool = False) -> float:
         else:
             os.replace(tmp, path)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise BuildError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0
 
 

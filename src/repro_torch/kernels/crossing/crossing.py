@@ -101,8 +101,6 @@ def crossing_kernel(t_on: torch.Tensor, currents: torch.Tensor,
         out.data_ptr(), b, k, n,
         f32(k_charge), f32(t_lo), f32(t_hi), iters,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"crossing_kernel: CUDA error {err} at launch "
-                           f"(B={b}, K={k}, N={n})")
+    _build.check_launch(err, f"crossing_kernel (B={b}, K={k}, N={n})")
     LAUNCHES["crossing"] += 1
     return out

@@ -202,8 +202,7 @@ def ssd_scan(x, dt, a_log, b, c, chunk: int = 128):
         cum.data_ptr(), dtc.data_ptr(), states.data_ptr(), bsz, L_pad, H, Pd,
         G, S, q, 0 if x.dtype == torch.float32 else 1, vec_x, vec_bc,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"ssd_scan: CUDA error {err} at launch (B={bsz}, "
-                           f"L={L_pad}, H={H}, P={Pd}, G={G}, S={S}, Q={q})")
+    _build.check_launch(err, f"ssd_scan (B={bsz}, L={L_pad}, H={H}, P={Pd}, "
+                             f"G={G}, S={S}, Q={q})")
     LAUNCHES["ssd"] += 1
     return (y if L_pad == L else y[:, :L]), state

@@ -323,11 +323,6 @@ def _levels(out_bits: Optional[int]) -> tuple[float, float]:
     return float(levels), float(np.float32(1.0) / levels)
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
-
-
 # ---------------------------------------------------------------------------
 # Plain versions (same arithmetic in torch ops)
 # ---------------------------------------------------------------------------
@@ -465,7 +460,7 @@ def tdvmm_matmul_raw(x: torch.Tensor, w: torch.Tensor,
         x.data_ptr(), w.data_ptr(), None, None, None, 0, 0, out.data_ptr(),
         g.e, g.m, g.k, g.n, int(g.shared_x), *_vecs(x, w, g), 0,
         CODES[codes], plan_tile(g.m).index, 1.0, 0.0, 0.0, _stream())
-    _raise_on(err, "tdvmm_matmul_raw")
+    _build.check_launch(err, "tdvmm_matmul_raw")
     _count("raw", codes)
     return out
 
@@ -509,7 +504,7 @@ def tdvmm_fused(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
         e, m, g.k, n, int(g.shared_x), *_vecs(x, w, g), mode,
         CODES[codes], plan_tile(m).index, float(np.float32(gain)), levels,
         inv_levels, _stream())
-    _raise_on(err, "tdvmm_fused")
+    _build.check_launch(err, "tdvmm_fused")
     _count("fused", codes)
     return out
 
@@ -554,6 +549,6 @@ def tdvmm_calibrated(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
         e, m, g.k, n, int(g.shared_x), *_vecs(x, w, g), CODES[codes],
         plan_tile(m).index, float(np.float32(gain)), levels, inv_levels,
         _stream())
-    _raise_on(err, "tdvmm_calibrated")
+    _build.check_launch(err, "tdvmm_calibrated")
     _count("calibrated", codes)
     return out

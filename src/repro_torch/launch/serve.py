@@ -34,6 +34,21 @@ pools, as int8 codes with per-(token, head) scales.
 
 ``--device cpu`` runs the plain torch path on the CPU; add ``--smoke`` for
 the reduced same-family model.  Weights are random, drawn from ``--seed``.
+
+The engine path is fault tolerant.  ``--snapshot-dir`` installs SIGTERM and
+SIGINT handlers: a preempted run saves its whole in-flight state there and
+exits; ``--resume`` restores the latest snapshot and serves the rest of the
+trace, with the same streams as an unbroken run.  Faults can be injected at
+an engine step (``--preempt-at``, ``--fail-at``, ``--drift-at``,
+``--slow-at``), and ``--drift-check-every`` probes the pinned windows and
+recalibrates in place when they have drifted:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+        --smoke --tdvmm 'ffn.*' --calibrate --device cpu \\
+        --snapshot-dir /tmp/snap --preempt-at 10
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+        --smoke --tdvmm 'ffn.*' --calibrate --device cpu \\
+        --snapshot-dir /tmp/snap --resume
 """
 from __future__ import annotations
 
@@ -43,9 +58,14 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import checkpoint
 from repro_torch.configs import TDVMMPlan, get_config, smoke as smoke_cfg, tdvmm_rule
+from repro_torch.core.calibration import CalibrationState
 from repro_torch.models import attention, common, model
-from repro_torch.runtime.engine import Engine, EngineConfig, Request
+from repro_torch.runtime import fault
+from repro_torch.runtime import faultinject as fi
+from repro_torch.runtime.engine import (DriftConfig, Engine, EngineConfig,
+                                        FaultConfig, Request)
 from repro_torch.runtime.paged_cache import pages_for
 
 
@@ -67,10 +87,47 @@ def make_trace(vocab: int, n: int, prompt_len: int, gen: int,
     return reqs
 
 
+def fault_config(args, probe_batch=None) -> FaultConfig | None:
+    """The engine's FaultConfig from the CLI flags (None: no wiring).
+
+    A snapshot directory installs a real ``PreemptionGuard`` (SIGTERM and
+    SIGINT handlers), so an eviction saves the in-flight state there; the
+    ``--*-at`` flags inject the same faults at a chosen engine step."""
+    events = []
+    if args.preempt_at is not None:
+        events.append(fi.PreemptAt(args.preempt_at))
+    if args.fail_at is not None:
+        events.append(fi.FailStep(step=args.fail_at, kind=args.fail_kind,
+                                  times=args.fail_times))
+    if args.drift_at is not None:
+        events.append(fi.DriftAt(args.drift_at, sigma=args.drift_sigma))
+    if args.slow_at is not None:
+        events.append(fi.SlowStep(args.slow_at, sleep_s=args.slow_sleep))
+    drift = None
+    if args.drift_check_every > 0:
+        if probe_batch is None:
+            raise SystemExit("--drift-check-every requires --calibrate (the "
+                             "probe compares against the pinned windows)")
+        drift = DriftConfig(probe_batch=probe_batch,
+                            check_every=args.drift_check_every,
+                            clip_threshold=args.drift_clip,
+                            window_tol=args.drift_tol)
+    hb = (fault.Heartbeat(args.heartbeat, args.heartbeat_every)
+          if args.heartbeat else None)
+    if not (events or drift or hb or args.snapshot_dir):
+        return None
+    return FaultConfig(
+        guard=fault.PreemptionGuard().install() if args.snapshot_dir
+        else None,
+        snapshot_dir=args.snapshot_dir, retries=args.retries,
+        injector=fi.FaultInjector(events) if events else None,
+        drift=drift, heartbeat=hb, monitor=fault.StragglerMonitor())
+
+
 def serve_engine(cfg, args):
     device = common.resolve_device(args.device)
     params = model.init_params(args.seed, cfg, device=device)
-    calib = None
+    calib = batch = None
     if args.calibrate:
         gen = torch.Generator().manual_seed(args.seed + 1)
         batch = {"inputs": torch.randint(
@@ -85,7 +142,38 @@ def serve_engine(cfg, args):
         chunk=args.chunk,
         max_pages_per_slot=min(args.num_pages, pages_for(
             args.prompt_len + args.gen, args.page_size)))
-    rep = Engine(cfg, params, ecfg, calib=calib, device=device).run(reqs)
+    fc = fault_config(args, probe_batch=batch)
+    try:
+        if args.resume:
+            if not args.snapshot_dir:
+                raise SystemExit("--resume requires --snapshot-dir")
+            # the snapshot carries the pinned (possibly recalibrated)
+            # windows: the engine is built on them, then restored
+            flat, step = checkpoint.load_engine_snapshot(args.snapshot_dir)
+            calib = CalibrationState(windows={
+                k.split("/", 1)[1]: v for k, v in flat.items()
+                if k.startswith("windows/")})
+            engine = Engine(cfg, params, ecfg, calib=calib, device=device)
+            engine.restore(flat)
+            print(f"[serve] resumed from snapshot step {step} "
+                  f"({args.snapshot_dir})")
+            rep = engine.resume(fc)
+        else:
+            rep = Engine(cfg, params, ecfg, calib=calib,
+                         device=device).run(reqs, fc)
+    finally:
+        if fc is not None and fc.guard is not None:
+            fc.guard.uninstall()
+    if rep.preempted:
+        print(f"[serve] PREEMPTED at step {rep.steps}; snapshot: "
+              f"{rep.snapshot_path} (resume with --resume)")
+    if rep.step_retries or rep.failed:
+        print(f"[serve] faults: {rep.step_retries} step retries, "
+              f"{rep.failed} requests failed")
+    if rep.recalibrations or rep.drift_events:
+        print(f"[serve] drift: {len(rep.drift_events)} events, "
+              f"{rep.recalibrations} online recalibrations (step shapes "
+              f"still {rep.step_shapes})")
     print(f"[serve] {device}: {len(reqs)} requests, {rep.generated_tokens} "
           f"tokens in {rep.steps} steps ({rep.prefill_steps} chunk + "
           f"{rep.decode_steps} decode, "
@@ -210,6 +298,42 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain path)")
+    # fault tolerance and drift (engine path)
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="preemption snapshots go here; also installs "
+                         "SIGTERM/SIGINT handlers")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest engine snapshot from "
+                         "--snapshot-dir and continue the trace")
+    ap.add_argument("--preempt-at", type=int, default=None,
+                    help="inject a preemption at this engine step")
+    ap.add_argument("--fail-at", type=int, default=None,
+                    help="inject a step failure at this engine step")
+    ap.add_argument("--fail-kind", default="any",
+                    choices=["prefill", "decode", "any"])
+    ap.add_argument("--fail-times", type=int, default=1,
+                    help="how many raises (<= --retries: transient; "
+                         "--retries + 1: persistent, one request fails)")
+    ap.add_argument("--drift-at", type=int, default=None,
+                    help="perturb the device currents (FG tuning drift) at "
+                         "this engine step")
+    ap.add_argument("--drift-sigma", type=float, default=0.5)
+    ap.add_argument("--slow-at", type=int, default=None,
+                    help="inject a one-step straggler at this engine step")
+    ap.add_argument("--slow-sleep", type=float, default=0.25,
+                    help="seconds the injected straggler step sleeps")
+    ap.add_argument("--retries", type=int, default=2,
+                    help="retry budget per step")
+    ap.add_argument("--heartbeat", default=None,
+                    help="liveness marker file path")
+    ap.add_argument("--heartbeat-every", type=float, default=30.0)
+    ap.add_argument("--drift-check-every", type=int, default=0,
+                    help="probe the windows for drift every N engine steps "
+                         "(0 = off; requires --calibrate)")
+    ap.add_argument("--drift-tol", type=float, default=0.25,
+                    help="max |log window ratio| before recalibrating")
+    ap.add_argument("--drift-clip", type=float, default=0.01,
+                    help="max readout clip rate before recalibrating")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -224,8 +348,7 @@ def main(argv=None):
     attention.set_kv_cache_int8(args.kv_int8)
     try:
         if not args.static:
-            serve_engine(cfg, args)
-            return
+            return serve_engine(cfg, args)
         out = serve_static(cfg, args.batch, args.prompt_len, args.gen,
                            seed=args.seed, calibrate=args.calibrate,
                            device=args.device)

@@ -3,11 +3,11 @@
 distributed slice, ROADMAP A8).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
-        --smoke --tdvmm --steps 3 --device cpu     # reduced config, CPU
+        --smoke --tdvmm --steps 3 --batch 4 --seq 64 --device cpu
 
-(``--smoke`` also cuts the batch to 4 x 64 unless ``--batch``/``--seq``
-say otherwise: ``train_4k``'s 4096-token sequences need flash attention,
-which the port does not have yet.)
+(``--smoke`` reduces the model, not the batch: ``--shape`` (default
+``train_4k``, 256 x 4096 tokens) holds unless ``--batch``/``--seq`` say
+otherwise, as in the JAX package.)
 
 Without ``--device`` it runs on the card, and raises when there is none.
 What it exercises, as the JAX package's driver does:
@@ -38,8 +38,6 @@ from repro_torch.launch import steps
 from repro_torch.models import common
 from repro_torch.optim.optimizer import make_optimizer
 from repro_torch.runtime import fault
-
-SMOKE_BATCH = (4, 64)                # --smoke: global batch x sequence
 
 
 def build(run: RunConfig, accum: int | None = None, device=None):
@@ -120,8 +118,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--smoke", action="store_true",
-                    help="reduced same-family config and, unless --batch or "
-                         "--seq say otherwise, a 4 x 64 batch (CPU-runnable)")
+                    help="reduced same-family config (CPU-runnable with a "
+                         "small --batch and --seq)")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--seq", type=int, default=None)
     ap.add_argument("--ckpt-dir", default=os.path.join(
@@ -143,10 +141,6 @@ def main(argv=None) -> dict:
         cfg = cfg.replace(tdvmm=TDVMMLayerConfig(
             enabled=True, bits=args.tdvmm_bits, weight_bits=args.tdvmm_bits))
     shape = SHAPES[args.shape]
-    if args.smoke and not (args.batch or args.seq):
-        # the train shape's 256 x 4096 tokens need flash attention, which
-        # is not ported (ROADMAP A5)
-        args.batch, args.seq = SMOKE_BATCH
     if args.batch or args.seq:
         shape = dataclasses.replace(
             shape,

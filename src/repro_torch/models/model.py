@@ -257,3 +257,27 @@ def calibrate(params, batch: dict, cfg: ModelConfig, max_len: int = 0,
     with calibration.collect() as collected:
         prefill_step(params, {"inputs": inputs}, caches, cfg)
     return calibration.CalibrationState.from_collected(collected)
+
+
+@torch.no_grad()
+def drift_probe(params, batch: dict, cfg: ModelConfig,
+                pinned: calibration.CalibrationState, max_len: int = 0,
+                device=None) -> tuple[calibration.CalibrationState,
+                                      dict[str, float]]:
+    """One calibration pass measured against pinned windows.
+
+    The capture of ``calibrate`` with clip tracking on: every site also
+    tallies how many of its latch-normalized |z| elements exceed the window
+    pinned for serving (``pinned``).  Returns ``(fresh, clip_rates)``: the
+    freshly captured ``CalibrationState`` and site -> clip fraction, the two
+    signals the engine's drift check thresholds.  It runs outside the
+    engine's two step programs (on the card: B1 raw at every capture, B2 at
+    every site, whose windows this pass does not pin)."""
+    device = check_device(params, device)
+    inputs = torch.as_tensor(batch["inputs"], device=device)
+    b, s = inputs.shape[:2]
+    caches = init_caches(cfg, b, max_len or s, device)
+    with calibration.collect(pinned=pinned.as_arrays(device)) as collected:
+        prefill_step(params, {"inputs": inputs}, caches, cfg)
+    fresh = calibration.CalibrationState.from_collected(collected)
+    return fresh, calibration.clip_rates(calibration.last_clips() or {})

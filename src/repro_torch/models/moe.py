@@ -13,7 +13,7 @@ experts (``moe.shared.*``) run on every token.
 
 The expert-parallel path (``_moe_ep``: experts sharded over the data axes,
 ``all_to_all`` dispatch) belongs to the port's distributed slice
-(ROADMAP A.14); ``apply`` with a mesh raises.
+(ROADMAP A8); ``apply`` with a mesh raises.
 """
 from __future__ import annotations
 
@@ -158,7 +158,7 @@ def apply(params, x: torch.Tensor, cfg: ModelConfig, key=None,
     if mesh is not None:
         raise NotImplementedError(
             "MoE over a device mesh (expert parallelism, _moe_ep) is not "
-            "ported yet (ROADMAP A.14)")
+            "ported yet (ROADMAP A8)")
     m = cfg.moe
     b, s, d = x.shape
 

@@ -1,6 +1,6 @@
 """Continuous-batching TD-VMM serving engine — torch port of
-``repro.runtime.engine`` (single device; no fault tolerance, drift, SLA,
-telemetry or tracing yet).
+``repro.runtime.engine`` (single device, with its fault tolerance and drift
+recalibration; the SLA policy, telemetry and tracing are not ported yet).
 
 The paper's system discipline — fixed conversion circuitry, time-multiplexed
 inputs — maps onto serving as two fixed-shape step functions (a chunked
@@ -30,10 +30,34 @@ Request lifecycle::
        +--> evicted (prompt exceeds page budget)                 +--> eos
                                                                  +--> max_tokens
                                                                  +--> evicted
+                                                                 +--> failed
                                                    (evicted: page budget
                                                     exhausted — finished
                                                     BEFORE the overflowing
-                                                    write)
+                                                    write; failed: a
+                                                    persistently failing
+                                                    step, blamed on one
+                                                    request so the engine
+                                                    keeps serving)
+
+Fault tolerance (``FaultConfig``): a ``fault.PreemptionGuard`` (or an
+injected ``faultinject.PreemptAt``) unwinds the run between steps to a
+**snapshot** — the whole in-flight state (scheduler queue, slots, block
+tables, the page pool's free list, the page pools, emitted tokens, energy
+accounting, the pinned windows) — and ``restore`` + ``resume`` replays the
+rest of the trace to the same streams as an unbroken run.
+``fault.retry_step`` wraps both steps: a transient failure is retried
+invisibly, a persistent one finishes one request ``failed`` with its
+neighbours' streams unchanged.  A retried step rewrites the same page
+positions with the same values a failed attempt may have written part of,
+so a retry is idempotent.  A kernel launch that returns a CUDA error and a
+CUDA error that leaves the context unusable (an illegal address, a
+device-side assert) are never retried, they end the run as a
+``DeviceFault``; a kernel that cannot be built ends it as
+``kernels._build.BuildError``.  ``DriftConfig`` probes the windows every few
+steps (``models.model.drift_probe``) and, when they have drifted, copies a
+fresh capture into the same window tensors the steps read: the step
+programs stay two.
 
 Energy: every processed token is priced by the resolved plan's analog-tile
 geometry (``core.energy.serving_energy_model``) into per-request Op counts
@@ -42,6 +66,8 @@ and joules — the paper's fJ/Op, measured at request level.
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
 import time
 from typing import Any, Optional
 
@@ -51,13 +77,16 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import energy as energy_model
 from repro_torch.core.calibration import CalibrationState, apply_calibration
+from repro_torch.kernels import _build
 from repro_torch.models import model
+from repro_torch.runtime import fault
 from repro_torch.runtime.paged_cache import PagePool, pages_for
 from repro_torch.runtime.scheduler import (Request, RequestRecord, Slot,
                                            SlotScheduler, static_baseline)
+from repro_torch.tree import leaves_with_paths, tree_map
 
-__all__ = ["Engine", "EngineConfig", "EngineReport", "Request",
-           "static_baseline"]
+__all__ = ["Engine", "EngineConfig", "EngineReport", "FaultConfig",
+           "DriftConfig", "DeviceFault", "Request", "static_baseline"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +106,64 @@ class EngineConfig:
     def resolved_max_pages(self) -> int:
         p = self.max_pages_per_slot or self.num_pages
         return min(p, self.num_pages)
+
+
+@dataclasses.dataclass
+class DriftConfig:
+    """Online drift detection and recalibration.
+
+    Every ``check_every`` engine steps the engine runs a probe pass
+    (``models.model.drift_probe``: the capture of ``model.calibrate``,
+    outside the two step programs) on ``probe_batch`` and compares the
+    fresh windows and the per-site readout clip rates with the pinned ones.
+    Drift is declared when a site clips more than ``clip_threshold`` of its
+    |z| elements against its pinned window, or a window moved by more than
+    ``window_tol`` in |log ratio|; the fresh windows are then copied into
+    the engine's window tensors between steps.  Each probe's largest clip
+    rate and |log ratio| go to ``EngineReport.drift_checks``.  (The JAX
+    package's detect-only mode and probe cache length are not ported:
+    nothing sets them.  Its ``observe_every``, which streams clip rates into
+    a metrics sink, waits for the port's telemetry.)"""
+    probe_batch: dict
+    check_every: int = 16
+    clip_threshold: float = 0.01
+    window_tol: float = 0.25
+
+
+@dataclasses.dataclass
+class FaultConfig:
+    """Fault wiring for one ``Engine.run`` / ``resume``.
+
+    ``guard`` polls for preemption (install it for SIGTERM handling;
+    injected preemptions use the run's own guard); ``snapshot_dir`` makes a
+    preemption exit through ``checkpoint.save_engine_snapshot``.
+    ``retries``/``backoff_s``/``backoff_cap_s``/``jitter`` parameterize
+    ``fault.retry_step`` around both steps.  ``injector`` is a
+    ``faultinject.FaultInjector`` schedule; ``drift`` a ``DriftConfig``."""
+    guard: Optional[fault.PreemptionGuard] = None
+    snapshot_dir: Optional[str] = None
+    snapshot_keep: int = 3
+    retries: int = 2
+    backoff_s: float = 0.01
+    backoff_cap_s: float = 1.0
+    jitter: float = 0.1
+    heartbeat: Optional[fault.Heartbeat] = None
+    monitor: Optional[fault.StragglerMonitor] = None
+    injector: Optional[Any] = None
+    drift: Optional[DriftConfig] = None
+
+
+class DeviceFault(Exception):
+    """A fault no retry mends: a kernel that will not launch, or a CUDA
+    error that leaves the context unusable (an illegal address, a
+    device-side assert).  Not a RuntimeError, so neither ``retry_step`` nor
+    the failed-request path swallows it: the run ends."""
+
+
+def _device_fault(e: RuntimeError) -> bool:
+    # a launch that failed fails again at the same shapes; a poisoned
+    # context fails every later call
+    return isinstance(e, _build.LaunchError) or _build.poisons_context(e)
 
 
 @dataclasses.dataclass
@@ -103,6 +190,17 @@ class EngineReport:
     step_shapes: int              # distinct step input shapes (the rule: 2)
     tokens_priced: int = 0        # exact token count behind the energy totals
     site_attribution: Optional[dict] = None   # energy.site_attribution table
+    # --- fault tolerance and drift ----------------------------------------
+    preempted: bool = False
+    snapshot_path: Optional[str] = None
+    failed: int = 0
+    step_retries: int = 0
+    stragglers: int = 0
+    straggler_ewma_s: float = 0.0
+    heartbeats: int = 0
+    recalibrations: int = 0
+    drift_events: list = dataclasses.field(default_factory=list)
+    drift_checks: list = dataclasses.field(default_factory=list)
 
     def to_json(self) -> dict:
         return dataclasses.asdict(self)
@@ -110,7 +208,7 @@ class EngineReport:
 
 @dataclasses.dataclass
 class RunState:
-    """Everything one serving run mutates."""
+    """Everything one serving run mutates — the snapshot/restore unit."""
     requests: list[Request]
     records: dict[int, RequestRecord]
     sched: SlotScheduler
@@ -124,9 +222,17 @@ class RunState:
     generated_tokens: int = 0
     evictions: int = 0
     nan_steps: int = 0
+    failed: int = 0
     tokens_priced: int = 0
+    step_retries: int = 0
+    recalibrations: int = 0
+    last_drift_check: int = 0
     wall_s: float = 0.0
     util_samples: list = dataclasses.field(default_factory=list)
+    drift_events: list = dataclasses.field(default_factory=list)
+    drift_checks: list = dataclasses.field(default_factory=list)
+    preempted: bool = False
+    snapshot_path: Optional[str] = None
 
 
 class Engine:
@@ -134,7 +240,9 @@ class Engine:
     the card unless ``device`` says otherwise (raises with no card).
 
     ``calib`` pins every enabled digital-boundary site's readout window
-    (or the plan sets ``output_calibration=False``/``out_scale``)."""
+    (or the plan sets ``output_calibration=False``/``out_scale``).  The
+    engine keeps its own window tensors; ``set_calibration`` and
+    ``restore`` update them in place."""
 
     def __init__(self, cfg: ModelConfig, params,
                  engine_cfg: EngineConfig = EngineConfig(),
@@ -156,8 +264,9 @@ class Engine:
         self._check_pinned_windows()
         self.energy = energy_model.serving_energy_model(
             self.cfg_serving, engine_cfg.tile_n)
-        self._windows = calib.as_arrays(self.device) if calib is not None \
-            else {}
+        self._windows = {site: t.clone() for site, t in
+                         calib.as_arrays(self.device).items()} \
+            if calib is not None else {}
         # Per-page bytes across all layers (for the high-water stat), from
         # the pools' own tensors, made on the meta device (no storage).
         pools = model.init_paged_caches(cfg, engine_cfg.num_pages,
@@ -168,6 +277,8 @@ class Engine:
         self.page_bytes = total // (engine_cfg.num_pages + 1)
         self._st: Optional[RunState] = None
         self._shapes: set = set()
+        self._fault: Optional[FaultConfig] = None
+        self._guard: Optional[fault.PreemptionGuard] = None
 
     def _check_pinned_windows(self):
         for site, sc in self.cfg_serving.resolved_tdvmm_plan.sites:
@@ -179,6 +290,44 @@ class Engine:
                     f"the whole batch and couples requests together.  Run "
                     f"models.model.calibrate(...) and pass calib=, or set "
                     f"out_scale/output_calibration=False in the plan.")
+
+    # ------------------------------------------------------------------
+    # Calibration swap
+    # ------------------------------------------------------------------
+    def set_calibration(self, calib: CalibrationState) -> None:
+        """Swap the pinned windows between steps: the new values are copied
+        into the window tensors both steps read, so their storage (and the
+        step programs) stay the same.  Sites and shapes must match."""
+        new = calib.as_arrays(self.device)
+        if set(new) != set(self._windows):
+            raise ValueError(
+                f"calibration swap covers sites {sorted(new)} but the engine "
+                f"serves {sorted(self._windows)} — the site structure is "
+                "fixed; build a new engine for a different plan")
+        for site, t in new.items():
+            if t.shape != self._windows[site].shape:
+                raise ValueError(
+                    f"calibration swap window for site {site!r} has shape "
+                    f"{tuple(t.shape)}, pinned is "
+                    f"{tuple(self._windows[site].shape)}")
+        for site, t in new.items():
+            self._windows[site].copy_(t)
+
+    def pinned_calibration(self) -> CalibrationState:
+        """A CPU copy of the currently pinned windows."""
+        return CalibrationState(windows={
+            site: t.detach().to("cpu", copy=True)
+            for site, t in self._windows.items()})
+
+    # ------------------------------------------------------------------
+    # Preemption
+    # ------------------------------------------------------------------
+    def request_preemption(self) -> None:
+        """Flag the active run for snapshot-and-exit before its next step
+        (what a SIGTERM handler, or an injected preemption, calls)."""
+        if self._guard is None:
+            self._guard = fault.PreemptionGuard()
+        self._guard.requested = True
 
     # ------------------------------------------------------------------
     # Run lifecycle
@@ -200,15 +349,62 @@ class Engine:
                                            ecfg.page_size, self.device),
         )
 
-    @torch.no_grad()
-    def run(self, requests: list[Request]) -> EngineReport:
-        """Serve a trace to completion; returns the report (token streams,
-        finish reasons, energy, utilization, memory high-water)."""
+    def run(self, requests: list[Request],
+            fault_cfg: Optional[FaultConfig] = None) -> EngineReport:
+        """Serve a trace to completion (or preemption); returns the report
+        (token streams, finish reasons, energy, utilization, memory
+        high-water, fault and drift accounting)."""
         self.start(requests)
+        return self._drive(fault_cfg)
+
+    def resume(self,
+               fault_cfg: Optional[FaultConfig] = None) -> EngineReport:
+        """Continue a run restored by ``restore`` (or one that exited
+        preempted in this process) to completion."""
+        if self._st is None:
+            raise RuntimeError("no run state: call run() or restore() first")
+        self._st.preempted = False
+        self._st.snapshot_path = None
+        return self._drive(fault_cfg)
+
+    @torch.no_grad()
+    def _drive(self, fault_cfg: Optional[FaultConfig]) -> EngineReport:
         st = self._st
+        fc = self._fault = fault_cfg
+        guard = (fc.guard if fc is not None else None) \
+            or fault.PreemptionGuard()
+        self._guard = guard
         t0 = time.perf_counter()
-        while self.tick():
-            pass
+        try:
+            while True:
+                if fc is not None and fc.injector is not None:
+                    fc.injector.on_tick(self, st.steps)
+                if guard.requested:
+                    raise fault.Preempted(f"preempted at step {st.steps}")
+                t1 = time.perf_counter()
+                alive = self.tick()
+                dt = time.perf_counter() - t1
+                if fc is not None:
+                    if fc.monitor is not None:
+                        fc.monitor.record(st.steps, dt)
+                    if fc.heartbeat is not None:
+                        fc.heartbeat.beat(st.steps)
+                    if (fc.drift is not None and st.steps -
+                            st.last_drift_check >= fc.drift.check_every):
+                        st.last_drift_check = st.steps
+                        self._drift_check(fc.drift)
+                if not alive:
+                    break
+        except fault.Preempted:
+            st.preempted = True
+            st.wall_s += time.perf_counter() - t0
+            if fc is not None and fc.snapshot_dir is not None:
+                from repro_torch.checkpoint import checkpoint as ckpt
+                path = ckpt.save_engine_snapshot(
+                    self.snapshot(), fc.snapshot_dir, step=st.steps,
+                    keep=fc.snapshot_keep)
+                st.snapshot_path = str(path)
+            return self.report()
         st.wall_s += time.perf_counter() - t0
         return self.report()
 
@@ -278,6 +474,8 @@ class Engine:
         slot.record.finished_step = st.steps
         if reason == "evicted":
             st.evictions += 1
+        elif reason == "failed":
+            st.failed += 1
         st.pool.free(slot.pages)
         st.sched.release(slot)
 
@@ -305,10 +503,35 @@ class Engine:
         return torch.from_numpy(arr).to(self.device)
 
     def _step(self, kind: str, fn, batch: dict):
+        """The retry boundary around one step.  Injected faults raise
+        before ``fn`` runs; a real failure inside ``fn`` may have written
+        part of the step's page positions, which the retry rewrites with
+        the same values (a step writes only the positions it absorbs)."""
         self._shapes.add((kind,) + tuple(
             (k, tuple(v.shape)) for k, v in sorted(batch.items())))
-        return fn(self.params, batch, self._st.caches, self.cfg,
-                  windows=self._windows)
+        fc, st = self._fault, self._st
+
+        def call():
+            if fc is not None and fc.injector is not None:
+                fc.injector.check(kind, st.steps)
+            try:
+                return fn(self.params, batch, st.caches, self.cfg,
+                          windows=self._windows)
+            except RuntimeError as e:
+                if _device_fault(e):
+                    raise DeviceFault(str(e)) from e
+                raise
+
+        if fc is None:
+            return call()
+
+        def on_retry(attempt, e):
+            st.step_retries += 1
+
+        return fault.retry_step(
+            call, retries=fc.retries, backoff_s=fc.backoff_s,
+            backoff_cap_s=fc.backoff_cap_s, jitter=fc.jitter,
+            on_retry=on_retry, guard=self._guard)
 
     def _prefill_tick(self, slot: Slot) -> None:
         """One prefill chunk (oldest admission first)."""
@@ -326,7 +549,14 @@ class Engine:
                  "block_row": self._tensor(row),
                  "offset": self._tensor(np.asarray(start, np.int32)),
                  "valid": self._tensor(np.asarray(n, np.int32))}
-        logits, st.caches = self._step("prefill", model.prefill_chunk, batch)
+        try:
+            logits, st.caches = self._step("prefill", model.prefill_chunk,
+                                           batch)
+        except RuntimeError:
+            # persistent step failure: this slot is the step's work —
+            # finish it failed and re-plan next tick
+            self._finish(slot, "failed")
+            return
         st.prefill_steps += 1
         slot.prefill_done += n
         slot.pos += n
@@ -372,7 +602,20 @@ class Engine:
                  "block_tables": self._tensor(tables),
                  "pos": self._tensor(pos),
                  "active": self._tensor(active)}
-        logits, st.caches = self._step("decode", model.decode_slots, batch)
+        try:
+            logits, st.caches = self._step("decode", model.decode_slots,
+                                           batch)
+        except RuntimeError as e:
+            # persistent step failure: blame the attributed request (or the
+            # oldest runnable slot), finish it failed, re-plan next tick;
+            # decode rows are independent, so the others' streams hold
+            rid = getattr(e, "rid", None)
+            culprit = next(
+                (s for s in runnable if s.record.request.rid == rid), None)
+            if culprit is None:
+                culprit = min(runnable, key=lambda s: s.seq)
+            self._finish(culprit, "failed")
+            return
         st.decode_steps += 1
         st.util_samples.append(len(runnable) / b)
         row_logits = logits[:, 0]
@@ -387,11 +630,244 @@ class Engine:
         st.steps += 1
 
     # ------------------------------------------------------------------
+    # Drift detection and online recalibration
+    # ------------------------------------------------------------------
+    def _drift_check(self, dc: DriftConfig) -> None:
+        st = self._st
+        pinned = self.pinned_calibration()
+        t0 = time.perf_counter()
+        fresh, clips = model.drift_probe(
+            self.params, dc.probe_batch, self.cfg, pinned, device=self.device)
+        ratios = pinned.drift_ratios(fresh)
+        max_clip = max(clips.values(), default=0.0)
+        max_dev = max((abs(math.log(max(r, 1e-12)))
+                       for r in ratios.values()), default=0.0)
+        st.drift_checks.append({
+            "step": st.steps, "max_clip_rate": float(max_clip),
+            "max_log_ratio": float(max_dev),
+            "seconds": time.perf_counter() - t0})
+        if not (max_clip > dc.clip_threshold or max_dev > dc.window_tol):
+            return
+        st.drift_events.append({
+            "step": st.steps, "max_clip_rate": float(max_clip),
+            "max_log_ratio": float(max_dev),
+            "clip_rates": {k: float(v) for k, v in clips.items()},
+            "ratios": {k: float(v) for k, v in ratios.items()}})
+        self.set_calibration(fresh)
+        st.recalibrations += 1
+
+    # ------------------------------------------------------------------
+    # Snapshot / restore
+    # ------------------------------------------------------------------
+    def _model_id(self) -> dict:
+        return {"vocab_size": self.cfg.vocab_size,
+                "n_layers": self.cfg.n_layers, "d_model": self.cfg.d_model,
+                "family": self.cfg.family}
+
+    def snapshot(self) -> dict:
+        """The whole in-flight state as one checkpointable tree:
+        ``caches`` (CPU copies of the page pools), ``windows`` (the pinned,
+        possibly recalibrated, windows) and ``meta`` (a uint8 tensor of the
+        JSON of every host-side structure: requests, records, scheduler
+        queue, slots and block tables, the page pool's free list,
+        counters; the JAX package's meta version 4, whose ``sla``,
+        ``telemetry`` and ``trace`` are null here).  The weights are not
+        included: the restoring process builds its Engine with the same
+        params.  Valid between ticks, where a preemption leaves the
+        engine."""
+        st = self._st
+        if st is None:
+            raise RuntimeError("no run state to snapshot")
+        meta = {
+            "version": 4,
+            "dp": 1,
+            "ecfg": dataclasses.asdict(self.ecfg),
+            "model": self._model_id(),
+            "sla": None, "telemetry": None, "trace": None,
+            "requests": [
+                {"rid": r.rid, "prompt": list(r.prompt),
+                 "max_new_tokens": r.max_new_tokens,
+                 "arrival_step": r.arrival_step, "priority": r.priority,
+                 "deadline_steps": r.deadline_steps,
+                 "joule_budget": r.joule_budget} for r in st.requests],
+            "records": {
+                str(rid): {
+                    "tokens": list(rec.tokens),
+                    "finish_reason": rec.finish_reason,
+                    "admitted_step": rec.admitted_step,
+                    "first_token_step": rec.first_token_step,
+                    "finished_step": rec.finished_step,
+                    "analog_ops": rec.analog_ops,
+                    "analog_energy_j": rec.analog_energy_j,
+                    "reject_reason": rec.reject_reason,
+                } for rid, rec in st.records.items()},
+            "sched": {
+                "pending": [r.rid for r in st.sched.pending],
+                "seq": st.sched._seq,
+                "slots": [
+                    None if s is None else {
+                        "sid": s.sid, "seq": s.seq,
+                        "rid": s.record.request.rid,
+                        "pages": list(s.pages), "pos": s.pos,
+                        "prefill_done": s.prefill_done,
+                        "cur_token": s.cur_token,
+                    } for s in st.sched.slots]},
+            "pool": {"free": [st.pool.free_list()],
+                     "high_water": st.pool.high_water},
+            "counters": {
+                "steps": st.steps, "prefill_steps": st.prefill_steps,
+                "decode_steps": st.decode_steps,
+                "idle_steps": st.idle_steps,
+                "prompt_tokens": st.prompt_tokens,
+                "generated_tokens": st.generated_tokens,
+                "evictions": st.evictions, "nan_steps": st.nan_steps,
+                "failed": st.failed, "tokens_priced": st.tokens_priced,
+                "step_retries": st.step_retries,
+                "recalibrations": st.recalibrations,
+                "last_drift_check": st.last_drift_check,
+                "wall_s": st.wall_s,
+                "util_samples": [float(u) for u in st.util_samples],
+                "drift_events": st.drift_events,
+                "drift_checks": st.drift_checks,
+            },
+        }
+        blob = torch.frombuffer(bytearray(json.dumps(meta).encode("utf-8")),
+                                dtype=torch.uint8)
+        return {
+            "caches": tree_map(lambda t: t.detach().to("cpu", copy=True),
+                               st.caches),
+            "windows": {site: t.detach().to("cpu", copy=True)
+                        for site, t in self._windows.items()},
+            "meta": blob,
+        }
+
+    def restore(self, snap) -> None:
+        """Rebuild the in-flight state from ``snapshot()`` output — the
+        nested tree or the flat name -> tensor dict that
+        ``checkpoint.load_engine_snapshot`` returns.  Checks the engine
+        config, the model, the window structure and every page pool's
+        shape and dtype before it changes anything; the windows are copied
+        into the engine's window tensors and the pools into pools made by
+        ``model.init_paged_caches`` on the engine's device.  ``resume``
+        then continues the trace."""
+        flat = dict(leaves_with_paths(snap))
+        if "meta" not in flat:
+            raise ValueError("engine snapshot missing 'meta' leaf")
+        meta = json.loads(flat["meta"].detach().cpu().numpy().tobytes()
+                          .decode("utf-8"))
+        mine = dataclasses.asdict(self.ecfg)
+        if meta["ecfg"] != mine:
+            raise ValueError(
+                f"engine snapshot was taken with EngineConfig "
+                f"{meta['ecfg']}, this engine has {mine} — the config pins "
+                "the step shapes and cannot change across resume")
+        if meta.get("dp", 1) != 1:
+            raise ValueError(f"engine snapshot was taken over "
+                             f"{meta['dp']} data-parallel ranks; this "
+                             "engine serves one device")
+        if meta["model"] != self._model_id():
+            raise ValueError(f"engine snapshot model {meta['model']} != "
+                             f"{self._model_id()}")
+        for piece, what in (("sla", "an SLA policy"),
+                            ("telemetry", "a telemetry sink"),
+                            ("trace", "a tracer")):
+            if meta.get(piece) is not None:
+                raise ValueError(
+                    f"engine snapshot carries {piece} state, but the port's "
+                    f"engine has no {what} to resume it into (ROADMAP A7b)")
+        # --- windows and page pools: check all, then copy in place --------
+        win = {k[len("windows/"):]: v for k, v in flat.items()
+               if k.startswith("windows/")}
+        if set(win) != set(self._windows):
+            raise ValueError(f"snapshot windows {sorted(win)} != engine "
+                             f"sites {sorted(self._windows)}")
+        for site, t in win.items():
+            if tuple(t.shape) != tuple(self._windows[site].shape):
+                raise ValueError(
+                    f"snapshot window {site!r} shape {tuple(t.shape)} != "
+                    f"{tuple(self._windows[site].shape)}")
+        ecfg = self.ecfg
+        like = leaves_with_paths(model.init_paged_caches(
+            self.cfg, ecfg.num_pages, ecfg.page_size, torch.device("meta")))
+        have = {k[len("caches/"):] for k in flat if k.startswith("caches/")}
+        if have != {name for name, _ in like}:
+            raise ValueError(
+                f"snapshot page pools {sorted(have)} != this engine's "
+                f"{sorted(name for name, _ in like)}")
+        for name, sh in like:
+            t = flat[f"caches/{name}"]
+            if tuple(t.shape) != tuple(sh.shape) or t.dtype != sh.dtype:
+                raise ValueError(
+                    f"cache leaf {name}: snapshot {tuple(t.shape)}/{t.dtype}"
+                    f" != expected {tuple(sh.shape)}/{sh.dtype}")
+        for site, t in win.items():
+            self._windows[site].copy_(t)
+        caches = model.init_paged_caches(self.cfg, ecfg.num_pages,
+                                         ecfg.page_size, self.device)
+        for name, t in leaves_with_paths(caches):
+            t.copy_(flat[f"caches/{name}"])
+
+        # --- host bookkeeping ---------------------------------------------
+        requests = [Request(rid=r["rid"], prompt=tuple(r["prompt"]),
+                            max_new_tokens=r["max_new_tokens"],
+                            arrival_step=r["arrival_step"],
+                            priority=r.get("priority", 0),
+                            deadline_steps=r.get("deadline_steps"),
+                            joule_budget=r.get("joule_budget"))
+                    for r in meta["requests"]]
+        by_rid = {r.rid: r for r in requests}
+        records = {}
+        for rid_s, rd in meta["records"].items():
+            rec = RequestRecord(by_rid[int(rid_s)])
+            rec.tokens = list(rd["tokens"])
+            rec.finish_reason = rd["finish_reason"]
+            rec.admitted_step = rd["admitted_step"]
+            rec.first_token_step = rd["first_token_step"]
+            rec.finished_step = rd["finished_step"]
+            rec.analog_ops = rd["analog_ops"]
+            rec.analog_energy_j = rd["analog_energy_j"]
+            rec.reject_reason = rd.get("reject_reason")
+            records[int(rid_s)] = rec
+        sched = SlotScheduler(ecfg.slots, ecfg.slot_order)
+        sched.pending = [by_rid[rid] for rid in meta["sched"]["pending"]]
+        sched._seq = meta["sched"]["seq"]
+        for sd in meta["sched"]["slots"]:
+            if sd is not None:
+                sched.slots[sd["sid"]] = Slot(
+                    sid=sd["sid"], seq=sd["seq"], record=records[sd["rid"]],
+                    pages=list(sd["pages"]), pos=sd["pos"],
+                    prefill_done=sd["prefill_done"],
+                    cur_token=sd["cur_token"])
+        pool = PagePool(ecfg.num_pages, ecfg.page_size)
+        pool.restore_free(meta["pool"]["free"][0])
+        pool.high_water = meta["pool"]["high_water"]
+        c = meta["counters"]
+        self._st = RunState(
+            requests=requests, records=records, sched=sched, pool=pool,
+            caches=caches, steps=c["steps"],
+            prefill_steps=c["prefill_steps"],
+            decode_steps=c["decode_steps"], idle_steps=c["idle_steps"],
+            prompt_tokens=c["prompt_tokens"],
+            generated_tokens=c["generated_tokens"],
+            evictions=c["evictions"], nan_steps=c["nan_steps"],
+            failed=c["failed"], tokens_priced=c["tokens_priced"],
+            step_retries=c["step_retries"],
+            recalibrations=c["recalibrations"],
+            last_drift_check=c["last_drift_check"], wall_s=c["wall_s"],
+            util_samples=list(c["util_samples"]),
+            drift_events=list(c["drift_events"]),
+            drift_checks=list(c["drift_checks"]))
+
+    # ------------------------------------------------------------------
     def report(self) -> EngineReport:
-        """The report for the current (finished or in-flight) run state."""
+        """The report for the current (finished, preempted or in-flight)
+        run state."""
         st = self._st
         if st is None:
             raise RuntimeError("no run state to report")
+        fc = self._fault
+        mon = fc.monitor if fc is not None else None
+        hb = fc.heartbeat if fc is not None else None
         # Aggregates are derived from the per-site attribution table, so the
         # site table sums bit-exactly to analog_ops/analog_energy_j/fj_per_op.
         attr = energy_model.site_attribution(self.energy, st.tokens_priced)
@@ -419,4 +895,14 @@ class Engine:
             step_shapes=len(self._shapes),
             tokens_priced=st.tokens_priced,
             site_attribution=attr,
+            preempted=st.preempted,
+            snapshot_path=st.snapshot_path,
+            failed=st.failed,
+            step_retries=st.step_retries,
+            stragglers=mon.stragglers if mon is not None else 0,
+            straggler_ewma_s=mon.ewma if mon is not None else 0.0,
+            heartbeats=hb.beats if hb is not None else 0,
+            recalibrations=st.recalibrations,
+            drift_events=list(st.drift_events),
+            drift_checks=list(st.drift_checks),
         )

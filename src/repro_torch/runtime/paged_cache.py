@@ -87,6 +87,17 @@ class PagePool:
         self.high_water = max(self.high_water, self.in_use)
         return pages
 
+    def free_list(self) -> list[int]:
+        """The free page ids, in allocation order (for snapshots)."""
+        return list(self._free)
+
+    def restore_free(self, free: list[int]) -> None:
+        """Reinstate a snapshot's free list (``in_use`` follows from it)."""
+        if len(set(free)) != len(free) or not all(
+                0 <= p < self.num_pages for p in free):
+            raise ValueError(f"invalid free list for {self.num_pages} pages")
+        self._free = sorted(free)
+
     def free(self, pages: list[int]) -> None:
         if len(set(pages)) != len(pages):
             raise ValueError(f"duplicate page ids in free: {pages}")

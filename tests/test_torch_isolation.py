@@ -100,12 +100,39 @@ def test_training_modules_are_in_the_isolation_scan(name):
     assert not FORBIDDEN.search(path.read_text()), path
 
 
+FAULT_MODULES = (
+    "repro_torch.runtime.faultinject", "repro_torch.runtime.engine",
+    "repro_torch.core.calibration", "repro_torch.launch.serve")
+
+
+@pytest.mark.parametrize("name", FAULT_MODULES)
+def test_fault_modules_are_in_the_isolation_scan(name):
+    assert name in _modules()
+    path = PORT.joinpath(*name.split(".")[1:]).with_suffix(".py")
+    assert not FORBIDDEN.search(path.read_text()), path
+
+
+def test_drift_probe_refuses_a_missing_card(monkeypatch):
+    from repro_torch.core.calibration import CalibrationState
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = smoke(get_config("qwen1.5-0.5b"))
+    params = model.init_params(0, cfg, device="cpu")
+    batch = {"inputs": torch.zeros((1, 4), dtype=torch.long)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.drift_probe(params, batch, cfg, CalibrationState())
+    # asked for explicitly, the CPU path runs
+    fresh, clips = model.drift_probe(params, batch, cfg, CalibrationState(),
+                                     device="cpu")
+    assert fresh.windows == {} and clips == {}
+
+
 def test_training_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from repro_torch.launch import perceptron, train, train_lm
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "qwen1.5-0.5b", "--smoke", "--tdvmm",
-                    "--steps", "1", "--ckpt-dir", str(tmp_path / "a")])
+                    "--steps", "1", "--batch", "4", "--seq", "64",
+                    "--ckpt-dir", str(tmp_path / "a")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_lm.main(["--steps", "1", "--ckpt-dir", str(tmp_path / "b")])
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -268,7 +268,7 @@ def test_moe_apply_matches_reference(arch, plan):
 
 def test_moe_apply_refuses_a_mesh():
     _, tc, _, tp = _moe_params("mixtral-8x7b")
-    with pytest.raises(NotImplementedError, match="A.14"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         tmoe.apply(tp, torch.zeros((1, 3, tc.d_model)), tc, mesh=object())
 
 

@@ -453,14 +453,14 @@ def test_guard_straggler_and_heartbeat(tmp_path):
 # ---------------------------------------------------------------------------
 def test_train_cli_runs_on_the_cpu(tmp_path):
     out = ttrain.main(["--arch", "qwen1.5-0.5b", "--smoke", "--tdvmm",
-                       "--steps", "3", "--device", "cpu", "--ckpt-dir",
-                       str(tmp_path)])
+                       "--steps", "3", "--batch", "4", "--seq", "64",
+                       "--device", "cpu", "--ckpt-dir", str(tmp_path)])
     assert out["step"] == 3 and [h["step"] for h in out["history"]] == [0, 2]
     assert all(np.isfinite(h["loss"]) for h in out["history"])
     # the same directory again: resumed at step 3, nothing left to train
     assert ttrain.main(["--arch", "qwen1.5-0.5b", "--smoke", "--steps", "3",
-                        "--tdvmm", "--device", "cpu", "--ckpt-dir",
-                        str(tmp_path)])["history"] == []
+                        "--batch", "4", "--seq", "64", "--tdvmm", "--device",
+                        "cpu", "--ckpt-dir", str(tmp_path)])["history"] == []
 
 
 def test_train_lm_profile_is_the_examples():
