@@ -80,6 +80,21 @@ Phases, each of which stops the script with a non-zero exit on failure:
    tokens every 8 steps (the window tensors keep their storage, step
    shapes 2, B1 raw and B2 launches exactly sites x probes), and the same
    probes without drift reproducing the pinned windows bitwise.
+   Then (``observe_qwen``) the engine's SLA policy, telemetry and tracing
+   on that model: a run with a metrics sink (memory and JSONL emitters, a
+   step-latency spike rule) and a tracer keeps the untraced streams, 2 step
+   shapes and exact B1 launches, its Chrome trace validates with every
+   request's spans at the report's steps and its JSONL holds every
+   observation and alert; an SLA run (aging 4, priorities rid % 3, one
+   deadline-infeasible request, one joule budget crossed mid-stream)
+   rejects at zero cost, finishes the over-budget request on a prefix of
+   its stream and leaves every other stream unchanged, and the default
+   policy replays FIFO; live ``clip_rate.<site>`` series with drift
+   injected mid-run equal direct probes of the clean and drifted weights,
+   alerts exactly above their limit, B1 raw and B2 sites x observations;
+   a kill and resume with a fresh sink and tracer continues the series
+   and the trace as one document; the serve CLI writes its metrics, trace
+   and report files, and ``launch/trace_report`` renders the trace.
    Then mamba2-1.3b at full width (48 layers, d_model 2048, 64 heads x 64,
    d_state 128, chunk 128, vocab 50280, bf16, random weights from seed 0)
    under ``ssm_unchained``: one calibration pass over 4 x 512 tokens, then
@@ -166,6 +181,13 @@ PROFILE_SKIP, PROFILE_STEPS = 16, 12             # engine ticks
 # the fault phase's drift probe: a (batch, tokens) batch, every N steps
 FAULT_PROBE, FAULT_CHECK_EVERY = (2, 128), 8
 FAULT_ROWS = FAULT_PROBE[0] * FAULT_PROBE[1]
+# the observe phase's live clip series: a probe of FAULT_PROBE tokens every
+# OBSERVE_EVERY steps, drift injected at OBSERVE_DRIFT_AT
+OBSERVE_EVERY, OBSERVE_DRIFT_AT = 8, 20
+# ... against windows pinned at this fraction of the probe's own max|z|
+OBSERVE_PIN = 0.6
+# series read off the host clock: two runs never give the same values
+CLOCK_SERIES = ("step_latency_s", "straggler_dt_s", "heartbeat")
 # Phase 5, card against CPU logits relative to max|logit|: the TD-VMM codes
 # are bitwise on both, so only float32 reductions outside the kernels
 # (attention, norms, the head) differ; measured 6e-7 on an H100.
@@ -1952,6 +1974,395 @@ def fault_qwen(dev, bf16: dict, int8: dict) -> dict:
     return out
 
 
+def timed_methods(obj, names, acc: list) -> None:
+    """Wrap ``obj``'s methods ``names`` (on the instance) so the host
+    seconds spent in them add up in ``acc[0]``."""
+    for name in names:
+        fn = getattr(obj, name)
+
+        def wrapped(*args, _fn=fn, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                acc[0] += time.perf_counter() - t0
+        setattr(obj, name, wrapped)
+
+
+def timeless(events):
+    """Trace events without their engine-clock stamps and durations."""
+    return [{k: v for k, v in e.items() if k not in ("ts", "dur")}
+            for e in events]
+
+
+def check_trace(tr, rep, what: str) -> dict:
+    """The tracer's document validates; every request's span boundaries
+    carry the report's steps; each tick slice ends where its tick's counters
+    stand and the clock, the sum over every tick, is within the run's wall
+    time."""
+    from repro_torch.runtime import trace
+
+    doc = tr.chrome_trace()
+    counts = trace.validate_chrome_trace(doc)
+    spans = {}
+    for e in doc["traceEvents"]:
+        if e.get("pid") == trace.REQUEST_PID and e["ph"] in "Bi":
+            spans.setdefault(e["tid"], []).append((e["name"],
+                                                   e["args"]["step"]))
+    for r in rep.requests:
+        want = ([("queued", r["arrival_step"])]
+                + ([("prefill", r["admitted_step"]),
+                    ("decode", r["first_token_step"])]
+                   if r["finish_reason"] != "rejected" else [])
+                + [(f"finish:{r['finish_reason']}", r["finished_step"])])
+        require(spans.get(r["rid"]) == want,
+                f"{what}: request {r['rid']} spans {spans.get(r['rid'])} != "
+                f"the report's {want}")
+    slices = [e for e in doc["traceEvents"]
+              if e.get("pid") == trace.ENGINE_PID and e["ph"] == "X"]
+    ticks = sorted({e["ts"] for e in doc["traceEvents"] if e["ph"] == "C"})
+    require(len(ticks) == tr.ticks and ticks[-1] == tr.clock_us
+            and all(e["ts"] + e["dur"] in ticks for e in slices)
+            and tr.clock_us <= rep.wall_s * 1e6 and tr.dropped == 0,
+            f"{what}: tick slices do not add up to the clock "
+            f"{tr.clock_us} us (wall {rep.wall_s} s)")
+    return dict(doc=doc, counts=counts, slices_us=sum(e["dur"] for e in slices))
+
+
+def observe_qwen(dev, bf16: dict) -> dict:
+    """The engine's SLA policy, telemetry and tracing on qwen1.5-0.5b at full
+    width under ``ffn_unchained``, with the params, calibration, trace and
+    untraced report of the serving phase (``bf16``).  (a) A run with a
+    metrics sink (memory and JSONL emitters, the CLI's default step-latency
+    spike rule) and a tracer: the untraced run's streams, 2 step shapes,
+    B1 fused exactly sites x steps, a valid trace whose request spans carry
+    the report's steps, the JSONL holding every observation and alert;
+    host seconds in the sink and tracer, and per tick beside an untraced
+    run's.  (b) SlaConfig(aging_steps=4), priorities rid % 3, one request
+    given a deadline it cannot meet (from ``min_steps_to_finish``) and one a
+    joule budget between its minimum and full energy
+    (``request_energy_bounds``): rejections cost nothing, the over-budget
+    stream is a prefix of its plain one, every other admitted stream is its
+    plain one; the default SlaConfig replays FIFO.  (c) Live clip rates:
+    windows pinned at OBSERVE_PIN of the probe's clean and drifted max|z|,
+    so every site clips at nonzero rates that the drift changes; the probe
+    every OBSERVE_EVERY steps, drift at OBSERVE_DRIFT_AT, each observation
+    equal to a direct ``drift_probe`` on the clean or the drifted weights,
+    alerts exactly above the limit, no recalibration, B1 raw and B2 sites x
+    observations.  (d) Killed mid-decode with a snapshot
+    on disk, restored into a fresh engine with a fresh sink and tracer: the
+    streams, one trace document and the series of the unbroken run (a).
+    (e) The serve CLI with --sla, --metrics-jsonl, --trace-out and
+    --report-json, then ``launch/trace_report`` on its trace."""
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core import energy
+    from repro_torch.core.calibration import CalibrationState
+    from repro_torch.core.nonideal import NonIdealityConfig
+    from repro_torch.kernels.tdvmm import tdvmm as tk
+    from repro_torch.models import model
+    from repro_torch.runtime import faultinject as fi
+    from repro_torch.runtime import sla, telemetry as tele, trace
+    from repro_torch.runtime.engine import (DriftConfig, Engine, FaultConfig,
+                                            Request)
+
+    cfg, params, ecfg, calib = bf16["engine_args"]
+    reqs, base = bf16["trace"], bf16["report"]
+    per_probe = expected_launches(cfg, "ffn_unchained", 0)["calibrate"]
+    out = {"launches": dict.fromkeys(tk.LAUNCHES, 0)}
+
+    def add_launches(got):
+        for k, v in got.items():
+            out["launches"][k] += v
+
+    def serve_launches(rep, probes=0):
+        want = expected_launches(cfg, "ffn_unchained",
+                                 rep.prefill_steps + rep.decode_steps)
+        return {k: want["serve"][k] + probes * per_probe[k]
+                for k in want["serve"]}
+
+    def spike_rule():
+        return tele.AlertRule("step_latency_s", kind="spike", k=6.0,
+                              abs_floor=0.05)
+
+    # ---- (a) a sink and a tracer -----------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        plain = Engine(cfg, params, ecfg, calib=calib).run(reqs)
+        same_streams(plain, base, "untraced rerun")
+        mem, jsonl = tele.MemoryEmitter(), Path(tmp) / "metrics.jsonl"
+        sink = tele.MetricsSink(rules=[spike_rule()],
+                                emitters=[mem, tele.JsonlEmitter(jsonl)])
+        tr = trace.Tracer()
+        spent = [0.0]
+        timed_methods(sink, ("observe",), spent)
+        timed_methods(tr, ("note_arrival", "admitted", "mark_chunk",
+                           "mark_decode", "mark_idle", "finished",
+                           "tick_done"), spent)
+        reset_all_launches()
+        eng = Engine(cfg, params, ecfg, calib=calib, sink=sink, tracer=tr)
+        rep = eng.run(reqs)
+        torch.cuda.synchronize()
+        launches = dict(tk.LAUNCHES)
+        add_launches(launches)
+        same_streams(rep, base, "sink and tracer")
+        require(rep.step_shapes == 2 and rep.nan_logit_steps == 0,
+                f"traced: {rep.step_shapes} step shapes")
+        require(launches == serve_launches(rep),
+                f"traced: launches {launches} != {serve_launches(rep)}")
+        got = check_trace(tr, rep, "traced")
+        trace_path = Path(tmp) / "trace.json"
+        trace_path.write_text(json.dumps(got["doc"]))
+        lines = [json.loads(ln) for ln in jsonl.read_text().splitlines()]
+        summ = sink.summary()
+        require(sum(ln["t"] == "metric" for ln in lines)
+                == summ["observations"] == len(mem.metrics)
+                and sum(ln["t"] == "alert" for ln in lines)
+                == len(sink.alerts) == rep.alerts,
+                f"jsonl: {len(lines)} lines for {summ['observations']} "
+                f"observations and {len(sink.alerts)} alerts")
+        out["a"] = dict(
+            events=len(got["doc"]["traceEvents"]), counts=got["counts"],
+            trace_bytes=trace_path.stat().st_size,
+            jsonl_bytes=jsonl.stat().st_size, jsonl_lines=len(lines),
+            observations=summ["observations"], ticks=tr.ticks,
+            alerts=[(a.step, a.value, a.median, a.mad) for a in sink.alerts],
+            hook_us_per_tick=spent[0] / tr.ticks * 1e6,
+            step_ms=rep.wall_s / rep.steps * 1e3,
+            plain_step_ms=plain.wall_s / plain.steps * 1e3,
+            clock_s=tr.clock_us / 1e6, slices_s=got["slices_us"] / 1e6,
+            wall_s=rep.wall_s)
+        for em in sink.emitters:
+            em.close()
+        unbroken = dict(report=rep, doc=got["doc"], sink=sink)
+
+    # ---- (b) SLA ---------------------------------------------------------
+    chunk = ecfg.chunk
+    table = energy.serving_energy_model(cfg, ecfg.tile_n)
+    late = max(reqs, key=lambda r: sla.min_steps_to_finish(r, chunk))
+    capped = max((r for r in reqs if r is not late),
+                 key=lambda r: r.max_new_tokens)
+    deadline = sla.min_steps_to_finish(late, chunk) - 2
+    bounds = energy.request_energy_bounds(table, len(capped.prompt),
+                                          capped.max_new_tokens)
+    budget = 0.5 * (bounds["min_energy_j"] + bounds["full_energy_j"])
+    sla_reqs = [Request(
+        rid=r.rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens,
+        arrival_step=r.arrival_step, priority=r.rid % 3,
+        deadline_steps=(deadline if r is late else None),
+        joule_budget=(budget if r is capped else None)) for r in reqs]
+    reset_all_launches()
+    rep = Engine(cfg, params, ecfg, calib=calib,
+                 sla=sla.SlaConfig(aging_steps=4)).run(sla_reqs)
+    torch.cuda.synchronize()
+    launches = dict(tk.LAUNCHES)
+    add_launches(launches)
+    require(launches == serve_launches(rep),
+            f"sla: launches {launches} != {serve_launches(rep)}")
+    by_rid = {r["rid"]: r for r in base.requests}
+    for r in rep.requests:
+        want = by_rid[r["rid"]]
+        if r["finish_reason"] == "rejected":
+            require(r["tokens"] == [] and r["analog_ops"] == 0.0
+                    and r["joules_used"] == 0.0
+                    and r["first_token_step"] == -1,
+                    f"sla: rejected request {r['rid']} did work")
+        elif r["finish_reason"] == "over_budget":
+            require(r["tokens"] == want["tokens"][:len(r["tokens"])]
+                    and len(r["tokens"]) < len(want["tokens"])
+                    and r["joules_used"] > budget,
+                    f"sla: over-budget request {r['rid']} is not a prefix")
+        else:
+            require(r["tokens"] == want["tokens"]
+                    and r["finish_reason"] == want["finish_reason"],
+                    f"sla: admitted request {r['rid']}'s stream changed")
+    reasons = {r["rid"]: r["finish_reason"] for r in rep.requests}
+    require(reasons[late.rid] == "rejected"
+            and reasons[capped.rid] == "over_budget"
+            and rep.rejected >= 1 and rep.over_budget == 1
+            and rep.step_shapes == 2,
+            f"sla: reasons {reasons}, {rep.rejected} rejected, "
+            f"{rep.over_budget} over budget")
+    fifo = Engine(cfg, params, ecfg, calib=calib,
+                  sla=sla.SlaConfig()).run(reqs)
+    same_streams(fifo, base, "default SlaConfig")
+    require([r["admitted_step"] for r in fifo.requests]
+            == [r["admitted_step"] for r in base.requests],
+            "default SlaConfig: admission steps differ from FIFO")
+    out["b"] = dict(
+        deadline=(late.rid, deadline), budget=(capped.rid, budget, bounds),
+        rejected=rep.rejected, over_budget=rep.over_budget,
+        deadline_hits=rep.deadline_hits,
+        deadline_misses=rep.deadline_misses,
+        capped_tokens=(len(rep.requests[reqs.index(capped)]["tokens"]),
+                       capped.max_new_tokens),
+        admitted=[r["admitted_step"] for r in rep.requests],
+        fifo_admitted=[r["admitted_step"] for r in base.requests],
+        steps=rep.steps)
+
+    # ---- (c) live clip rates ---------------------------------------------
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    probe = {"inputs": torch.randint(0, cfg.vocab_size, FAULT_PROBE,
+                                     generator=g, device=dev)}
+    ev = dict(sigma=0.5, seed=0, repeats=3)
+    drifted = fi.drift_params(
+        params, ev["seed"], fi._model_spec(cfg),
+        NonIdealityConfig(dibl=False, weight_noise=True,
+                          sigma_tune=ev["sigma"]), repeats=ev["repeats"])
+    # Pinned at OBSERVE_PIN of the smaller of the clean and the drifted
+    # probe's max|z| per site, so both weights clip at every site: the
+    # serving windows clip (almost) nothing, and this drift shrinks a
+    # window to a quarter (PR 21), below any fixed fraction of the clean one.
+    fresh_clean = model.drift_probe(params, probe, cfg, calib)[0].windows
+    fresh_drift = model.drift_probe(drifted, probe, cfg, calib)[0].windows
+    pinned = CalibrationState(windows={
+        s: OBSERVE_PIN * torch.minimum(fresh_clean[s], fresh_drift[s])
+        for s in calib.sites()})
+    t0 = time.perf_counter()
+    clean = dict(model.drift_probe(params, probe, cfg, pinned)[1])
+    probe_s = time.perf_counter() - t0
+    after = dict(model.drift_probe(drifted, probe, cfg, pinned)[1])
+    del drifted
+    require(all(clean[s] > 0.0 and after[s] > 0.0 and clean[s] != after[s]
+                for s in calib.sites()),
+            f"clip series: the pinned windows must clip both weights at "
+            f"every site, differently: clean {clean}, drifted {after}")
+    values = list(clean.values()) + list(after.values())
+    limit = 0.5 * max(values)
+    sink = tele.MetricsSink(rules=[
+        tele.AlertRule(f"clip_rate.{s}", kind="threshold", limit=limit)
+        for s in calib.sites()])
+    eng = Engine(cfg, params, ecfg, calib=pinned, sink=sink)
+    seen = []                  # (step, drifted?) of each observation
+    observe = eng._observe_clips
+
+    def observe_and_note(dc):
+        seen.append((eng._st.steps, eng.params is not params))
+        observe(dc)
+    eng._observe_clips = observe_and_note
+    reset_all_launches()
+    rep = eng.run(reqs, FaultConfig(
+        injector=fi.FaultInjector([fi.DriftAt(step=OBSERVE_DRIFT_AT, **ev)]),
+        drift=DriftConfig(probe_batch=probe, check_every=10**9,
+                          observe_every=OBSERVE_EVERY)))
+    torch.cuda.synchronize()
+    launches = dict(tk.LAUNCHES)
+    add_launches(launches)
+    n = len(seen)
+    require(n >= 2 and any(d for _, d in seen) and not all(d for _, d in seen)
+            and launches == serve_launches(rep, probes=n),
+            f"clip series: {n} observations {seen}, launches {launches} != "
+            f"{serve_launches(rep, probes=n)}")
+    series = {name: list(zip(s.steps, s.values))
+              for name, s in sink.series.items()
+              if name.startswith("clip_rate.")}
+    require(set(series) == {f"clip_rate.{s}" for s in calib.sites()},
+            f"clip series: series {sorted(series)}")
+    for site in calib.sites():
+        obs = series[f"clip_rate.{site}"]
+        want = [(step, (after if d else clean)[site]) for step, d in seen]
+        require(obs == want, f"clip series {site}: {obs} != {want}")
+    fired = [(a.metric, a.step, a.value) for a in sink.alerts]
+    require(fired == [(f"clip_rate.{s}", step, v) for step, _ in seen
+                      for s in sorted(calib.sites())
+                      for st2, v in series[f"clip_rate.{s}"]
+                      if st2 == step and v > limit],
+            f"clip series: alerts {fired} are not the observations above "
+            f"{limit}")
+    require(rep.recalibrations == 0 and rep.drift_checks == []
+            and rep.step_shapes == 2,
+            f"clip series: {rep.recalibrations} recalibrations")
+    out["c"] = dict(observations=n, seen=seen, clean=clean, after=after,
+                    limit=limit, alerts=len(fired), probe_s=probe_s,
+                    launches=launches,
+                    pinned={s: pinned.windows[s].tolist()
+                            for s in calib.sites()},
+                    drift_ratio={s: (fresh_drift[s] / fresh_clean[s]).tolist()
+                                 for s in calib.sites()})
+
+    # ---- (d) kill and resume with telemetry and trace ---------------------
+    kill = next(r["first_token_step"] for r in sorted(
+        unbroken["report"].requests, key=lambda r: r["first_token_step"])) + 4
+    with tempfile.TemporaryDirectory() as snap_dir:
+        victim = Engine(cfg, params, ecfg, calib=calib,
+                        sink=tele.MetricsSink(rules=[spike_rule()]),
+                        tracer=trace.Tracer())
+        reset_all_launches()
+        rep = victim.run(reqs, FaultConfig(
+            injector=fi.FaultInjector([fi.PreemptAt(kill)]),
+            snapshot_dir=snap_dir, snapshot_keep=1))
+        require(rep.preempted and rep.steps == kill,
+                f"kill at {kill}: stopped at {rep.steps}")
+        size = (Path(rep.snapshot_path) / "state.pt").stat().st_size
+        del victim
+        flat, _ = ckpt.load_engine_snapshot(snap_dir)
+        sink, tr = tele.MetricsSink(rules=[spike_rule()]), trace.Tracer()
+        survivor = Engine(cfg, params, ecfg, calib=calib, sink=sink,
+                          tracer=tr)
+        survivor.restore(flat)
+        meta_bytes = int(flat["meta"].numel())
+        del flat
+        resumed = survivor.resume()
+        torch.cuda.synchronize()
+    add_launches(dict(tk.LAUNCHES))
+    same_streams(resumed, unbroken["report"], f"resume at {kill}")
+    doc = check_trace(tr, resumed, f"resume at {kill}")["doc"]
+    require(timeless(doc["traceEvents"])
+            == timeless(unbroken["doc"]["traceEvents"]),
+            f"resume at {kill}: the trace differs from the unbroken run's")
+    ref = unbroken["sink"]
+    require(sink.series.keys() == ref.series.keys()
+            and sink.observations == ref.observations,
+            f"resume at {kill}: series {sorted(sink.series)}, "
+            f"{sink.observations} observations")
+    for name, s in sink.series.items():
+        r = ref.series[name]
+        require(s.count == r.count and list(s.steps) == list(r.steps)
+                and (name in CLOCK_SERIES or list(s.values) == list(r.values)),
+                f"resume at {kill}: series {name} differs")
+    out["d"] = dict(step=kill, bytes=size, meta_bytes=meta_bytes)
+
+    # ---- (e) the serve CLI -------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {k: str(Path(tmp) / f) for k, f in (
+            ("m", "metrics.jsonl"), ("t", "trace.json"), ("r", "report.json"),
+            ("md", "report.md"))}
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        for argv in (
+                ["-m", "repro_torch.launch.serve", "--arch", ARCH,
+                 "--tdvmm", "ffn.*", "--calibrate", "--sla",
+                 "--clip-observe-every", "4", "--metrics-jsonl", files["m"],
+                 "--trace-out", files["t"], "--report-json", files["r"]],
+                ["-m", "repro_torch.launch.trace_report", files["t"], "-o",
+                 files["md"]]):
+            run = subprocess.run([sys.executable, *argv], env=env, cwd=tmp,
+                                 capture_output=True, text=True, timeout=400)
+            require(run.returncode == 0,
+                    f"{argv[1]} exited {run.returncode}: {run.stderr[-2000:]}")
+        lines = [json.loads(ln) for ln in
+                 Path(files["m"]).read_text().splitlines()]
+        trace.validate_chrome_trace(json.loads(Path(files["t"]).read_text()))
+        report = json.loads(Path(files["r"]).read_text())
+        md = Path(files["md"]).read_text()
+        rows = [r for r in report["requests"]
+                if f"| {r['rid']} | {r['finish_reason']} "
+                   f"| {r['finished_step']} |" in md]
+        require(len(rows) == len(report["requests"]) > 0
+                and sum(ln["t"] == "metric" for ln in lines)
+                == report["telemetry"]["observations"],
+                f"cli: {len(rows)} report rows for "
+                f"{len(report['requests'])} requests")
+        out["e"] = dict(seconds=time.perf_counter() - t0,
+                        requests=len(report["requests"]),
+                        rejected=report["rejected"],
+                        over_budget=report["over_budget"],
+                        steps=report["steps"], metric_lines=len(lines),
+                        bytes={k: Path(v).stat().st_size
+                               for k, v in files.items()})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: zamba2-2.7b at full width and depth through the static path
 # ---------------------------------------------------------------------------
@@ -3002,11 +3413,60 @@ def main() -> int:
             f"launches {r['launches']}, serve {r['serve_s']:.2f} s"
             + (f"; events (step, clip rate, log ratio) {fq['drift_events']}"
                if name == "drift" else "; no events"))
+    fault_bytes = [r["bytes"] for r in fq["resume"]]
+    del fq
+    phase_done("fault qwen")
+
+    ob = observe_qwen(dev, served[0])
+    served.append({"launches": ob["launches"]})
+    a, b, c, d, e = (ob[k] for k in "abcde")
+    say("observe", f"ffn_unchained with a metrics sink and a tracer: streams, "
+        f"finish reasons and steps equal the untraced run's, step shapes 2, "
+        f"B1 fused sites x steps, trace valid with every request's spans at "
+        f"the report's steps; {a['events']} events {a['counts']}, trace "
+        f"{a['trace_bytes']} bytes, JSONL {a['jsonl_bytes']} bytes in "
+        f"{a['jsonl_lines']} lines ({a['observations']} observations over "
+        f"{a['ticks']} ticks), alerts (step, value, median, MAD) "
+        f"{a['alerts']}; sink + tracer {a['hook_us_per_tick']:.1f} us of "
+        f"host time per tick; {a['step_ms']:.2f} ms per step traced, "
+        f"{a['plain_step_ms']:.2f} untraced; clock {a['clock_s']:.4f} s "
+        f"(slices {a['slices_s']:.4f} s) within wall {a['wall_s']:.4f} s")
+    say("observe", f"sla (aging 4, priorities rid % 3): request "
+        f"{b['deadline'][0]} given deadline {b['deadline'][1]} steps, "
+        f"request {b['budget'][0]} a budget of {b['budget'][1]:.6g} J "
+        f"(min {b['budget'][2]['min_energy_j']:.6g}, full "
+        f"{b['budget'][2]['full_energy_j']:.6g}): {b['rejected']} rejected "
+        f"(no token, no joule), {b['over_budget']} over budget after "
+        f"{b['capped_tokens'][0]} of {b['capped_tokens'][1]} tokens (a "
+        f"prefix), deadlines {b['deadline_hits']} hit / "
+        f"{b['deadline_misses']} missed, {b['steps']} steps, admitted at "
+        f"{b['admitted']} (FIFO {b['fifo_admitted']}); other streams "
+        "unchanged; the default SlaConfig replays FIFO")
+    say("observe", f"clip series: {c['observations']} probes of "
+        f"{FAULT_PROBE[0]} x {FAULT_PROBE[1]} tokens every {OBSERVE_EVERY} "
+        f"steps, drift (sigma 0.5, 3 repeats) at step {OBSERVE_DRIFT_AT}; "
+        f"the drifted / clean probe max|z| {c['drift_ratio']}, windows "
+        f"pinned at {OBSERVE_PIN} of the smaller {c['pinned']}; "
+        f"(step, drifted) {c['seen']}; clean {c['clean']}, drifted "
+        f"{c['after']}, each observation equal to a direct probe; limit "
+        f"{c['limit']:.6g}, {c['alerts']} alerts, 0 recalibrations; probe "
+        f"{c['probe_s']:.3f} s; launches {c['launches']}")
+    say("observe", f"killed at step {d['step']} with a snapshot of "
+        f"{d['bytes']} bytes (meta {d['meta_bytes']} bytes; the fault "
+        f"phase's bf16 snapshots, with no sink or tracer, {fault_bytes}), "
+        "restored with a fresh sink and tracer: unbroken streams, one trace "
+        "document equal to the unbroken run's but its times, every series "
+        "continued")
+    say("observe", f"serve CLI --sla --metrics-jsonl --trace-out "
+        f"--report-json and trace_report: {e['requests']} requests, "
+        f"{e['rejected']} rejected, {e['over_budget']} over budget, "
+        f"{e['steps']} steps, {e['metric_lines']} metric lines, bytes "
+        f"{e['bytes']}, {e['seconds']:.1f} s")
     for o in served:
         o.pop("engine_args", None)
-    del out, fq, cache
+    del out, ob, cache
     torch.cuda.empty_cache()
-    phase_done("fault qwen")
+    phase_done("observe qwen")
 
     ssm = serve_ssm(dev)
     served.append(ssm)

@@ -1,6 +1,6 @@
 """Energy / latency / area cost model (paper section 4.2, Fig. 5) — a copy
 of ``repro.core.energy`` (numpy only) up to the serving meters the engine
-prices tokens with.
+prices tokens with and the request bounds its SLA admission checks.
 
 The paper reports, for a conservative 6-bit digital-input/digital-output
 four-quadrant N x N TD-VMM in 55 nm (C ~= 200*C_drain = 0.04 pF/input):
@@ -305,4 +305,34 @@ def site_attribution(energy: dict, tokens: int) -> dict:
         "io_saved_j": tot_io,
         "chains": [list(pair) for pair in energy.get("chains", [])],
         "per_site": per_site,
+    }
+
+
+def request_energy_bounds(energy: dict, prompt_len: int,
+                          max_new_tokens: int) -> dict[str, float]:
+    """Analog energy/Op bounds for one request under a
+    ``serving_energy_model`` table.
+
+    min_*:  the cheapest possible *served* outcome — the prompt prefilled
+            plus a single generated token (a request cannot stream fewer
+            than one token, so SLA admission rejects any ``joule_budget``
+            below ``min_energy_j``: it could never deliver anything in
+            budget).
+    full_*: the full token budget (prompt + max_new_tokens), the worst case
+            the deadline/energy planner prices against.
+    """
+    if prompt_len < 1 or max_new_tokens < 1:
+        raise ValueError(f"need prompt_len/max_new_tokens >= 1, got "
+                         f"{prompt_len}/{max_new_tokens}")
+    min_tokens = prompt_len + 1
+    full_tokens = prompt_len + max_new_tokens
+    min_ops, min_e = token_cost(energy, min_tokens)
+    full_ops, full_e = token_cost(energy, full_tokens)
+    return {
+        "min_tokens": float(min_tokens),
+        "full_tokens": float(full_tokens),
+        "min_ops": min_ops,
+        "full_ops": full_ops,
+        "min_energy_j": min_e,
+        "full_energy_j": full_e,
     }

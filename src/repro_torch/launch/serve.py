@@ -49,11 +49,29 @@ recalibrates in place when they have drifted:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --smoke --tdvmm 'ffn.*' --calibrate --device cpu \\
         --snapshot-dir /tmp/snap --resume
+
+SLA, telemetry and tracing (engine path): ``--sla`` schedules by priority
+with aging (the trace's priorities cycle ``rid % 3``) and rejects
+deadline- or joule-infeasible requests at admission (``--deadline-steps``,
+``--joule-budget`` stamp every request); ``--metrics-jsonl`` and
+``--alert-on`` stream per-tick metrics and alerts through a metrics sink
+(``--clip-observe-every`` adds the per-site ``clip_rate.<site>`` series);
+``--trace-out`` writes the request lifecycle as a Chrome trace, which
+``python -m repro_torch.launch.trace_report`` renders as markdown;
+``--report-json`` writes the whole report:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+        --smoke --tdvmm 'ffn.*' --calibrate --device cpu --sla \\
+        --metrics-jsonl /tmp/m.jsonl --clip-observe-every 2 \\
+        --alert-on 'clip_rate.ffn.out:threshold:limit=0.01' \\
+        --trace-out /tmp/trace.json --report-json /tmp/report.json
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -64,15 +82,21 @@ from repro_torch.core.calibration import CalibrationState
 from repro_torch.models import attention, common, model
 from repro_torch.runtime import fault
 from repro_torch.runtime import faultinject as fi
+from repro_torch.runtime import telemetry as tele
 from repro_torch.runtime.engine import (DriftConfig, Engine, EngineConfig,
                                         FaultConfig, Request)
 from repro_torch.runtime.paged_cache import pages_for
+from repro_torch.runtime.sla import SlaConfig
+from repro_torch.runtime.trace import Tracer
 
 
-def make_trace(vocab: int, n: int, prompt_len: int, gen: int,
-               seed: int) -> list[Request]:
+def make_trace(vocab: int, n: int, prompt_len: int, gen: int, seed: int,
+               sla: bool = False, deadline_steps=None,
+               joule_budget=None) -> list[Request]:
     """Seeded ragged trace: prompts in [prompt_len/4, prompt_len], budgets in
-    [gen/4, gen], arrival gaps in [0, 2] steps."""
+    [gen/4, gen], arrival gaps in [0, 2] steps.  With ``sla`` the
+    priorities cycle ``rid % 3``; ``deadline_steps`` and ``joule_budget``
+    are stamped on every request (inert without an SLA policy)."""
     rng = np.random.default_rng(seed)
     lo, hi = max(1, prompt_len // 4), prompt_len + 1
     reqs, arrival = [], 0
@@ -82,17 +106,61 @@ def make_trace(vocab: int, n: int, prompt_len: int, gen: int,
             prompt=tuple(int(t) for t in
                          rng.integers(0, vocab, rng.integers(lo, hi))),
             max_new_tokens=int(rng.integers(max(1, gen // 4), gen + 1)),
-            arrival_step=arrival))
+            arrival_step=arrival,
+            priority=(rid % 3) if sla else 0,
+            deadline_steps=deadline_steps, joule_budget=joule_budget))
         arrival += int(rng.integers(0, 3))
     return reqs
 
 
-def fault_config(args, probe_batch=None) -> FaultConfig | None:
+def parse_alert_spec(spec: str) -> tele.AlertRule:
+    """One ``--alert-on`` value -> AlertRule.
+
+    Format: ``metric:kind[:key=val[,key=val...]]``, e.g.
+    ``step_latency_s:spike:k=6,abs_floor=0.05`` or
+    ``fj_per_op:regression:baseline=57.1,tol=0.1``."""
+    parts = spec.split(":", 2)
+    if len(parts) < 2:
+        raise SystemExit(f"--alert-on {spec!r}: want metric:kind[:k=v,...]")
+    metric, kind = parts[0], parts[1]
+    kwargs = {}
+    if len(parts) == 3 and parts[2]:
+        for kv in parts[2].split(","):
+            k, sep, v = kv.partition("=")
+            if not sep:
+                raise SystemExit(f"--alert-on {spec!r}: bad param {kv!r}")
+            kwargs[k] = int(v) if k == "min_samples" else float(v)
+    try:
+        return tele.AlertRule(metric=metric, kind=kind, **kwargs)
+    except (TypeError, ValueError) as e:
+        raise SystemExit(f"--alert-on {spec!r}: {e}")
+
+
+def make_sink(args) -> tele.MetricsSink | None:
+    """The run's MetricsSink (None: telemetry off), enabled by
+    ``--metrics-jsonl`` and/or ``--alert-on``.  With no rule given, a
+    step-latency spike rule (median + 6 MAD, 50 ms absolute deadband) is
+    installed: a cold engine's first steps may alert, warm traffic not."""
+    if not (args.metrics_jsonl or args.alert_on):
+        return None
+    rules = [parse_alert_spec(s) for s in (args.alert_on or [])]
+    if not rules:
+        rules = [tele.AlertRule("step_latency_s", kind="spike", k=6.0,
+                                abs_floor=0.05)]
+    emitters = [tele.StdoutEmitter()]
+    if args.metrics_jsonl:
+        emitters.append(tele.JsonlEmitter(args.metrics_jsonl))
+    return tele.MetricsSink(rules=rules, emitters=emitters)
+
+
+def fault_config(args, probe_batch=None, sink=None) -> FaultConfig | None:
     """The engine's FaultConfig from the CLI flags (None: no wiring).
 
     A snapshot directory installs a real ``PreemptionGuard`` (SIGTERM and
     SIGINT handlers), so an eviction saves the in-flight state there; the
-    ``--*-at`` flags inject the same faults at a chosen engine step."""
+    ``--*-at`` flags inject the same faults at a chosen engine step.  A
+    metrics ``sink`` also takes the straggler monitor's and the
+    heartbeat's samples."""
     events = []
     if args.preempt_at is not None:
         events.append(fi.PreemptAt(args.preempt_at))
@@ -104,15 +172,19 @@ def fault_config(args, probe_batch=None) -> FaultConfig | None:
     if args.slow_at is not None:
         events.append(fi.SlowStep(args.slow_at, sleep_s=args.slow_sleep))
     drift = None
-    if args.drift_check_every > 0:
+    if args.drift_check_every > 0 or args.clip_observe_every > 0:
         if probe_batch is None:
-            raise SystemExit("--drift-check-every requires --calibrate (the "
-                             "probe compares against the pinned windows)")
+            raise SystemExit("a drift probe (--drift-check-every, "
+                             "--clip-observe-every) requires --calibrate "
+                             "(it compares against the pinned windows)")
         drift = DriftConfig(probe_batch=probe_batch,
-                            check_every=args.drift_check_every,
+                            # observe-only wiring leaves the full check
+                            # off in effect (the clip series still stream)
+                            check_every=args.drift_check_every or 10**9,
                             clip_threshold=args.drift_clip,
-                            window_tol=args.drift_tol)
-    hb = (fault.Heartbeat(args.heartbeat, args.heartbeat_every)
+                            window_tol=args.drift_tol,
+                            observe_every=args.clip_observe_every)
+    hb = (fault.Heartbeat(args.heartbeat, args.heartbeat_every, sink=sink)
           if args.heartbeat else None)
     if not (events or drift or hb or args.snapshot_dir):
         return None
@@ -121,7 +193,7 @@ def fault_config(args, probe_batch=None) -> FaultConfig | None:
         else None,
         snapshot_dir=args.snapshot_dir, retries=args.retries,
         injector=fi.FaultInjector(events) if events else None,
-        drift=drift, heartbeat=hb, monitor=fault.StragglerMonitor())
+        drift=drift, heartbeat=hb, monitor=fault.StragglerMonitor(sink=sink))
 
 
 def serve_engine(cfg, args):
@@ -136,13 +208,19 @@ def serve_engine(cfg, args):
         calib = model.calibrate(params, batch, cfg, device=device)
         print(f"[serve] calibrated sites: {calib.sites()}")
     reqs = make_trace(cfg.vocab_size, args.requests, args.prompt_len,
-                      args.gen, args.seed)
+                      args.gen, args.seed, sla=args.sla,
+                      deadline_steps=args.deadline_steps,
+                      joule_budget=args.joule_budget)
     ecfg = EngineConfig(
         slots=args.slots, page_size=args.page_size, num_pages=args.num_pages,
         chunk=args.chunk,
         max_pages_per_slot=min(args.num_pages, pages_for(
             args.prompt_len + args.gen, args.page_size)))
-    fc = fault_config(args, probe_batch=batch)
+    sla = SlaConfig(aging_steps=args.aging_steps) if args.sla else None
+    sink = make_sink(args)
+    tracer = Tracer() if args.trace_out else None
+    fc = fault_config(args, probe_batch=batch, sink=sink)
+    kw = dict(calib=calib, sla=sla, sink=sink, tracer=tracer, device=device)
     try:
         if args.resume:
             if not args.snapshot_dir:
@@ -153,17 +231,20 @@ def serve_engine(cfg, args):
             calib = CalibrationState(windows={
                 k.split("/", 1)[1]: v for k, v in flat.items()
                 if k.startswith("windows/")})
-            engine = Engine(cfg, params, ecfg, calib=calib, device=device)
+            kw["calib"] = calib
+            engine = Engine(cfg, params, ecfg, **kw)
             engine.restore(flat)
             print(f"[serve] resumed from snapshot step {step} "
                   f"({args.snapshot_dir})")
             rep = engine.resume(fc)
         else:
-            rep = Engine(cfg, params, ecfg, calib=calib,
-                         device=device).run(reqs, fc)
+            rep = Engine(cfg, params, ecfg, **kw).run(reqs, fc)
     finally:
         if fc is not None and fc.guard is not None:
             fc.guard.uninstall()
+        if sink is not None:
+            for em in sink.emitters:
+                em.close()
     if rep.preempted:
         print(f"[serve] PREEMPTED at step {rep.steps}; snapshot: "
               f"{rep.snapshot_path} (resume with --resume)")
@@ -182,9 +263,32 @@ def serve_engine(cfg, args):
     if rep.analog_ops:
         print(f"[serve] analog: {rep.analog_ops:.3g} Ops, "
               f"{rep.fj_per_op:.2f} fJ/Op, {rep.tokens_per_joule:.3g} tok/J")
+    if sla is not None:
+        print(f"[serve] sla: {rep.rejected} rejected at admission, "
+              f"{rep.over_budget} over budget, deadlines "
+              f"{rep.deadline_hits} hit / {rep.deadline_misses} missed")
+    if sink is not None:
+        tel = rep.telemetry
+        by_rule = ", ".join(f"{k}={v}" for k, v in
+                            sorted(tel["alerts_by_rule"].items()))
+        print(f"[serve] telemetry: {tel['observations']} samples, "
+              f"{rep.alerts} alerts ({by_rule or 'none'})"
+              + (f"; streamed to {args.metrics_jsonl}"
+                 if args.metrics_jsonl else ""))
+    if tracer is not None:
+        doc = tracer.chrome_trace()
+        Path(args.trace_out).write_text(json.dumps(doc))
+        pct = rep.trace_summary["percentiles"]["total_us"]
+        print(f"[serve] trace: {len(doc['traceEvents'])} events over "
+              f"{rep.trace_summary['ticks']} ticks -> {args.trace_out} "
+              f"(request total p50 {pct['p50']:.0f} us / p95 "
+              f"{pct['p95']:.0f} us of host wall time; open in Perfetto)")
     for r in rep.requests[:4]:
         print(f"[serve]   req {r['rid']}: {r['finish_reason']} "
               f"tokens={r['tokens'][:8]}")
+    if args.report_json:
+        Path(args.report_json).write_text(json.dumps(rep.to_json(), indent=1))
+        print(f"[serve] report written to {args.report_json}")
     return rep
 
 
@@ -334,6 +438,41 @@ def main(argv=None):
                     help="max |log window ratio| before recalibrating")
     ap.add_argument("--drift-clip", type=float, default=0.01,
                     help="max readout clip rate before recalibrating")
+    ap.add_argument("--clip-observe-every", type=int, default=0,
+                    help="stream the per-site readout clip rates into the "
+                         "metrics sink every N engine steps as "
+                         "clip_rate.<site> series (0 = off; requires "
+                         "--calibrate, --tdvmm and a sink: --metrics-jsonl "
+                         "or --alert-on, e.g. "
+                         "'clip_rate.ffn.out:threshold:limit=0.01')")
+    # SLA scheduling, telemetry and tracing (engine path)
+    ap.add_argument("--sla", action="store_true",
+                    help="SLA admission: priority with aging (the trace's "
+                         "priorities cycle rid %% 3), deadline and joule "
+                         "admission control, over-budget finishing")
+    ap.add_argument("--aging-steps", type=int, default=16,
+                    help="queue-wait steps per priority level of aging")
+    ap.add_argument("--deadline-steps", type=int, default=None,
+                    help="per-request deadline (engine steps after "
+                         "arrival) stamped on every trace request")
+    ap.add_argument("--joule-budget", type=float, default=None,
+                    help="per-request analog energy budget in joules "
+                         "stamped on every trace request")
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="stream per-tick metrics and alerts to this JSONL "
+                         "file (enables the metrics sink)")
+    ap.add_argument("--alert-on", action="append", default=None,
+                    metavar="METRIC:KIND[:K=V,...]",
+                    help="alert rule, e.g. "
+                         "step_latency_s:spike:k=6,abs_floor=0.05 or "
+                         "fj_per_op:regression:baseline=57.1,tol=0.1 "
+                         "(repeatable; enables the metrics sink)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the request lifecycle as a Chrome-trace "
+                         "(Perfetto) JSON here; its spans ride engine "
+                         "snapshots, so a --resume run continues it")
+    ap.add_argument("--report-json", default=None,
+                    help="write the whole EngineReport here as JSON")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if args.smoke:

@@ -1,6 +1,7 @@
 """Continuous-batching TD-VMM serving engine — torch port of
-``repro.runtime.engine`` (single device, with its fault tolerance and drift
-recalibration; the SLA policy, telemetry and tracing are not ported yet).
+``repro.runtime.engine`` (single device: its fault tolerance and drift
+recalibration, SLA policy, streaming telemetry and request tracing; the
+mesh mode is not ported).
 
 The paper's system discipline — fixed conversion circuitry, time-multiplexed
 inputs — maps onto serving as two fixed-shape step functions (a chunked
@@ -8,7 +9,8 @@ prefill step of shape (1, C) and a batched decode step of shape (B, 1)) that
 a ragged request stream is multiplexed through:
 
   * a fixed pool of B decode **slots**, admitted FIFO by arrival
-    (``runtime/scheduler.py``);
+    (``runtime/scheduler.py``), or by priority with aging under an SLA
+    policy (``runtime/sla.py``);
   * a **paged** KV cache: attention KV lives in fixed-size pages owned per
     request via block tables (``runtime/paged_cache.py``), updated in place
     (int8 codes with per-(token, head) scales under
@@ -28,9 +30,10 @@ Request lifecycle::
     pending --admit(slot+pages)--> prefilling --last chunk--> decoding
        |                                                         |
        +--> evicted (prompt exceeds page budget)                 +--> eos
-                                                                 +--> max_tokens
-                                                                 +--> evicted
+       +--> rejected (SLA admission: deadline- or                +--> max_tokens
+            joule-infeasible, before any compute)                +--> evicted
                                                                  +--> failed
+                                                                 +--> over_budget
                                                    (evicted: page budget
                                                     exhausted — finished
                                                     BEFORE the overflowing
@@ -38,7 +41,11 @@ Request lifecycle::
                                                     persistently failing
                                                     step, blamed on one
                                                     request so the engine
-                                                    keeps serving)
+                                                    keeps serving;
+                                                    over_budget: joule
+                                                    budget crossed
+                                                    mid-stream under an
+                                                    SLA policy)
 
 Fault tolerance (``FaultConfig``): a ``fault.PreemptionGuard`` (or an
 injected ``faultinject.PreemptAt``) unwinds the run between steps to a
@@ -61,7 +68,24 @@ programs stay two.
 
 Energy: every processed token is priced by the resolved plan's analog-tile
 geometry (``core.energy.serving_energy_model``) into per-request Op counts
-and joules — the paper's fJ/Op, measured at request level.
+and joules — the paper's fJ/Op, measured at request level.  Every report
+carries ``site_attribution``, whose per-site table sums bit-exactly to the
+aggregate ``analog_ops``/``analog_energy_j``/``fj_per_op``.
+
+SLA, telemetry and tracing: ``sla=`` (``runtime.sla.SlaConfig``) schedules
+with priority-with-aging admission, rejects deadline- and joule-infeasible
+requests at admission (no slot, no page, no step) and finishes a request
+that crosses its joule budget mid-stream ``over_budget``; ``sink=``
+(``runtime.telemetry.MetricsSink``) streams per-tick series (step latency,
+queue depth, slots, pages, tokens, retries, fJ/Op) with online alert rules,
+and with ``DriftConfig.observe_every`` the per-site readout clip rates as
+``clip_rate.<site>`` series; ``tracer=`` (``runtime.trace.Tracer``) records
+the request lifecycle as Chrome-trace spans on a cumulative engine clock.
+All three read host integers and floats only, between the two step programs
+(no device sync, no third step shape: ``step_shapes == 2``), their state
+rides ``snapshot()``, and with all three off every trace replays as before.
+A tick is timed on the host clock; on the card that is host wall time,
+including whatever device wait the tick absorbed (``runtime.trace``).
 """
 from __future__ import annotations
 
@@ -76,10 +100,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import energy as energy_model
-from repro_torch.core.calibration import CalibrationState, apply_calibration
+from repro_torch.core.calibration import (CalibrationState, apply_calibration,
+                                          clip_rate_metrics)
 from repro_torch.kernels import _build
 from repro_torch.models import model
 from repro_torch.runtime import fault
+from repro_torch.runtime import sla as sla_policy
 from repro_torch.runtime.paged_cache import PagePool, pages_for
 from repro_torch.runtime.scheduler import (Request, RequestRecord, Slot,
                                            SlotScheduler, static_baseline)
@@ -120,14 +146,20 @@ class DriftConfig:
     |z| elements against its pinned window, or a window moved by more than
     ``window_tol`` in |log ratio|; the fresh windows are then copied into
     the engine's window tensors between steps.  Each probe's largest clip
-    rate and |log ratio| go to ``EngineReport.drift_checks``.  (The JAX
+    rate and |log ratio| go to ``EngineReport.drift_checks``.
+
+    ``observe_every`` > 0 also streams the per-site readout clip rates
+    into the engine's ``MetricsSink`` as ``clip_rate.<site>`` series every
+    that many steps (the same probe, with no recalibration decision
+    attached), so an ``AlertRule`` on one site's clip rate can fire before
+    ``check_every`` comes due; without a sink it does nothing.  (The JAX
     package's detect-only mode and probe cache length are not ported:
-    nothing sets them.  Its ``observe_every``, which streams clip rates into
-    a metrics sink, waits for the port's telemetry.)"""
+    nothing sets them.)"""
     probe_batch: dict
     check_every: int = 16
     clip_threshold: float = 0.01
     window_tol: float = 0.25
+    observe_every: int = 0
 
 
 @dataclasses.dataclass
@@ -168,7 +200,10 @@ def _device_fault(e: RuntimeError) -> bool:
 
 @dataclasses.dataclass
 class EngineReport:
-    """Aggregate run stats + per-request records (rid order)."""
+    """Aggregate run stats + per-request records (rid order).  The JAX
+    package's ``devices``/``total_slots`` (mesh) and ``autotune`` (its
+    Pallas tile autotuner, which the port does not have: it picks its tile
+    by M alone) are not ported."""
     requests: list[dict]
     steps: int
     prefill_steps: int
@@ -201,6 +236,14 @@ class EngineReport:
     recalibrations: int = 0
     drift_events: list = dataclasses.field(default_factory=list)
     drift_checks: list = dataclasses.field(default_factory=list)
+    # --- SLA, telemetry and tracing ---------------------------------------
+    rejected: int = 0
+    over_budget: int = 0
+    deadline_hits: int = 0
+    deadline_misses: int = 0
+    alerts: int = 0
+    telemetry: Optional[dict] = None          # MetricsSink.summary()
+    trace_summary: Optional[dict] = None      # Tracer.summary()
 
     def to_json(self) -> dict:
         return dataclasses.asdict(self)
@@ -223,10 +266,15 @@ class RunState:
     evictions: int = 0
     nan_steps: int = 0
     failed: int = 0
+    rejected: int = 0
+    over_budget: int = 0
+    analog_ops: float = 0.0       # running totals, in _account's order (the
+    analog_energy_j: float = 0.0  # fj_per_op series)
     tokens_priced: int = 0
     step_retries: int = 0
     recalibrations: int = 0
     last_drift_check: int = 0
+    last_clip_obs: int = 0
     wall_s: float = 0.0
     util_samples: list = dataclasses.field(default_factory=list)
     drift_events: list = dataclasses.field(default_factory=list)
@@ -242,11 +290,16 @@ class Engine:
     ``calib`` pins every enabled digital-boundary site's readout window
     (or the plan sets ``output_calibration=False``/``out_scale``).  The
     engine keeps its own window tensors; ``set_calibration`` and
-    ``restore`` update them in place."""
+    ``restore`` update them in place.  ``sla``, ``sink`` and ``tracer``
+    are the SLA policy, the metrics sink and the tracer (module
+    docstring)."""
 
     def __init__(self, cfg: ModelConfig, params,
                  engine_cfg: EngineConfig = EngineConfig(),
-                 calib: Optional[CalibrationState] = None, device=None):
+                 calib: Optional[CalibrationState] = None,
+                 sla: Optional[sla_policy.SlaConfig] = None,
+                 sink: Optional[Any] = None,
+                 tracer: Optional[Any] = None, device=None):
         if cfg.family not in ("dense", "vlm", "audio"):
             raise NotImplementedError(
                 f"engine serves dense attention models, not {cfg.family!r} "
@@ -260,6 +313,9 @@ class Engine:
         self.cfg = cfg
         self.ecfg = engine_cfg
         self.params = params
+        self.sla = sla
+        self.sink = sink
+        self.tracer = tracer
         self.cfg_serving = apply_calibration(cfg, calib)
         self._check_pinned_windows()
         self.energy = energy_model.serving_energy_model(
@@ -332,14 +388,23 @@ class Engine:
     # ------------------------------------------------------------------
     # Run lifecycle
     # ------------------------------------------------------------------
+    def _make_sched(self) -> SlotScheduler:
+        ecfg = self.ecfg
+        if self.sla is not None:
+            return sla_policy.SlaScheduler(ecfg.slots, ecfg.slot_order,
+                                           self.sla)
+        return SlotScheduler(ecfg.slots, ecfg.slot_order)
+
     def start(self, requests: list[Request]) -> None:
         """Initialize a fresh run over a trace (allocates the page pools)."""
         rids = [r.rid for r in requests]
         if len(set(rids)) != len(rids):
             raise ValueError("duplicate request ids in trace")
         ecfg = self.ecfg
-        sched = SlotScheduler(ecfg.slots, ecfg.slot_order)
+        sched = self._make_sched()
         sched.add(requests)
+        if self.tracer is not None:
+            self.tracer.attach(requests)
         self._st = RunState(
             requests=list(requests),
             records={r.rid: RequestRecord(r) for r in requests},
@@ -384,11 +449,26 @@ class Engine:
                 t1 = time.perf_counter()
                 alive = self.tick()
                 dt = time.perf_counter() - t1
+                if self.tracer is not None:
+                    self.tracer.tick_done(st.steps, dt, {
+                        "queue_depth": len(st.sched.pending),
+                        "active_slots": len(st.sched.occupied()),
+                        "pages_in_use": st.pool.in_use,
+                        "fj_per_op": (st.analog_energy_j / st.analog_ops
+                                      * 1e15) if st.analog_ops else 0.0,
+                    })
+                if self.sink is not None:
+                    self._observe_tick(dt)
                 if fc is not None:
                     if fc.monitor is not None:
                         fc.monitor.record(st.steps, dt)
                     if fc.heartbeat is not None:
                         fc.heartbeat.beat(st.steps)
+                    if (fc.drift is not None and fc.drift.observe_every
+                            and self.sink is not None and st.steps -
+                            st.last_clip_obs >= fc.drift.observe_every):
+                        st.last_clip_obs = st.steps
+                        self._observe_clips(fc.drift)
                     if (fc.drift is not None and st.steps -
                             st.last_drift_check >= fc.drift.check_every):
                         st.last_drift_check = st.steps
@@ -398,6 +478,8 @@ class Engine:
         except fault.Preempted:
             st.preempted = True
             st.wall_s += time.perf_counter() - t0
+            if self.sink is not None:
+                self.sink.flush()        # metrics land before the snapshot
             if fc is not None and fc.snapshot_dir is not None:
                 from repro_torch.checkpoint import checkpoint as ckpt
                 path = ckpt.save_engine_snapshot(
@@ -407,6 +489,23 @@ class Engine:
             return self.report()
         st.wall_s += time.perf_counter() - t0
         return self.report()
+
+    def _observe_tick(self, dt: float) -> None:
+        """Feed the metrics sink after one tick: host integers and floats
+        only (no device tensor is read, so no sync is added)."""
+        st = self._st
+        step = st.steps          # the tick just executed landed us here
+        sink = self.sink
+        sink.observe("step_latency_s", dt, step)
+        sink.observe("queue_depth", len(st.sched.pending), step)
+        sink.observe("active_slots", len(st.sched.occupied()), step)
+        sink.observe("page_in_use", st.pool.in_use, step)
+        sink.observe("page_high_water", st.pool.high_water, step)
+        sink.observe("generated_tokens", st.generated_tokens, step)
+        sink.observe("step_retries", st.step_retries, step)
+        if st.analog_ops > 0.0:
+            sink.observe("fj_per_op",
+                         st.analog_energy_j / st.analog_ops * 1e15, step)
 
     # ------------------------------------------------------------------
     # One scheduling tick
@@ -418,6 +517,10 @@ class Engine:
         st = self._st
         if st.steps > self.ecfg.max_steps:
             raise RuntimeError(f"engine exceeded max_steps={self.ecfg.max_steps}")
+        if self.tracer is not None:
+            for req in st.sched.pending:     # open `queued` spans (idempotent)
+                if req.arrival_step <= st.steps:
+                    self.tracer.note_arrival(req.rid, st.steps)
         self._admit()
         occupied = st.sched.occupied()
         prefilling = [s for s in occupied if s.prefilling]
@@ -434,13 +537,18 @@ class Engine:
                 raise RuntimeError(
                     "scheduler stall: pending request cannot be admitted "
                     "into an empty engine (page budget inconsistency)")
+            if self.tracer is not None:
+                self.tracer.mark_idle(st.steps, nxt)
             st.idle_steps += nxt - st.steps
             st.steps = nxt
             return True
         return False
 
     def _admit(self) -> None:
-        """FIFO admission; head-of-line blocks on pool pressure."""
+        """Admission (FIFO, or priority with aging under ``sla=``);
+        head-of-line blocks on pool pressure.  SLA infeasibility is checked
+        first: a rejected request never occupies a slot, never allocates a
+        page and never reaches a step."""
         st = self._st
         ecfg = self.ecfg
         cap_pages = ecfg.resolved_max_pages
@@ -448,6 +556,19 @@ class Engine:
             req = st.sched.head(st.steps)
             if req is None:
                 break
+            if self.sla is not None:
+                verdict = sla_policy.admission_verdict(
+                    req, st.steps, ecfg.chunk, self.energy)
+                if verdict is not None:
+                    st.sched.pop_head()
+                    rec = st.records[req.rid]
+                    rec.admitted_step = rec.finished_step = st.steps
+                    rec.finish_reason = "rejected"
+                    rec.reject_reason = verdict
+                    st.rejected += 1
+                    if self.tracer is not None:
+                        self.tracer.finished(req.rid, st.steps, "rejected")
+                    continue
             need = pages_for(len(req.prompt), ecfg.page_size)
             if need > cap_pages:
                 # can never fit: reject without occupying a slot
@@ -456,6 +577,8 @@ class Engine:
                 rec.admitted_step = rec.finished_step = st.steps
                 rec.finish_reason = "evicted"
                 st.evictions += 1
+                if self.tracer is not None:
+                    self.tracer.finished(req.rid, st.steps, "evicted")
                 continue
             sid = st.sched.free_slot_id()
             if sid is None:
@@ -467,26 +590,41 @@ class Engine:
             rec = st.records[req.rid]
             rec.admitted_step = st.steps
             st.sched.place(sid, rec, pages)
+            if self.tracer is not None:
+                self.tracer.admitted(req.rid, st.steps, sid, 0, len(pages))
 
     def _finish(self, slot: Slot, reason: str) -> None:
         st = self._st
         slot.record.finish_reason = reason
         slot.record.finished_step = st.steps
+        if self.tracer is not None:
+            self.tracer.finished(slot.record.request.rid, st.steps, reason)
         if reason == "evicted":
             st.evictions += 1
         elif reason == "failed":
             st.failed += 1
+        elif reason == "over_budget":
+            st.over_budget += 1
         st.pool.free(slot.pages)
         st.sched.release(slot)
 
     def _emit(self, slot: Slot, tok: int) -> None:
-        """Stream one generated token; finish on eos/budget."""
+        """Stream one generated token; finish on eos/budget.
+
+        Under an SLA policy a request whose accumulated joules crossed its
+        ``joule_budget`` is finished ``over_budget``: the token it just
+        produced still streams (the work was done and priced), its slot and
+        pages recycle, and its neighbours' streams are unchanged (the same
+        row-isolation argument as the ``failed`` path)."""
         rec = slot.record
         rec.tokens.append(tok)
         if rec.first_token_step < 0:
             rec.first_token_step = self._st.steps
         if self.ecfg.eos_id is not None and tok == self.ecfg.eos_id:
             self._finish(slot, "eos")
+        elif (self.sla is not None and rec.request.joule_budget is not None
+                and rec.analog_energy_j > rec.request.joule_budget):
+            self._finish(slot, "over_budget")
         elif len(rec.tokens) >= rec.request.max_new_tokens:
             self._finish(slot, "max_tokens")
         else:
@@ -497,7 +635,9 @@ class Engine:
         ops, e_j = energy_model.token_cost(self.energy, n)
         rec.analog_ops += ops
         rec.analog_energy_j += e_j
-        st.tokens_priced += n
+        st.analog_ops += ops
+        st.analog_energy_j += e_j
+        st.tokens_priced += n         # the exact count behind site_attribution
 
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
@@ -562,6 +702,10 @@ class Engine:
         slot.pos += n
         st.prompt_tokens += n
         self._account(slot.record, n)
+        if self.tracer is not None:
+            self.tracer.mark_chunk(
+                slot.record.request.rid, start // ecfg.chunk, n,
+                done=not slot.prefilling, step=st.steps)
         if not slot.prefilling:
             row_logits = logits[0, 0]
             tok = int(torch.argmax(row_logits[:self.cfg.vocab_size]))
@@ -617,6 +761,9 @@ class Engine:
             self._finish(culprit, "failed")
             return
         st.decode_steps += 1
+        if self.tracer is not None:
+            self.tracer.mark_decode(
+                [s.record.request.rid for s in runnable], st.steps)
         st.util_samples.append(len(runnable) / b)
         row_logits = logits[:, 0]
         toks = torch.argmax(row_logits[:, :self.cfg.vocab_size], dim=-1).cpu()
@@ -632,6 +779,17 @@ class Engine:
     # ------------------------------------------------------------------
     # Drift detection and online recalibration
     # ------------------------------------------------------------------
+    def _observe_clips(self, dc: DriftConfig) -> None:
+        """Stream the per-site readout clip rates into the sink as
+        ``clip_rate.<site>`` series (``DriftConfig.observe_every``): one
+        ``drift_probe``, outside the two step programs, its tallies read
+        once, with no recalibration decision attached."""
+        _, clips = model.drift_probe(
+            self.params, dc.probe_batch, self.cfg, self.pinned_calibration(),
+            device=self.device)
+        for name, v in clip_rate_metrics(clips).items():
+            self.sink.observe(name, v, self._st.steps)
+
     def _drift_check(self, dc: DriftConfig) -> None:
         st = self._st
         pinned = self.pinned_calibration()
@@ -646,6 +804,13 @@ class Engine:
             "step": st.steps, "max_clip_rate": float(max_clip),
             "max_log_ratio": float(max_dev),
             "seconds": time.perf_counter() - t0})
+        if self.sink is not None:
+            self.sink.observe("drift_max_clip_rate", float(max_clip),
+                              st.steps)
+            self.sink.observe("drift_max_log_ratio", float(max_dev),
+                              st.steps)
+            for name, v in clip_rate_metrics(clips).items():
+                self.sink.observe(name, v, st.steps)
         if not (max_clip > dc.clip_threshold or max_dev > dc.window_tol):
             return
         st.drift_events.append({
@@ -670,8 +835,8 @@ class Engine:
         possibly recalibrated, windows) and ``meta`` (a uint8 tensor of the
         JSON of every host-side structure: requests, records, scheduler
         queue, slots and block tables, the page pool's free list,
-        counters; the JAX package's meta version 4, whose ``sla``,
-        ``telemetry`` and ``trace`` are null here).  The weights are not
+        counters, the SLA policy, the metrics sink's and the tracer's
+        state; the JAX package's meta version 4).  The weights are not
         included: the restoring process builds its Engine with the same
         params.  Valid between ticks, where a preemption leaves the
         engine."""
@@ -683,7 +848,12 @@ class Engine:
             "dp": 1,
             "ecfg": dataclasses.asdict(self.ecfg),
             "model": self._model_id(),
-            "sla": None, "telemetry": None, "trace": None,
+            "sla": (dataclasses.asdict(self.sla)
+                    if self.sla is not None else None),
+            "telemetry": (self.sink.snapshot()
+                          if self.sink is not None else None),
+            "trace": (self.tracer.snapshot()
+                      if self.tracer is not None else None),
             "requests": [
                 {"rid": r.rid, "prompt": list(r.prompt),
                  "max_new_tokens": r.max_new_tokens,
@@ -721,10 +891,15 @@ class Engine:
                 "prompt_tokens": st.prompt_tokens,
                 "generated_tokens": st.generated_tokens,
                 "evictions": st.evictions, "nan_steps": st.nan_steps,
-                "failed": st.failed, "tokens_priced": st.tokens_priced,
+                "failed": st.failed, "rejected": st.rejected,
+                "over_budget": st.over_budget,
+                "analog_ops": st.analog_ops,
+                "analog_energy_j": st.analog_energy_j,
+                "tokens_priced": st.tokens_priced,
                 "step_retries": st.step_retries,
                 "recalibrations": st.recalibrations,
                 "last_drift_check": st.last_drift_check,
+                "last_clip_obs": st.last_clip_obs,
                 "wall_s": st.wall_s,
                 "util_samples": [float(u) for u in st.util_samples],
                 "drift_events": st.drift_events,
@@ -745,11 +920,14 @@ class Engine:
         """Rebuild the in-flight state from ``snapshot()`` output — the
         nested tree or the flat name -> tensor dict that
         ``checkpoint.load_engine_snapshot`` returns.  Checks the engine
-        config, the model, the window structure and every page pool's
-        shape and dtype before it changes anything; the windows are copied
-        into the engine's window tensors and the pools into pools made by
-        ``model.init_paged_caches`` on the engine's device.  ``resume``
-        then continues the trace."""
+        config, the model, the SLA policy (it must equal this engine's: it
+        decides the admission order), that a snapshot carrying telemetry or
+        trace state meets a sink or a tracer to take it, the window
+        structure and every page pool's shape and dtype before it changes
+        anything; then the sink and the tracer continue the snapshot's
+        series and spans, the windows are copied into the engine's window
+        tensors and the pools into pools made by ``model.init_paged_caches``
+        on the engine's device.  ``resume`` then continues the trace."""
         flat = dict(leaves_with_paths(snap))
         if "meta" not in flat:
             raise ValueError("engine snapshot missing 'meta' leaf")
@@ -768,13 +946,26 @@ class Engine:
         if meta["model"] != self._model_id():
             raise ValueError(f"engine snapshot model {meta['model']} != "
                              f"{self._model_id()}")
-        for piece, what in (("sla", "an SLA policy"),
-                            ("telemetry", "a telemetry sink"),
-                            ("trace", "a tracer")):
-            if meta.get(piece) is not None:
-                raise ValueError(
-                    f"engine snapshot carries {piece} state, but the port's "
-                    f"engine has no {what} to resume it into (ROADMAP A7b)")
+        snap_sla = meta.get("sla")
+        mine_sla = (dataclasses.asdict(self.sla)
+                    if self.sla is not None else None)
+        if snap_sla != mine_sla:
+            raise ValueError(
+                f"engine snapshot was taken under SLA policy {snap_sla}, "
+                f"this engine has {mine_sla} — the policy drives admission "
+                "order and must match for the same streams on resume")
+        snap_telemetry = meta.get("telemetry")
+        if snap_telemetry is not None and self.sink is None:
+            raise ValueError(
+                "engine snapshot carries telemetry state but this engine has "
+                "no sink — construct it with sink= to resume the metric "
+                "series and alert history")
+        snap_trace = meta.get("trace")
+        if snap_trace is not None and self.tracer is None:
+            raise ValueError(
+                "engine snapshot carries trace state but this engine has no "
+                "tracer — construct it with tracer= to resume the span "
+                "stream as one continuous trace")
         # --- windows and page pools: check all, then copy in place --------
         win = {k[len("windows/"):]: v for k, v in flat.items()
                if k.startswith("windows/")}
@@ -800,6 +991,10 @@ class Engine:
                 raise ValueError(
                     f"cache leaf {name}: snapshot {tuple(t.shape)}/{t.dtype}"
                     f" != expected {tuple(sh.shape)}/{sh.dtype}")
+        if snap_telemetry is not None:
+            self.sink.restore(snap_telemetry)
+        if snap_trace is not None:
+            self.tracer.restore(snap_trace)
         for site, t in win.items():
             self._windows[site].copy_(t)
         caches = model.init_paged_caches(self.cfg, ecfg.num_pages,
@@ -828,7 +1023,7 @@ class Engine:
             rec.analog_energy_j = rd["analog_energy_j"]
             rec.reject_reason = rd.get("reject_reason")
             records[int(rid_s)] = rec
-        sched = SlotScheduler(ecfg.slots, ecfg.slot_order)
+        sched = self._make_sched()
         sched.pending = [by_rid[rid] for rid in meta["sched"]["pending"]]
         sched._seq = meta["sched"]["seq"]
         for sd in meta["sched"]["slots"]:
@@ -850,10 +1045,18 @@ class Engine:
             prompt_tokens=c["prompt_tokens"],
             generated_tokens=c["generated_tokens"],
             evictions=c["evictions"], nan_steps=c["nan_steps"],
-            failed=c["failed"], tokens_priced=c["tokens_priced"],
+            failed=c["failed"], rejected=c.get("rejected", 0),
+            over_budget=c.get("over_budget", 0),
+            # snapshots written before the running totals: the records' sums
+            analog_ops=c.get("analog_ops", sum(
+                r.analog_ops for r in records.values())),
+            analog_energy_j=c.get("analog_energy_j", sum(
+                r.analog_energy_j for r in records.values())),
+            tokens_priced=c["tokens_priced"],
             step_retries=c["step_retries"],
             recalibrations=c["recalibrations"],
-            last_drift_check=c["last_drift_check"], wall_s=c["wall_s"],
+            last_drift_check=c["last_drift_check"],
+            last_clip_obs=c.get("last_clip_obs", 0), wall_s=c["wall_s"],
             util_samples=list(c["util_samples"]),
             drift_events=list(c["drift_events"]),
             drift_checks=list(c["drift_checks"]))
@@ -868,10 +1071,17 @@ class Engine:
         fc = self._fault
         mon = fc.monitor if fc is not None else None
         hb = fc.heartbeat if fc is not None else None
+        if self.sink is not None:
+            self.sink.flush()     # buffered emitters reach disk with report
         # Aggregates are derived from the per-site attribution table, so the
         # site table sums bit-exactly to analog_ops/analog_energy_j/fj_per_op.
         attr = energy_model.site_attribution(self.energy, st.tokens_priced)
         tot_ops, tot_e = attr["ops"], attr["energy_j"]
+        # deadline outcomes over admitted finished requests: a rejection is
+        # admission control working (counted in `rejected`), not a miss
+        hits = [r.deadline_hit for r in st.records.values()
+                if r.done and r.finish_reason != "rejected"
+                and r.deadline_hit is not None]
         return EngineReport(
             requests=[st.records[r.rid].summary() for r in st.requests],
             steps=st.steps,
@@ -905,4 +1115,13 @@ class Engine:
             recalibrations=st.recalibrations,
             drift_events=list(st.drift_events),
             drift_checks=list(st.drift_checks),
+            rejected=st.rejected,
+            over_budget=st.over_budget,
+            deadline_hits=sum(1 for h in hits if h),
+            deadline_misses=sum(1 for h in hits if not h),
+            alerts=len(self.sink.alerts) if self.sink is not None else 0,
+            telemetry=(self.sink.summary()
+                       if self.sink is not None else None),
+            trace_summary=(self.tracer.summary()
+                           if self.tracer is not None else None),
         )

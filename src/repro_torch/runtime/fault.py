@@ -17,6 +17,10 @@ retry, straggler watch, heartbeat — the port's copy of
   * StragglerMonitor — per-step wall-time EWMA + threshold: logs and counts
     outlier steps.
   * Heartbeat       — liveness marker an external babysitter can watch.
+
+Given a ``sink`` (``runtime.telemetry.MetricsSink``), the monitor streams
+its stragglers as the ``straggler_dt_s`` series and the heartbeat its beat
+count as the ``heartbeat`` series.
 """
 from __future__ import annotations
 
@@ -118,10 +122,14 @@ class StragglerMonitor:
     n: int = 0
     stragglers: int = 0
     log: list = dataclasses.field(default_factory=list)
+    sink: Optional[object] = None   # telemetry.MetricsSink (optional)
 
     def record(self, step: int, dt: float) -> bool:
         """Returns True if this step was a straggler.  The first 6 steps
-        only feed the EWMA (warm-up steps would flag everything after)."""
+        only feed the EWMA (warm-up steps would flag everything after).
+        With a ``sink`` every straggler also emits a ``straggler_dt_s``
+        sample (the engine streams every step's latency separately; this
+        series carries only the outliers the EWMA flagged)."""
         is_straggler = self.n > 5 and dt > self.threshold * self.ewma
         self.ewma = dt if self.n == 0 else \
             (1 - self.ewma_alpha) * self.ewma + self.ewma_alpha * dt
@@ -129,13 +137,17 @@ class StragglerMonitor:
         if is_straggler:
             self.stragglers += 1
             self.log.append({"step": step, "dt": dt, "ewma": self.ewma})
+            if self.sink is not None:
+                self.sink.observe("straggler_dt_s", dt, step)
         return is_straggler
 
 
 class Heartbeat:
-    def __init__(self, path: str | Path, every_s: float = 30.0):
+    def __init__(self, path: str | Path, every_s: float = 30.0,
+                 sink: Optional[object] = None):
         self.path = Path(path)
         self.every_s = every_s
+        self.sink = sink        # telemetry.MetricsSink: a `heartbeat` series
         self._last = 0.0
         self.beats = 0
 
@@ -148,4 +160,6 @@ class Heartbeat:
         self.path.write_text(json.dumps({"step": step, "t": now}))
         self._last = now
         self.beats += 1
+        if self.sink is not None:
+            self.sink.observe("heartbeat", self.beats, step)
         return True

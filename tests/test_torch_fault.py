@@ -516,19 +516,36 @@ def test_slowstep_fires_once_and_keeps_streams():
 
 @pytest.mark.parametrize("piece", ["sla", "telemetry", "trace"])
 def test_restore_refuses_state_the_port_does_not_hold(piece):
-    import json
+    """The JAX package's three restore guards: a snapshot taken under an SLA
+    policy the restoring engine does not run, or carrying telemetry or
+    trace state that engine has no sink or tracer to take, is refused
+    before anything changes."""
+    from repro_torch.runtime import sla, telemetry, trace
     reqs, _, _ = _baselines()
-    e1 = _engine()
+    _, tc, _, tparams, _, tcal, _ = _served()
+    kw = {"sla": dict(sla=sla.SlaConfig()),
+          "telemetry": dict(sink=telemetry.MetricsSink()),
+          "trace": dict(tracer=trace.Tracer())}[piece]
+    e1 = Engine(tc, tparams, EngineConfig(**ECFG), calib=tcal, device="cpu",
+                **kw)
     e1.run(reqs, FaultConfig(injector=fi.FaultInjector([fi.PreemptAt(3)])))
     snap = e1.snapshot()
-    meta = json.loads(snap["meta"].numpy().tobytes().decode())
-    meta[piece] = {"anything": 1}
-    snap["meta"] = torch.frombuffer(bytearray(json.dumps(meta).encode()),
-                                    dtype=torch.uint8)
-    e2 = _engine()
-    with pytest.raises(ValueError, match=f"carries {piece} state"):
-        e2.restore(snap)
-    assert e2._st is None                          # nothing was changed
+    sink, tracer = telemetry.MetricsSink(), trace.Tracer()
+    # restoring engines that lack what the snapshot needs (the SLA case:
+    # another policy, and none); the sink and tracer they do have stay fresh
+    others = {"sla": [dict(sla=sla.SlaConfig(aging_steps=3)), {}],
+              "telemetry": [dict(tracer=tracer)],
+              "trace": [dict(sink=sink)]}[piece]
+    match = {"sla": "SLA policy", "telemetry": "no sink",
+             "trace": "no tracer"}[piece]
+    for other in others:
+        e2 = Engine(tc, tparams, EngineConfig(**ECFG), calib=tcal,
+                    device="cpu", **other)
+        with pytest.raises(ValueError, match=match):
+            e2.restore(snap)
+        assert e2._st is None                      # nothing was changed
+    assert sink.observations == 0 and sink.series == {}
+    assert tracer.events == trace.Tracer().events and tracer.ticks == 0
 
 
 def test_kill_and_resume_with_int8_page_pools(tmp_path):

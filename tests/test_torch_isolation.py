@@ -112,6 +112,19 @@ def test_fault_modules_are_in_the_isolation_scan(name):
     assert not FORBIDDEN.search(path.read_text()), path
 
 
+OBSERVABILITY_MODULES = (
+    "repro_torch.runtime.telemetry", "repro_torch.runtime.sla",
+    "repro_torch.runtime.trace", "repro_torch.launch.trace_report")
+
+
+@pytest.mark.parametrize("name", OBSERVABILITY_MODULES)
+def test_observability_modules_are_in_the_isolation_scan(name):
+    # the port's own copies of the JAX package's pure-Python modules
+    assert name in _modules()
+    path = PORT.joinpath(*name.split(".")[1:]).with_suffix(".py")
+    assert not FORBIDDEN.search(path.read_text()), path
+
+
 def test_drift_probe_refuses_a_missing_card(monkeypatch):
     from repro_torch.core.calibration import CalibrationState
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
