@@ -26,7 +26,9 @@ Phases, each of which stops the script with a non-zero exit on failure:
    the card at the serving paths' shapes, bitwise (``max_abs_err == 0``),
    in each code storage: int8, float32 codes and int4-packed pairs, the
    MoE expert grid at mixtral-8x7b's prefill (E 8, M 2049) and decode (M 5)
-   shapes, the edges of the two CTA tiles (``tile_edge_cases``: M 1, 16,
+   shapes and at kimi-k2's (E 384 on the grid's z axis: B1 fused at the
+   engine steps' 4 capacity rows, B1 raw and B2 with 384 slots at
+   calibration's 54, K x N 7168 x 2048 and 2048 x 7168), the edges of the two CTA tiles (``tile_edge_cases``: M 1, 16,
    17, 129, 256, 257, ragged and unaligned operands) and of the float32
    codes' exact envelope (|acc| 15,667,200 and 16,776,450); float32 rows also time a
    TF32 ``bmm`` yardstick beside the full-float32 one; the training path's
@@ -95,6 +97,16 @@ Phases, each of which stops the script with a non-zero exit on failure:
    a kill and resume with a fresh sink and tracer continues the series
    and the trace as one document; the serve CLI writes its metrics, trace
    and report files, and ``launch/trace_report`` renders the trace.
+   Then kimi-k2-1t-a32b at full width (d_model 7168, 384 experts of d_ff
+   2048, top-8, one shared expert, vocab 163,840, bf16, random weights from
+   seed 0) cut to 1 of its 61 layers, capacity factor 1.25, under moe.* at
+   p = 6 through the paged engine: one calibration pass over 4 x 512
+   tokens ((384,) windows at moe.expert.*, (1,) at moe.shared.*), then the
+   8 ragged requests (slots 4, chunk 64, page 16); exact launch counts (6
+   B1 fused per step, B1 raw = B2 = 6 in calibration), 2 step shapes, no
+   NaN, the first and last requests alone == batched; its peak allocated
+   memory after init, calibration and serving (each expert bank is
+   programmed a slice of experts at a time).
    Then mamba2-1.3b at full width (48 layers, d_model 2048, 64 heads x 64,
    d_state 128, chunk 128, vocab 50280, bf16, random weights from seed 0)
    under ``ssm_unchained``: one calibration pass over 4 x 512 tokens, then
@@ -136,15 +148,21 @@ Phases, each of which stops the script with a non-zero exit on failure:
    every launch in the 3xTF32 storage, counted.  The case study's QAT half
    (``launch/perceptron.qat_case_study``): the 10 x 10 x 10 perceptron
    trained on the card, deployed through B4 with DIBL, digital twin >= 0.9
-   and circuit > 0.8;
+   and circuit > 0.8.  mamba2-1.3b at full width and depth, every ssm.*
+   site a 6-bit QAT site, through ``train_loop`` (AdamW lr 1e-3, 4 steps
+   of 4 x 512 tokens, remat "minimal", the scan ``ssd_plain`` under
+   autograd): losses and gradient norms finite, the last loss below the
+   first, B2 exactly sites x layers x (steps + recomputes);
 5. small input: the card's kernel path against the CPU plain path at smoke
    width, same weights, for qwen, for mamba2, for mixtral under both MoE
    plans (a prompt longer than its window of 8), for zamba2 under
    ``hybrid_unchained`` with the flash threshold lowered to 8 (flash in
    every shared-block prefill), for the perceptron and
    a 64 x 64 array, and for 3 training steps of the smoke qwen under the
-   global TD-VMM config and under ``ffn_chained`` (step-0 loss and
-   gradients, then the losses).
+   global TD-VMM config and under ``ffn_chained``, and of the smoke mamba2
+   under the global config (step-0 loss and gradients, then the losses;
+   under TD-VMM the CPU also runs on the card's codes, ``CodeTape``, which
+   counts the codes the two devices round to different levels).
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Without a CUDA device, or run from a
@@ -166,6 +184,10 @@ ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 # cuBLAS reads this once, at its first handle: set before torch starts it.
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+# the caching allocator grows its segments instead of splitting fixed ones:
+# kimi-k2's phase frees and takes multi-GB blocks (a bank's 5.6 GB of codes,
+# its 1 GB slices) beside ~39 GB of weights
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 H100_HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 H100_INT8_OPS_PER_S = 1979e12       # dense int8 tensor-core rate
@@ -259,8 +281,9 @@ PERCEPTRON_QAT_ROWS = (800, 200)
 # p = 11 inputs x 3-bit weights (random codes, |acc| far below 2^24)
 F32X3_INT = {"p9": (511, 15), "p11": (2047, 7)}
 # Phase 5, training at smoke width, card against CPU: the TD-VMM codes are
-# the same on both, attention, norms and the float32 gradient products sum
-# in other orders.  Step 0: the loss relative (1e-6) and each leaf's
+# the same on both (the CPU's run on the card's codes checks it, and counts
+# where not), attention, norms and the float32 gradient products sum in
+# other orders.  Step 0: the loss relative (1e-6) and each leaf's
 # gradient relative to its max|g| (1e-5); the losses of 3 AdamW steps
 # relative (1e-5, as tests/test_torch_train.py holds 3 steps of train_loop
 # to the JAX package's).
@@ -285,6 +308,32 @@ MOE_PROFILE_STEPS = 4                            # decode steps
 # max|logit|: the TD-VMM codes are bitwise on both; the router, attention
 # and norms sum in float32 in other orders.
 SMALL_MOE_LOGIT_RTOL = 1e-5
+
+# kimi-k2-1t-a32b (archs.py:79-87) at full width through the paged engine:
+# d_model 7168, 64 heads (GQA kv 8, head_dim 112), 384 experts of d_ff 2048,
+# top-8, one shared expert, an untied vocab of 163,840, bf16.  Depth cut
+# from 61 layers to 1: one layer is ~34 GB in bf16 (its three expert banks
+# 11.27 GB each) beside 4.7 GB of embeddings and head, so 61 would be ~2 TB.
+# The published capacity factor 1.25 is kept: a decode step of 4 slots
+# puts at most 4 rows on an expert, its capacity (cannot drop), and a
+# prefill chunk's drops depend on that chunk alone.
+KIMI_ARCH = "kimi-k2-1t-a32b"
+KIMI_LAYERS = 1
+KIMI_E = 384
+KIMI_IN, KIMI_OUT = (7168, 2048), (2048, 7168)
+KIMI_CALIB = (4, 512)
+KIMI_CALIB_ROWS = KIMI_CALIB[0] * KIMI_CALIB[1]
+# the expert grid's capacity rows: 4 for a 64-token chunk and for 4 decode
+# slots, 54 for the 2048 calibration tokens
+KIMI_STEP_C, KIMI_CALIB_C = 4, 54
+# the requests served alone against their batched streams: the first, last
+KIMI_SOLO = (0, 7)
+# an expert whose window stays at calibration's floor saw no token
+KIMI_FLOOR = 1e-9
+# mamba2-1.3b trained at full width and depth, every ssm.* site a 6-bit QAT
+# site, 4 steps of QAT_BATCH x QAT_SEQ tokens (its scan is ssd_plain under
+# autograd: B3 has no backward)
+SSM_TRAIN_STEPS = 4
 
 # zamba2-2.7b (arXiv:2411.15242) at full width and depth: 54 Mamba-2 layers
 # (80 heads x 64, d_state 64, chunk 128) in 9 groups of 6, each group
@@ -706,6 +755,27 @@ def kernel_cases() -> list[dict]:
                            mode="expert_slots"),
                       dict(small, kernel="tdvmm_fused",
                            mode="shared_x_window", ex=1)]
+    # kimi-k2's expert grid, E = 384 (gridDim.z), int8: B1 fused with (E,)
+    # windows at the engine steps' 4 capacity rows (prefill chunk and
+    # decode), B1 raw and B2 (384 slots) at calibration's 54; its shared
+    # expert at the same K x N, E = 1 with a (1,) window: B1 fused at the
+    # step's rows (a prefill chunk's 64, 4 decode slots), B1 raw and B2 at
+    # calibration's 2048
+    for k, n in (KIMI_IN, KIMI_OUT):
+        big = dict(e=KIMI_E, ex=KIMI_E, k=k, n=n)
+        cases += [dict(big, kernel="tdvmm_fused", mode="expert_windows",
+                       m=KIMI_STEP_C),
+                  dict(big, kernel="tdvmm_matmul_raw", mode="raw",
+                       m=KIMI_CALIB_C),
+                  dict(big, kernel="tdvmm_calibrated", mode="expert_slots",
+                       m=KIMI_CALIB_C)]
+        one = dict(e=1, ex=1, k=k, n=n)
+        cases += [dict(one, kernel="tdvmm_fused", mode="expert_windows",
+                       m=m) for m in (CHUNK, SLOTS)]
+        cases += [dict(one, kernel="tdvmm_matmul_raw", mode="raw",
+                       m=KIMI_CALIB_ROWS),
+                  dict(one, kernel="tdvmm_calibrated", mode="expert_slots",
+                       m=KIMI_CALIB_ROWS)]
     return cases + qat_cases() + tile_edge_cases()
 
 
@@ -940,14 +1010,20 @@ def run_case(case: dict, dev, seed: int) -> dict:
             del ylib, yp
     bound_ms, bound_by = bound(case)
     big = e * m * k * n > 1e11
+    # at kimi-k2's 384 experts the per-expert library and the plain
+    # version's expert slices launch more kernels than time_ms can queue
+    # ahead of the card: they replay as one CUDA graph
+
+    def timed(fn, iters):
+        return time_graph_ms(fn, iters) if e > 64 else time_ms(fn, iters)
     row = dict(case, codes=codes, max_abs_err=err,
                ms=time_ms(kern, 3 if big else 20),
-               plain_ms=time_ms(plain, 2 if big else 5), bound_ms=bound_ms,
+               plain_ms=timed(plain, 2 if big else 5), bound_ms=bound_ms,
                bound_by=bound_by,
                library_ms=None if library is None
-               else time_ms(library, 3 if big else 10),
+               else timed(library, 3 if big else 10),
                library_tf32_ms=None if library_tf32 is None
-               else time_ms(library_tf32, 3 if big else 10),
+               else timed(library_tf32, 3 if big else 10),
                library_padded=library is not None and padded,
                tile=tk.plan_tile(m).name)
     row.pop("rep", None)
@@ -1128,6 +1204,39 @@ def crossing_bound(b: int, k: int, n: int, general: int) -> tuple[float, str]:
              + 4.0 * general * k / H100_F32_FLOPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def time_graph_ms(fn, iters: int) -> float:
+    """Device milliseconds of one call of ``fn``, captured in one CUDA graph
+    and replayed ``iters`` times between CUDA events: its hundreds of
+    launches replay with no host launch gaps between them.  Such a graph
+    holds more launches than the card's queue, so it cannot be queued
+    ahead of a sleeping card as in ``time_ms``: the host waits on the full
+    queue while the card works, and only the first replay's launch, some
+    microseconds, falls inside the events."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                    # warm, off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    try:
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+    finally:
+        del graph
+        torch.cuda.empty_cache()
 
 
 def time_long_ms(fn) -> float:
@@ -1594,6 +1703,169 @@ def serve_moe(name: str, plan, dev, params_cache: dict) -> dict:
                 windows={s: [round(float(v), 6) for v in w]
                          for s, w in calib.windows.items()},
                 args=(cfg, params, calib, prompts))
+
+
+def kimi_config():
+    """kimi-k2-1t-a32b at its published width, cut to KIMI_LAYERS layers,
+    every moe.* site at p = 6 (int8 codes)."""
+    from repro_torch.configs import get_config
+    return get_config(KIMI_ARCH).replace(
+        n_layers=KIMI_LAYERS, tdvmm_plan=moe_plans()["moe_unchained"])
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def serve_kimi(dev) -> dict:
+    """kimi-k2-1t-a32b at full width (one layer) through the paged engine
+    under moe.*: random weights from seed 0 on the card, one calibration
+    pass over KIMI_CALIB tokens ((384,) windows at moe.expert.*, (1,) at
+    moe.shared.*), then make_trace's 8 ragged requests with slots 4, chunk
+    64 and page 16.  Exact launches (per MoE layer and step: 2
+    moe.expert.in, 1 moe.expert.out, 2 moe.shared.in, 1 moe.shared.out,
+    B1 fused; in calibration B1 raw = B2 = 6), 2 step shapes, no NaN, and
+    the first and last requests served alone give their batched streams.
+    Each bank is programmed a slice of experts at a time
+    (``quant.program_weights``): a whole bank's float32 temporaries alone would
+    take over 100 GB."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.runtime.engine import Engine, EngineConfig, Request
+    from repro_torch.runtime.paged_cache import pages_for
+
+    t_phase = time.perf_counter()
+    cfg = kimi_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    peak = {"init": torch.cuda.max_memory_allocated()}
+    resident = tree_bytes(params)
+    layer = tree_bytes(params["blocks"]["seg0"][0])
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    calib_tokens = torch.randint(0, cfg.vocab_size, KIMI_CALIB, generator=g,
+                                 device=dev)
+    trace = make_trace(cfg.vocab_size)
+    max_len = max(len(r.prompt) + r.max_new_tokens for r in trace)
+    ecfg = EngineConfig(slots=SLOTS, page_size=PAGE, num_pages=NUM_PAGES,
+                        chunk=CHUNK, max_pages_per_slot=pages_for(max_len, PAGE))
+    per_step = 6 * cfg.n_layers          # B1 fused per engine step
+
+    # ---- the main path: counts at 0, calibrate, serve, read ---------------
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    calib = model.calibrate(params, {"inputs": calib_tokens}, cfg)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    peak["calibrate"] = torch.cuda.max_memory_allocated()
+    at_calib = launches_now()
+    torch.cuda.reset_peak_memory_stats()
+    rep = Engine(cfg, params, ecfg, calib=calib).run(trace)
+    torch.cuda.synchronize()
+    peak["serve"] = torch.cuda.max_memory_allocated()
+    launches = launches_now()
+    serve_launches = {k: launches[k] - at_calib[k] for k in launches}
+
+    zero = dict.fromkeys(launches, 0)
+    want_cal = zero | {"raw": per_step, "calibrated": per_step}
+    require(at_calib == want_cal,
+            f"kimi: calibration launches {at_calib} != {want_cal}")
+    want = zero | {"fused": per_step * rep.steps}
+    require(serve_launches == want,
+            f"kimi: serving launches {serve_launches} != {want} "
+            f"({rep.steps} steps)")
+    shapes = {s: tuple(w.shape) for s, w in calib.windows.items()}
+    require(shapes == {"moe.expert.in": (KIMI_E,), "moe.expert.out": (KIMI_E,),
+                       "moe.shared.in": (1,), "moe.shared.out": (1,)},
+            f"kimi: window shapes {shapes}")
+    for site, win in calib.windows.items():
+        require(bool(torch.isfinite(win).all() and (win > 0).all()),
+                f"kimi: {site} window not finite and positive")
+    floor = {s: int((w <= KIMI_FLOOR).sum()) for s, w in calib.windows.items()}
+    require(rep.nan_logit_steps == 0, f"kimi: {rep.nan_logit_steps} NaN steps")
+    require(rep.step_shapes == 2, f"kimi: {rep.step_shapes} step shapes")
+    for req, rec in zip(trace, rep.requests):
+        require(rec["finish_reason"] == "max_tokens"
+                and len(rec["tokens"]) == req.max_new_tokens,
+                f"kimi: request {req.rid} finished {rec['finish_reason']} "
+                f"with {len(rec['tokens'])} of {req.max_new_tokens} tokens")
+    t0 = time.perf_counter()
+    for rid in KIMI_SOLO:
+        req = trace[rid]
+        solo = Engine(cfg, params, ecfg, calib=calib).run(
+            [Request(req.rid, req.prompt, req.max_new_tokens, 0)])
+        require(solo.requests[0]["tokens"] == rep.requests[rid]["tokens"],
+                f"kimi: request {rid} batched stream differs from solo")
+    t_solo = time.perf_counter() - t0
+    out = dict(resident=resident, layer=layer,
+               full_depth=get_config(KIMI_ARCH).n_layers, peak=peak,
+               calibrate_s=t_cal, steps=rep.steps,
+               prefill_steps=rep.prefill_steps, decode_steps=rep.decode_steps,
+               generated_tokens=rep.generated_tokens, serve_s=rep.wall_s,
+               solo_s=t_solo, floor=floor, fj_per_op=rep.fj_per_op,
+               launches=launches, launches_calibrate=at_calib,
+               tokens=rep.requests[0]["tokens"][:8])
+    del params, calib, rep
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def train_mamba2(dev, workdir: Path) -> dict:
+    """mamba2-1.3b at full width and depth (48 layers, bf16, random weights
+    from seed 0), every ssm.* site a 6-bit TD-VMM site (QAT: B2 in every
+    forward, the straight-through custom gradient in the backward), trained
+    through ``launch/train.train_loop``: AdamW at lr 1e-3 with 1 warmup
+    step (step 0 takes lr 0), SyntheticLM seed 0, QAT_BATCH x QAT_SEQ
+    tokens a step,
+    SSM_TRAIN_STEPS steps, remat "minimal".  The scan runs ``ssd_plain``
+    under autograd (no B3 launch).  Every loss and gradient norm finite,
+    the last loss below the first, and B2 launched exactly sites x layers
+    x (steps + recomputes)."""
+    import torch
+    from repro_torch.configs import (OptimizerConfig, RunConfig, TDVMMPlan,
+                                     get_config, tdvmm_rule)
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import train
+
+    cfg = get_config(SSM_ARCH).replace(
+        remat_policy="minimal", tdvmm_plan=TDVMMPlan(rules=(tdvmm_rule(
+            "ssm.*", enabled=True, bits=6, weight_bits=6, backend="auto"),)))
+    shape = ShapeConfig("qat", QAT_SEQ, QAT_BATCH, "train",
+                        microbatch_per_shard=QAT_BATCH)
+    run = RunConfig(model=cfg, shape=shape, seed=0,
+                    optimizer=OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                              total_steps=SSM_TRAIN_STEPS),
+                    checkpoint_dir=str(workdir / "mamba2"),
+                    checkpoint_every=10 * SSM_TRAIN_STEPS)
+    reset_all_launches()
+    out = train.train_loop(run, SSM_TRAIN_STEPS, log_every=1, device=dev)
+    torch.cuda.synchronize()
+    launches = launches_now()
+    hist = out["history"]
+    require(len(hist) == SSM_TRAIN_STEPS, f"mamba2 qat: {len(hist)} steps")
+    for h in hist:
+        require(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
+                f"mamba2 qat step {h['step']}: loss {h['loss']}, gnorm "
+                f"{h['grad_norm']}")
+    require(hist[-1]["loss"] < hist[0]["loss"],
+            f"mamba2 qat: loss {hist[0]['loss']:.4f} -> "
+            f"{hist[-1]['loss']:.4f}")
+    sites = 2                               # ssm.in_proj (grouped), ssm.out
+    want = dict.fromkeys(launches, 0) | {
+        "calibrated": sites * cfg.n_layers * 2 * SSM_TRAIN_STEPS}
+    require(launches == want, f"mamba2 qat launches {launches} != {want}")
+    del out["state"]
+    torch.cuda.empty_cache()
+    return dict(cfg=cfg, hist=hist, total_s=out["total_s"],
+                launches=launches,
+                formula=f"{sites} sites x {cfg.n_layers} layers x "
+                f"({SSM_TRAIN_STEPS} steps + {SSM_TRAIN_STEPS} recomputes)")
 
 
 def profile_static(args, steps: int) -> dict:
@@ -2965,13 +3237,80 @@ def qat_case_study(dev) -> dict:
     return out
 
 
+class CodeTape:
+    """The int8 codes of every ``quant.encode_input`` and
+    ``quant.program_weights`` call, in call order.  ``record``: the card's,
+    kept on the host.  ``replay``: the CPU's run takes the card's codes in
+    place of its own (its scales and straight-through terms stay its own),
+    and ``flips`` counts, by kind, contraction width K (which tells the
+    sites apart) and step, the codes the CPU would have rounded to another
+    level; ``jump`` is the largest such move."""
+
+    def __init__(self):
+        self.codes, self.pos, self.step = [], 0, 0
+        self.flips: dict[tuple[str, int, int], int] = {}
+        self.jump = 0
+
+    def first_flip(self) -> int | None:
+        return min((st for *_, st in self.flips), default=None)
+
+    def install(self, mode: str):
+        """Wrap the two quantizers; returns the function that unwraps them."""
+        import dataclasses
+        import torch
+        from repro_torch.core import quant
+        saved = {n: getattr(quant, n)
+                 for n in ("encode_input", "program_weights")}
+
+        def wrap(kind, fn):
+            def run(*a, **kw):
+                q = fn(*a, **kw)
+                require(q.codes.dtype == torch.int8,
+                        f"code tape: {kind} gave {q.codes.dtype} codes")
+                if mode == "record":
+                    self.codes.append(q.codes.detach().cpu())
+                    return q
+                want = self.codes[self.pos]
+                self.pos += 1
+                require(want.shape == q.codes.shape,
+                        f"code tape: {kind} call {self.pos} is "
+                        f"{tuple(q.codes.shape)} here, {tuple(want.shape)} "
+                        "on the card")
+                jump = (q.codes.to(torch.int16) - want).abs()
+                moved = int((jump > 0).sum())
+                if moved:
+                    k = want.shape[-1 if kind == "input" else -2]
+                    key = (kind, k, self.step)
+                    self.flips[key] = self.flips.get(key, 0) + moved
+                    self.jump = max(self.jump, int(jump.max()))
+                return dataclasses.replace(q, codes=want)
+            return run
+
+        quant.encode_input = wrap("input", saved["encode_input"])
+        quant.program_weights = wrap("weight", saved["program_weights"])
+
+        def undo():
+            for n, fn in saved.items():
+                setattr(quant, n, fn)
+        return undo
+
+
 def small_train_agreement(dev) -> dict:
-    """Smoke-width qwen (2 layers, float32), the same weights and batches
-    on the card (B1/B2) and on the CPU (plain versions), under the global
-    --tdvmm config and under ffn_chained (B1 no-readout into B2): the
-    step-0 loss within SMALL_TRAIN_LOSS_RTOL0 and every leaf's step-0
-    gradient within SMALL_TRAIN_GRAD_RTOL of its max|g|; then 3 steps of
-    the train step (AdamW), each loss within SMALL_TRAIN_LOSS_RTOL."""
+    """Smoke-width training (float32), the same weights and batches on the
+    card (B1/B2) and on the CPU (plain versions): qwen (2 layers) under the
+    global --tdvmm config and under ffn_chained (B1 no-readout into B2),
+    and mamba2 (2 layers; its scan ``ssd_plain`` under autograd on both)
+    with TD-VMM off and under the global config.  The step-0 loss within
+    SMALL_TRAIN_LOSS_RTOL0 and every leaf's step-0 gradient within
+    SMALL_TRAIN_GRAD_RTOL of its max|g|; then 3 steps of the train step
+    (AdamW), each loss within SMALL_TRAIN_LOSS_RTOL.
+
+    Under TD-VMM the CPU runs twice: on its own codes, and on the card's
+    (``CodeTape``), which counts the codes the two devices' float32 sums
+    put on two sides of a rounding edge.  The run on the card's codes is
+    held to every bound above.  The run on its own codes is held to them
+    at every step before the first with such a flip; from that step on a
+    6-bit level that moved is another result, and the replay holds it."""
     import torch
     from repro_torch.configs import (OptimizerConfig, RunConfig, get_config,
                                      smoke)
@@ -2983,20 +3322,12 @@ def small_train_agreement(dev) -> dict:
     from repro_torch.optim.optimizer import make_optimizer
     from repro_torch.tree import leaves_with_paths
 
-    base = smoke(get_config(ARCH))
-    out = {}
-    for name, cfg in (
-            ("tdvmm", base.replace(tdvmm=TDVMMLayerConfig(
-                enabled=True, bits=6, weight_bits=6))),
-            ("ffn_chained", base.replace(tdvmm_plan=plans()["ffn_chained"]))):
-        run = RunConfig(model=cfg, shape=ShapeConfig("small", 16, 4, "train",
-                                                     microbatch_per_shard=4),
-                        optimizer=OptimizerConfig(lr=1e-3, warmup_steps=2,
-                                                  total_steps=3))
-        pipe = make_pipeline(cfg, run.shape, DataConfig(seed=0))
-        p_cpu = model.init_params(0, cfg, device="cpu")
-        res = {}
-        for d, p in (("cpu", p_cpu), ("card", _to(p_cpu, dev))):
+    def train(cfg, run, pipe, p, tape=None, mode=None):
+        """(step-0 loss, step-0 gradients, the losses of 3 AdamW steps)"""
+        undo = tape.install(mode) if tape else (lambda: None)
+        if tape:
+            tape.step = 0
+        try:
             named = leaves_with_paths(p)
             for _, t in named:
                 t.requires_grad_(True)
@@ -3011,15 +3342,24 @@ def small_train_agreement(dev) -> dict:
             st = steps.TrainState(p, opt.init(p))
             losses = []
             for i in range(3):
+                if tape:
+                    tape.step = i
                 st, m = step_fn(st, pipe.batch_at(i))
                 losses.append(float(m["loss"]))
-            res[d] = (float(total), {n: g.detach().cpu() for (n, _), g in
-                                     zip(named, grads)}, losses)
-        (l_c, g_c, ls_c), (l_d, g_d, ls_d) = res["cpu"], res["card"]
+        finally:
+            undo()
+        return (float(total.detach()),
+                {n: g.detach().cpu() for (n, _), g in zip(named, grads)},
+                losses)
+
+    def held(name, ref, got, upto=3):
+        """got's step-0 loss, gradients and first ``upto`` later losses
+        against ref's; returns (loss0, worst gradient, its leaf, later)"""
+        (l_c, g_c, ls_c), (l_d, g_d, ls_d) = ref, got
         loss0 = abs(l_d - l_c) / abs(l_c)
         require(loss0 <= SMALL_TRAIN_LOSS_RTOL0,
-                f"small train {name}: step-0 loss {l_d} vs cpu {l_c}")
-        grad = 0.0
+                f"small train {name}: step-0 loss {l_d} vs {l_c}")
+        grad, worst = 0.0, ""
         for n, gc in g_c.items():
             scale = float(gc.abs().max())
             if scale == 0.0:
@@ -3029,11 +3369,52 @@ def small_train_agreement(dev) -> dict:
             rel = float((g_d[n] - gc).abs().max()) / scale
             require(rel <= SMALL_TRAIN_GRAD_RTOL,
                     f"small train {name}: {n} gradient {rel:.3g} of max|g|")
-            grad = max(grad, rel)
-        later = max(abs(a - b) / abs(b) for a, b in zip(ls_d, ls_c))
-        require(later <= SMALL_TRAIN_LOSS_RTOL,
-                f"small train {name}: losses {ls_d} vs cpu {ls_c}")
-        out[name] = dict(loss0=loss0, grad=grad, losses=later)
+            if rel > grad:
+                grad, worst = rel, n
+        later = [abs(a - b) / abs(b) for a, b in zip(ls_d, ls_c)]
+        require(all(r <= SMALL_TRAIN_LOSS_RTOL for r in later[:upto]),
+                f"small train {name}: losses {ls_d} vs {ls_c}")
+        return loss0, grad, worst, max(later)
+
+    td = TDVMMLayerConfig(enabled=True, bits=6, weight_bits=6)
+    base = smoke(get_config(ARCH))
+    ssm_base = smoke(get_config(SSM_ARCH))
+    out = {}
+    for name, cfg in (
+            ("qwen tdvmm", base.replace(tdvmm=td)),
+            ("qwen ffn_chained",
+             base.replace(tdvmm_plan=plans()["ffn_chained"])),
+            ("mamba2", ssm_base),
+            ("mamba2 tdvmm", ssm_base.replace(tdvmm=td))):
+        run = RunConfig(model=cfg, shape=ShapeConfig("small", 16, 4, "train",
+                                                     microbatch_per_shard=4),
+                        optimizer=OptimizerConfig(lr=1e-3, warmup_steps=2,
+                                                  total_steps=3))
+        pipe = make_pipeline(cfg, run.shape, DataConfig(seed=0))
+        p_cpu = model.init_params(0, cfg, device="cpu")
+        quantized = cfg.tdvmm.enabled or cfg.tdvmm_plan is not None
+        tape = CodeTape() if quantized else None
+        card = train(cfg, run, pipe, _to(p_cpu, dev), tape, "record")
+        cpu = train(cfg, run, pipe, p_cpu)
+        r = {}
+        if tape:
+            # the card's codes: every bound, every step
+            replay = train(cfg, run, pipe,
+                           model.init_params(0, cfg, device="cpu"), tape,
+                           "replay")
+            require(tape.pos == len(tape.codes),
+                    f"small train {name}: the CPU quantized {tape.pos} "
+                    f"times, the card {len(tape.codes)}")
+            _, r["replay_grad"], _, r["replay_losses"] = held(
+                name + " (the card's codes)", replay, card)
+            r.update(flips={f"{kind} K{k} step {st}": v
+                            for (kind, k, st), v in sorted(tape.flips.items())},
+                     jump=tape.jump, calls=len(tape.codes))
+        first = tape.first_flip() if tape else None
+        loss0, grad, worst, later = held(name, cpu, card,
+                                         3 if first is None else first)
+        out[name] = dict(r, loss0=loss0, grad=grad, worst=worst,
+                         losses=later, first_flip=first)
     return out
 
 
@@ -3468,6 +3849,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("observe qwen")
 
+    ki = serve_kimi(dev)
+    served.append({"launches": ki["launches"]})
+    gb = 1e-9
+    say("serve", f"{KIMI_ARCH}: full width, depth cut to {KIMI_LAYERS} of "
+        f"{ki['full_depth']} layers: one layer is {ki['layer'] * gb:.2f} GB "
+        f"in bf16 ({ki['full_depth']} would be "
+        f"{ki['layer'] * ki['full_depth'] * gb:.0f} GB on an 80 GB card); "
+        f"resident {ki['resident'] * gb:.2f} GB; capacity factor "
+        f"{kimi_config().moe.capacity_factor}")
+    say("serve", f"moe_unchained: {KIMI_ARCH} through the paged engine, "
+        f"{ki['generated_tokens']} tokens for 8 requests in {ki['steps']} "
+        f"steps ({ki['prefill_steps']} prefill + {ki['decode_steps']} "
+        f"decode) in {ki['serve_s']:.2f} s "
+        f"({ki['serve_s'] / ki['steps']:.3f} s a step), calibrate "
+        f"{ki['calibrate_s']:.2f} s over {KIMI_CALIB[0]} x {KIMI_CALIB[1]} "
+        f"tokens; experts at the {KIMI_FLOOR:g} window floor (no calibration "
+        f"token) {ki['floor']}; peak allocated GB "
+        + ", ".join(f"{k} {v * gb:.2f}" for k, v in ki["peak"].items())
+        + f"; {ki['fj_per_op']:.3f} fJ/Op; launches calibrate "
+        f"{ki['launches_calibrate']} total {ki['launches']}; requests "
+        f"{KIMI_SOLO} served alone == batched ({ki['solo_s']:.2f} s); first "
+        f"tokens {ki['tokens']}; phase {ki['seconds']:.1f} s")
+    del ki
+    phase_done("serve kimi")
+
     ssm = serve_ssm(dev)
     served.append(ssm)
     say("serve", f"ssm_unchained: mamba2-1.3b full width, {SSM_BATCH} x "
@@ -3622,6 +4028,23 @@ def main() -> int:
     del case_qat["logits"]
     phase_done("train")
 
+    with tempfile.TemporaryDirectory() as workdir:
+        tm = train_mamba2(dev, Path(workdir))
+    served.append({"launches": tm["launches"]})
+    c = tm["cfg"]
+    say("train", f"qat: {SSM_ARCH} full width and depth ({c.n_layers} "
+        f"layers, d_model {c.d_model}, vocab {c.vocab_size}, {c.dtype}), "
+        f"every ssm.* site 6-bit TD-VMM, {QAT_BATCH} x {QAT_SEQ} tokens a "
+        "step, remat minimal, the scan ssd_plain under autograd: loss "
+        + " ".join(f"{h['loss']:.4f}" for h in tm["hist"])
+        + "; gnorm " + " ".join(f"{h['grad_norm']:.3f}" for h in tm["hist"])
+        + "; step s " + " ".join(f"{h['dt']:.3f}" for h in tm["hist"])
+        + f"; {tm['total_s']:.1f} s with the checkpoint; B2 launches "
+        f"{tm['launches']['calibrated']} = {tm['formula']}")
+    del tm
+    torch.cuda.empty_cache()
+    phase_done("train mamba2")
+
     worst = small_input_agreement(dev)
     say("small", "qwen card vs cpu plain path: equal greedy tokens, logits "
         f"within {worst:.3g} of max|logit|")
@@ -3639,9 +4062,18 @@ def main() -> int:
     say("small", "perceptron and 64 x 64 array card vs cpu plain path: "
         f"decoded outputs within {worst:.3g}")
     for name, r in small_train_agreement(dev).items():
-        say("small", f"qwen training {name} card vs cpu: step-0 loss "
-            f"{r['loss0']:.3g} relative, gradients within {r['grad']:.3g} of "
-            f"max|g| per leaf, 3 AdamW steps' losses within {r['losses']:.3g}")
+        msg = (f"{name} training card vs cpu: step-0 loss {r['loss0']:.3g} "
+               f"relative, gradients within {r['grad']:.3g} of max|g| per "
+               f"leaf ({r['worst']}), 3 AdamW steps' losses within "
+               f"{r['losses']:.3g}")
+        if "calls" in r:
+            msg += (f"; on the card's codes ({r['calls']} quantizer calls) "
+                    f"gradients within {r['replay_grad']:.3g}, losses within "
+                    f"{r['replay_losses']:.3g}; codes the CPU rounds to "
+                    f"another level: {r['flips'] or 'none'}"
+                    + (f" (at most {r['jump']} level), losses gated before "
+                       f"step {r['first_flip']}" if r["flips"] else ""))
+        say("small", msg)
 
     kernels = []
     for name in SOURCES:

@@ -291,7 +291,10 @@ def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
     expert dim on the batched grid axis, per-expert-per-row input scales,
     per-expert-per-channel weight scales and, once calibrated, an (E,)
     vector of readout windows.  Zero-padded (capacity) rows carry zero
-    codes and contribute zero charge, so the padding is exact."""
+    codes and contribute zero charge, so the padding is exact.  Without a
+    gradient the bank is programmed a slice of experts at a time
+    (``quant.program_weights``): the same bits in a slice's float32
+    temporaries, so a full-width kimi-k2 bank fits on one card."""
     if not cfg.enabled:
         return torch.einsum("eck,ekn->ecn", x, w)
     e, c, k = x.shape

@@ -9,7 +9,8 @@ holds the two code stages the serving path runs before the TD-VMM kernel:
                       (sign = differential wire pair), per-row range scale.
     program_weights   sections 2, 4.1 — floating-gate tuning programs each
                       cell's current to one of 2^p_w levels, per-output-column
-                      scale.
+                      scale (an expert bank without a gradient, a slice of
+                      experts at a time).
     readout           Eq. 3 / section 4.2 — the p-bit ADC over an output
                       window, in the value domain.
 
@@ -193,7 +194,34 @@ def program_weights(
 
     ``per_channel`` scales each output column independently (axis -2 of a
     (N_in, N_out) matrix); otherwise one scale per weight tile.
+
+    An (E, K, N) expert bank that takes no gradient (serving, calibration,
+    the drift probe) is programmed a slice of experts at a time into
+    preallocated codes and scales.  Every scale is per expert, so the bits
+    are those of the whole bank at once: a change of memory, not of
+    numbers.  A whole bank's float32 copy, its ``abs`` and its normalized
+    value take 4 bytes a weight apiece (22.5 GB each for one of kimi-k2's
+    384 x 7168 x 2048 banks); a slice keeps each near ``SLICE_ELEMS``.
+    With a gradient the straight-through term spans the whole tensor.
     """
+    if w.dim() == 3 and not (w.requires_grad and torch.is_grad_enabled()):
+        step = expert_step(w)
+        if step < w.shape[0]:
+            e, _, n = w.shape
+            codes = torch.empty(w.shape, dtype=storage_dtype(bits),
+                                device=w.device)
+            scale = torch.empty((e, 1, n if per_channel else 1),
+                                dtype=torch.float32, device=w.device)
+            for lo in range(0, e, step):
+                q = _program(w[lo:lo + step], bits, per_channel)
+                codes[lo:lo + step] = q.codes
+                scale[lo:lo + step] = q.scale
+            return QuantizedTensor(codes=codes, scale=scale, bits=bits)
+    return _program(w, bits, per_channel)
+
+
+def _program(w: torch.Tensor, bits: int, per_channel: bool
+             ) -> QuantizedTensor:
     wf = w.to(torch.float32)
     dims = (-2,) if per_channel else (-2, -1)
     w_max = _floor(_absmax(wf.detach(), dims), 1e-6)
@@ -202,6 +230,18 @@ def program_weights(
     # per-channel max-magnitude weight, a min/max tie at |w| == w_max)
     codes, lin = _store(wf / w_max, bits)
     return QuantizedTensor(codes=codes, scale=w_max, bits=bits, ste=lin)
+
+
+# Elements of one slice of an (E, K, N) expert bank: 1 GiB of each float32
+# temporary of ``program_weights`` and 2 GiB of each float64 one of the
+# plain product on the card (``tdvmm.acc_plain``); 18 of kimi-k2's
+# 7168 x 2048 experts.
+SLICE_ELEMS = 1 << 28
+
+
+def expert_step(w: torch.Tensor) -> int:
+    """Experts in one slice of the (E, K, N) bank ``w``."""
+    return max(1, SLICE_ELEMS // max(w[0].numel(), 1))
 
 
 def concat_group(qws, widths: tuple[int, ...]) -> QuantizedTensor:

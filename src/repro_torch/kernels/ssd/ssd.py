@@ -7,7 +7,9 @@ tensor cores: C.B^T once per (row, group, chunk) and the prefix sums of
 dt * a; the state carried over the chunks; then y, every chunk in parallel
 (three device kernels, one ``ssd_scan`` call; 3xTF32 products, see the
 source).  ``ssd_plain`` is the same function in torch ops: the JAX
-package's ``models/ssm.ssd_chunked``, term for term.
+package's ``models/ssm.ssd_chunked``, term for term (its decay mask goes
+in before the exp, the same values with a finite gradient), and the
+training path's scan under autograd.
 
 Layouts are the JAX package's: x (B, L, H, P), dt (B, L, H) float32,
 a_log (H,) float32, b and c (B, L, G, S) with G dividing H; the result is
@@ -23,6 +25,7 @@ float tolerance, not bitwise.
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 
 import torch
@@ -112,11 +115,15 @@ def ssd_plain(x, dt, a_log, b, c, chunk: int = 128):
     cum = torch.cumsum(dta_, dim=2)                        # (B,nc,Q,H)
     total = cum[:, :, -1]                                  # (B,nc,H)
 
-    # intra-chunk: M[i, j] = exp(cum_i - cum_j) for j <= i
+    # intra-chunk: M[i, j] = exp(cum_i - cum_j) for j <= i.  The mask goes
+    # in before the exp (exp(-inf) = 0): the same values as masking after
+    # it, but no exp overflows above the diagonal, where its gradient
+    # would be 0 * inf = NaN under autograd (training)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B,nc,Q,Q,H)
     causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    m = torch.where(causal[None, None, :, :, None], torch.exp(diff),
-                    torch.zeros((), dtype=f32, device=x.device))
+    m = torch.exp(torch.where(causal[None, None, :, :, None], diff,
+                              torch.full((), -math.inf, dtype=f32,
+                                         device=x.device)))
     g = torch.einsum("bnihs,bnjhs->bnijh", ch.to(f32), bh.to(f32))
     w = g * m * dt_[:, :, None, :, :]
     y_intra = torch.einsum("bnijh,bnjhp->bnihp", w, x_.to(f32))

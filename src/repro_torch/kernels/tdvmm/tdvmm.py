@@ -330,9 +330,9 @@ def acc_plain(x: torch.Tensor, w: torch.Tensor,
               int4_k: Optional[int] = None) -> torch.Tensor:
     """Charge accumulation (E, M, N).  Integer codes (int4 pairs unpacked
     first): exact int32, as an int32 matmul on the CPU and float64 products
-    and sums (exact below 2^53) on the card.  Float32 codes: a float32
-    matmul, with TF32 off on the card (exact for integer codes while the
-    sums stay below 2^24)."""
+    and sums (exact below 2^53) on the card, a slice of experts at a time.
+    Float32 codes: a float32 matmul, with TF32 off on the card (exact for
+    integer codes while the sums stay below 2^24)."""
     if int4_k is not None:
         x = quant.unpack_int4(x, int4_k, axis=-1)
         w = quant.unpack_int4(w, int4_k, axis=-2)
@@ -347,7 +347,13 @@ def acc_plain(x: torch.Tensor, w: torch.Tensor,
             torch.backends.cuda.matmul.allow_tf32 = tf32
     if x.device.type == "cpu":
         return torch.matmul(x.to(torch.int32), w.to(torch.int32))
-    return torch.matmul(x.to(torch.float64), w.to(torch.float64)).to(torch.int32)
+    # a slice of experts at a time: a whole bank's float64 copy takes 8
+    # bytes a code (45 GB for one of kimi-k2's 384 x 7168 x 2048 banks)
+    step = quant.expert_step(w)
+    return torch.cat([torch.matmul(
+        (x if x.shape[0] == 1 else x[lo:lo + step]).to(torch.float64),
+        w[lo:lo + step].to(torch.float64)).to(torch.int32)
+        for lo in range(0, w.shape[0], step)])
 
 
 def _f32(v: float, device) -> torch.Tensor:

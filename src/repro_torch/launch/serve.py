@@ -4,6 +4,14 @@
         --tdvmm 'ffn.*' --chain --calibrate --requests 8
 
 runs a seeded ragged trace through ``runtime.engine.Engine`` on the card.
+The engine serves the dense and the MoE families (kimi-k2-1t-a32b: 384
+experts, top-8, a shared expert; ``chip_smoke.py`` serves one full-width
+layer of it):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch kimi-k2-1t-a32b --smoke --tdvmm 'moe.*' --calibrate \
+        --device cpu
+
 ``--static`` serves one uniform batch instead — one prefill, then greedy
 decode steps — the only path for SSM models and for sliding-window models
 such as mixtral-8x7b, and for the hybrid zamba2-2.7b, as in the JAX

@@ -1,8 +1,8 @@
 """LM wrapper: embedding, stack, head; the training forward and loss
 (``forward``, ``loss_fn``) and the serving entry points — torch port of
 ``repro.models.model`` (dense, MoE, SSM and hybrid models; the paged steps
-serve dense models only: the JAX package's also serve MoE models without a
-sliding window, which the port's engine does not yet).
+serve the attention families, dense and MoE, without a sliding window, as
+the JAX package's do).
 
 Parameters are a plain dict::
 
@@ -87,7 +87,8 @@ def forward(params, batch: dict, cfg: ModelConfig, key=None):
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
-    x, aux = transformer.apply_train(params["blocks"], x, cfg, positions, key)
+    x, aux = transformer.apply_train(params["blocks"], x, cfg, positions, key,
+                                     embed0=x)
     x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return _head(params, x, cfg), aux
 
@@ -188,12 +189,11 @@ def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
     plus (L, num_pages + 1, page_size, kv) float32 scales under
     ``attention.set_kv_cache_int8``.  All layers share one logical page
     allocation."""
-    if cfg.family not in ("dense", "vlm", "audio"):
+    if cfg.family not in ("dense", "moe", "vlm", "audio"):
         raise NotImplementedError(
-            f"paged serving supports dense attention families, not "
+            f"paged serving supports attention families, not "
             f"{cfg.family!r} (SSM and hybrid state is O(1) per slot: use "
-            "the static path, launch.serve --static; the MoE family's paged "
-            "steps are not ported yet, ROADMAP A4)")
+            "the static path, launch.serve --static)")
     dtype = common.resolve_dtype(cfg.dtype)
     caches = {}
     for i, (_, n) in enumerate(transformer.segments(cfg)):

@@ -1,5 +1,5 @@
 """Mamba-2 blocks (state-space duality, arXiv:2405.21060) — torch port of
-``repro.models.ssm``, serving subset (prefill and decode).
+``repro.models.ssm``: training (``apply_train``), prefill and decode.
 
 Recurrence (per head h, head channels P, state channels S):
 
@@ -8,8 +8,10 @@ Recurrence (per head h, head channels P, state channels S):
 
 Prefill runs the chunked scan through ``kernels.ssd.ssd.ssd_scan``: kernel B3 for
 a tensor on the card, its plain version (the JAX package's ``ssd_chunked``)
-for a CPU tensor.  Decode is the single-token recurrence in plain torch, as
-it is plain ``jnp`` in the JAX package.  The z/x/B/C/dt input projections
+for a CPU tensor.  Training runs that plain version under autograd on
+either device, as the JAX package trains through ``ssd_chunked``.  Decode
+is the single-token recurrence in plain torch, as it is plain ``jnp`` in
+the JAX package.  The z/x/B/C/dt input projections
 run as ONE grouped TD-VMM launch (site ``ssm.in_proj``); the output
 projection is site ``ssm.out``.
 
@@ -96,9 +98,24 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y, new_ctx
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """log(1 + exp(x)) as ``jnp.logaddexp(x, 0)`` evaluates it."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+class _Softplus(torch.autograd.Function):
+    """log(1 + exp(x)) as ``jnp.logaddexp(x, 0)`` evaluates it, with the
+    gradient of its custom JVP, ``exp(x - softplus(x))`` (autograd of the
+    forward's terms rounds differently: training's dt gradients)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g * torch.exp(x - out)
+
+
+_softplus = _Softplus.apply
 
 
 def ssd_decode_step(state, x, dt, a_log, b, c):
@@ -144,16 +161,19 @@ def _gate_out(params, y, z, cfg: ModelConfig, key):
     return common.dense(params["wo"], y, cfg.site_tdvmm("ssm.out"), key)
 
 
-def apply_prefill(params, u: torch.Tensor, cfg: ModelConfig, cache: SSMCache,
-                  key=None) -> tuple[torch.Tensor, SSMCache]:
-    """Absorb a prompt.  u: (B, L, d)."""
+def _sequence(params, u: torch.Tensor, cfg: ModelConfig, key, left_ctx,
+              scan) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A whole sequence through the block: projections, causal conv (after
+    ``left_ctx``, None for zeros), gates, the chunked scan ``scan``, the
+    output projection.  u: (B, L, d).  Returns (out, conv context, final
+    state)."""
     s = cfg.ssm
-    d_inner, n_heads, conv_ch = _dims(cfg)
+    d_inner, n_heads, _ = _dims(cfg)
     bsz, L, _ = u.shape
     z, xc, bc, cc, dt = _project(params, u, cfg, key)
     xbc = torch.cat([xc, bc, cc], dim=-1)
     xbc, conv_ctx = _conv1d(xbc, params["conv_w"], params["conv_b"],
-                            cache.conv)
+                            left_ctx)
     xbc = F.silu(xbc)
     gs = s.n_groups * s.d_state
     xc, bc, cc = torch.split(xbc, [d_inner, gs, gs], dim=-1)
@@ -161,9 +181,27 @@ def apply_prefill(params, u: torch.Tensor, cfg: ModelConfig, cache: SSMCache,
     xh = xc.reshape(bsz, L, n_heads, s.head_dim)
     bg = bc.reshape(bsz, L, s.n_groups, s.d_state)
     cg = cc.reshape(bsz, L, s.n_groups, s.d_state)
-    y, state = ssd_b3.ssd_scan(xh, dt, params["A_log"], bg, cg, s.chunk)
+    y, state = scan(xh, dt, params["A_log"], bg, cg, s.chunk)
     y = y + params["D"].to(y.dtype)[None, None, :, None] * xh
     out = _gate_out(params, y.reshape(bsz, L, d_inner), z, cfg, key)
+    return out, conv_ctx, state
+
+
+def apply_train(params, u: torch.Tensor, cfg: ModelConfig,
+                key=None) -> torch.Tensor:
+    """Full-sequence Mamba-2 block for training, from a zero state.
+    u: (B, L, d).  The scan is ``ssd.ssd_plain`` under autograd (B3 has no
+    backward; the JAX package's training path runs its jnp
+    ``ssd_chunked``, not its Pallas kernel)."""
+    return _sequence(params, u, cfg, key, None, ssd_b3.ssd_plain)[0]
+
+
+def apply_prefill(params, u: torch.Tensor, cfg: ModelConfig, cache: SSMCache,
+                  key=None) -> tuple[torch.Tensor, SSMCache]:
+    """Absorb a prompt.  u: (B, L, d)."""
+    bsz, L, _ = u.shape
+    out, conv_ctx, state = _sequence(params, u, cfg, key, cache.conv,
+                                     ssd_b3.ssd_scan)
     cache.conv.copy_(conv_ctx)
     cache.state.copy_(state)
     return out, SSMCache(cache.conv, cache.state,

@@ -7,8 +7,8 @@ attention + FFN block (a single parameter set, reused by every group),
 fed ``fuse(concat(x, embed0))`` when ``hybrid_concat_embed`` is set.
 Serving drops the MoE router's auxiliary losses; training (``apply_train``)
 sums them over the ``attn_moe`` layers, as the JAX package's ``apply`` does
-in its ``"train"`` mode.  The training forward of the SSM and hybrid
-families (``ssm.apply_train``) is not ported.
+in its ``"train"`` mode, and runs every family (the SSM and hybrid ones
+through ``ssm.apply_train``).
 
 The JAX package stacks each segment's layer parameters along a leading axis
 and ``lax.scan``s over them; here a segment is a list of per-layer parameter
@@ -232,25 +232,45 @@ def apply(params, x: torch.Tensor, cfg: ModelConfig, mode: str,
     return x, new_caches
 
 
+def ssm_train(params, x, cfg: ModelConfig, key=None):
+    """One Mamba-2 block over a whole sequence."""
+    x = common.constrain_batch(x)
+    h = common.rmsnorm(params["ln"], x, cfg.norm_eps)
+    return x + ssm.apply_train(params["ssm"], h, cfg, key)
+
+
 def apply_train(params, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor, key=None
+                positions: torch.Tensor, key=None, embed0=None
                 ) -> tuple[torch.Tensor, dict]:
     """The training forward of the full stack (the JAX package's ``apply``
     in ``"train"`` mode).  Returns (x, {"lb_loss", "z_loss"}), the MoE
-    router's aux losses summed over the ``attn_moe`` layers."""
+    router's aux losses summed over the ``attn_moe`` layers.  ``embed0``
+    is the input embedding the hybrid family's ``fuse`` takes in."""
     lb, zl = [], []
-    for i, (kind, _) in enumerate(segments(cfg)):
-        if kind in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"training the {cfg.family} family (ssm.apply_train) is not "
-                "ported yet")
-        block = _remat(lambda p, h, _k=key: attn_ffn_train(
-            p, h, cfg, positions, _k), cfg)
-        for p in params[f"seg{i}"]:
-            x, lb_i, z_i = block(p, x)
-            if kind == "attn_moe":
-                lb.append(lb_i)
-                zl.append(z_i)
+    block = _remat(lambda p, h, _k=key: attn_ffn_train(
+        p, h, cfg, positions, _k), cfg)
+    ssm_layer = _remat(lambda p, h, _k=key: ssm_train(p, h, cfg, _k), cfg)
+    for i, (kind, n) in enumerate(segments(cfg)):
+        layers = params[f"seg{i}"]
+        if kind == "ssm":
+            for p in layers:
+                x = ssm_layer(p, x)
+        elif kind == "hybrid":
+            n_groups, every = hybrid_groups(cfg, n)
+            for g in range(n_groups):
+                for p in layers[g * every:(g + 1) * every]:
+                    x = ssm_layer(p, x)
+                if cfg.hybrid_concat_embed and embed0 is not None:
+                    x = common.dense(params["fuse"],
+                                     torch.cat([x, embed0], dim=-1),
+                                     cfg.site_tdvmm("hybrid.fuse"), key)
+                x, _, _ = block(params["shared_attn"], x)
+        else:
+            for p in layers:
+                x, lb_i, z_i = block(p, x)
+                if kind == "attn_moe":
+                    lb.append(lb_i)
+                    zl.append(z_i)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, {"lb_loss": torch.sum(torch.stack(lb)) if lb else zero,
                "z_loss": torch.sum(torch.stack(zl)) if zl else zero}

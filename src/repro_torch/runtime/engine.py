@@ -25,6 +25,18 @@ enabled digital-boundary site: a per-call data-calibrated window is a max
 over the whole batch and would couple requests.  In exchange every
 request's token stream equals the same request served alone.
 
+MoE models (no sliding window) serve through the same two steps, and so
+does their capacity dispatch (``models.moe``), as in the JAX package: an
+expert buffer holds ``max(int(T * top_k * factor / E) + 1, 4)`` rows for a
+step of T tokens, and rows past it drop.  A prefill chunk holds one slot,
+and its padded rows sort after its real rows within each expert, so they
+never take a real token's place: a chunk's drops depend on that chunk
+alone.  A decode step of B slots puts at most B rows on an expert, so it
+cannot drop while B <= capacity(B) (up to 4 slots at the published factor
+1.25, E 384 and top-8, and in the smoke config, E 4 and top-2).  Above
+that, drops couple the slots of a decode step, in the JAX package's engine
+too: batched == solo holds only where no decode step can drop.
+
 Request lifecycle::
 
     pending --admit(slot+pages)--> prefilling --last chunk--> decoding
@@ -300,9 +312,9 @@ class Engine:
                  sla: Optional[sla_policy.SlaConfig] = None,
                  sink: Optional[Any] = None,
                  tracer: Optional[Any] = None, device=None):
-        if cfg.family not in ("dense", "vlm", "audio"):
+        if cfg.family not in ("dense", "moe", "vlm", "audio"):
             raise NotImplementedError(
-                f"engine serves dense attention models, not {cfg.family!r} "
+                f"engine serves attention families, not {cfg.family!r} "
                 "(use launch.serve --static for SSM and hybrid models)")
         if cfg.input_mode != "tokens":
             raise NotImplementedError("engine serves token-input models")

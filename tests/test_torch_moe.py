@@ -292,12 +292,12 @@ def test_sliding_window_cache_and_refusals():
     assert tuple(short["seg0"].k.shape)[2] == 5
     with pytest.raises(NotImplementedError, match="sliding-window"):
         tattn.init_paged_cache(tc, 8, 4, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="paged serving"):
+    with pytest.raises(NotImplementedError, match="sliding-window"):
         tmodel.init_paged_caches(tc, 8, 4, "cpu")
     params = tmodel.init_params(0, tc, device="cpu")
     assert params["blocks"]["seg0"][0]["moe"]["router"]["w"].dtype == \
         torch.float32
-    with pytest.raises(NotImplementedError, match="dense attention"):
+    with pytest.raises(NotImplementedError, match="sliding-window"):
         Engine(tc, params, EngineConfig(), device="cpu")
 
 

@@ -371,3 +371,70 @@ def emulation_report(seed: int = 16) -> None:
             print(f"{case} split={split} scan={scan}: y "
                   f"{_rel(y.float(), yp.float()):.3g} state "
                   f"{_rel(st, sp):.3g} of max|plain|")
+
+
+# ---------------------------------------------------------------------------
+# The scan under autograd (the training path's scan is ssd_plain)
+# ---------------------------------------------------------------------------
+# ssd_plain's gradients against jax.vjp of the reference's ssd_chunked, each
+# relative to its input's max|g| (a_log's a sum over every position):
+# measured <= 7.8e-7.
+SCAN_GRAD_RTOL = 1e-5
+
+
+def _scan_grads_t(arrs, chunk, gy):
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
+    y, _ = tssd.ssd_plain(*ts, chunk)
+    return [g.numpy() for g in torch.autograd.grad(
+        (y * torch.from_numpy(gy)).sum(), ts)]
+
+
+def _scan_grads_j(fn, arrs, gy):
+    return jax.grad(lambda *a: jnp.sum(fn(*a)[0] * jnp.asarray(gy)),
+                    argnums=(0, 1, 2, 3, 4))(*_j(*arrs))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_ssd_plain_gradients_match_reference_chunked(case):
+    *shape, chunk = CASES[case]
+    arrs = _inputs(*shape, seed=2)
+    gy = np.random.default_rng(3).standard_normal(arrs[0].shape).astype(
+        np.float32)
+    got = _scan_grads_t(arrs, chunk, gy)
+    want = _scan_grads_j(lambda *a: jssm.ssd_chunked(*a, chunk), arrs, gy)
+    for name, g, w in zip(("x", "dt", "a_log", "b", "c"), got, want):
+        assert _rel(g, w) <= SCAN_GRAD_RTOL, name
+
+
+def test_ssd_plain_gradient_stays_finite_where_the_reference_overflows():
+    """dt * a of -128 a step: exp(cum_i - cum_j) above the chunk's
+    diagonal overflows.  The reference masks after the exp, so its
+    gradient is 0 * inf = NaN there; the port masks before it (exp(-inf)
+    = 0), the same forward values and the token-by-token recurrence's
+    gradient."""
+    x, _, a_log, bb, cc = _inputs(1, 16, 2, 4, 1, 4)
+    dt = np.full((1, 16, 2), 2.0, np.float32)
+    a_log[1] = np.float32(np.log(64.0))
+    arrs = (x, dt, a_log, bb, cc)
+    gy = np.ones_like(x)
+    y, _ = tssd.ssd_plain(*_t(*arrs), 8)
+    assert _rel(y, jssm.ssd_chunked(*_j(*arrs), 8)[0]) <= CHUNKED_RTOL
+    ref = _scan_grads_j(lambda *a: jssm.ssd_chunked(*a, 8), arrs, gy)
+    assert bool(jnp.isnan(ref[1]).any())
+    got = _scan_grads_t(arrs, 8, gy)
+    naive = _scan_grads_j(j_ssd_naive, arrs, gy)
+    for name, g, w in zip(("x", "dt", "a_log", "b", "c"), got, naive):
+        assert np.isfinite(g).all(), name
+        assert _rel(g, w) <= NAIVE_RTOL, name
+
+
+def test_softplus_gradient_is_logaddexps():
+    x = np.random.default_rng(4).standard_normal(64).astype(np.float32) * 6
+    t = torch.from_numpy(x).requires_grad_(True)
+    out = tssm._softplus(t)
+    g, = torch.autograd.grad(out.sum(), t)
+    # exp and log1p round as each library's own: within float32 rounding
+    assert _rel(out.detach(), jax.nn.softplus(jnp.asarray(x))) <= 1e-6
+    want = np.asarray(jax.grad(lambda v: jnp.sum(jax.nn.softplus(v)))(
+        jnp.asarray(x)))
+    assert _rel(g, want) <= 1e-6

@@ -158,7 +158,8 @@ def test_ssm_caches_and_paged_refusal():
         tmodel.init_paged_caches(tc, 8, 4, "cpu")
     params = tmodel.init_params(0, tc, device="cpu")
     assert params["blocks"]["seg0"][0]["ssm"]["A_log"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="dense attention"):
+    with pytest.raises(NotImplementedError,
+                       match="attention families, not 'ssm'.*static"):
         Engine(tc, params, EngineConfig(), device="cpu")
     # the hybrid family is served by the static path only, as in the JAX
     # package: the engine and the page pools refuse it
@@ -168,3 +169,26 @@ def test_ssm_caches_and_paged_refusal():
                device="cpu")
     with pytest.raises(NotImplementedError, match="'hybrid'.*static path"):
         tmodel.init_paged_caches(hc, 8, 4, "cpu")
+
+
+@pytest.mark.parametrize("plan", ["off", "ssm"])
+def test_apply_train_is_the_prefill_from_a_zero_state(plan):
+    """``ssm.apply_train`` shares the projections, conv, gates and output
+    with ``apply_prefill``: on the CPU, where both scans are ``ssd_plain``,
+    its output is the prefill's from a fresh cache, bitwise, and within
+    LOGIT_RTOL of the JAX package's ``apply_train`` (both sides' sites
+    data-calibrated)."""
+    from repro.models import ssm as jssm
+    from repro_torch.models import ssm as tssm
+    jc, tc, jparams, tparams, *_ = _setup(plan)
+    u = np.random.default_rng(5).standard_normal((2, 13, tc.d_model)).astype(
+        np.float32)
+    p = tparams["blocks"]["seg0"][0]["ssm"]
+    out = tssm.apply_train(p, torch.from_numpy(u), tc)
+    cache = tssm.init_cache(tc, 2, torch.float32, "cpu")
+    pre, _ = tssm.apply_prefill(p, torch.from_numpy(u), tc, cache)
+    assert torch.equal(out, pre)
+    want = jssm.apply_train(jax.tree.map(lambda a: a[0],
+                                         jparams["blocks"]["seg0"])["ssm"],
+                            jnp.asarray(u), jc)
+    assert _rel(out.numpy(), want) <= LOGIT_RTOL

@@ -314,7 +314,20 @@ def test_sink_wired_streams_equal_reference_and_unwired():
 # --------------------------------------------------------------------------
 # The port's engine on its own (tests/test_telemetry.py's engine tests)
 # --------------------------------------------------------------------------
-def test_warm_engine_slowstep_fires_exactly_one_spike():
+@pytest.fixture
+def _one_thread():
+    """Step latencies on one intra-op thread: on a host loaded by other
+    test workers, every op of a multi-threaded pool waits for its slowest,
+    descheduled thread, which stretches the smoke engine's millisecond steps
+    to tenths of a second with a MAD to match (a spike can then hide in it,
+    or a stall fire one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_warm_engine_slowstep_fires_exactly_one_spike(_one_thread):
     _, tc, *_ = _served()
     reqs = [Request(**r) for r in _trace(tc.vocab_size)]
     rule = tele.AlertRule("step_latency_s", kind="spike", k=6.0,
@@ -326,14 +339,19 @@ def test_warm_engine_slowstep_fires_exactly_one_spike():
     eng.run(reqs)                                # clean warm run: no alert
     assert len(sink.alerts) == warm
     slow = max(1, ref.steps // 2)
+    # the injected sleep stands well above the host's own jitter, which a
+    # loaded host can still widen until 0.3 s sits inside the rule's
+    # median + k * MAD
+    lat = sink.series["step_latency_s"]
+    sleep_s = max(0.3, 4.0 * max(rule.k * lat.mad(), rule.abs_floor))
     rep = eng.run(reqs, FaultConfig(
-        injector=fi.FaultInjector([fi.SlowStep(slow, sleep_s=0.3)])))
+        injector=fi.FaultInjector([fi.SlowStep(slow, sleep_s=sleep_s)])))
     injected = sink.alerts[warm:]
     assert len(injected) == 1, injected
     assert injected[0].metric == "step_latency_s"
     # the sleep is inside the step; the tick's dt is observed after the
     # step counter moved past it
-    assert injected[0].step == slow + 1 and injected[0].value >= 0.3
+    assert injected[0].step == slow + 1 and injected[0].value >= sleep_s
     for ra, rb in zip(ref.requests, rep.requests):
         assert ra["tokens"] == rb["tokens"]
     assert rep.step_shapes == 2
