@@ -97,6 +97,20 @@ Phases, each of which stops the script with a non-zero exit on failure:
    a kill and resume with a fresh sink and tracer continues the series
    and the trace as one document; the serve CLI writes its metrics, trace
    and report files, and ``launch/trace_report`` renders the trace.
+   Then "mesh qwen" (``mesh_qwen``): a world of one over NCCL and a (1, 1)
+   mesh; each plan's engine on the mesh serves the trace to the meshless
+   engine's streams, finish reasons, finish steps and steps with exactly
+   sites x steps B1 fused launches, and one full-width QAT step on the
+   mesh equals the meshless step bitwise (every state leaf, every
+   metric, the same launches).  The kernel phase holds B1/B2 at the shard
+   shapes of a model axis of 2 and kimi-k2's expert grid at a data axis of
+   2 (``tp_shard_cases``).  Then two processes share the card over gloo,
+   which carries CUDA tensors for the collectives this path uses
+   (``GLOO_CUDA``, from scripts/gloo_cuda_probe.py): at 1 x 2 (TP) and
+   2 x 1 (DP), TD-VMM row and column sites bitwise the meshless sites, the
+   engine on the trace with exact launches, and teacher-forced logits;
+   at 2 x 1 the meshless streams and logits, at 1 x 2 those of the
+   meshless run in TP's order (``tp_order``), bitwise (``two_ranks``).
    Then kimi-k2-1t-a32b at full width (d_model 7168, 384 experts of d_ff
    2048, top-8, one shared expert, vocab 163,840, bf16, random weights from
    seed 0) cut to 1 of its 61 layers, capacity factor 1.25, under moe.* at
@@ -171,6 +185,8 @@ no result.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -317,6 +333,25 @@ SMALL_MOE_LOGIT_RTOL = 1e-5
 # The published capacity factor 1.25 is kept: a decode step of 4 slots
 # puts at most 4 rows on an expert, its capacity (cannot drop), and a
 # prefill chunk's drops depend on that chunk alone.
+# "mesh qwen": the mesh axes the TP shard shapes of the kernel phase assume
+TP, DP = 2, 2
+# Two ranks sharing the one card can only talk over gloo (NCCL takes one
+# rank per device), and gloo must then carry CUDA tensors for every
+# collective their path uses: (b) of "mesh qwen" (the dense qwen engine at
+# 1 x 2 and 2 x 1: TP all-reduces and all-gathers, the decode tokens'
+# all-gather) runs only if all of these are.  scripts/gloo_cuda_probe.py
+# found on the H100 (torch 2.11) that gloo carries both (PERF.md section 6
+# has its whole finding).
+GLOO_CUDA = {"all_reduce": True, "all_gather": True}
+
+TWO_RANK_TIMEOUT = 240
+# (b)'s teacher-forced logits: 4 x 64 prompts, 8 forced tokens; the gate on
+# the 1 x 2 run's gap to the meshless run's with TD-VMM off, relative to
+# max|logit| (the CPU tests' outer limit for sharded logits,
+# tests/test_torch_dist_mesh.py)
+TWO_RANK_PROMPTS, TWO_RANK_FORCED = (4, 64), 8
+TWO_RANK_RTOL = 5e-2
+
 KIMI_ARCH = "kimi-k2-1t-a32b"
 KIMI_LAYERS = 1
 KIMI_E = 384
@@ -776,7 +811,40 @@ def kernel_cases() -> list[dict]:
                        m=KIMI_CALIB_ROWS),
                   dict(one, kernel="tdvmm_calibrated", mode="expert_slots",
                        m=KIMI_CALIB_ROWS)]
-    return cases + qat_cases() + tile_edge_cases()
+    return cases + qat_cases() + tile_edge_cases() + tp_shard_cases()
+
+
+def tp_shard_cases() -> list[dict]:
+    """B1/B2 at the shapes a (data, model) mesh with model 2 gives them
+    (``core/layers`` mesh sites): qwen's column-parallel ffn.in (K 1024 x N
+    1408: B1 fused with the pinned window at the engine steps' rows, B1 raw
+    for its capture and data-calibrated window at calibration's) and
+    row-parallel ffn.out (K 1408 x N 1024: B1 raw at every row count, its
+    int32 sums reduced over ``model`` before the one epilogue), and kimi's
+    expert grid at data 2 (E 192 local experts, each rank's rows from both
+    ranks: 2 x the step's capacity rows for B1 fused, 2 x calibration's for
+    B1 raw).  B2 at the meshless shapes' shard widths for a one-rank run's
+    data-calibrated site."""
+    (k_in, n_in), (k_out, n_out) = FFN_SHAPES
+    col, row = (k_in, n_in // TP), (k_out // TP, n_out)
+    cases = []
+    for m in (CHUNK, SLOTS):
+        cases.append(dict(kernel="tdvmm_fused", mode="scalar_window", e=1,
+                          ex=1, m=m, k=col[0], n=col[1], tp="col"))
+        cases.append(dict(kernel="tdvmm_matmul_raw", mode="raw", e=1, ex=1,
+                          m=m, k=row[0], n=row[1], tp="row"))
+    for k, n, tp in (col + ("col",), row + ("row",)):
+        cases.append(dict(kernel="tdvmm_matmul_raw", mode="raw", e=1, ex=1,
+                          m=CALIB_ROWS, k=k, n=n, tp=tp))
+        cases.append(dict(kernel="tdvmm_calibrated", mode="one_slot", e=1,
+                          ex=1, m=CALIB_ROWS, k=k, n=n, tp=tp))
+    e = KIMI_E // DP
+    for k, n in (KIMI_IN, KIMI_OUT):
+        cases += [dict(kernel="tdvmm_fused", mode="expert_windows", e=e,
+                       ex=e, m=DP * KIMI_STEP_C, k=k, n=n, tp="ep"),
+                  dict(kernel="tdvmm_matmul_raw", mode="raw", e=e, ex=e,
+                       m=DP * KIMI_CALIB_C, k=k, n=n, tp="ep")]
+    return cases
 
 
 def qat_cases() -> list[dict]:
@@ -3088,6 +3156,438 @@ def qat_config(**tdvmm):
         tdvmm=TDVMMLayerConfig(enabled=True, bits=6, weight_bits=6, **tdvmm))
 
 
+def mesh_qwen(dev, *outs) -> dict:
+    """"mesh qwen" (a): a world of one over NCCL on the card and a (1, 1)
+    mesh.  Each plan's engine on the mesh (``Engine(..., mesh=)``) serves
+    the trace of "serve qwen" to that engine's streams, finish reasons,
+    finish steps and steps, bitwise, with B1 fused launched exactly sites x
+    steps in the run (counts set to 0 just before it, read just after); one
+    full-width QAT step on the mesh (``launch.steps`` with the state
+    sharded, the FSDP dims gathered, the data-parallel reduction) equals
+    the meshless step bitwise, in every leaf of the new state and every
+    metric, with the same launches.  (b) ``two_ranks``: two processes on the
+    card over gloo (``GLOO_CUDA``) serve the ffn_unchained trace at 1 x 2
+    and at 2 x 1."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import OptimizerConfig, RunConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+    from repro_torch.kernels.tdvmm import tdvmm as tk
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.optim.optimizer import make_optimizer
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.tree import leaves_with_paths
+
+    t0 = time.perf_counter()
+    _, world, _ = mesh_lib.init_distributed(dev)
+    require(world == 1 and dist.get_backend() == "nccl",
+            f"mesh qwen: world {world} over {dist.get_backend()}")
+    mesh = mesh_lib.make_test_mesh(1, 1, "cuda")
+    res = {"plans": {}}
+    try:
+        for out in outs:
+            cfg, params, ecfg, calib = out["engine_args"]
+            base = out["report"]
+            reset_all_launches()
+            rep = Engine(cfg, params, ecfg, calib=calib, mesh=mesh).run(
+                out["trace"])
+            torch.cuda.synchronize()
+            launches = dict(tk.LAUNCHES)
+            want = expected_launches(cfg, out["plan"], rep.prefill_steps
+                                     + rep.decode_steps)["serve"]
+            name = out["plan"]
+            require(launches == want,
+                    f"mesh qwen {name}: launches {launches} != {want}")
+            require(rep.steps == base.steps and rep.step_shapes == 2
+                    and rep.devices == 1 and rep.total_slots == ecfg.slots,
+                    f"mesh qwen {name}: steps {rep.steps} / {base.steps}, "
+                    f"shapes {rep.step_shapes}, devices {rep.devices}")
+            for a, b in zip(base.requests, rep.requests):
+                require(a["tokens"] == b["tokens"]
+                        and a["finish_reason"] == b["finish_reason"]
+                        and a["finished_step"] == b["finished_step"],
+                        f"mesh qwen {name}: request {a['rid']} differs from "
+                        "the meshless engine")
+            res["plans"][name] = dict(launches=launches, steps=rep.steps,
+                                      serve_s=rep.wall_s,
+                                      meshless_s=base.wall_s)
+        cfg = qat_config()
+        opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=2,
+                                  total_steps=QAT_STEPS)
+        run = RunConfig(model=cfg, shape=ShapeConfig(
+            "qat", QAT_SEQ, QAT_BATCH, "train",
+            microbatch_per_shard=QAT_BATCH), seed=0, optimizer=opt_cfg)
+        optimizer = make_optimizer(opt_cfg)
+        state = steps.init_train_state(0, cfg, optimizer, dev)
+        batch = make_pipeline(cfg, run.shape, DataConfig(seed=0)).batch_at(0)
+        reset_all_launches()
+        t1 = time.perf_counter()
+        one, m1 = steps.make_train_step(cfg, run, optimizer)(state, batch)
+        torch.cuda.synchronize()
+        res["meshless_step_s"] = time.perf_counter() - t1
+        l1 = launches_now()
+        specs = steps.state_specs(state, cfg, mesh)
+        sharded = steps.shard_state(state, cfg, mesh)
+        del state
+        reset_all_launches()
+        t1 = time.perf_counter()
+        two, m2 = steps.make_train_step(cfg, run, optimizer, mesh=mesh,
+                                        specs=specs)(sharded, batch)
+        torch.cuda.synchronize()
+        res["mesh_step_s"] = time.perf_counter() - t1
+        l2 = launches_now()
+        res["qat_launches"] = l2
+        require(l1 == l2, f"mesh qwen qat: launches {l2} != meshless {l1}")
+        diff = [p for (p, a), (_, b) in zip(leaves_with_paths(one),
+                                            leaves_with_paths(two))
+                if not torch.equal(a, b)]
+        require(not diff, f"mesh qwen qat: leaves differ: {diff[:4]}")
+        require(all(torch.equal(m1[k], m2[k]) for k in m1),
+                "mesh qwen qat: metrics differ")
+        res["loss"] = float(m1["loss"])
+        res["leaves"] = len(leaves_with_paths(one))
+        del one, two, sharded
+    finally:
+        dist.destroy_process_group()
+    res["two_ranks"] = all(GLOO_CUDA.values())
+    if res["two_ranks"]:
+        res["b"] = two_ranks(outs[0], dev)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def forced_logits(params, cfg, calib, prompts, forced, dev, mesh=None):
+    """The static path teacher-forced: prefill ``prompts`` (B, S), then one
+    decode step per column of ``forced`` (B, T) tokens; every step's
+    logits (B, V) as float32 on the CPU.  On ``mesh`` each rank keeps its
+    shards of ``params`` and its rows of the batch, and the logits come
+    back whole."""
+    import torch
+    from repro_torch.launch import meshctx, sharding
+    from repro_torch.launch.mesh import axis_info
+    from repro_torch.models import common, model
+    b, s = prompts.shape
+    if mesh is not None:
+        dp = axis_info(mesh)["dp_axes"]
+        params = sharding.shard_tree(params, sharding.param_specs(
+            params, cfg, mesh, dp_axes=(), ep_axes=dp), mesh)
+    out = []
+    with meshctx.use_mesh_of(mesh):
+        rows = common.constrain_batch(prompts)
+        split = rows.shape[0] != b
+        toks = common.constrain_batch(forced)
+        caches = model.init_caches(cfg, rows.shape[0], s + forced.shape[1],
+                                   dev)
+        with meshctx.split_rows(split):
+            logits, caches = model.prefill_step(params, {"inputs": rows},
+                                                caches, cfg, calib=calib)
+            out.append(meshctx.dp_gather(logits[:, -1], b))
+            for t in range(forced.shape[1] - 1):
+                logits, caches = model.decode_step(
+                    params, {"inputs": toks[:, t:t + 1]}, caches, cfg,
+                    calib=calib)
+                out.append(meshctx.dp_gather(logits[:, -1], b))
+    return [x.float().cpu() for x in out]
+
+
+@contextlib.contextmanager
+def tp_order(tp: int):
+    """The meshless model with each row-parallel product outside the TD-VMM
+    sites (``common.dense(..., tp="row")``, ``common.dense_tp_reduce``:
+    attn.wo, and ffn.w_down with TD-VMM off) formed as a 1 x ``tp`` mesh
+    forms it: ``tp`` float32 partial products (``common.partial_f32`` on
+    each rank's slice of K), summed in rank order and rounded once.  Every
+    other op of a TP shard gives the meshless op's bits on the card
+    (column products, attention by heads: scripts/tp_order_probe.py; the
+    TD-VMM sites: ``two_rank_sites``), so a 1 x ``tp`` run equals this one
+    bit for bit, and a wrong shard, cache layout or reduction does not."""
+    from repro_torch.models import common
+    dense, reduce_ = common.dense, common.dense_tp_reduce
+
+    def row(params, x):
+        k = x.shape[-1] // tp
+        y = None
+        for r in range(tp):
+            part = common.partial_f32(
+                x[..., r * k:(r + 1) * k].contiguous(),
+                params["w"][r * k:(r + 1) * k].contiguous())
+            y = part if y is None else y + part
+        y = y.to(x.dtype)
+        return y + params["b"].to(y.dtype) if "b" in params else y
+
+    def dense_(params, x, td, key=None, tp="col"):
+        if tp == "row" and not td.enabled:
+            return row(params, x)
+        return dense(params, x, td, key, tp)
+
+    def reduce__(params, x, td, key=None):
+        return reduce_(params, x, td, key) if td.enabled else row(params, x)
+    common.dense, common.dense_tp_reduce = dense_, reduce__
+    try:
+        yield
+    finally:
+        common.dense, common.dense_tp_reduce = dense, reduce_
+
+
+def two_ranks(out: dict, dev) -> dict:
+    """"mesh qwen" (b): two processes share the card in one gloo group
+    (``two_rank_worker``), at full width on a 1 x 2 mesh (TP: heads, FFN
+    hidden and vocab split, B1 fused at the column sites with the pinned
+    window, B1 raw at the row sites with their int32 sums all-reduced) and
+    on a 2 x 1 mesh (DP: each rank's rows, the samples all-gathered).
+    - TD-VMM sites on CUDA through gloo: a row site (pinned window and
+      data-calibrated) and a column site at qwen's FFN shapes, on each
+      rank's shard, bitwise the meshless site.
+    - The engine, each mesh, on the "serve qwen" trace under ffn_unchained:
+      every request its full budget, B1 launched exactly as the sites and
+      steps give it, 2 step shapes, both ranks' streams equal.  At 2 x 1
+      with 2 x the slots (each rank's decode step the meshless step's
+      shape; a request's stream is its solo stream): the meshless streams,
+      finish reasons and finish steps.  At 1 x 2: those of the meshless
+      engine in TP's order (``tp_order``), and its steps.
+    - Teacher-forced logits (static path, 4 x 64 prompts + 8 tokens of the
+      meshless greedy stream), TD-VMM off and under ffn_unchained: at 2 x 1
+      bitwise the meshless run's; at 1 x 2 bitwise the meshless run's in
+      TP's order, and with TD-VMM off within TWO_RANK_RTOL of max|logit| of
+      the meshless run's (its bf16 row sums round in another order; under
+      the plan a value that crosses a 6-bit level flips a code downstream,
+      and that gap is reported)."""
+    import multiprocessing as mp
+    import queue
+    import torch
+    from repro_torch.models import model
+    from repro_torch.runtime.engine import Engine
+    cfg, params, ecfg, calib = out["engine_args"]
+    plain = cfg.replace(tdvmm_plan=None)
+
+    def streams(rep):
+        return [(q["rid"], q["tokens"], q["finish_reason"], q["finished_step"])
+                for q in rep.requests]
+    base = streams(out["report"])
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    prompts = torch.randint(0, cfg.vocab_size, TWO_RANK_PROMPTS, generator=g,
+                            device=dev)
+    with torch.no_grad():
+        # the meshless greedy stream, then the logits it forces
+        caches = model.init_caches(cfg, prompts.shape[0], prompts.shape[1]
+                                   + TWO_RANK_FORCED, dev)
+        logits, caches = model.prefill_step(params, {"inputs": prompts},
+                                            caches, cfg, calib=calib)
+        toks = [logits[:, -1].argmax(-1)]
+        for _ in range(TWO_RANK_FORCED - 1):
+            logits, caches = model.decode_step(
+                params, {"inputs": toks[-1][:, None]}, caches, cfg,
+                calib=calib)
+            toks.append(logits[:, -1].argmax(-1))
+        del caches
+        forced = torch.stack(toks, 1)
+        ref = {"plan": forced_logits(params, cfg, calib, prompts, forced,
+                                     dev),
+               "plain": forced_logits(params, plain, None, prompts, forced,
+                                      dev)}
+        with tp_order(TP):
+            ctrl = {"plan": forced_logits(params, cfg, calib, prompts,
+                                          forced, dev),
+                    "plain": forced_logits(params, plain, None, prompts,
+                                           forced, dev)}
+            rep = Engine(cfg, params, ecfg, calib=calib).run(out["trace"])
+        ctrl_streams, ctrl_steps = streams(rep), rep.steps
+        del rep
+    # numpy, not tensors, through the queues: a tensor would travel as a
+    # shared-memory handle that dies with the process that sent it
+    job = {"plan": out["plan"], "ecfg": dataclasses.asdict(ecfg),
+           "windows": {k: v.detach().cpu().numpy() for k, v in
+                       calib.as_arrays("cpu").items()},
+           "prompts": prompts.cpu().numpy(), "forced": forced.cpu().numpy()}
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    got = {}
+    with tempfile.TemporaryDirectory() as d:
+        procs = [ctx.Process(target=two_rank_worker, args=(
+            r, os.path.join(d, "init"), job, results)) for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            for _ in procs:
+                try:
+                    rank, ok, val = results.get(timeout=TWO_RANK_TIMEOUT)
+                except queue.Empty:
+                    raise SmokeFailure("mesh qwen (b): a rank gave no "
+                                       f"result in {TWO_RANK_TIMEOUT} s")
+                require(ok, f"mesh qwen (b) rank {rank}: {val}")
+                got[rank] = val
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+    L = cfg.n_layers
+    res = {}
+    for name in ("tp", "dp"):
+        a = got[0][name]
+        # at 2 x 1 each rank's decode steps are the meshless engine's, and
+        # twice the slots take fewer steps: its finish steps and steps move
+        want = {"tp": (ctrl, ctrl_streams, ctrl_steps),
+                "dp": (ref, [x[:3] for x in base], a["steps"])}[name]
+        streams_ = [x[:len(want[1][0])] for x in a["streams"]]
+        require(a["streams"] == got[1][name]["streams"],
+                f"mesh qwen (b) {name}: the two ranks' streams differ")
+        for rank in (0, 1):
+            r_ = got[rank][name]
+            bad = [k for k, v in r_["sites"].items() if not v]
+            require(not bad, f"mesh qwen (b) {name} rank {rank}: TD-VMM "
+                    f"sites differ from the meshless sites: {bad}")
+            for req, rec in zip(out["trace"], r_["streams"]):
+                require(rec[2] == "max_tokens"
+                        and len(rec[1]) == req.max_new_tokens,
+                        f"mesh qwen (b) {name} rank {rank}: request "
+                        f"{req.rid} finished {rec[2]} with {len(rec[1])} of "
+                        f"{req.max_new_tokens} tokens")
+            per = 2 if name == "tp" else 3          # fused launches a layer
+            need = {"fused": per * L * r_["steps"],
+                    "raw": (L if name == "tp" else 0) * r_["steps"]}
+            have = {k: r_["launches"][k] for k in need}
+            require(have == need and r_["launches"]["calibrated"] == 0
+                    and r_["shapes"] == 2,
+                    f"mesh qwen (b) {name} rank {rank}: launches {have} != "
+                    f"{need}, shapes {r_['shapes']}")
+        first = [next((i for i, (u, v) in enumerate(zip(x[1], y[1]))
+                       if u != v), None)
+                 for x, y in zip(streams_, want[1])]
+        require(streams_ == want[1] and a["steps"] == want[2],
+                f"mesh qwen (b) {name}: streams differ from the meshless "
+                f"engine's{' in TP order' if name == 'tp' else ''} (first "
+                f"differing token {first}; steps {a['steps']} / {want[2]})")
+        gaps = {}
+        for kind in ("plain", "plan"):
+            mine = [torch.from_numpy(x) for x in a["logits"][kind]]
+            same = [torch.equal(x, y) for x, y in zip(mine, want[0][kind])]
+            require(all(same), f"mesh qwen (b) {name} {kind}: teacher-forced "
+                    "logits differ from the meshless run's"
+                    f"{' in TP order' if name == 'tp' else ''} at steps "
+                    f"{[i for i, e in enumerate(same) if not e]}")
+            gap = max(float((x - y).abs().max())
+                      for x, y in zip(mine, ref[kind]))
+            gaps[kind] = gap / max(float(y.abs().max()) for y in ref[kind])
+        require(gaps["plain"] <= TWO_RANK_RTOL,
+                f"mesh qwen (b) {name}: TD-VMM off, forced logits "
+                f"{gaps['plain']:.4g} of max|logit| from the meshless run's")
+        res[name] = dict(
+            {k: v for k, v in a.items() if k != "logits"}, gaps=gaps,
+            equal=sum(x[:3] == y[:3] for x, y in zip(a["streams"], base)),
+            first=[next((i for i, (u, v) in enumerate(zip(x[1], y[1]))
+                         if u != v), None)
+                   for x, y in zip(a["streams"], base)])
+    require(res["tp"]["devices"] == res["dp"]["devices"] == 2
+            and res["tp"]["total_slots"] == ecfg.slots
+            and res["dp"]["total_slots"] == 2 * ecfg.slots,
+            "mesh qwen (b): devices / slots")
+    return res
+
+
+def two_rank_sites(mesh, dev) -> dict:
+    """A row site (pinned window, data-calibrated) and a column site at
+    qwen's FFN shapes on this rank's shard, against the meshless site on
+    the whole operands: bitwise?"""
+    import torch
+    from repro_torch.core import layers
+    from repro_torch.core.layers import TDVMMLayerConfig
+    from repro_torch.launch import meshctx
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    (k_in, n_in), (k_out, n_out) = FFN_SHAPES
+    x = torch.randn((CHUNK, k_out), generator=g, device=dev).bfloat16()
+    w = (torch.randn((k_out, n_out), generator=g, device=dev) * 0.02
+         ).bfloat16()
+    x2 = torch.randn((CHUNK, k_in), generator=g, device=dev).bfloat16()
+    w2 = (torch.randn((k_in, n_in), generator=g, device=dev) * 0.02
+          ).bfloat16()
+    tp, r = meshctx.axis_size("model", mesh), meshctx.axis_rank("model", mesh)
+    out = {}
+    for name, cfg in (("row pinned", TDVMMLayerConfig(
+            enabled=True, site="ffn.out", out_scale=0.01)),
+            ("row data-calibrated", TDVMMLayerConfig(
+                enabled=True, site="ffn.out"))):
+        want = layers.td_matmul(x, w, cfg)
+        with meshctx.use_mesh_of(mesh):
+            got = layers.td_matmul(x.chunk(tp, -1)[r], w.chunk(tp, 0)[r],
+                                   cfg, tp="row")
+        out[name] = bool(torch.equal(got, want))
+    cfg = TDVMMLayerConfig(enabled=True, site="ffn.in", out_scale=0.01)
+    want = layers.td_matmul(x2, w2, cfg)
+    with meshctx.use_mesh_of(mesh):
+        got = layers.td_matmul(x2, w2.chunk(tp, -1)[r], cfg, tp="col")
+    out["column pinned"] = bool(torch.equal(got, want.chunk(tp, -1)[r]))
+    return out
+
+
+def two_rank_worker(rank: int, init_file: str, job: dict, results) -> None:
+    """One rank of ``two_ranks``: device 0, a gloo group of two."""
+    import traceback
+    try:
+        import torch
+        import torch.distributed as dist
+        sys.path.insert(0, str(ROOT / "src"))
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.use_deterministic_algorithms(True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                                rank=rank, world_size=2)
+        from repro_torch.configs import get_config
+        from repro_torch.core.calibration import CalibrationState
+        from repro_torch.kernels.tdvmm import tdvmm as tk
+        from repro_torch.launch import mesh as mesh_lib
+        from repro_torch.models import model
+        from repro_torch.runtime.engine import Engine, EngineConfig
+        dev = torch.device("cuda", 0)
+        cfg = get_config(ARCH).replace(tdvmm_plan=plans()[job["plan"]])
+        params = model.init_params(0, cfg, device=dev)
+        calib = CalibrationState(windows={
+            k: torch.from_numpy(v) for k, v in job["windows"].items()})
+        trace = make_trace(cfg.vocab_size)
+        prompts = torch.from_numpy(job["prompts"]).to(dev)
+        forced = torch.from_numpy(job["forced"]).to(dev)
+        out = {}
+        for name, shape, slots in (
+                ("tp", (1, 2), job["ecfg"]["slots"]),
+                ("dp", (2, 1), 2 * job["ecfg"]["slots"])):
+            mesh = mesh_lib.make_test_mesh(*shape, "cuda")
+            ecfg = EngineConfig(**dict(job["ecfg"], slots=slots // shape[0]))
+            engine = Engine(cfg, params, ecfg, calib=calib, device=dev,
+                            mesh=mesh)
+            tk.reset_launches()
+            rep = engine.run(trace)
+            torch.cuda.synchronize()
+            out[name] = dict(
+                streams=[(q["rid"], q["tokens"], q["finish_reason"],
+                          q["finished_step"]) for q in rep.requests],
+                steps=rep.steps, launches=dict(tk.LAUNCHES),
+                shapes=rep.step_shapes, serve_s=rep.wall_s,
+                devices=rep.devices, total_slots=rep.total_slots)
+            del engine
+            with torch.no_grad():
+                out[name]["sites"] = two_rank_sites(mesh, dev)
+                out[name]["logits"] = {
+                    "plan": [x.numpy() for x in forced_logits(
+                        params, cfg, calib, prompts, forced, dev, mesh)],
+                    "plain": [x.numpy() for x in forced_logits(
+                        params, cfg.replace(tdvmm_plan=None), None, prompts,
+                        forced, dev, mesh)]}
+        dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+    results.close()
+    results.join_thread()
+    os._exit(0)
+
+
 def qat_sites(cfg) -> int:
     """TD-VMM launches of one layer's forward: attn.qkv (one grouped
     launch), attn.out, ffn.in (gate and up), ffn.out."""
@@ -3658,7 +4158,8 @@ def main() -> int:
             + f" tile={row['tile']}"
             + (f" fill={row['fill']}" if row.get("fill") else "")
             + (f" members={row['members']}" if row.get("members") else "")
-            + (" unaligned" if row.get("unaligned") else ""))
+            + (" unaligned" if row.get("unaligned") else "")
+            + (f" shard={case['tp']}" if case.get("tp") else ""))
     for i, case in enumerate(f32x3_cases()):
         row = run_f32x3_case(case, dev, seed=300 + i)
         rows.append((case, row))
@@ -3843,11 +4344,53 @@ def main() -> int:
         f"{e['rejected']} rejected, {e['over_budget']} over budget, "
         f"{e['steps']} steps, {e['metric_lines']} metric lines, bytes "
         f"{e['bytes']}, {e['seconds']:.1f} s")
+    phase_done("observe qwen")
+
+    mq = mesh_qwen(dev, served[0], served[1])
+    served.append({"launches": mq["qat_launches"]})
+    for name, r in mq["plans"].items():
+        served.append({"launches": r["launches"]})
+        say("mesh", f"{name}: the engine on a (1, 1) mesh (a world of one "
+            f"over NCCL) == the meshless engine: streams, finish reasons, "
+            f"finish steps, {r['steps']} steps, 2 step shapes, launches "
+            f"{r['launches']}; serve {r['serve_s']:.2f} s (meshless "
+            f"{r['meshless_s']:.2f} s)")
+    say("mesh", f"qat: one full-width step ({QAT_BATCH} x {QAT_SEQ} tokens, "
+        f"every linear 6-bit TD-VMM) on the (1, 1) mesh == the meshless "
+        f"step, bitwise in all {mq['leaves']} state leaves and the metrics "
+        f"(loss {mq['loss']:.4f}); launches {mq['qat_launches']}; "
+        f"{mq['mesh_step_s']:.2f} s (meshless {mq['meshless_step_s']:.2f} "
+        "s, the first step of this process's shapes)")
+    say("mesh", "(b) two ranks on the card over gloo, which carries CUDA "
+        "tensors for " + ", ".join(k for k, v in GLOO_CUDA.items() if v)
+        + (": run" if mq["two_ranks"] else "; not for " + ", ".join(
+            k for k, v in GLOO_CUDA.items() if not v) + ": (b) does not run"))
+    if mq["two_ranks"]:
+        for name, r in mq["b"].items():
+            served.append({"launches": r["launches"]})
+            order = " in TP order" if name == "tp" else ""
+            say("mesh", f"(b) {'1 x 2 (TP)' if name == 'tp' else '2 x 1 (DP)'}"
+                f", {r['total_slots']} slots: TD-VMM row (pinned, "
+                "data-calibrated) and column sites on CUDA through gloo "
+                f"bitwise the meshless sites; engine {r['steps']} steps, "
+                f"launches B1 fused {r['launches']['fused']} + raw "
+                f"{r['launches']['raw']} a rank, serve {r['serve_s']:.2f} s, "
+                + ("streams, finish reasons, finish steps and steps"
+                   if name == "tp" else "token streams and finish reasons")
+                + f" == the meshless engine's{order}; teacher-forced "
+                "logits, TD-VMM off and "
+                f"ffn_unchained, == the meshless run's{order}, bitwise; "
+                "against the meshless run: "
+                f"{r['equal']} of 8 streams equal (first differing token "
+                f"{r['first']}), logits of max|logit| TD-VMM off "
+                f"{r['gaps']['plain']:.4g} (gate {TWO_RANK_RTOL}), "
+                f"ffn_unchained {r['gaps']['plan']:.4g}")
+    say("mesh", f"phase {mq['seconds']:.1f} s")
     for o in served:
         o.pop("engine_args", None)
-    del out, ob, cache
+    del out, ob, cache, mq
     torch.cuda.empty_cache()
-    phase_done("observe qwen")
+    phase_done("mesh qwen")
 
     ki = serve_kimi(dev)
     served.append({"launches": ki["launches"]})

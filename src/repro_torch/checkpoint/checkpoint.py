@@ -124,16 +124,30 @@ def load_flat(directory: str | Path, step: Optional[int] = None,
 
 
 def restore(tree_like, directory: str | Path, step: Optional[int] = None,
-            verify: bool = True):
+            verify: bool = True, shardings=None):
     """(tree, step): the checkpoint at ``step`` (default the latest) in the
     structure of ``tree_like``, each leaf on the device and in the dtype of
-    the leaf it replaces."""
+    the leaf it replaces.
+
+    ``shardings`` = (placement tree, mesh) restores elastically: the
+    checkpoint holds whole leaves (a mesh-sharded state is saved gathered,
+    ``launch.sharding.gather_tree``), and each comes back as this rank's
+    shard under the given placements — of any mesh, not only the one it
+    was saved from.  ``tree_like`` then holds the shards (only their
+    devices and dtypes are read)."""
     leaves, step = load_flat(directory, step, verify)
+    specs = mesh = None
+    if shardings is not None:
+        from repro_torch.launch import sharding
+        spec_tree, mesh = shardings
+        specs = dict(leaf_paths(spec_tree))
     out = []
     for name, like in leaf_paths(tree_like):
         if name not in leaves:
             raise KeyError(f"checkpoint missing leaf {name}")
         t = leaves[name]
+        if specs is not None:
+            t = sharding.shard(t, specs[name], mesh)
         if tuple(t.shape) != tuple(like.shape):
             raise ValueError(f"leaf {name}: checkpoint shape "
                              f"{tuple(t.shape)} != {tuple(like.shape)}")

@@ -170,7 +170,21 @@ def _record_window(cfg: TDVMMLayerConfig, x_codes: torch.Tensor,
     with torch.no_grad():
         acc = ops.codes_matmul(x_codes, w_codes, backend,
                                code_dtype=code_dtype, max_code=max_code)
-    z = torch.abs(acc * _f32(gain))
+    _record_z(cfg, torch.abs(acc * _f32(gain)), per_tile, group_widths)
+
+
+def _record_z(cfg: TDVMMLayerConfig, z: torch.Tensor, per_tile: bool,
+              group_widths: Optional[tuple[int, ...]],
+              tp_col: bool = False, dp_rows: bool = False,
+              whole_cols: Optional[int] = None) -> None:
+    """Record a site's |z| maxima (and clip tally) from its latch-normalized
+    |z|.  ``tp_col``: ``z`` holds this rank's columns of a column-parallel
+    site; ``dp_rows``: its rows of a batch split over the data axes.  The
+    maxima are taken and clips counted over every such rank;
+    ``whole_cols`` is the meshless launch's column count (a grouped
+    launch's member spans pad to the 128 lane per shard)."""
+    from repro_torch.core import calibration
+    from repro_torch.launch import meshctx
     ref = calibration.clip_reference(cfg.site)
     if ref is not None:
         ref = ref.to(z.device)
@@ -188,7 +202,21 @@ def _record_window(cfg: TDVMMLayerConfig, x_codes: torch.Tensor,
             thresh = ref.reshape(-1, 1, 1)
         else:
             thresh = ref.reshape(())
-        calibration.record_clip(cfg.site, torch.sum(z > thresh), z.numel())
+        exceed, total = torch.sum(z > thresh), z.numel()
+        if tp_col:
+            exceed = meshctx.tp_sum_exact(exceed)
+            total = (total // max(z.shape[-1], 1) * whole_cols
+                     if whole_cols is not None
+                     else total * meshctx.tp_size())
+        if dp_rows:
+            exceed = meshctx.dp_sum_exact(exceed)
+            total *= meshctx.dp_size()
+        calibration.record_clip(cfg.site, exceed, total)
+
+    def reduce(t):
+        if tp_col:
+            t = meshctx.tp_max(t)
+        return meshctx.dp_max(t) if dp_rows else t
     if group_widths is not None:
         # member g owns columns [off, off + width_g); pad columns are zero
         # charge, so the span max equals the member's standalone max
@@ -196,13 +224,14 @@ def _record_window(cfg: TDVMMLayerConfig, x_codes: torch.Tensor,
         for wd in group_widths:
             maxes.append(_max0(z[..., off:off + wd]))
             off += wd
-        calibration.record(cfg.site, torch.stack(maxes))
+        calibration.record(cfg.site, reduce(torch.stack(maxes)))
         return
     if per_tile:
-        calibration.record(cfg.site, torch.amax(z, dim=(-2, -1)).clamp_min(0.0)
-                           if z.numel() else z.new_zeros(z.shape[0]))
+        calibration.record(cfg.site, reduce(
+            torch.amax(z, dim=(-2, -1)).clamp_min(0.0)
+            if z.numel() else z.new_zeros(z.shape[0])))
         return
-    calibration.record(cfg.site, _max0(z))
+    calibration.record(cfg.site, reduce(_max0(z)))
 
 
 def _f32(v: float) -> float:
@@ -237,32 +266,162 @@ def _max0(z: torch.Tensor) -> torch.Tensor:
     return torch.maximum(torch.amax(z), zero) if z.numel() else zero
 
 
+# --------------------------------------------------------------------------
+# Mesh sites: tensor parallelism and data-split rows
+# --------------------------------------------------------------------------
+# Under a mesh with a ``model`` axis > 1 a column-parallel site (N split:
+# attn.qkv, ffn.in, moe gate/up, the head) holds its weights' columns, a
+# row-parallel site (K split: attn.wo, ffn.out, moe down) its rows and the
+# matching slice of x.  Each gives the bits of the meshless site:
+#   * scales that are maxima over a split dim (a row site's per-row input
+#     scale and per-channel weight scale; a per-tensor weight scale at
+#     either kind) are all-reduced with MAX over ``model``;
+#   * gain and rescale take the global K;
+#   * a row site's raw accumulators (B1 raw mode) are summed over ``model``
+#     exactly (int32, or float32 codes whose sums are integers), then the
+#     epilogue runs once on the whole accumulator;
+#   * a data-calibrated window and the calibration capture are maxima over
+#     the whole output: over every ``model`` rank's columns at a column
+#     site and, where the rows are one data shard's
+#     (``meshctx.rows_split``), over every data rank's rows.  Such a site
+#     integrates raw once, all-reduces its slot maxima with MAX and reads
+#     out with that window (B1 fused on the card).  A site with a pinned
+#     window (or none) runs its fused launch on its shard unchanged.
+# TD-VMM training (gradients, programming noise) with a model axis > 1 is
+# not ported (ROADMAP A8b) and raises; with data-split rows it runs.
+def _tp_mode(tp: Optional[str], cfg: TDVMMLayerConfig, key,
+             *inputs: torch.Tensor) -> Optional[str]:
+    from repro_torch.launch import meshctx
+    if tp is None or not meshctx.tp_active():
+        return None
+    if tp not in ("col", "row"):
+        raise ValueError(f"tensor-parallel mode {tp!r}")
+    if _noise(cfg, key) or (torch.is_grad_enabled()
+                            and any(t.requires_grad for t in inputs)):
+        raise NotImplementedError(
+            f"site {cfg.site or '<unnamed>'}: TD-VMM training (gradients "
+            "or programming noise) under tensor parallelism is not ported "
+            "(ROADMAP A8b); train on a mesh whose model axis is 1")
+    return tp
+
+
+def _dp_rows() -> bool:
+    from repro_torch.launch import meshctx
+    return meshctx.rows_split()
+
+
+def _tp_k(tp: Optional[str], k: int) -> int:
+    """The global K of a site whose local K is ``k``."""
+    if tp != "row":
+        return k
+    from repro_torch.launch import meshctx
+    return k * meshctx.tp_size()
+
+
+def _slot_max(z: torch.Tensor, group_widths) -> torch.Tensor:
+    """Per readout slot max|z| of an (E, M, N) |z|: (E,), or (G,) over a
+    ragged launch's member spans."""
+    if group_widths is not None:
+        spans = torch.split(z, list(group_widths), dim=-1)
+        return torch.stack([torch.amax(t) for t in spans])
+    return torch.amax(z, dim=(-2, -1))
+
+
+def _mesh_integrate(tp: Optional[str], cfg: TDVMMLayerConfig, xc, wc,
+                    x_scale, w_scale, gain: float, out_bits, out_scale,
+                    out_window, backend: str, code_dtype: str, max_code,
+                    per_tile: bool = False, group_widths=None,
+                    whole_cols: Optional[int] = None) -> torch.Tensor:
+    """Integrate + readout of a site on a mesh (see above).  Returns
+    (E, M, N), or (M, N) for 2-D codes."""
+    from repro_torch.core import calibration
+    from repro_torch.kernels.tdvmm import ops
+    from repro_torch.launch import meshctx
+    capture = calibration.active() and cfg.io_quantize
+    data_cal = out_bits is not None and out_scale is None \
+        and out_window is None
+    dp_rows = _dp_rows()
+    squeeze = xc.dim() == 2 and wc.dim() == 2
+
+    def reduce(s):
+        if tp == "col":
+            s = meshctx.tp_max(s)
+        return meshctx.dp_max(s) if dp_rows else s
+
+    if tp != "row" and not data_cal and not capture:
+        return ops.tdvmm_matmul(
+            xc, wc, x_scale, w_scale, gain=gain, out_bits=out_bits,
+            out_scale=out_scale, backend=backend, code_dtype=code_dtype,
+            group_widths=group_widths, out_window=out_window,
+            max_code=max_code)
+    x3 = xc[None] if xc.dim() == 2 else xc
+    w3 = wc[None] if wc.dim() == 2 else wc
+    with torch.no_grad():
+        acc = ops.raw_acc(x3.detach(), w3.detach(), backend, code_dtype,
+                          max_code)
+        if tp == "row":
+            acc = meshctx.tp_sum_exact(acc)
+        z = torch.abs(acc.to(torch.float32) * _f32(gain))
+        if capture:
+            _record_z(cfg, z[0] if squeeze else z, per_tile, group_widths,
+                      tp_col=tp == "col", dp_rows=dp_rows,
+                      whole_cols=whole_cols)
+        if data_cal:
+            out_window = torch.maximum(
+                reduce(_slot_max(z, group_widths)),
+                torch.full((), _f32(1e-9), dtype=torch.float32,
+                           device=z.device))
+    if tp == "row":
+        y = ops.epilogue(acc, x_scale, w_scale, gain, out_bits, out_scale,
+                         out_window, group_widths)
+        return y[0] if squeeze else y
+    return ops.tdvmm_matmul(
+        xc, wc, x_scale, w_scale, gain=gain, out_bits=out_bits,
+        out_scale=out_scale, backend=backend, code_dtype=code_dtype,
+        group_widths=group_widths, out_window=out_window, max_code=max_code)
+
+
 def td_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TDVMMLayerConfig,
-              key: Optional[quant.NoiseKey] = None) -> torch.Tensor:
+              key: Optional[quant.NoiseKey] = None,
+              tp: Optional[str] = None) -> torch.Tensor:
     """Four-quadrant TD-VMM fast path.  x: (..., N_in), w: (N_in, N_out).
 
     ``key`` with ``cfg.noise`` perturbs the programmed currents
-    (``quant.program_noise``)."""
+    (``quant.program_noise``).  ``tp`` ("col" or "row") marks a
+    tensor-parallel site's shard; it matters only under a mesh whose
+    ``model`` axis is > 1 (a row site then returns the whole, reduced
+    output on every rank)."""
     if not cfg.enabled:
         return x @ w
+    tp = _tp_mode(tp, cfg, key, x, w)
     noisy = _noise(cfg, key)
     plan = plan_matmul(x.shape, w.shape, cfg, noisy=noisy)
+    kg = _tp_k(tp, plan.k)
+    if kg != plan.k:
+        plan = plan._replace(code_dtype=_plan_code_dtype(cfg, kg, noisy))
 
-    qx = quant.encode_input(x, cfg.bits)
-    qw = quant.program_weights(w, cfg.weight_bits, cfg.per_channel)
+    qx = quant.encode_input(x, cfg.bits, tp_reduce=tp == "row")
+    qw = quant.program_weights(
+        w, cfg.weight_bits, cfg.per_channel,
+        tp_reduce=tp == "row" or (tp == "col" and not cfg.per_channel))
     if noisy:
         qw = quant.program_noise(qw, cfg.spec, key)
 
     from repro_torch.kernels.tdvmm import ops
-    gain = _latch_gain(qx.levels, qw.levels, plan.k)
+    gain = _latch_gain(qx.levels, qw.levels, kg)
     # Digital rescale: per-row input range and per-channel 2*N_in*w_max.
     w_scale = torch.broadcast_to(
-        qw.scale.reshape(-1) * _f32(2.0 * plan.k), (plan.n,))
+        qw.scale.reshape(-1) * _f32(2.0 * kg), (plan.n,))
     out_bits, out_scale = _readout_args(cfg)
     out_scale, out_window = _runtime_override(cfg, out_bits, out_scale)
     xc, wc = _operands(qx, qw, x, w)
     xc = xc.reshape(plan.m, plan.k)
     max_code = _max_code(qx, qw, plan.code_dtype)
+    if tp is not None or _dp_rows():
+        y = _mesh_integrate(tp, cfg, xc, wc, qx.scale.reshape(plan.m),
+                            w_scale, gain, out_bits, out_scale, out_window,
+                            plan.backend, plan.code_dtype, max_code)
+        return y.reshape(plan.batch_shape + (plan.n,)).to(x.dtype)
     _record_window(cfg, xc.detach(), wc.detach(), plan.backend,
                    plan.code_dtype, gain, max_code)
     y = ops.tdvmm_matmul(
@@ -283,7 +442,8 @@ def td_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TDVMMLayerConfig,
 
 def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
                      cfg: TDVMMLayerConfig,
-                     key: Optional[quant.NoiseKey] = None) -> torch.Tensor:
+                     key: Optional[quant.NoiseKey] = None,
+                     tp: Optional[str] = None) -> torch.Tensor:
     """Batched four-quadrant TD-VMM: one analog tile per expert.
 
     x (E, C, N_in) is the MoE dispatch buffer, w (E, N_in, N_out) the
@@ -294,7 +454,8 @@ def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
     codes and contribute zero charge, so the padding is exact.  Without a
     gradient the bank is programmed a slice of experts at a time
     (``quant.program_weights``): the same bits in a slice's float32
-    temporaries, so a full-width kimi-k2 bank fits on one card."""
+    temporaries, so a full-width kimi-k2 bank fits on one card.  ``tp``
+    as in ``td_matmul``."""
     if not cfg.enabled:
         return torch.einsum("eck,ekn->ecn", x, w)
     e, c, k = x.shape
@@ -302,24 +463,34 @@ def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
     if e != e2 or k != k2:
         raise ValueError(f"td_expert_matmul shapes {tuple(x.shape)} x "
                          f"{tuple(w.shape)}")
+    tp = _tp_mode(tp, cfg, key, x, w)
     noisy = _noise(cfg, key)
-    code_dtype = _plan_code_dtype(cfg, k, noisy)
+    kg = _tp_k(tp, k)
+    code_dtype = _plan_code_dtype(cfg, kg, noisy)
     from repro_torch.kernels.tdvmm import ops
     backend = ops.resolve_backend(cfg.backend)
 
-    qx = quant.encode_input(x, cfg.bits)                       # scale (E, C, 1)
-    qw = quant.program_weights(w, cfg.weight_bits, cfg.per_channel)
+    qx = quant.encode_input(x, cfg.bits,                        # scale (E, C, 1)
+                            tp_reduce=tp == "row")
+    qw = quant.program_weights(
+        w, cfg.weight_bits, cfg.per_channel,
+        tp_reduce=tp == "row" or (tp == "col" and not cfg.per_channel))
     if noisy:
         qw = quant.program_noise(qw, cfg.spec, key)
-    gain = _latch_gain(qx.levels, qw.levels, k)
+    gain = _latch_gain(qx.levels, qw.levels, kg)
     # qw.scale is (E, 1, N) per-channel or (E, 1, 1) per-tensor
     w_scale = torch.broadcast_to(
-        qw.scale.reshape(e, qw.scale.shape[-1]) * _f32(2.0 * k), (e, n))
+        qw.scale.reshape(e, qw.scale.shape[-1]) * _f32(2.0 * kg), (e, n))
     out_bits, out_scale = _readout_args(cfg, n_experts=e)
     out_scale, out_window = _runtime_override(cfg, out_bits, out_scale)
     # each expert is its own analog tile: calibration records (E,) windows
     max_code = _max_code(qx, qw, code_dtype)
     xc, wc = _operands(qx, qw, x, w)
+    if tp is not None or _dp_rows():
+        return _mesh_integrate(tp, cfg, xc, wc, qx.scale.reshape(e, c),
+                               w_scale, gain, out_bits, out_scale,
+                               out_window, backend, code_dtype, max_code,
+                               per_tile=True).to(x.dtype)
     _record_window(cfg, xc.detach(), wc.detach(), backend, code_dtype, gain,
                    max_code, per_tile=True)
     y = ops.tdvmm_matmul(
@@ -339,7 +510,8 @@ def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
 
 
 def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
-                      key: Optional[quant.NoiseKey] = None
+                      key: Optional[quant.NoiseKey] = None,
+                      tp: Optional[str] = None
                       ) -> tuple[torch.Tensor, ...]:
     """Grouped four-quadrant TD-VMM: G same-input projections, one launch.
 
@@ -362,6 +534,9 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
         if w.dim() != 2 or w.shape[0] != k:
             raise ValueError(f"grouped member {tuple(w.shape)} for an input "
                              f"of width {k}")
+    tp = _tp_mode(tp, cfg, key, x, *ws)
+    if tp == "row":
+        raise ValueError("a grouped site is column-parallel")
     noisy = _noise(cfg, key)
     plan = plan_matmul(x.shape, (k, sum(ns)), cfg, noisy=noisy)
     from repro_torch.kernels.tdvmm import ops, tdvmm
@@ -371,7 +546,9 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
 
     qx = quant.encode_input(x, cfg.bits)                       # encode ONCE
     qw = quant.concat_group(
-        [quant.program_weights(w, cfg.weight_bits, cfg.per_channel)
+        [quant.program_weights(w, cfg.weight_bits, cfg.per_channel,
+                               tp_reduce=tp is not None
+                               and not cfg.per_channel)
          for w in ws], widths)
     if noisy:
         qw = quant.program_noise(qw, cfg.spec, key)
@@ -384,22 +561,33 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
     # each member's column span is its own analog tile: calibration records
     # one (G,) vector for the site
     max_code = _max_code(qx, qw, plan.code_dtype)
-    _record_window(cfg, xc.detach(), wc.detach(), plan.backend,
-                   plan.code_dtype, gain, max_code, group_widths=widths)
-    y = ops.tdvmm_matmul(
-        xc,
-        wc,
-        qx.scale.reshape(plan.m),
-        w_scale,
-        gain=gain,
-        out_bits=out_bits,
-        out_scale=out_scale,
-        backend=plan.backend,
-        code_dtype=plan.code_dtype,
-        group_widths=widths,
-        out_window=out_window,
-        max_code=max_code,
-    )                                                          # (M, n_total)
+    if tp is not None or _dp_rows():
+        whole = None
+        if tp is not None:
+            from repro_torch.launch import meshctx
+            whole = sum(tdvmm.padded_size(n * meshctx.tp_size(), tdvmm.LANE,
+                                          tdvmm.LANE) for n in ns)
+        y = _mesh_integrate(tp, cfg, xc, wc, qx.scale.reshape(plan.m),
+                            w_scale, gain, out_bits, out_scale, out_window,
+                            plan.backend, plan.code_dtype, max_code,
+                            group_widths=widths, whole_cols=whole)
+    else:
+        _record_window(cfg, xc.detach(), wc.detach(), plan.backend,
+                       plan.code_dtype, gain, max_code, group_widths=widths)
+        y = ops.tdvmm_matmul(
+            xc,
+            wc,
+            qx.scale.reshape(plan.m),
+            w_scale,
+            gain=gain,
+            out_bits=out_bits,
+            out_scale=out_scale,
+            backend=plan.backend,
+            code_dtype=plan.code_dtype,
+            group_widths=widths,
+            out_window=out_window,
+            max_code=max_code,
+        )                                                      # (M, n_total)
     outs, off = [], 0
     for n, wd in zip(ns, widths):
         outs.append(y[:, off:off + n].reshape(plan.batch_shape + (n,))

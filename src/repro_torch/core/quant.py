@@ -175,20 +175,31 @@ def _absmax(xf: torch.Tensor, dims: tuple[int, ...]) -> torch.Tensor:
     return _floor(torch.amax(torch.abs(xf), dim=dims, keepdim=True), 0.0)
 
 
-def encode_input(x: torch.Tensor, bits: int, axis: int = -1) -> QuantizedTensor:
+def _tp_max(t: torch.Tensor, tp_reduce: bool) -> torch.Tensor:
+    if not tp_reduce:
+        return t
+    from repro_torch.launch import meshctx
+    return meshctx.tp_max(t)
+
+
+def encode_input(x: torch.Tensor, bits: int, axis: int = -1,
+                 tp_reduce: bool = False) -> QuantizedTensor:
     """Input stage (Eq. 2): per-row range normalization + p-bit time codes.
 
     The scale is the per-example input range max|x| along ``axis`` (the
     analog front-end normalizes each sample into the [0, T] window).
+    ``tp_reduce``: ``axis`` is split over the mesh's ``model`` axis (a
+    row-parallel site), so the max is taken over every rank's slice.
     """
     xf = x.to(torch.float32)
-    s = _floor(_absmax(xf.detach(), (axis,)), 1e-6)
+    s = _floor(_tp_max(_absmax(xf.detach(), (axis,)), tp_reduce), 1e-6)
     codes, lin = _store(xf / s, bits)
     return QuantizedTensor(codes=codes, scale=s, bits=bits, ste=lin)
 
 
 def program_weights(
-    w: torch.Tensor, bits: int, per_channel: bool = True
+    w: torch.Tensor, bits: int, per_channel: bool = True,
+    tp_reduce: bool = False
 ) -> QuantizedTensor:
     """Weight stage (sections 2, 4.1): FG current codes + column scaling.
 
@@ -203,6 +214,8 @@ def program_weights(
     value take 4 bytes a weight apiece (22.5 GB each for one of kimi-k2's
     384 x 7168 x 2048 banks); a slice keeps each near ``SLICE_ELEMS``.
     With a gradient the straight-through term spans the whole tensor.
+    ``tp_reduce``: a reduced dim is split over the mesh's ``model`` axis,
+    so each scale is the max over every rank's slice.
     """
     if w.dim() == 3 and not (w.requires_grad and torch.is_grad_enabled()):
         step = expert_step(w)
@@ -213,18 +226,18 @@ def program_weights(
             scale = torch.empty((e, 1, n if per_channel else 1),
                                 dtype=torch.float32, device=w.device)
             for lo in range(0, e, step):
-                q = _program(w[lo:lo + step], bits, per_channel)
+                q = _program(w[lo:lo + step], bits, per_channel, tp_reduce)
                 codes[lo:lo + step] = q.codes
                 scale[lo:lo + step] = q.scale
             return QuantizedTensor(codes=codes, scale=scale, bits=bits)
-    return _program(w, bits, per_channel)
+    return _program(w, bits, per_channel, tp_reduce)
 
 
-def _program(w: torch.Tensor, bits: int, per_channel: bool
-             ) -> QuantizedTensor:
+def _program(w: torch.Tensor, bits: int, per_channel: bool,
+             tp_reduce: bool = False) -> QuantizedTensor:
     wf = w.to(torch.float32)
     dims = (-2,) if per_channel else (-2, -1)
-    w_max = _floor(_absmax(wf.detach(), dims), 1e-6)
+    w_max = _floor(_tp_max(_absmax(wf.detach(), dims), tp_reduce), 1e-6)
     # no clip here: the stored code clips to the code range, and the STE
     # linear term stays unclipped (a clip would halve the gradient of every
     # per-channel max-magnitude weight, a min/max tie at |w| == w_max)
@@ -296,6 +309,17 @@ def split_key(key: int, n: int) -> tuple[int, ...]:
     ``jax.random.split``: a function of the key alone)."""
     state = np.random.SeedSequence(int(key)).generate_state(n, np.uint64)
     return tuple(int(v) >> 1 for v in state)
+
+
+def fold_in(key: int, data: int) -> int:
+    """An int key derived from ``key`` and ``data`` (the counterpart of
+    ``jax.random.fold_in``: a function of both alone)."""
+    if not isinstance(key, int) or isinstance(key, bool):
+        raise TypeError("fold_in takes an int key (handed-in NoiseDraws "
+                        "cannot be split across ranks)")
+    state = np.random.SeedSequence([int(key), int(data)]).generate_state(
+        1, np.uint64)
+    return int(state[0]) >> 1
 
 
 def noise_draws(key: NoiseKey, shape, device) -> NoiseDraws:

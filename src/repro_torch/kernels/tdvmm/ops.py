@@ -343,14 +343,35 @@ class _CodesMatmul(torch.autograd.Function):
 
 
 def _raw_acc(x3, w3, backend, code_dtype, max_code) -> torch.Tensor:
+    return raw_acc(x3, w3, backend, code_dtype, max_code).to(torch.float32)
+
+
+def raw_acc(x3, w3, backend, code_dtype, max_code) -> torch.Tensor:
+    """The raw (E|1, M, K) x (E, K, N) charge accumulation in the storage's
+    own dtype: int32 for integer codes (exact), float32 for float32 codes
+    (B1 raw mode on the card).  A tensor-parallel row site sums these over
+    ``model`` before its one epilogue."""
     if backend == "jnp":
         xi, wi, _ = _operands(x3, w3,
                               "int8" if code_dtype == "int4" else code_dtype)
-        acc = tdvmm.acc_plain(xi, wi)
-    else:
-        acc = tdvmm.tdvmm_matmul_raw(*_operands(x3, w3, code_dtype),
-                                     max_code=max_code, code_dtype=code_dtype)
-    return acc.to(torch.float32)
+        return tdvmm.acc_plain(xi, wi)
+    return tdvmm.tdvmm_matmul_raw(*_operands(x3, w3, code_dtype),
+                                  max_code=max_code, code_dtype=code_dtype)
+
+
+def epilogue(acc, x_scale, w_scale, gain, out_bits, out_scale=None,
+             out_window=None, group_widths=None):
+    """``tdvmm_matmul``'s epilogue on a finished (E, M, N) accumulator
+    (``raw_acc``'s), with its scale layouts: the same bits as the fused
+    and calibrated launches on the same accumulator."""
+    e, m, n = acc.shape
+    x_scale = x_scale.reshape(-1, m).to(torch.float32).contiguous()
+    w_scale = w_scale.reshape(e, n).to(torch.float32).contiguous()
+    if min(e, m, n) == 0:
+        return torch.zeros((e, m, n), dtype=torch.float32, device=acc.device)
+    return _epilogue(acc, x_scale, w_scale, gain, out_bits, out_scale,
+                     out_window, None if group_widths is None
+                     else tuple(int(w) for w in group_widths))
 
 
 def codes_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor,

@@ -73,10 +73,19 @@ deadline- or joule-infeasible requests at admission (``--deadline-steps``,
         --metrics-jsonl /tmp/m.jsonl --clip-observe-every 2 \\
         --alert-on 'clip_rate.ffn.out:threshold:limit=0.01' \\
         --trace-out /tmp/trace.json --report-json /tmp/report.json
+
+``--mesh DxT`` serves on a (data, model) mesh, one process per device
+(``launch.mesh``; NCCL on the card, gloo with ``--device cpu``); every rank
+runs the same command:
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.serve --arch qwen1.5-0.5b --smoke \
+        --tdvmm 'ffn.*' --calibrate --device cpu --mesh 2x2
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 from pathlib import Path
@@ -87,6 +96,9 @@ import torch
 from repro_torch.checkpoint import checkpoint
 from repro_torch.configs import TDVMMPlan, get_config, smoke as smoke_cfg, tdvmm_rule
 from repro_torch.core.calibration import CalibrationState
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import meshctx, sharding
+from repro_torch.launch.mesh import axis_info
 from repro_torch.models import attention, common, model
 from repro_torch.runtime import fault
 from repro_torch.runtime import faultinject as fi
@@ -96,6 +108,7 @@ from repro_torch.runtime.engine import (DriftConfig, Engine, EngineConfig,
 from repro_torch.runtime.paged_cache import pages_for
 from repro_torch.runtime.sla import SlaConfig
 from repro_torch.runtime.trace import Tracer
+from repro_torch.tree import leaves_with_paths
 
 
 def make_trace(vocab: int, n: int, prompt_len: int, gen: int, seed: int,
@@ -204,7 +217,9 @@ def fault_config(args, probe_batch=None, sink=None) -> FaultConfig | None:
         drift=drift, heartbeat=hb, monitor=fault.StragglerMonitor(sink=sink))
 
 
-def serve_engine(cfg, args):
+def serve_engine(cfg, args, mesh=None):
+    """The engine path; with ``mesh`` one rank of a mesh-sharded engine
+    (every rank runs this with the same arguments)."""
     device = common.resolve_device(args.device)
     params = model.init_params(args.seed, cfg, device=device)
     calib = batch = None
@@ -228,7 +243,8 @@ def serve_engine(cfg, args):
     sink = make_sink(args)
     tracer = Tracer() if args.trace_out else None
     fc = fault_config(args, probe_batch=batch, sink=sink)
-    kw = dict(calib=calib, sla=sla, sink=sink, tracer=tracer, device=device)
+    kw = dict(calib=calib, sla=sla, sink=sink, tracer=tracer, device=device,
+              mesh=mesh)
     try:
         if args.resume:
             if not args.snapshot_dir:
@@ -263,6 +279,9 @@ def serve_engine(cfg, args):
         print(f"[serve] drift: {len(rep.drift_events)} events, "
               f"{rep.recalibrations} online recalibrations (step shapes "
               f"still {rep.step_shapes})")
+    if mesh is not None:
+        print(f"[serve] mesh: {rep.devices} devices, {rep.total_slots} "
+              f"slots")
     print(f"[serve] {device}: {len(reqs)} requests, {rep.generated_tokens} "
           f"tokens in {rep.steps} steps ({rep.prefill_steps} chunk + "
           f"{rep.decode_steps} decode, "
@@ -307,7 +326,8 @@ def _sync(device: torch.device) -> None:
 
 def serve_static(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
                  calibrate: bool = False, calib=None, device=None,
-                 params=None, prompts=None, decode_inputs=None) -> dict:
+                 params=None, prompts=None, decode_inputs=None,
+                 mesh=None) -> dict:
     """Uniform-batch prefill + greedy decode (the JAX package's ``serve()``
     without a mesh).  ``calibrate=True`` runs the model-wide readout-window
     pass on the prompt batch first and serves with every TD-VMM site's
@@ -317,7 +337,14 @@ def serve_static(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
     (batch, prompt_len, d_model) float32 normal draw.  Those archs feed one
     (batch, 1, d_model) input, ``decode_inputs`` (drawn after the prompt
     when not given), at every decode step, as the reference reuses one key.
-    Returns the (batch, gen) tokens and the times."""
+    Returns the (batch, gen) tokens and the times.
+
+    With ``mesh`` (every rank calling with the same arguments) each rank
+    keeps its shards of the params (TP and EP split, replicated over DP),
+    runs its rows of the batch (``common.constrain_batch``) against caches
+    of its rows and KV heads (``sharding.cache_specs``), and the tokens
+    come back whole.  Calibration runs on the whole batch before the
+    params are split."""
     device = common.resolve_device(device)
     if params is None:
         params = model.init_params(seed, cfg, device=device)
@@ -344,11 +371,18 @@ def serve_static(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
         if calibrate and calib is None:
             calib = model.calibrate(params, {"inputs": prompts}, cfg,
                                     max_len=prompt_len + gen, device=device)
-        caches = model.init_caches(cfg, batch, prompt_len + gen, device)
+        if mesh is not None:
+            params, prompts, decode_inputs, caches = _shard_static(
+                cfg, params, prompts, decode_inputs, prompt_len + gen,
+                mesh, device)
+        else:
+            caches = model.init_caches(cfg, batch, prompt_len + gen, device)
+        split = prompts.shape[0] != batch     # rows split over the data axes
         _sync(device)
         t0 = time.perf_counter()
-        logits, caches = model.prefill_step(params, {"inputs": prompts},
-                                            caches, cfg, calib=calib)
+        with _on_mesh(mesh, split):
+            logits, caches = model.prefill_step(params, {"inputs": prompts},
+                                                caches, cfg, calib=calib)
         tok = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
         _sync(device)
         t_prefill = time.perf_counter() - t0
@@ -356,22 +390,64 @@ def serve_static(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
         out, nan_steps = [tok], torch.isnan(logits).any().to(torch.int32)
         t0 = time.perf_counter()
         for _ in range(gen - 1):
-            logits, caches = model.decode_step(
-                params, {"inputs": decode_inputs if embeds else tok}, caches,
-                cfg, calib=calib)
+            with _on_mesh(mesh, split):
+                logits, caches = model.decode_step(
+                    params, {"inputs": decode_inputs if embeds else tok},
+                    caches, cfg, calib=calib)
             nan_steps = nan_steps + torch.isnan(logits).any()
             tok = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
             out.append(tok)
         _sync(device)
         t_decode = time.perf_counter() - t0
+        tokens = torch.cat(out, dim=1)
+        with _on_mesh(mesh, split):
+            tokens = meshctx.dp_gather(tokens, batch)
     return {
-        "tokens": torch.cat(out, dim=1).cpu(),
+        "tokens": tokens.cpu(),
         "prefill_s": t_prefill,
         "decode_s": t_decode,
         "decode_tok_per_s": batch * (gen - 1) / max(t_decode, 1e-9),
         "nan_steps": int(nan_steps),
         "calibration": calib,
     }
+
+
+@contextlib.contextmanager
+def _on_mesh(mesh, split: bool):
+    """The mesh installed, and the rows marked split over its data axes."""
+    with meshctx.use_mesh_of(mesh), meshctx.split_rows(split):
+        yield
+
+
+def _shard_static(cfg, params, prompts, decode_inputs, max_len: int, mesh,
+                  device):
+    """This rank's params, batch rows and caches for ``serve_static``."""
+    dp = axis_info(mesh)["dp_axes"]
+    batch = prompts.shape[0]
+    p_specs = sharding.param_specs(params, cfg, mesh, dp_axes=(), ep_axes=dp)
+    params = sharding.shard_tree(params, p_specs, mesh)
+    with meshctx.use_mesh_of(mesh):
+        prompts = common.constrain_batch(prompts)
+        if decode_inputs is not None:
+            decode_inputs = common.constrain_batch(decode_inputs)
+        caches = model.init_caches(cfg, prompts.shape[0], max_len, device)
+    if batch % meshctx.axis_size(dp, mesh) == 0:
+        # the caches are this rank's shards under cache_specs (a batch the
+        # data axes do not divide stays whole on every rank: the JAX
+        # package's sequence-split cache is ROADMAP A8b)
+        whole = model.init_caches(cfg, batch, max_len, torch.device("meta"))
+        specs = dict(leaves_with_paths(sharding.cache_specs(whole, cfg,
+                                                            mesh)))
+        for (name, t), (_, w) in zip(leaves_with_paths(caches),
+                                     leaves_with_paths(whole)):
+            if name.endswith("/pos"):
+                # whole (L, B) in the JAX package; here the rank's rows'
+                continue
+            want = sharding.local_shape(tuple(w.shape), specs[name], mesh)
+            if tuple(t.shape) != want:
+                raise ValueError(f"cache {name}: {tuple(t.shape)} is not "
+                                 f"the shard {want} of {tuple(w.shape)}")
+    return params, prompts, decode_inputs, caches
 
 
 def main(argv=None):
@@ -407,6 +483,10 @@ def main(argv=None):
     ap.add_argument("--kv-int8", action="store_true",
                     help="store the KV caches as int8 codes with per-(token, "
                          "head) scales")
+    ap.add_argument("--mesh", default=None, metavar="DxT",
+                    help="serve on a (data, model) mesh of D x T processes "
+                         "(start them with python -m torch.distributed.run "
+                         "--nproc-per-node D*T)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain path)")
@@ -492,13 +572,18 @@ def main(argv=None):
         rules.append(tdvmm_rule("ffn.in", chain=True))
     if rules:
         cfg = cfg.replace(tdvmm_plan=TDVMMPlan(rules=tuple(rules)))
+    mesh = None
+    if args.mesh:
+        _, _, device = mesh_lib.init_distributed(args.device)
+        args.device = str(device)
+        mesh = mesh_lib.parse_mesh(args.mesh, device.type)
     attention.set_kv_cache_int8(args.kv_int8)
     try:
         if not args.static:
-            return serve_engine(cfg, args)
+            return serve_engine(cfg, args, mesh=mesh)
         out = serve_static(cfg, args.batch, args.prompt_len, args.gen,
                            seed=args.seed, calibrate=args.calibrate,
-                           device=args.device)
+                           device=args.device, mesh=mesh)
     finally:
         attention.set_kv_cache_int8(False)
     print(f"[serve] {args.arch} batch={args.batch} "

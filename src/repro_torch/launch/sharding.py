@@ -1,0 +1,342 @@
+"""Parameter / state / batch / cache placements — torch port of
+``repro.launch.sharding``.
+
+The rules are the JAX package's, written as placements: a ``P`` holds one
+entry per dim, None (replicated) or the mesh axes the dim is split over
+(a name, or a tuple of names split row-major).
+
+  * batch            -> all DP axes ('pod', 'data')
+  * FSDP (ZeRO-3)    -> params' non-TP matrix dim over the DP axes
+  * TP               -> heads / ffn-hidden / vocab dim over 'model'
+  * MoE expert banks -> impl 'ep': expert dim over the DP axes, hidden over
+                        'model'; impl 'local': replicated expert dim, FSDP
+                        d, TP hidden
+
+Rules match the TRAILING dims of each leaf, so a leaf with extra leading
+dims gets None on the left.
+
+``shard_tree`` slices a full tree into this rank's shards and
+``gather_tree`` all-gathers shards back into full leaves: both are exact
+copies, and they take the place of ``to_named`` / ``device_put``.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import meshctx
+from repro_torch.launch.mesh import axis_info
+from repro_torch.tree import leaves_with_paths, tree_map
+
+
+class P:
+    """A placement: one entry per dim (None, an axis name, or a tuple of
+    axis names).  Not a tuple, so the port's tree functions take it as a
+    leaf."""
+    __slots__ = ("dims",)
+
+    def __init__(self, *dims):
+        self.dims = tuple(None if d is None or d == () else d for d in dims)
+
+    def __iter__(self):
+        return iter(self.dims)
+
+    def __len__(self):
+        return len(self.dims)
+
+    def __getitem__(self, i):
+        return self.dims[i]
+
+    def __eq__(self, other):
+        return isinstance(other, P) and self.dims == other.dims
+
+    def __hash__(self):
+        return hash(self.dims)
+
+    def __repr__(self):
+        return f"P{self.dims!r}"
+
+
+def _rules(fsdp, tp, ep):
+    """(regex over '/'-joined path) -> trailing-dims placement entries."""
+    return [
+        # MoE expert banks (3D: E, d_in, d_out)
+        (r"moe/experts/w_(up|gate)$", (ep, None, tp)),
+        (r"moe/experts/w_down$", (ep, tp, None)),
+        (r"moe/shared/w_(up|gate)$", (None, fsdp, tp)),
+        (r"moe/shared/w_down$", (None, tp, fsdp)),
+        (r"moe/router/w$", (None, None)),
+        # attention
+        (r"attn/w[qkv]/w$", (fsdp, tp)),
+        (r"attn/w[qkv]/b$", (tp,)),
+        (r"attn/wo/w$", (tp, fsdp)),
+        (r"attn/wo/b$", (None,)),
+        # ffn
+        (r"ffn/w_(up|gate)/w$", (fsdp, tp)),
+        (r"ffn/w_down/w$", (tp, fsdp)),
+        # ssm
+        (r"ssm/w[zx]/w$", (fsdp, tp)),
+        (r"ssm/w[BC]/w$", (fsdp, tp)),
+        (r"ssm/wdt/w$", (fsdp, tp)),
+        (r"ssm/wo/w$", (tp, fsdp)),
+        (r"ssm/conv_w$", (None, None, tp)),
+        (r"ssm/conv_b$", (tp,)),
+        (r"ssm/(A_log|D|dt_bias)$", (None,)),
+        # embeddings / head / fuse
+        (r"embed/table$", (tp, fsdp)),
+        (r"head/w$", (fsdp, tp)),
+        (r"fuse/w$", (fsdp, tp)),
+        # norms and everything 1D
+        (r"(scale|b)$", (None,)),
+    ]
+
+
+def _shape(leaf) -> tuple:
+    return tuple(leaf.shape)
+
+
+def param_specs(params: Any, cfg: ModelConfig, mesh,
+                dp_axes: tuple[str, ...] | None = None,
+                ep_axes: tuple[str, ...] | None = None):
+    """Placement tree matching the params tree.
+
+    dp_axes: override the FSDP axes (the serving engine passes () to
+    replicate weights over DP — no ZeRO-3 gathers in the step).
+    ep_axes: override the expert-bank axes independently of FSDP (serving
+    keeps dense weights DP-replicated but still shards expert tables over
+    the DP axes under ``moe.impl='ep'``).  (The JAX package's
+    ``layer_axis``, a stacked layer dim over 'pod', has no counterpart:
+    the port keeps one dict per layer, and ``launch.pipeline`` splits the
+    list.)"""
+    info = axis_info(mesh)
+    fsdp = (info["dp_axes"] if dp_axes is None else dp_axes) or None
+    tp = info["tp_axis"]
+    ep_base = fsdp if ep_axes is None else (ep_axes or None)
+    ep = ep_base if (cfg.moe is not None and cfg.moe.impl == "ep") else None
+    rules = _rules(fsdp, tp, ep)
+    specs = {}
+    for path, leaf in leaves_with_paths(params):
+        nd = len(_shape(leaf))
+        spec = P(*((None,) * nd))
+        for pat, trailing in rules:
+            if re.search(pat, path):
+                if len(trailing) > nd:
+                    trailing = trailing[-nd:] if nd else ()
+                spec = P(*((None,) * (nd - len(trailing)) + tuple(trailing)))
+                break
+        specs[path] = spec
+    return _unflatten_paths(params, specs)
+
+
+def _unflatten_paths(tree, by_path: dict):
+    paths = iter(p for p, _ in leaves_with_paths(tree))
+    return tree_map(lambda _: by_path[next(paths)], tree)
+
+
+def opt_state_specs(opt_state: Any, p_specs: Any):
+    """Optimizer state shares its params' placement; Adafactor's factored
+    moments drop the corresponding dim of the param's placement.  The
+    port's ``OptState`` is (step, inner): AdamW's inner is {"m": params,
+    "v": params}, Adafactor's one dict {"m", "vr", "vc"} or {"m", "v"} per
+    param."""
+    p_leaves = {p: s for p, s in leaves_with_paths(p_specs)}
+    specs = {}
+    for path, leaf in leaves_with_paths(opt_state):
+        nd = len(_shape(leaf))
+        spec = P(*((None,) * nd))
+        m = re.match(r"inner/(m|v)/(.*)$", path)
+        if m and m.group(2) in p_leaves:
+            spec = p_leaves[m.group(2)]
+        else:
+            m = re.match(r"inner/(.*)/(m|vr|vc|v)$", path)
+            if m and m.group(1) in p_leaves:
+                base = tuple(p_leaves[m.group(1)])
+                kind = m.group(2)
+                if kind == "vr":
+                    spec = P(*base[:-1])
+                elif kind == "vc":
+                    spec = P(*(base[:-2] + base[-1:]))
+                else:
+                    spec = P(*base)
+        specs[path] = spec
+    return _unflatten_paths(opt_state, specs)
+
+
+def batch_specs(cfg: ModelConfig, mesh, kind: str, global_batch: int):
+    dp = axis_info(mesh)["dp_axes"]
+    if global_batch % meshctx.axis_size(dp, mesh) != 0:
+        dp = None   # e.g. long_500k's batch=1: replicate batch
+    inp = P(dp, None) if cfg.input_mode == "tokens" else P(dp, None, None)
+    if kind in ("decode", "prefill"):
+        return {"inputs": inp}
+    return {"inputs": inp, "targets": P(dp, None)}
+
+
+def cache_specs(caches: Any, cfg: ModelConfig, mesh):
+    """KV caches: batch over DP and kv-heads over TP when divisible; falls
+    back to sequence-sharding the cache / head_dim-sharding otherwise."""
+    info = axis_info(mesh)
+    dp, tp = info["dp_axes"], info["tp_axis"]
+    dpn = meshctx.axis_size(dp, mesh)
+    tpn = meshctx.axis_size(tp, mesh)
+    dp = dp or None
+
+    def spec_for(s, shape):
+        nd = len(shape)
+        if s.endswith("/pos") or nd <= 1:
+            return P(*((None,) * nd))
+        if re.search(r"/(k|v)$", s):          # (L, B, S, KV, HD)
+            L, B, S, KV, HD = shape
+            b_ax = dp if B % dpn == 0 else None
+            s_ax = dp if (b_ax is None and S % dpn == 0) else None
+            kv_ax = tp if KV % tpn == 0 else None
+            hd_ax = tp if (kv_ax is None and HD % tpn == 0) else None
+            return P(None, b_ax, s_ax, kv_ax, hd_ax)
+        if re.search(r"/(k_scale|v_scale)$", s):   # (L, B, S, KV)
+            L, B, S, KV = shape
+            b_ax = dp if B % dpn == 0 else None
+            s_ax = dp if (b_ax is None and S % dpn == 0) else None
+            return P(None, b_ax, s_ax, tp if KV % tpn == 0 else None)
+        if s.endswith("/conv"):               # (L, B, W, C)
+            L, B, W, C = shape
+            b_ax = dp if B % dpn == 0 else None
+            return P(None, b_ax, None, tp if C % tpn == 0 else None)
+        if s.endswith("/state"):              # (L, B, H, P, S)
+            L, B, H, Pp, S = shape
+            b_ax = dp if B % dpn == 0 else None
+            return P(None, b_ax, tp if H % tpn == 0 else None, None, None)
+        return P(*((None,) * nd))
+
+    return _unflatten_paths(caches, {
+        p: spec_for("/" + p, _shape(t))
+        for p, t in leaves_with_paths(caches)})
+
+
+def paged_specs(caches: Any, cfg: ModelConfig, mesh):
+    """Paged KV pools: head dims over TP, the page pool itself replicated
+    (block tables index arbitrary page ids, so the page dim is never
+    split; the DP slot-pool dim lives in the block tables).  kv-heads go
+    over TP when divisible, else head_dim.  Per-position int8 KV scales
+    (L, pages, page_size, KV) follow their pool."""
+    tp = axis_info(mesh)["tp_axis"]
+    tpn = meshctx.axis_size(tp, mesh)
+
+    def spec_for(s, shape):
+        nd = len(shape)
+        if re.search(r"/(k|v)$", s):          # (L, pages, ps, KV, HD)
+            L, PG, PS, KV, HD = shape
+            kv_ax = tp if KV % tpn == 0 else None
+            hd_ax = tp if (kv_ax is None and HD % tpn == 0) else None
+            return P(None, None, None, kv_ax, hd_ax)
+        if re.search(r"/(k_scale|v_scale)$", s):   # (L, pages, ps, KV)
+            L, PG, PS, KV = shape
+            return P(None, None, None, tp if KV % tpn == 0 else None)
+        return P(*((None,) * nd))
+
+    return _unflatten_paths(caches, {
+        p: spec_for("/" + p, _shape(t))
+        for p, t in leaves_with_paths(caches)})
+
+
+def slot_specs(mesh, kind: str):
+    """Engine step-batch layouts for the DP slot-pool dimension.
+
+    decode: batch rows ARE the slots, ordered (dp_rank, local_slot), so the
+    leading dim splits over DP — inputs/block_tables (B, ·), pos/active
+    (B,).  prefill: one slot per step (batch 1) — fully replicated."""
+    dp = axis_info(mesh)["dp_axes"] or None
+    if kind == "prefill":
+        return {"inputs": P(None, None), "block_row": P(None),
+                "offset": P(), "valid": P()}
+    if kind != "decode":
+        raise ValueError(f"unknown engine step kind {kind!r}")
+    return {"inputs": P(dp, None), "block_tables": P(dp, None),
+            "pos": P(dp), "active": P(dp)}
+
+
+# --------------------------------------------------------------------------
+# Shards <-> full leaves
+# --------------------------------------------------------------------------
+def local_shape(shape: tuple, spec: P, mesh) -> tuple:
+    """The shape of one rank's shard of a ``shape`` leaf placed by ``spec``."""
+    out = []
+    for n, ax in zip(shape, spec):
+        k = meshctx.axis_size(ax, mesh) if ax is not None else 1
+        if n % k:
+            raise ValueError(f"dim of {n} does not split {k} ways "
+                             f"(placement {spec})")
+        out.append(n // k)
+    return tuple(out)
+
+
+def shard(full: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+    """This rank's shard of a full (replicated) tensor: a contiguous copy."""
+    t = full
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        k = meshctx.axis_size(ax, mesh)
+        if t.shape[dim] % k:
+            raise ValueError(f"dim {dim} of {tuple(full.shape)} does not "
+                             f"split {k} ways (placement {spec})")
+        t = t.chunk(k, dim=dim)[meshctx.axis_rank(ax, mesh)]
+    return t.contiguous().clone()
+
+
+def gather(local: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+    """The full tensor from every rank's shard (an all-gather per split
+    dim, over that dim's axes).  Collective."""
+    t = local
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        if meshctx.axis_size(ax, mesh) > 1:
+            t = meshctx.all_gather(t, meshctx.axes_group(ax, mesh), dim)
+    return t
+
+
+def shard_tree(full: Any, specs: Any, mesh) -> Any:
+    """This rank's shards of every leaf of ``full``."""
+    return tree_map(lambda t, s: shard(t, s, mesh), full, specs)
+
+
+def gather_tree(local: Any, specs: Any, mesh) -> Any:
+    """Full leaves from every rank's shards.  Collective."""
+    return tree_map(lambda t, s: gather(t, s, mesh), local, specs)
+
+
+def regather(local: Any, have: Any, want: Any, mesh) -> Any:
+    """Move shards from placement ``have`` to ``want`` where ``want``
+    replicates what ``have`` splits (e.g. the FSDP dim of a training state
+    to the compute layout): each such dim is all-gathered.  A dim ``want``
+    splits must be split the same way in ``have``."""
+    def one(t, h, w):
+        for dim, (a, b) in enumerate(zip(h, w)):
+            if a == b or a is None:
+                if a != b:
+                    raise ValueError(f"cannot split dim {dim} from {h} to {w}")
+                continue
+            if b is not None:
+                raise ValueError(f"dim {dim}: {h} -> {w}")
+            if meshctx.axis_size(a, mesh) > 1:
+                t = meshctx.all_gather(t, meshctx.axes_group(a, mesh), dim)
+        return t
+    return tree_map(one, local, have, want)
+
+
+def reshard(local: Any, have: Any, want: Any, mesh) -> Any:
+    """Slice the dims ``want`` splits and ``have`` replicates (the inverse
+    of ``regather``, no communication)."""
+    def one(t, h, w):
+        for dim, (a, b) in enumerate(zip(h, w)):
+            if a == b:
+                continue
+            if a is not None:
+                raise ValueError(f"dim {dim}: {h} -> {w}")
+            k = meshctx.axis_size(b, mesh)
+            t = t.chunk(k, dim=dim)[meshctx.axis_rank(b, mesh)]
+        return t.contiguous()
+    return tree_map(one, local, have, want)

@@ -4,6 +4,22 @@ half; the serving steps are ``models/model``'s).
 ``make_train_step`` takes a gradient per microbatch and sums them in
 float32 (the memory lever for large batches), then applies the optimizer.
 A step is functional: it returns a new ``TrainState``.
+
+On a mesh (``mesh=``) the state holds this rank's shards under
+``state_specs`` (``launch.sharding.param_specs`` / ``opt_state_specs``:
+FSDP over the data axes, TP over ``model``, expert banks over the data
+axes under ``moe.impl='ep'``).  A step all-gathers the FSDP dims into the
+compute layout (``param_specs(..., dp_axes=())``), takes the gradient of
+this rank's rows of the global batch (TP collectives inside the model),
+averages the gradients over the data axes — with the int8 error-feedback
+all-reduce under ``grad_compression="int8"``, whose residuals the state
+carries — and applies the optimizer to its shards (the global norm and
+Adafactor's factored means summed over the axes that split them).
+Leaves replicated over ``model`` get their whole gradient on every
+``model`` rank from the model's TP operators (``meshctx.copy_to_tp``).
+An expert bank split over the data axes (EP) is reduced by the
+all-to-all's backward already: its owner holds the sum of every data
+rank's gradient, and divides it by their count.
 """
 from __future__ import annotations
 
@@ -12,14 +28,20 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.launch import meshctx, sharding
 from repro_torch.models import model
+from repro_torch.optim.compression import compressed_all_reduce
 from repro_torch.optim.optimizer import Optimizer, OptState
-from repro_torch.tree import leaves, tree_map, unflatten
+from repro_torch.tree import leaves, leaves_with_paths, tree_map, unflatten
 
 
 class TrainState(NamedTuple):
     params: Any
     opt: OptState
+    # on a mesh under grad_compression="int8": this data rank's error
+    # feedback, one float32 leaf (1, *compute shard) per parameter the data
+    # axes reduce (None for an expert bank they split), saved with the state
+    residuals: Any = None
 
 
 def init_train_state(seed: int, cfg: ModelConfig, optimizer: Optimizer,
@@ -49,13 +71,101 @@ def _to_device(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+def state_specs(state: TrainState, cfg: ModelConfig, mesh,
+                compress: bool = False):
+    """(the state's placements, the params' compute placements) on
+    ``mesh``: FSDP + TP (+ EP) for the state, TP (+ EP) for the step.
+    ``compress`` (``grad_compression="int8"``): the residuals' placements
+    too, each its parameter's compute placement under a leading dim over
+    the data axes (one row per data rank: a checkpoint holds them all, and
+    restores onto a mesh of the same data size only)."""
+    from repro_torch.launch.mesh import axis_info
+    dp = axis_info(mesh)["dp_axes"]
+    p_specs = sharding.param_specs(state.params, cfg, mesh)
+    o_specs = sharding.opt_state_specs(state.opt, p_specs)
+    compute = sharding.param_specs(state.params, cfg, mesh, dp_axes=(),
+                                   ep_axes=dp)
+    r_specs = None
+    if compress:
+        r_specs = tree_map(lambda sp: None if _data_split(sp, dp)
+                           else sharding.P(dp, *sp), compute)
+    return TrainState(p_specs, o_specs, r_specs), compute
+
+
+def _data_split(spec, dp_axes) -> bool:
+    """Whether a placement splits a dim over the data axes."""
+    return any(a in dp_axes for ax in spec if ax is not None
+               for a in (ax if isinstance(ax, tuple) else (ax,)))
+
+
+def shard_state(state: TrainState, cfg: ModelConfig, mesh,
+                compress: bool = False) -> TrainState:
+    """This rank's shards of a whole training state (with zero residuals
+    under ``compress``)."""
+    specs, _ = state_specs(state, cfg, mesh, compress)
+    residuals = None
+    if compress:
+        residuals = tree_map(
+            lambda p, sp: None if sp is None else torch.zeros(
+                (1,) + sharding.local_shape(tuple(p.shape),
+                                            sharding.P(*list(sp)[1:]), mesh),
+                dtype=torch.float32, device=p.device),
+            state.params, specs.residuals)
+    return TrainState(sharding.shard_tree(state.params, specs.params, mesh),
+                      sharding.shard_tree(state.opt, specs.opt, mesh),
+                      residuals)
+
+
+def gather_state(state: TrainState, specs: TrainState, mesh) -> TrainState:
+    """The whole training state from every rank's shards.  Collective."""
+    residuals = None
+    if state.residuals is not None:
+        residuals = sharding.gather_tree(state.residuals, specs.residuals,
+                                         mesh)
+    return TrainState(sharding.gather_tree(state.params, specs.params, mesh),
+                      sharding.gather_tree(state.opt, specs.opt, mesh),
+                      residuals)
+
+
+def _data_mean(grads, compute, residuals, compress: bool):
+    """Each leaf's gradient of the global batch's mean loss from this data
+    rank's: the mean over the data axes (the int8 error-feedback all-reduce
+    under ``compress``, which returns the new residuals), or for an expert
+    bank the data axes split, its sum over them (already here) / their
+    count.  Returns (gradients, residuals)."""
+    dp, n = meshctx.dp_axes(), float(meshctx.dp_size())
+    specs = dict(leaves_with_paths(compute))
+    have = dict(leaves_with_paths(residuals))
+    out, new = [], {}
+    for path, g in leaves_with_paths(grads):
+        g = g.to(torch.float32)
+        if _data_split(specs[path], dp):
+            out.append(g / n)
+        elif compress:
+            y, r = compressed_all_reduce(g, meshctx.dp_group(),
+                                         have[path][0])
+            out.append(y)
+            new[path] = r[None]
+        else:
+            out.append(meshctx.dp_mean(g))
+    if compress:
+        residuals = unflatten(residuals, [new[p] for p, _ in
+                                          leaves_with_paths(residuals)])
+    return unflatten(grads, out), residuals
+
+
 def make_train_step(cfg: ModelConfig, run: RunConfig, optimizer: Optimizer,
-                    accum: int = 1, key=None):
+                    accum: int = 1, key=None, mesh=None, specs=None):
     """``train_step(state, batch) -> (state, metrics)``; ``batch`` holds
     numpy or tensor ``inputs`` and ``targets`` of the global batch, split
-    into ``accum`` microbatches along the batch axis.  ``key`` (an int
-    seed) draws programming noise at sites that set ``noise``; the JAX
-    package's train step passes none."""
+    into ``accum`` microbatches along the batch axis (per data shard on a
+    mesh).  ``key`` (an int seed) draws programming noise at sites that set
+    ``noise``; the JAX package's train step passes none.  On ``mesh`` the
+    state is sharded; ``specs`` = ``state_specs(...)`` of it (under
+    ``grad_compression="int8"`` the state from ``shard_state(...,
+    compress=True)``, which carries the residuals)."""
+    compress = mesh is not None and \
+        optimizer.cfg.grad_compression == "int8"
 
     def grads_of(params, batch):
         ps = leaves(params)
@@ -68,8 +178,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, optimizer: Optimizer,
         return unflatten(params, list(grads)), {
             k: v.detach() for k, v in metrics.items()}
 
-    def train_step(state: TrainState, batch: dict):
-        params = state.params
+    def local_step(params, batch):
         device = leaves(params)[0].device
         batch = _to_device(batch, device)
         if accum <= 1:
@@ -88,10 +197,45 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, optimizer: Optimizer,
             grads = tree_map(lambda g: g / accum, gsum)
             metrics = {k: v / accum for k, v in msum.items()}
             metrics["tokens"] = msum["tokens"]
-        new_params, new_opt, opt_metrics = optimizer.update(grads, state.opt,
-                                                            params)
+        return grads, metrics
+
+    def train_step(state: TrainState, batch: dict):
+        if mesh is None:
+            grads, metrics = local_step(state.params, batch)
+            new_params, new_opt, opt_metrics = optimizer.update(
+                grads, state.opt, state.params)
+            residuals = None
+        else:
+            with meshctx.use_mesh_of(mesh):
+                new_params, new_opt, residuals, metrics, opt_metrics = \
+                    mesh_step(state, batch)
         metrics.update(opt_metrics)
         metrics["step"] = state.opt.step
-        return TrainState(new_params, new_opt), metrics
+        return TrainState(new_params, new_opt, residuals), metrics
+
+    def mesh_step(state: TrainState, batch: dict):
+        st_specs, compute = specs
+        if compress and state.residuals is None:
+            raise ValueError("grad_compression='int8' on a mesh needs the "
+                             "residuals in the state: shard_state(..., "
+                             "compress=True)")
+        params = sharding.regather(state.params, st_specs.params, compute,
+                                   mesh)
+        rows = len(batch["inputs"])
+        b_specs = sharding.batch_specs(cfg, mesh, "train", rows)
+        local = {k: sharding.shard(torch.as_tensor(v), b_specs[k], mesh)
+                 for k, v in batch.items()}
+        split = local["inputs"].shape[0] != rows
+        with meshctx.split_rows(split):
+            grads, metrics = local_step(params, local)
+        residuals = state.residuals
+        if meshctx.dp_active():
+            grads, residuals = _data_mean(grads, compute, residuals, compress)
+            metrics = {k: (meshctx.dp_sum_exact(v) if k == "tokens" else
+                           meshctx.dp_mean(v)) for k, v in metrics.items()}
+        grads = sharding.reshard(grads, compute, st_specs.params, mesh)
+        new_params, new_opt, opt_metrics = optimizer.update(
+            grads, state.opt, state.params, specs=st_specs.params)
+        return new_params, new_opt, residuals, metrics, opt_metrics
 
     return train_step

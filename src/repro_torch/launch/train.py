@@ -1,6 +1,5 @@
 """Training driver — torch port of ``repro.launch.train``: config -> state
--> fault-tolerant loop, on one device (the mesh belongs to the port's
-distributed slice, ROADMAP A8).
+-> fault-tolerant loop, on one device or on a (data, model) mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
         --smoke --tdvmm --steps 3 --batch 4 --seq 64 --device cpu
@@ -21,6 +20,16 @@ With ``--tdvmm`` every linear runs through the TD-VMM layer (QAT): on the
 card each site's forward is kernel B2 (the data-calibrated readout), or B1
 where a site has no readout, and the backward is the straight-through
 custom gradient of ``kernels/tdvmm/ops``.
+
+``--mesh DxT`` trains on a (data, model) mesh, one process per device
+(``launch.steps``: FSDP + TP state, data-parallel gradient averaging;
+``--grad-compression int8`` for the int8 error-feedback all-reduce).
+Checkpoints hold the whole state, gathered, so a run may resume on another
+mesh.  TD-VMM training with a model axis > 1 is not ported (ROADMAP A8b):
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke --steps 3 \
+        --batch 4 --seq 64 --device cpu --mesh 2x2
 """
 from __future__ import annotations
 
@@ -34,38 +43,66 @@ from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import (SHAPES, OptimizerConfig, RunConfig,
                                  get_config, smoke)
 from repro_torch.data.pipeline import DataConfig, make_pipeline
-from repro_torch.launch import steps
+import torch.distributed as dist
+
+from repro_torch.launch import meshctx, steps
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.mesh import axis_info
 from repro_torch.models import common
 from repro_torch.optim.optimizer import make_optimizer
 from repro_torch.runtime import fault
 
 
-def build(run: RunConfig, accum: int | None = None, device=None):
+def build(run: RunConfig, accum: int | None = None, device=None, mesh=None):
     """Returns (train_step, state, accum) on ``device`` (the card unless
-    given)."""
+    given); on ``mesh`` the state is this rank's shards, and the step
+    carries its placements as ``step.specs``."""
     device = common.resolve_device(device)
     optimizer = make_optimizer(run.optimizer)
+    dp_size = 1
+    if mesh is not None:
+        dp_size = meshctx.axis_size(axis_info(mesh)["dp_axes"], mesh)
     if accum is None:
-        accum = steps.grad_accum_steps(run, 1)
-    step_fn = steps.make_train_step(run.model, run, optimizer, accum)
+        accum = steps.grad_accum_steps(run, dp_size)
     state = steps.init_train_state(run.seed, run.model, optimizer, device)
+    specs = None
+    if mesh is not None:
+        compress = run.optimizer.grad_compression == "int8"
+        specs = steps.state_specs(state, run.model, mesh, compress)
+        state = steps.shard_state(state, run.model, mesh, compress)
+    step_fn = steps.make_train_step(run.model, run, optimizer, accum,
+                                    mesh=mesh, specs=specs)
+    step_fn.specs = specs
     return step_fn, state, accum
 
 
 def train_loop(run: RunConfig, total_steps: int, accum: int | None = None,
-               log_every: int = 10, device=None) -> dict:
+               log_every: int = 10, device=None, mesh=None) -> dict:
     """Train to ``total_steps``, resuming from the latest checkpoint in
     ``run.checkpoint_dir``; returns the logged history (float metrics per
     logged step), whether a preemption stopped it, the step reached, the
-    wall seconds and the straggler count."""
+    wall seconds and the straggler count.  On ``mesh`` every rank runs
+    it; rank 0 writes the (gathered, whole) checkpoints."""
     cfg = run.model
-    step_fn, state, accum = build(run, accum, device)
+    step_fn, state, accum = build(run, accum, device, mesh)
     pipe = make_pipeline(cfg, run.shape, DataConfig(seed=run.seed))
+    specs = step_fn.specs
+
+    def save(state, step, **kw):
+        if mesh is None:
+            return ckpt.save(state, run.checkpoint_dir, step, **kw)
+        whole = steps.gather_state(state, specs[0], mesh)
+        if dist.get_rank() == 0:
+            ckpt.save(whole, run.checkpoint_dir, step,
+                      **dict(kw, blocking=True))
+        dist.barrier()
 
     # --- auto-resume -------------------------------------------------------
     start_step = 0
     if ckpt.latest_step(run.checkpoint_dir) is not None:
-        state, start_step = ckpt.restore(state, run.checkpoint_dir)
+        state, start_step = ckpt.restore(
+            state, run.checkpoint_dir,
+            shardings=None if mesh is None else (specs[0], mesh))
         print(f"[resume] from step {start_step}")
 
     guard = fault.PreemptionGuard().install()
@@ -93,13 +130,11 @@ def train_loop(run: RunConfig, total_steps: int, accum: int | None = None,
             if guard.requested:
                 print("[preempt] SIGTERM received — checkpointing and "
                       "exiting")
-                ckpt.save(state, run.checkpoint_dir, step,
-                          keep=run.keep_checkpoints)
+                save(state, step, keep=run.keep_checkpoints)
                 return {"history": history, "preempted": True, "step": step}
             if step % run.checkpoint_every == 0:
-                ckpt.save(state, run.checkpoint_dir, step,
-                          keep=run.keep_checkpoints, blocking=False)
-        ckpt.save(state, run.checkpoint_dir, step, keep=run.keep_checkpoints)
+                save(state, step, keep=run.keep_checkpoints, blocking=False)
+        save(state, step, keep=run.keep_checkpoints)
     finally:
         guard.uninstall()
     return {
@@ -129,6 +164,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--tdvmm", action="store_true",
                     help="run all linears through the TD-VMM layer (QAT)")
     ap.add_argument("--tdvmm-bits", type=int, default=6)
+    ap.add_argument("--mesh", default=None, metavar="DxT",
+                    help="train on a (data, model) mesh of D x T processes "
+                         "(start them with python -m torch.distributed.run "
+                         "--nproc-per-node D*T)")
+    ap.add_argument("--grad-compression", default="none",
+                    choices=("none", "int8"),
+                    help="the data-parallel gradient all-reduce")
     ap.add_argument("--device", default=None,
                     help="cpu runs the plain torch path; default: the card")
     args = ap.parse_args(argv)
@@ -147,11 +189,17 @@ def main(argv=None) -> dict:
             global_batch=args.batch or shape.global_batch,
             seq_len=args.seq or shape.seq_len)
     run = RunConfig(model=cfg, shape=shape,
-                    optimizer=OptimizerConfig(lr=args.lr,
-                                              total_steps=args.steps),
+                    optimizer=OptimizerConfig(
+                        lr=args.lr, total_steps=args.steps,
+                        grad_compression=args.grad_compression),
                     checkpoint_dir=args.ckpt_dir,
                     checkpoint_every=args.ckpt_every)
-    out = train_loop(run, args.steps, device=args.device)
+    mesh = None
+    if args.mesh:
+        _, _, device = mesh_lib.init_distributed(args.device)
+        args.device = str(device)
+        mesh = mesh_lib.parse_mesh(args.mesh, device.type)
+    out = train_loop(run, args.steps, device=args.device, mesh=mesh)
     if out["history"]:
         print(f"[done] steps={out['step']} loss "
               f"{out['history'][0]['loss']:.3f} -> "

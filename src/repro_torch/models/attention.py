@@ -375,7 +375,7 @@ def apply_prefill(params, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
             buf.copy_(torch.roll(val[:, -size:], s % size, dims=1))
     pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
     y = common.dense(params["wo"], _merge_heads(out),
-                     cfg.site_tdvmm("attn.out"), key)
+                     cfg.site_tdvmm("attn.out"), key, tp="row")
     return y, cache._replace(pos=pos)
 
 
@@ -428,7 +428,7 @@ def apply_decode(params, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
     k_read, v_read = _read(cache, q.dtype)
     out = _attend(q, k_read, v_read, mask, cfg)
     y = common.dense(params["wo"], _merge_heads(out),
-                     cfg.site_tdvmm("attn.out"), key)
+                     cfg.site_tdvmm("attn.out"), key, tp="row")
     return y, cache._replace(pos=pos + 1)
 
 
@@ -504,7 +504,7 @@ def apply_prefill_paged(params, x: torch.Tensor, cfg: ModelConfig,
         & (kpos[None, :] < ctx.offset + ctx.valid)
     out = _attend(q, k_read, v_read, mask[None, None], cfg)
     y = common.dense(params["wo"], _merge_heads(out),
-                     cfg.site_tdvmm("attn.out"), key)
+                     cfg.site_tdvmm("attn.out"), key, tp="row")
     return y, cache
 
 
@@ -538,5 +538,5 @@ def apply_decode_paged(params, x: torch.Tensor, cfg: ModelConfig,
     mask = (kpos[None, :] <= pos[:, None])[:, None, None, :]  # (B,1,1,cap)
     out = _attend(q, k_read, v_read, mask, cfg)
     y = common.dense(params["wo"], _merge_heads(out),
-                     cfg.site_tdvmm("attn.out"), key)
+                     cfg.site_tdvmm("attn.out"), key, tp="row")
     return y, cache

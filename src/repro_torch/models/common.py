@@ -3,8 +3,13 @@ initialized dense layers (torch port of ``repro.models.common``).
 
 Parameters are plain dictionaries of tensors.  Every dense matmul goes
 through ``core.layers.td_matmul`` so any linear can execute in TD-VMM mode.
-The port runs on one device: there is no mesh, so ``constrain_batch`` is the
-identity and ``dense_tp_reduce`` is ``dense``.
+
+Under a mesh (``launch.meshctx``) each process holds its shards: a dense
+layer is column-parallel (its weight's columns over ``model``: the input
+enters through ``meshctx.copy_to_tp``, the output stays split) or
+row-parallel (its rows over ``model``: partial products summed over
+``model``), as ``launch.sharding`` places it.  With no mesh, or a ``model``
+axis of 1, both are the meshless layer.
 """
 from __future__ import annotations
 
@@ -35,8 +40,11 @@ def resolve_dtype(name: str) -> torch.dtype:
 
 
 def constrain_batch(x: torch.Tensor) -> torch.Tensor:
-    """Identity: the port has no device mesh."""
-    return x
+    """This rank's rows of a global batch: the batch dim split over the DP
+    axes (``meshctx.dp_shard``; a batch they do not divide, e.g. batch 1,
+    stays replicated).  The identity without a mesh."""
+    from repro_torch.launch import meshctx
+    return meshctx.dp_shard(x)
 
 
 # --------------------------------------------------------------------------
@@ -90,28 +98,126 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
     return p
 
 
+def _tp() -> bool:
+    from repro_torch.launch import meshctx
+    return meshctx.tp_active()
+
+
 def dense(params, x: torch.Tensor, td: TDVMMLayerConfig,
-          key=None) -> torch.Tensor:
-    y = td_matmul(x, params["w"], td, key)
+          key=None, tp: Optional[str] = "col") -> torch.Tensor:
+    """``tp``: "col" (columns split over ``model``; the default, as every
+    sharded dense weight of the dense and MoE families but the reductions
+    is), "row" (rows split; the output summed over ``model``) or None
+    (replicated)."""
+    if not _tp() or tp is None:
+        y = td_matmul(x, params["w"], td, key)
+    elif tp == "col":
+        from repro_torch.launch import meshctx
+        y = td_matmul(meshctx.copy_to_tp(x), params["w"], td, key, tp="col")
+    else:
+        y = _row(params, x, td, key, explicit=False)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y
 
 
+def _row(params, x, td: TDVMMLayerConfig, key, explicit: bool):
+    from repro_torch.launch import meshctx
+    if td.enabled:
+        # the TD-VMM row site sums its raw accumulators over ``model``
+        return td_matmul(x, params["w"], td, key, tp="row")
+    if explicit:
+        return meshctx.reduce_from_tp((x @ params["w"]).to(torch.bfloat16))
+    return row_sum(x, params["w"])
+
+
+def row_sum(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product ``x @ w`` over ``model`` (``w`` (K, N), or
+    (E, K, N) batched over experts): each rank's float32 partial product
+    (``partial_f32``), summed over ``model`` in float32 and rounded to the
+    model's dtype once, as the meshless matmul's float32 accumulator is."""
+    from repro_torch.launch import meshctx
+    return meshctx.reduce_from_tp(partial_f32(x, w)).to(x.dtype)
+
+
+def partial_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with a float32 result.  On the card, operands of a 16-bit
+    dtype go through the tensor cores with float32 output (``torch.mm`` /
+    ``torch.bmm`` with ``out_dtype``), no float32 copy of either; torch has
+    no CPU kernel for that, and the CPU forms the same exact products from
+    float32 copies.  Gradients come back in the operands' dtype, as the
+    meshless matmul's do."""
+    return _PartialF32.apply(x, w)
+
+
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.float32 or x.device.type != "cuda":
+        return x.to(torch.float32) @ w.to(torch.float32)
+    if w.dim() == 3:
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+class _PartialF32(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = g @ w.transpose(-1, -2)
+        if w.dim() == 3:
+            gw = x.transpose(-1, -2) @ g
+        else:
+            gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return gx, gw.to(w.dtype)
+
+
 def dense_group(param_group, x: torch.Tensor, td: TDVMMLayerConfig,
                 key=None) -> tuple[torch.Tensor, ...]:
     """G same-input dense projections (``attn.qkv``); biases stay
-    per-member digital adds."""
-    ys = td_grouped_matmul(x, tuple(p["w"] for p in param_group), td, key)
+    per-member digital adds.  Column-parallel under a mesh."""
+    tp = None
+    if _tp():
+        from repro_torch.launch import meshctx
+        x, tp = meshctx.copy_to_tp(x), "col"
+    ys = td_grouped_matmul(x, tuple(p["w"] for p in param_group), td, key,
+                           tp=tp)
     return tuple(
         y + p["b"].to(y.dtype) if "b" in p else y
         for p, y in zip(param_group, ys))
 
 
+# --------------------------------------------------------------------------
+# Explicit-TP reduction matmul
+# --------------------------------------------------------------------------
+# The two reduction matmuls of each training block (attn wo, ffn w_down)
+# are row-parallel.  With ``TP_EXPLICIT`` on, the partial products are cast
+# to bf16 before the all-reduce over ``model`` (halving its bytes), as the
+# JAX package's explicit path does; off, they are summed in their own
+# dtype.  A TD-VMM site always sums its exact raw accumulators.
+TP_EXPLICIT = False
+
+
+def set_tp_explicit(on: bool) -> None:
+    global TP_EXPLICIT
+    TP_EXPLICIT = on
+
+
 def dense_tp_reduce(params, x: torch.Tensor, td: TDVMMLayerConfig,
                     key=None) -> torch.Tensor:
-    """``dense``: explicit tensor parallelism belongs to the mesh slice."""
-    return dense(params, x, td, key)
+    """x: (..., f) with f split over ``model``; w: (f, d) with its rows
+    split.  Without a tensor-parallel mesh, ``dense``."""
+    if not _tp():
+        return dense(params, x, td, key)
+    y = _row(params, x, td, key, explicit=TP_EXPLICIT)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
 
 
 def activation(name: str, x: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import calibration
+from repro_torch.launch import meshctx
 from repro_torch.models import attention, common, ssm, transformer
 from repro_torch.runtime.paged_cache import DecodeCtx, PrefillChunkCtx
 
@@ -65,15 +66,31 @@ def check_device(params, device=None) -> torch.device:
 
 
 def _embed(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.input_mode == "tokens":
-        return params["embed"]["table"][batch["inputs"].long()]
-    return batch["inputs"].to(common.resolve_dtype(cfg.dtype))
+    if cfg.input_mode != "tokens":
+        return batch["inputs"].to(common.resolve_dtype(cfg.dtype))
+    table = params["embed"]["table"]
+    ids = batch["inputs"].long()
+    if not meshctx.tp_active():
+        return table[ids]
+    # vocab split over ``model``: each rank looks up the ids it holds (zero
+    # rows elsewhere) and the sum over ``model`` is exact (one nonzero term)
+    rows = table.shape[0]
+    local = ids - meshctx.tp_rank() * rows
+    mine = (local >= 0) & (local < rows)
+    x = torch.where(mine[..., None], table[local.clamp(0, rows - 1)],
+                    torch.zeros((), dtype=table.dtype, device=table.device))
+    return meshctx.reduce_from_tp(x)
 
 
 def _head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Logits over the whole (padded) vocab; under tensor parallelism each
+    rank computes its vocab columns and they are all-gathered, so a greedy
+    argmax breaks ties at the lowest index as the meshless one does."""
     if cfg.tie_embeddings:
-        return x @ params["embed"]["table"].T
-    return common.dense(params["head"], x, cfg.site_tdvmm("head"))
+        y = meshctx.copy_to_tp(x) @ params["embed"]["table"].T
+    else:
+        y = common.dense(params["head"], x, cfg.site_tdvmm("head"))
+    return meshctx.gather_from_tp(y, -1)
 
 
 # --------------------------------------------------------------------------
@@ -82,7 +99,22 @@ def _head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def forward(params, batch: dict, cfg: ModelConfig, key=None):
     """Training forward: full-sequence causal.  Returns (logits (B, S, V),
     aux losses).  ``key`` (an int seed) draws programming noise at the
-    TD-VMM sites whose config sets ``noise``."""
+    TD-VMM sites whose config sets ``noise``.
+
+    Under a mesh ``params`` are this rank's shards in the compute layout
+    (``launch.sharding.param_specs(..., dp_axes=())``: TP and EP split, no
+    FSDP) and ``batch`` is the global batch: each rank runs its rows
+    (``common.constrain_batch``) and the logits come back whole."""
+    inputs = batch["inputs"]
+    local = common.constrain_batch(inputs)
+    with meshctx.split_rows(local.shape[0] != inputs.shape[0]):
+        logits, aux = _forward(params, {"inputs": local},
+                               meshctx.local_config(cfg), key)
+    return meshctx.dp_gather(logits, inputs.shape[0]), aux
+
+
+def _forward(params, batch: dict, cfg: ModelConfig, key=None):
+    """``forward`` on the rows it is given, with a shard's config."""
     x = _embed(params, batch, cfg)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
@@ -99,8 +131,9 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, key=None,
     positions with target < 0 masked out.  Returns (total loss, metrics):
     the total adds ``lb_coef`` x the load-balance and ``z_coef`` x the
     router z loss; metrics hold the loss, both aux losses and the token
-    count (all float32 tensors)."""
-    logits, aux = forward(params, batch, cfg, key)
+    count (all float32 tensors).  Under a mesh ``batch`` holds this rank's
+    rows (the training step splits the global batch)."""
+    logits, aux = _forward(params, batch, meshctx.local_config(cfg), key)
     targets = torch.as_tensor(batch["targets"], device=logits.device)
     mask = (targets >= 0).to(torch.float32)
     safe_t = torch.clamp_min(targets, 0).long()
@@ -138,7 +171,9 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
     caches {"seg<i>": SSMCache(conv (L, B, d_conv-1, C), state (L, B, H, P,
     S), pos (L, B))} (``max_len`` does not size an SSM cache); the hybrid
     family's SSM layers the same, and its shared block one KV cache per
-    group, {"shared_attn": KVCache((G, B, S, kv, hd) ...)}."""
+    group, {"shared_attn": KVCache((G, B, S, kv, hd) ...)}.  Under a mesh
+    the caches of this rank's shard: ``batch`` of its rows, its KV heads."""
+    cfg = meshctx.local_config(cfg)
     dtype = common.resolve_dtype(cfg.dtype)
     caches = {}
     for i, (kind, n) in enumerate(transformer.segments(cfg)):
@@ -159,7 +194,7 @@ def prefill_step(params, batch: dict, caches: dict, cfg: ModelConfig,
     """Absorb a prompt.  Returns (logits at the last position (B, 1, V),
     caches).  ``calib`` (a ``CalibrationState``) pins each TD-VMM site's
     readout window."""
-    cfg = calibration.apply_calibration(cfg, calib)
+    cfg = meshctx.local_config(calibration.apply_calibration(cfg, calib))
     x = _embed(params, batch, cfg)
     x, caches = transformer.apply(params["blocks"], x, cfg, "prefill", caches,
                                   embed0=x)
@@ -171,7 +206,7 @@ def decode_step(params, batch: dict, caches: dict, cfg: ModelConfig,
                 calib=None):
     """One token for every sequence, batch['inputs']: (B, 1).  Returns
     (logits (B, 1, V), caches)."""
-    cfg = calibration.apply_calibration(cfg, calib)
+    cfg = meshctx.local_config(calibration.apply_calibration(cfg, calib))
     x = _embed(params, batch, cfg)
     x, caches = transformer.apply(params["blocks"], x, cfg, "decode", caches,
                                   embed0=x)
@@ -183,22 +218,25 @@ def decode_step(params, batch: dict, caches: dict, cfg: ModelConfig,
 # Paged serving (continuous-batching engine, runtime/engine.py)
 # --------------------------------------------------------------------------
 def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
-                      device) -> dict:
+                      device, ranks: int = 1) -> dict:
     """Stacked page pools for every attention layer: {"seg<i>":
-    PagedKVCache((L, num_pages + 1, page_size, kv, hd) x 2)}, int8 codes
-    plus (L, num_pages + 1, page_size, kv) float32 scales under
-    ``attention.set_kv_cache_int8``.  All layers share one logical page
-    allocation."""
+    PagedKVCache((L, R, page_size, kv, hd) x 2)} with R = ranks x
+    (num_pages + 1) rows, int8 codes plus (L, R, page_size, kv) float32
+    scales under ``attention.set_kv_cache_int8``.  All layers share one
+    logical page allocation; ``ranks`` > 1 is the engine's data-parallel
+    pool (``PagePool(ranks=)``: one region of num_pages + 1 rows per rank).
+    Under a mesh the pools hold this rank's KV heads."""
     if cfg.family not in ("dense", "moe", "vlm", "audio"):
         raise NotImplementedError(
             f"paged serving supports attention families, not "
             f"{cfg.family!r} (SSM and hybrid state is O(1) per slot: use "
             "the static path, launch.serve --static)")
+    cfg = meshctx.local_config(cfg)
     dtype = common.resolve_dtype(cfg.dtype)
     caches = {}
     for i, (_, n) in enumerate(transformer.segments(cfg)):
         caches[f"seg{i}"] = _stack(attention.init_paged_cache(
-            cfg, num_pages, page_size, dtype, device), n)
+            cfg, ranks * (num_pages + 1) - 1, page_size, dtype, device), n)
     return caches
 
 
@@ -210,7 +248,7 @@ def prefill_chunk(params, batch: dict, caches: dict, cfg: ModelConfig,
     the page pools are written in place.  ``windows`` (site -> float32
     window tensor, ``CalibrationState.as_arrays()``) are the pinned readout
     windows as operands."""
-    cfg = calibration.apply_calibration(cfg, calib)
+    cfg = meshctx.local_config(calibration.apply_calibration(cfg, calib))
     ctx = PrefillChunkCtx(block_row=batch["block_row"],
                           offset=batch["offset"], valid=batch["valid"])
     with calibration.runtime_windows(windows):
@@ -229,7 +267,7 @@ def decode_slots(params, batch: dict, caches: dict, cfg: ModelConfig,
     {"inputs": (B, 1), "block_tables": (B, P), "pos": (B,), "active": (B,)}
     tensors.  Returns (logits (B, 1, V), caches); inactive rows produce
     ignored logits.  ``windows`` as in ``prefill_chunk``."""
-    cfg = calibration.apply_calibration(cfg, calib)
+    cfg = meshctx.local_config(calibration.apply_calibration(cfg, calib))
     ctx = DecodeCtx(block_tables=batch["block_tables"], pos=batch["pos"],
                     active=batch["active"])
     with calibration.runtime_windows(windows):

@@ -11,17 +11,34 @@ kernel's batched grid, ``core.layers.td_expert_matmul``); the outputs
 gather back by the inverse permutation and combine with the gates.  Shared
 experts (``moe.shared.*``) run on every token.
 
-The expert-parallel path (``_moe_ep``: experts sharded over the data axes,
-``all_to_all`` dispatch) belongs to the port's distributed slice
-(ROADMAP A8); ``apply`` with a mesh raises.
+Two distribution modes under a mesh (``cfg.moe.impl``), as in the JAX
+package:
+
+  'local' — experts replicated over the data axes, the expert FFN's hidden
+            dim split over ``model``: tokens never leave their data shard,
+            and the one collective is the down projection's reduction over
+            ``model``.
+  'ep'    — expert banks split over the data axes (E / dp local experts),
+            hidden dim over ``model``: ``all_to_all_single`` over the data
+            axes sends each expert's rows to the rank that owns it and
+            routes the outputs back (``_moe_ep``).
+
+Each rank dispatches its own tokens with a capacity computed from its own
+token count (GShard's per-shard capacity, the JAX package's semantics), so
+drop patterns can differ from the meshless run's; without drops the
+results agree.  The aux losses are averaged over the data axes.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import calibration
 from repro_torch.core import layers as td_layers
 from repro_torch.core import quant
+from repro_torch.launch import meshctx
 from repro_torch.models import common
 
 
@@ -60,24 +77,33 @@ def _capacity(n_tokens: int, top_k: int, n_experts: int, factor: float) -> int:
 def _expert_ffn(bank, x: torch.Tensor, cfg: ModelConfig, key=None,
                 site_prefix: str = "moe.expert") -> torch.Tensor:
     """x: (E, C, d) -> (E, C, d).  Gate and up are two ``<prefix>.in``
-    launches, down one ``<prefix>.out`` launch."""
+    launches, down one ``<prefix>.out`` launch.  Under a tensor-parallel
+    mesh the hidden dim is split over ``model``: gate and up are
+    column-parallel, down row-parallel (its output summed over
+    ``model``)."""
     td_in = cfg.site_tdvmm(site_prefix + ".in")
     td_out = cfg.site_tdvmm(site_prefix + ".out")
+    tp = meshctx.tp_active()
 
     # independent noise per projection (gate, up, down), as the JAX package
     # splits its key
     keys = iter(quant.split_key(key, 3)) if key is not None else None
 
-    def mm(a, wmat, td):
+    def mm(a, wmat, td, mode):
         k = next(keys) if keys is not None and td.enabled else None
-        return td_layers.td_expert_matmul(a, wmat, td, k)
+        if tp and not td.enabled and mode == "row":
+            return common.row_sum(a, wmat)
+        return td_layers.td_expert_matmul(a, wmat, td, k,
+                                          tp=mode if tp else None)
 
+    if tp:
+        x = meshctx.copy_to_tp(x)
     if "w_gate" in bank:
-        h = common.activation("silu", mm(x, bank["w_gate"], td_in))
-        h = h * mm(x, bank["w_up"], td_in)
+        h = common.activation("silu", mm(x, bank["w_gate"], td_in, "col"))
+        h = h * mm(x, bank["w_up"], td_in, "col")
     else:
-        h = common.activation(cfg.act, mm(x, bank["w_up"], td_in))
-    return mm(h, bank["w_down"], td_out)
+        h = common.activation(cfg.act, mm(x, bank["w_up"], td_in, "col"))
+    return mm(h, bank["w_down"], td_out, "row")
 
 
 def _route(params, x_flat: torch.Tensor, cfg: ModelConfig):
@@ -152,15 +178,82 @@ def _moe_local(params, x_flat: torch.Tensor, cfg: ModelConfig, key=None):
     return y, aux
 
 
-def apply(params, x: torch.Tensor, cfg: ModelConfig, key=None,
-          mesh=None) -> tuple[torch.Tensor, dict]:
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` over the data axes with equal splits along dim
+    0; its gradient takes the same exchange back."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g)
+
+
+def _all_to_all(x: torch.Tensor) -> torch.Tensor:
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=meshctx.dp_group())
+    return out
+
+
+def _ep_windows(cfg: ModelConfig, e_loc: int, device) -> dict:
+    """The routed-expert sites' (E,) windows, sliced to this rank's
+    experts, as runtime windows (a window tensor installed for the step,
+    or a calibrated ``out_scale`` tuple of the plan)."""
+    lo = meshctx.dp_rank() * e_loc
+    cur = calibration.runtime_window_map() or {}
+    out = {}
+    for site in ("moe.expert.in", "moe.expert.out"):
+        w = cur.get(site)
+        if w is None:
+            s = cfg.site_tdvmm(site).out_scale
+            if isinstance(s, tuple):
+                w = torch.as_tensor(np.asarray(s, np.float32),
+                                    device=device)
+        if w is not None and w.dim() == 1:
+            out[site] = w[lo:lo + e_loc]
+    return out
+
+
+def _moe_ep(params, x_flat: torch.Tensor, cfg: ModelConfig, key=None):
+    """Experts split over the data axes; ``all_to_all_single`` routes each
+    expert's rows to its owner and the outputs back."""
+    m = cfg.moe
+    dp = meshctx.dp_size()
+    if m.n_experts % dp:
+        raise ValueError(f"{m.n_experts} experts do not split over {dp} "
+                         "data ranks (moe.impl='ep')")
+    e_loc = m.n_experts // dp
+    ids, gates, aux = _route(params, x_flat, cfg)
+    cap = _capacity(x_flat.shape[0], m.top_k, m.n_experts, m.capacity_factor)
+    se, pos, order, tok = _dispatch_indices(ids, m.top_k)
+    # send buffer grouped by destination rank: (E, C, d) == (dp, E_loc, C, d)
+    buf = _scatter_to_buffer(x_flat, se, pos, tok, m.n_experts, cap)
+    buf = _AllToAll.apply(buf)
+    # (dp_src, E_loc, C, d): every source rank's rows for my experts
+    d = buf.shape[-1]
+    buf = buf.reshape(dp, e_loc, cap, d).transpose(0, 1).reshape(
+        e_loc, dp * cap, d)
+    wins = _ep_windows(cfg, e_loc, buf.device)
+    # the buffer holds every data rank's rows for these experts
+    with calibration.runtime_windows(wins or None), \
+            meshctx.split_rows(False):
+        out = _expert_ffn(params["experts"], buf, cfg, key)
+    out = out.reshape(e_loc, dp, cap, d).transpose(0, 1).reshape(
+        m.n_experts, cap, d)
+    out = _AllToAll.apply(out)
+    y = _gather_from_buffer(out, se, pos, order, gates, m.top_k)
+    return y, aux
+
+
+def apply(params, x: torch.Tensor, cfg: ModelConfig,
+          key=None) -> tuple[torch.Tensor, dict]:
     """x: (B, S, d) -> (y, aux losses).  ``key`` (an int seed) draws
     programming noise at the expert sites whose config sets ``noise``; the
-    aux losses (``lb_loss``, ``z_loss``) carry gradients to the router."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "MoE over a device mesh (expert parallelism, _moe_ep) is not "
-            "ported yet (ROADMAP A8)")
+    aux losses (``lb_loss``, ``z_loss``) carry gradients to the router.
+    Under a mesh ``x`` holds this rank's rows and the expert banks its
+    shards (``launch.sharding``)."""
     m = cfg.moe
     b, s, d = x.shape
 
@@ -178,5 +271,19 @@ def apply(params, x: torch.Tensor, cfg: ModelConfig, key=None,
         shared_y = _expert_ffn(params["shared"], x.reshape(1, b * s, d), cfg,
                                k_shared, site_prefix="moe.shared"
                                ).reshape(b, s, d)
-    y, aux = _moe_local(params, x.reshape(-1, d), cfg, k_routed)
+    if meshctx.get_mesh() is not None and m.impl == "ep" \
+            and meshctx.dp_active():
+        if k_routed is not None:
+            # each rank owns different experts: fold the rank in so they
+            # draw independent noise (the replicated 'local' experts must
+            # draw the same noise everywhere, so they do not fold)
+            k_routed = quant.fold_in(k_routed, meshctx.dp_rank())
+        y, aux = _moe_ep(params, x.reshape(-1, d), cfg, k_routed)
+    else:
+        y, aux = _moe_local(params, x.reshape(-1, d), cfg, k_routed)
+    if meshctx.dp_active():
+        # the value is the mean over the data axes; the gradient is this
+        # rank's own, which the data-parallel gradient average then means
+        aux = {k: v + (meshctx.dp_mean(v) - v).detach()
+               for k, v in aux.items()}
     return y.reshape(b, s, d) + shared_y, aux

@@ -34,7 +34,6 @@ from repro_torch.models import attention, common, ffn, moe, ssm
 
 def attn_ffn_block(params, x, cfg: ModelConfig, mode: str, cache, positions,
                    key=None, page_ctx=None):
-    x = common.constrain_batch(x)
     h = common.rmsnorm(params["ln1"], x, cfg.norm_eps)
     if mode == "prefill":
         a, new_cache = attention.apply_prefill(params["attn"], h, cfg, cache, key)
@@ -60,7 +59,6 @@ def attn_ffn_block(params, x, cfg: ModelConfig, mode: str, cache, positions,
 def attn_ffn_train(params, x, cfg: ModelConfig, positions, key=None):
     """One attention + FFN (or MoE) block over a whole sequence: (x, lb_loss,
     z_loss), the aux losses zero for an FFN block."""
-    x = common.constrain_batch(x)
     h = common.rmsnorm(params["ln1"], x, cfg.norm_eps)
     x = x + attention.apply_train(params["attn"], h, cfg, positions, key)
     h = common.rmsnorm(params["ln2"], x, cfg.norm_eps)
@@ -86,7 +84,6 @@ def ssm_block(params, x, cfg: ModelConfig, mode: str, cache, key=None):
         raise NotImplementedError(
             "paged serving covers attention families only; SSM state is "
             "O(1) per slot (serve SSM models through the static path)")
-    x = common.constrain_batch(x)
     h = common.rmsnorm(params["ln"], x, cfg.norm_eps)
     if mode == "prefill":
         y, new_cache = ssm.apply_prefill(params["ssm"], h, cfg, cache, key)
@@ -234,7 +231,6 @@ def apply(params, x: torch.Tensor, cfg: ModelConfig, mode: str,
 
 def ssm_train(params, x, cfg: ModelConfig, key=None):
     """One Mamba-2 block over a whole sequence."""
-    x = common.constrain_batch(x)
     h = common.rmsnorm(params["ln"], x, cfg.norm_eps)
     return x + ssm.apply_train(params["ssm"], h, cfg, key)
 

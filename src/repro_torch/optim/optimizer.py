@@ -8,9 +8,14 @@ same float32 arithmetic and the bf16 or float32 moments of
 returns new parameter and state trees.  Adafactor (factored second moments,
 update clipping) exists for the 1T-parameter config, as in the JAX package.
 
-Gradient compression for the data-parallel all-reduce
-(``grad_compression="int8"``) belongs to the port's distributed slice and
-raises.
+Under a mesh the state holds this rank's shards (``launch.sharding``):
+``update(..., specs=)`` takes the gradients' placements, and every
+reduction over a split dim — the global norm, Adafactor's row and column
+means and its update RMS — is summed over the axes that split it, so the
+step is the meshless step on the whole tensors (in float32 sums of another
+association).  ``grad_compression="int8"`` selects the int8 error-feedback
+all-reduce for the data-parallel gradient reduction (``optim.compression``,
+run by ``launch.steps``).
 """
 from __future__ import annotations
 
@@ -44,17 +49,54 @@ def lr_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
 
-def global_norm(tree) -> torch.Tensor:
+def _split_axes(spec) -> tuple:
+    """The mesh axes of size > 1 that split a leaf placed by ``spec``."""
+    from repro_torch.launch import meshctx
+    out = []
+    for ax in (spec or ()):
+        if ax is None:
+            continue
+        for a in ((ax,) if isinstance(ax, str) else ax):
+            if meshctx.axis_size(a) > 1:
+                out.append(a)
+    return tuple(sorted(set(out)))
+
+
+def _sum_over(t: torch.Tensor, axes: tuple) -> torch.Tensor:
+    if not axes:
+        return t
+    import torch.distributed as dist
+    from repro_torch.launch import meshctx
+    out = t.clone()
+    dist.all_reduce(out, group=meshctx.axes_group(axes))
+    return out
+
+
+def global_norm(tree, specs=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf; with ``specs`` (the
+    leaves' placements under the installed mesh) of the whole leaves."""
+    gs = leaves(tree)
+    split = [_split_axes(s) for s in leaves(specs)] if specs is not None \
+        else [()] * len(gs)
+    if not any(split):
+        total = 0
+        for g in gs:
+            total = total + torch.sum(torch.square(g.to(torch.float32)))
+        return torch.sqrt(total)
+    by_axes: dict = {}
+    for g, axes in zip(gs, split):
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
     total = 0
-    for g in leaves(tree):
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
+    for axes in sorted(by_axes):
+        total = total + _sum_over(by_axes[axes], axes)
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, specs=None):
     """(grads scaled to a global norm of at most ``max_norm``, as float32;
     the norm before clipping)."""
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs)
     scale = torch.clamp_max(max_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
     return tree_map(lambda g: g.to(torch.float32) * scale, grads), gnorm
 
@@ -119,17 +161,37 @@ def _adafactor_init(params, cfg: OptimizerConfig):
     return tree_map(per_param, params)
 
 
-def _adafactor_update(grads, inner, params, cfg: OptimizerConfig, step, lr):
+def _mean(x: torch.Tensor, dim, spec, keepdim: bool = False):
+    """``torch.mean`` over ``dim`` (an int, or None for every dim) of the
+    whole tensor whose shard ``x`` is: a dim split over mesh axes is summed
+    over them and divided by its whole size."""
+    dims = tuple(range(x.dim())) if dim is None else (dim % x.dim(),)
+    axes = _split_axes([spec[d] for d in dims] if spec is not None else None)
+    if not axes:
+        return torch.mean(x) if dim is None else \
+            torch.mean(x, dim=dim, keepdim=keepdim)
+    from repro_torch.launch import meshctx
+    n = 1
+    for d in dims:
+        n *= x.shape[d]
+    n *= meshctx.axis_size(axes)
+    total = torch.sum(x, dim=dims, keepdim=keepdim)
+    return _sum_over(total, axes) / float(n)
+
+
+def _adafactor_update(grads, inner, params, cfg: OptimizerConfig, step, lr,
+                      specs=None):
     t = step.to(torch.float32) + 1.0
     decay = 1.0 - torch.pow(t, -0.8)     # time-dependent decay (the paper's)
 
-    def upd(g, p, st):
+    def upd(g, p, st, spec=None):
         g = g.to(torch.float32)
         g2 = g * g + 1e-30
         if p.dim() >= 2:
-            vr = decay * st["vr"] + (1 - decay) * torch.mean(g2, dim=-1)
-            vc = decay * st["vc"] + (1 - decay) * torch.mean(g2, dim=-2)
-            denom = torch.clamp_min(torch.mean(vr, dim=-1, keepdim=True),
+            vr = decay * st["vr"] + (1 - decay) * _mean(g2, -1, spec)
+            vc = decay * st["vc"] + (1 - decay) * _mean(g2, -2, spec)
+            vr_spec = None if spec is None else tuple(spec)[:-1]
+            denom = torch.clamp_min(_mean(vr, -1, vr_spec, keepdim=True),
                                     1e-30)
             vhat = (vr[..., None] / denom[..., None]) * vc[..., None, :]
             u = g / torch.sqrt(vhat + 1e-30)
@@ -139,7 +201,7 @@ def _adafactor_update(grads, inner, params, cfg: OptimizerConfig, step, lr):
             u = g / torch.sqrt(v + 1e-30)
             new_v = {"v": v}
         # update clipping (RMS <= 1)
-        rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+        rms = torch.sqrt(_mean(u * u, None, spec) + 1e-30)
         u = u / torch.clamp_min(rms, 1.0)
         m = cfg.b1 * st["m"].to(torch.float32) + (1 - cfg.b1) * u
         u = m + cfg.weight_decay * p.to(torch.float32)
@@ -147,7 +209,11 @@ def _adafactor_update(grads, inner, params, cfg: OptimizerConfig, step, lr):
         return p_new, {"m": m.to(st["m"].dtype), **new_v}
 
     # the state holds one dict per parameter, at the parameter's place
-    out = tree_map(upd, grads, params, inner)
+    if specs is None:
+        out = tree_map(upd, grads, params, inner)
+    else:
+        out = tree_map(lambda g, p, st, sp: upd(g, p, st, sp), grads, params,
+                       inner, specs)
     return _pick(out, params, 0), _pick(out, params, 1)
 
 
@@ -166,22 +232,24 @@ class Optimizer:
                         inner=init(params, self.cfg))
 
     @torch.no_grad()
-    def update(self, grads, state: OptState, params):
-        """Returns (new_params, new_state, metrics {"grad_norm", "lr"})."""
-        grads, gnorm = clip_by_global_norm(grads, self.cfg.grad_clip)
+    def update(self, grads, state: OptState, params, specs=None):
+        """Returns (new_params, new_state, metrics {"grad_norm", "lr"}).
+        ``specs``: the placements of ``params`` (and ``grads``) under the
+        installed mesh, when they are shards."""
+        grads, gnorm = clip_by_global_norm(grads, self.cfg.grad_clip, specs)
         lr = lr_schedule(self.cfg, state.step)
-        fn = _adafactor_update if self.cfg.name == "adafactor" \
-            else _adamw_update
-        new_params, new_inner = fn(grads, state.inner, params, self.cfg,
-                                   state.step, lr)
+        if self.cfg.name == "adafactor":
+            new_params, new_inner = _adafactor_update(
+                grads, state.inner, params, self.cfg, state.step, lr, specs)
+        else:
+            new_params, new_inner = _adamw_update(
+                grads, state.inner, params, self.cfg, state.step, lr)
         return new_params, OptState(state.step + 1, new_inner), {
             "grad_norm": gnorm, "lr": lr}
 
 
 def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
-    if cfg.grad_compression != "none":
-        raise NotImplementedError(
-            f"grad_compression={cfg.grad_compression!r}: the compressed "
-            "data-parallel all-reduce belongs to the port's distributed "
-            "slice (ROADMAP A8)")
+    if cfg.grad_compression not in ("none", "int8"):
+        raise ValueError(f"grad_compression={cfg.grad_compression!r}: "
+                         "'none' or 'int8'")
     return Optimizer(cfg)

@@ -1,7 +1,6 @@
 """Continuous-batching TD-VMM serving engine — torch port of
-``repro.runtime.engine`` (single device: its fault tolerance and drift
-recalibration, SLA policy, streaming telemetry and request tracing; the
-mesh mode is not ported).
+``repro.runtime.engine`` (its fault tolerance and drift recalibration, SLA
+policy, streaming telemetry, request tracing and mesh mode).
 
 The paper's system discipline — fixed conversion circuitry, time-multiplexed
 inputs — maps onto serving as two fixed-shape step functions (a chunked
@@ -98,6 +97,25 @@ All three read host integers and floats only, between the two step programs
 rides ``snapshot()``, and with all three off every trace replays as before.
 A tick is timed on the host clock; on the card that is host wall time,
 including whatever device wait the tick absorbed (``runtime.trace``).
+
+Mesh mode (``mesh=``, a ``DeviceMesh`` with axes ``data`` x ``model``; one
+process per device, every rank constructing the same Engine and running
+the same trace): the engine takes the full params and keeps this rank's
+shards of the training rules' TP layout, replicated over DP (no ZeRO
+gathers in a step), with expert banks split over the data axes under
+``moe.impl='ep'`` (``launch.sharding.param_specs(..., dp_axes=(),
+ep_axes=dp)``); its page pools hold this rank's KV heads
+(``sharding.paged_specs``), with the page dim whole.  The DP axes multiply
+the slot pool: ``total_slots = dp * ecfg.slots``, slot id ``dp_rank *
+ecfg.slots + local_slot``, one page region per rank
+(``PagePool(ranks=dp)``).  Every rank runs the same host scheduler on the
+same inputs.  A prefill chunk (one slot) runs on every rank alike; a decode
+step runs each rank's own rows, and the sampled tokens are all-gathered
+over the data axes so every rank's scheduler agrees.  There are still two
+step programs per rank.  A snapshot gathers full page pools (each rank's
+region from its owner, the heads over ``model``) and carries ``dp``; it
+restores onto an engine of the same ``dp``.  A (1, 1) mesh is bitwise no
+mesh.
 """
 from __future__ import annotations
 
@@ -115,6 +133,8 @@ from repro_torch.core import energy as energy_model
 from repro_torch.core.calibration import (CalibrationState, apply_calibration,
                                           clip_rate_metrics)
 from repro_torch.kernels import _build
+from repro_torch.launch import meshctx
+from repro_torch.launch import sharding as shardlib
 from repro_torch.models import model
 from repro_torch.runtime import fault
 from repro_torch.runtime import sla as sla_policy
@@ -213,9 +233,8 @@ def _device_fault(e: RuntimeError) -> bool:
 @dataclasses.dataclass
 class EngineReport:
     """Aggregate run stats + per-request records (rid order).  The JAX
-    package's ``devices``/``total_slots`` (mesh) and ``autotune`` (its
-    Pallas tile autotuner, which the port does not have: it picks its tile
-    by M alone) are not ported."""
+    package's ``autotune`` (its Pallas tile autotuner, which the port does
+    not have: it picks its tile by M alone) is not ported."""
     requests: list[dict]
     steps: int
     prefill_steps: int
@@ -256,6 +275,9 @@ class EngineReport:
     alerts: int = 0
     telemetry: Optional[dict] = None          # MetricsSink.summary()
     trace_summary: Optional[dict] = None      # Tracer.summary()
+    # --- mesh-sharded serving ---------------------------------------------
+    devices: int = 1              # mesh size (1 = meshless engine)
+    total_slots: int = 0          # dp_size * ecfg.slots aggregate decode width
 
     def to_json(self) -> dict:
         return dataclasses.asdict(self)
@@ -297,7 +319,8 @@ class RunState:
 
 class Engine:
     """Continuous-batching serving engine over ONE model + calibration, on
-    the card unless ``device`` says otherwise (raises with no card).
+    the card unless ``device`` says otherwise (raises with no card); with
+    ``mesh=`` one rank of a mesh-sharded engine (module docstring).
 
     ``calib`` pins every enabled digital-boundary site's readout window
     (or the plan sets ``output_calibration=False``/``out_scale``).  The
@@ -311,7 +334,8 @@ class Engine:
                  calib: Optional[CalibrationState] = None,
                  sla: Optional[sla_policy.SlaConfig] = None,
                  sink: Optional[Any] = None,
-                 tracer: Optional[Any] = None, device=None):
+                 tracer: Optional[Any] = None, device=None,
+                 mesh: Optional[Any] = None):
         if cfg.family not in ("dense", "moe", "vlm", "audio"):
             raise NotImplementedError(
                 f"engine serves attention families, not {cfg.family!r} "
@@ -324,25 +348,40 @@ class Engine:
         self.device = model.check_device(params, device)
         self.cfg = cfg
         self.ecfg = engine_cfg
-        self.params = params
         self.sla = sla
         self.sink = sink
         self.tracer = tracer
+        # --- mesh: TP splits each step's math, DP multiplies the slot pool
+        self.mesh = mesh
+        if mesh is not None:
+            from repro_torch.launch.mesh import axis_info
+            self._dp_axes = axis_info(mesh)["dp_axes"]
+            self.dp = meshctx.axis_size(self._dp_axes, mesh)
+            self.devices = mesh.size()
+            params = shardlib.shard_tree(params, shardlib.param_specs(
+                params, cfg, mesh, dp_axes=(), ep_axes=self._dp_axes), mesh)
+        else:
+            self._dp_axes, self.dp, self.devices = (), 1, 1
+        self.total_slots = self.dp * engine_cfg.slots
+        self.params = params
         self.cfg_serving = apply_calibration(cfg, calib)
         self._check_pinned_windows()
         self.energy = energy_model.serving_energy_model(
-            self.cfg_serving, engine_cfg.tile_n)
+            self.cfg_serving, engine_cfg.tile_n, n_devices=self.devices)
         self._windows = {site: t.clone() for site, t in
                          calib.as_arrays(self.device).items()} \
             if calib is not None else {}
         # Per-page bytes across all layers (for the high-water stat), from
-        # the pools' own tensors, made on the meta device (no storage).
+        # the whole pools' own tensors, made on the meta device (no storage).
         pools = model.init_paged_caches(cfg, engine_cfg.num_pages,
                                         engine_cfg.page_size,
-                                        torch.device("meta"))
+                                        torch.device("meta"), ranks=self.dp)
         total = sum(t.nbytes for pool in pools.values() for t in pool
                     if t is not None)
-        self.page_bytes = total // (engine_cfg.num_pages + 1)
+        self.page_bytes = total // (self.dp * (engine_cfg.num_pages + 1))
+        # the pools' placements, from their whole shapes
+        self._pool_specs = (shardlib.paged_specs(pools, cfg, mesh)
+                            if mesh is not None else None)
         self._st: Optional[RunState] = None
         self._shapes: set = set()
         self._fault: Optional[FaultConfig] = None
@@ -403,9 +442,19 @@ class Engine:
     def _make_sched(self) -> SlotScheduler:
         ecfg = self.ecfg
         if self.sla is not None:
-            return sla_policy.SlaScheduler(ecfg.slots, ecfg.slot_order,
+            return sla_policy.SlaScheduler(self.total_slots, ecfg.slot_order,
                                            self.sla)
-        return SlotScheduler(ecfg.slots, ecfg.slot_order)
+        return SlotScheduler(self.total_slots, ecfg.slot_order)
+
+    def _mesh(self):
+        """The engine's mesh installed for model code (a no-op without)."""
+        return meshctx.use_mesh_of(self.mesh)
+
+    def _new_pools(self, device):
+        with self._mesh():
+            return model.init_paged_caches(self.cfg, self.ecfg.num_pages,
+                                           self.ecfg.page_size, device,
+                                           ranks=self.dp)
 
     def start(self, requests: list[Request]) -> None:
         """Initialize a fresh run over a trace (allocates the page pools)."""
@@ -421,9 +470,8 @@ class Engine:
             requests=list(requests),
             records={r.rid: RequestRecord(r) for r in requests},
             sched=sched,
-            pool=PagePool(ecfg.num_pages, ecfg.page_size),
-            caches=model.init_paged_caches(self.cfg, ecfg.num_pages,
-                                           ecfg.page_size, self.device),
+            pool=PagePool(ecfg.num_pages, ecfg.page_size, ranks=self.dp),
+            caches=self._new_pools(self.device),
         )
 
     def run(self, requests: list[Request],
@@ -595,7 +643,7 @@ class Engine:
             sid = st.sched.free_slot_id()
             if sid is None:
                 break
-            pages = st.pool.alloc(need)
+            pages = st.pool.alloc(need, rank=sid // ecfg.slots)
             if pages is None:
                 break
             st.sched.pop_head()
@@ -667,8 +715,9 @@ class Engine:
             if fc is not None and fc.injector is not None:
                 fc.injector.check(kind, st.steps)
             try:
-                return fn(self.params, batch, st.caches, self.cfg,
-                          windows=self._windows)
+                with self._mesh():
+                    return fn(self.params, batch, st.caches, self.cfg,
+                              windows=self._windows)
             except RuntimeError as e:
                 if _device_fault(e):
                     raise DeviceFault(str(e)) from e
@@ -737,14 +786,15 @@ class Engine:
         for slot in decoding:
             if slot.pos >= len(slot.pages) * ps:
                 if len(slot.pages) >= cap_pages or \
-                        (new := st.pool.alloc(1)) is None:
+                        (new := st.pool.alloc(
+                            1, rank=slot.sid // ecfg.slots)) is None:
                     self._finish(slot, "evicted")
                     continue
                 slot.pages.extend(new)
             runnable.append(slot)
         if not runnable:
             return                # state changed (evictions); re-plan
-        b = ecfg.slots
+        b = self.total_slots
         tokens = np.zeros((b, 1), np.int32)
         pos = np.zeros((b,), np.int32)
         tables = np.full((b, cap_pages), st.pool.trash_page, np.int32)
@@ -758,6 +808,11 @@ class Engine:
                  "block_tables": self._tensor(tables),
                  "pos": self._tensor(pos),
                  "active": self._tensor(active)}
+        if self.mesh is not None:
+            # rows ordered (dp_rank, local_slot): this rank runs its own
+            specs = shardlib.slot_specs(self.mesh, "decode")
+            batch = {k: shardlib.shard(v, specs[k], self.mesh)
+                     for k, v in batch.items()}
         try:
             logits, st.caches = self._step("decode", model.decode_slots,
                                            batch)
@@ -778,8 +833,16 @@ class Engine:
                 [s.record.request.rid for s in runnable], st.steps)
         st.util_samples.append(len(runnable) / b)
         row_logits = logits[:, 0]
-        toks = torch.argmax(row_logits[:, :self.cfg.vocab_size], dim=-1).cpu()
-        nans = torch.isnan(row_logits).any(dim=-1).cpu()
+        toks = torch.argmax(row_logits[:, :self.cfg.vocab_size], dim=-1)
+        nans = torch.isnan(row_logits).any(dim=-1)
+        if self.dp > 1:
+            # every rank's scheduler needs every rank's samples
+            with self._mesh():
+                both = meshctx.all_gather(
+                    torch.stack([toks, nans.to(toks.dtype)]),
+                    meshctx.dp_group(), 1)
+            toks, nans = both[0], both[1].bool()
+        toks, nans = toks.cpu(), nans.cpu()
         for slot in runnable:              # admission order
             st.nan_steps += int(nans[slot.sid])
             slot.pos += 1
@@ -796,9 +859,10 @@ class Engine:
         ``clip_rate.<site>`` series (``DriftConfig.observe_every``): one
         ``drift_probe``, outside the two step programs, its tallies read
         once, with no recalibration decision attached."""
-        _, clips = model.drift_probe(
-            self.params, dc.probe_batch, self.cfg, self.pinned_calibration(),
-            device=self.device)
+        with self._mesh():
+            _, clips = model.drift_probe(
+                self.params, dc.probe_batch, self.cfg,
+                self.pinned_calibration(), device=self.device)
         for name, v in clip_rate_metrics(clips).items():
             self.sink.observe(name, v, self._st.steps)
 
@@ -806,8 +870,10 @@ class Engine:
         st = self._st
         pinned = self.pinned_calibration()
         t0 = time.perf_counter()
-        fresh, clips = model.drift_probe(
-            self.params, dc.probe_batch, self.cfg, pinned, device=self.device)
+        with self._mesh():
+            fresh, clips = model.drift_probe(
+                self.params, dc.probe_batch, self.cfg, pinned,
+                device=self.device)
         ratios = pinned.drift_ratios(fresh)
         max_clip = max(clips.values(), default=0.0)
         max_dev = max((abs(math.log(max(r, 1e-12)))
@@ -857,7 +923,7 @@ class Engine:
             raise RuntimeError("no run state to snapshot")
         meta = {
             "version": 4,
-            "dp": 1,
+            "dp": self.dp,
             "ecfg": dataclasses.asdict(self.ecfg),
             "model": self._model_id(),
             "sla": (dataclasses.asdict(self.sla)
@@ -894,7 +960,7 @@ class Engine:
                         "prefill_done": s.prefill_done,
                         "cur_token": s.cur_token,
                     } for s in st.sched.slots]},
-            "pool": {"free": [st.pool.free_list()],
+            "pool": {"free": st.pool.free_lists(),
                      "high_water": st.pool.high_water},
             "counters": {
                 "steps": st.steps, "prefill_steps": st.prefill_steps,
@@ -922,11 +988,29 @@ class Engine:
                                 dtype=torch.uint8)
         return {
             "caches": tree_map(lambda t: t.detach().to("cpu", copy=True),
-                               st.caches),
+                               self._full_pools(st.caches)),
             "windows": {site: t.detach().to("cpu", copy=True)
                         for site, t in self._windows.items()},
             "meta": blob,
         }
+
+    def _full_pools(self, caches):
+        """The whole page pools from this rank's: each page region from the
+        rank that owns it (a region's decode writes land on its owner
+        only), the KV heads gathered over ``model``.  Collective."""
+        if self.mesh is None:
+            return caches
+        with self._mesh():
+            specs = self._pool_specs
+            stride = self.ecfg.num_pages + 1
+
+            def full(t, spec):
+                if self.dp > 1:
+                    every = meshctx.all_gather(t[None], meshctx.dp_group(), 0)
+                    t = torch.cat([every[r, :, r * stride:(r + 1) * stride]
+                                   for r in range(self.dp)], dim=1)
+                return shardlib.gather(t, spec, self.mesh)
+            return tree_map(full, caches, specs)
 
     def restore(self, snap) -> None:
         """Rebuild the in-flight state from ``snapshot()`` output — the
@@ -951,10 +1035,13 @@ class Engine:
                 f"engine snapshot was taken with EngineConfig "
                 f"{meta['ecfg']}, this engine has {mine} — the config pins "
                 "the step shapes and cannot change across resume")
-        if meta.get("dp", 1) != 1:
-            raise ValueError(f"engine snapshot was taken over "
-                             f"{meta['dp']} data-parallel ranks; this "
-                             "engine serves one device")
+        snap_dp = meta.get("dp", 1)
+        if snap_dp != self.dp:
+            raise ValueError(
+                f"engine snapshot was taken over {snap_dp} data-parallel "
+                f"ranks, this engine has {self.dp} — the DP slot-pool "
+                "layout (slot ids, page regions) cannot change across "
+                "resume")
         if meta["model"] != self._model_id():
             raise ValueError(f"engine snapshot model {meta['model']} != "
                              f"{self._model_id()}")
@@ -991,7 +1078,8 @@ class Engine:
                     f"{tuple(self._windows[site].shape)}")
         ecfg = self.ecfg
         like = leaves_with_paths(model.init_paged_caches(
-            self.cfg, ecfg.num_pages, ecfg.page_size, torch.device("meta")))
+            self.cfg, ecfg.num_pages, ecfg.page_size, torch.device("meta"),
+            ranks=self.dp))
         have = {k[len("caches/"):] for k in flat if k.startswith("caches/")}
         if have != {name for name, _ in like}:
             raise ValueError(
@@ -1009,10 +1097,15 @@ class Engine:
             self.tracer.restore(snap_trace)
         for site, t in win.items():
             self._windows[site].copy_(t)
-        caches = model.init_paged_caches(self.cfg, ecfg.num_pages,
-                                         ecfg.page_size, self.device)
+        caches = self._new_pools(self.device)
+        specs = (dict(leaves_with_paths(self._pool_specs))
+                 if self.mesh is not None else {})
         for name, t in leaves_with_paths(caches):
-            t.copy_(flat[f"caches/{name}"])
+            src = flat[f"caches/{name}"]
+            if name in specs:
+                with self._mesh():
+                    src = shardlib.shard(src, specs[name], self.mesh)
+            t.copy_(src)
 
         # --- host bookkeeping ---------------------------------------------
         requests = [Request(rid=r["rid"], prompt=tuple(r["prompt"]),
@@ -1045,8 +1138,8 @@ class Engine:
                     pages=list(sd["pages"]), pos=sd["pos"],
                     prefill_done=sd["prefill_done"],
                     cur_token=sd["cur_token"])
-        pool = PagePool(ecfg.num_pages, ecfg.page_size)
-        pool.restore_free(meta["pool"]["free"][0])
+        pool = PagePool(ecfg.num_pages, ecfg.page_size, ranks=self.dp)
+        pool.restore_free(meta["pool"]["free"])
         pool.high_water = meta["pool"]["high_water"]
         c = meta["counters"]
         self._st = RunState(
@@ -1136,4 +1229,6 @@ class Engine:
                        if self.sink is not None else None),
             trace_summary=(self.tracer.summary()
                            if self.tracer is not None else None),
+            devices=self.devices,
+            total_slots=self.total_slots,
         )

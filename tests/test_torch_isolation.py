@@ -150,3 +150,24 @@ def test_training_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
         train_lm.main(["--steps", "1", "--ckpt-dir", str(tmp_path / "b")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         perceptron.main(["--qat"])
+
+
+DISTRIBUTED = ("launch/mesh.py", "launch/meshctx.py", "launch/sharding.py",
+               "launch/pipeline.py", "optim/compression.py")
+
+
+@pytest.mark.parametrize("path", DISTRIBUTED)
+def test_the_distributed_modules_stand_alone(path):
+    """The distributed slice's modules exist, are importable by the port's
+    module walk (which the subprocess test above imports without loading
+    JAX) and import neither JAX nor the JAX package."""
+    name = "repro_torch." + path[:-3].replace("/", ".")
+    assert name in _modules()
+    assert not FORBIDDEN.search((PORT / path).read_text()), path
+
+
+def test_init_distributed_refuses_a_missing_card(monkeypatch):
+    from repro_torch.launch import mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.init_distributed()

@@ -267,9 +267,25 @@ def test_moe_apply_matches_reference(arch, plan):
 
 
 def test_moe_apply_refuses_a_mesh():
-    _, tc, _, tp = _moe_params("mixtral-8x7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tmoe.apply(tp, torch.zeros((1, 3, tc.d_model)), tc, mesh=object())
+    """Expert parallelism refuses a mesh whose data axis does not divide
+    the expert count, before any collective (the mesh paths themselves are
+    held on gloo worlds in tests/test_torch_dist_mesh.py)."""
+    from repro_torch.launch import meshctx
+
+    class ThreeDataRanks:
+        mesh_dim_names = ("data", "model")
+
+        def size(self, dim=None):
+            return 3 if dim is None else (3, 1)[dim]
+
+        def get_local_rank(self, axis):
+            return 0
+
+    _, tc, _, tp = _moe_params("kimi-k2-1t-a32b")
+    assert tc.moe.impl == "ep" and tc.moe.n_experts % 3
+    with meshctx.use_mesh(ThreeDataRanks(), ("data",), "model"):
+        with pytest.raises(ValueError, match="do not split over 3"):
+            tmoe.apply(tp, torch.zeros((3, 3, tc.d_model)), tc)
 
 
 # ---------------------------------------------------------------------------
