@@ -63,8 +63,9 @@ Phases, each of which stops the script with a non-zero exit on failure:
    the block's input and weights through ``attention.apply_train`` with
    flash against the dense softmax's, within FLASH_TOL elementwise, each
    forward + backward timed;
-4. serving: qwen1.5-0.5b at full width (24 layers, d_model 1024, bf16,
-   random weights from seed 0) under the ``ffn_unchained`` and
+4. serving: qwen1.5-0.5b at full width, 12 of its 24 layers
+   (SERVE_LAYERS; d_model 1024, bf16, random weights from seed 0) under
+   the ``ffn_unchained`` and
    ``ffn_chained`` plans: one calibration pass, then the paged engine
    serves 8 ragged requests; every request must finish with its full token
    budget, no NaN logits, its stream equal to the same request served alone,
@@ -126,7 +127,24 @@ Phases, each of which stops the script with a non-zero exit on failure:
    under ``ssm_unchained``: one calibration pass over 4 x 512 tokens, then
    the static path serves 4 prompts x 512 tokens for 32 new tokens each;
    no NaN, exact launch counts, and the batch served in reverse order must
-   give the reversed streams.  Then mixtral-8x7b at full width (d_model
+   give the reversed streams.  Then "mesh ssm" (``mesh_ssm``, two processes
+   on the card over gloo): that mamba2 on a 1 x 2 mesh (its heads, x / z
+   channels and B / C columns split, B and C all-gathered before the
+   scan): ssm.in_proj and ssm.out bitwise on each rank's shard, the serve
+   with exact B1 fused / raw and B3 launches a rank, its streams and its
+   teacher-forced logits (ssm.* and TD-VMM off) bitwise the meshless run's
+   in TP's order (``tp_order``, which also sums the gated norm's squares as
+   two partials), TD-VMM off within TWO_RANK_RTOL of the plain meshless
+   run; one qwen1.5-0.5b QAT step in float32 at 1 x 2 (parameters bitwise,
+   gradients within QAT_TP_RTOL, each shard's noisy codes bitwise the
+   meshless codes); zamba2-2.7b in float32 at 2 x 1 with batch 1 and an
+   8192-token prompt on the sequence-split cache, teacher-forced with the
+   meshless greedy stream (logits bitwise the meshless run's in the
+   split's order, ``seq_order``, and within MESH_HYB_RTOL of the plain
+   one's, its greedy token at every step; each rank's cache bytes).
+   ("mesh qwen" ends with (d), ``dryrun_vs_step``: the dry run of qwen's
+   4 x 512 prefill counts the real step's kernel calls, FLOPs and HBM
+   bytes.)  Then mixtral-8x7b at full width (d_model
    4096, 32 heads, GQA kv 8, 8 experts top-2 of d_ff 14336, sliding window
    4096, vocab 32000, bf16, random weights from seed 0) cut to 8 of its 32
    layers, capacity factor 4.0 (dropless), under ``moe_unchained`` (int8
@@ -211,6 +229,11 @@ H100_TF32_FLOPS_PER_S = 495e12      # dense TF32 tensor-core rate
 H100_BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core rate
 
 ARCH = "qwen1.5-0.5b"
+# qwen's serving paths ("serve qwen", "fault qwen", "observe qwen", "mesh
+# qwen") run 12 of its 24 layers, at full width, since PR 25: with all 24
+# they took ~570 s of a 1,177 s run on a slow card host, near the 1200 s
+# limit; training keeps all 24
+SERVE_LAYERS = 12
 CHUNK, SLOTS, PAGE, NUM_PAGES = 64, 4, 16, 64
 CALIB_BATCH = (2, 64)
 CALIB_ROWS = CALIB_BATCH[0] * CALIB_BATCH[1]
@@ -351,6 +374,26 @@ TWO_RANK_TIMEOUT = 240
 # tests/test_torch_dist_mesh.py)
 TWO_RANK_PROMPTS, TWO_RANK_FORCED = (4, 64), 8
 TWO_RANK_RTOL = 5e-2
+
+# "mesh ssm": mamba2 at 1 x 2 (teacher-forced for MESH_SSM_FORCED tokens
+# after the serve phase's 4 x 512 prompts); one full-width qwen QAT step at
+# 1 x 2 in float32, each gradient leaf within QAT_TP_RTOL of its max|g|
+# (tests/test_torch_train.py's GRAD_RTOL: the column sites' input
+# gradients are two partial products summed over ``model``, the meshless
+# one one product, so the two are not bitwise); zamba2 at 2 x 1 in float32
+# with batch 1 and a MESH_HYB_PROMPT-token prompt (a sequence-split cache
+# of 4,104 positions a rank, its prefill's attention whole), teacher-forced
+# with the meshless greedy stream: the same greedy token at every step and
+# logits within MESH_HYB_RTOL of max|logit| (a decode step sums the ranks'
+# softmax sums and float32 products over the data axes, in another order
+# than one softmax; in bf16 the model carries such a reordering to 17 % of
+# max|logit| in 16 steps, so the check is made where the arithmetic is
+# float32)
+MESH_SSM_FORCED = 8
+QAT_TP_RTOL = 1e-5
+MESH_HYB_PROMPT, MESH_HYB_GEN = 8192, 16
+MESH_HYB_RTOL = 1e-3
+MESH_TIMEOUT = 420
 
 KIMI_ARCH = "kimi-k2-1t-a32b"
 KIMI_LAYERS = 1
@@ -1474,7 +1517,7 @@ def serve_plan(name: str, plan, dev, params_cache: dict) -> dict:
     from repro_torch.runtime.engine import Engine, EngineConfig, Request
     from repro_torch.runtime.paged_cache import pages_for
 
-    cfg = get_config(ARCH).replace(tdvmm_plan=plan)
+    cfg = get_config(ARCH).replace(n_layers=SERVE_LAYERS, tdvmm_plan=plan)
     if "params" not in params_cache:
         params_cache["params"] = model.init_params(0, cfg, device=dev)
     params = params_cache["params"]
@@ -3265,7 +3308,7 @@ def forced_logits(params, cfg, calib, prompts, forced, dev, mesh=None):
     shards of ``params`` and its rows of the batch, and the logits come
     back whole."""
     import torch
-    from repro_torch.launch import meshctx, sharding
+    from repro_torch.launch import meshctx, sharding, steps
     from repro_torch.launch.mesh import axis_info
     from repro_torch.models import common, model
     b, s = prompts.shape
@@ -3274,13 +3317,13 @@ def forced_logits(params, cfg, calib, prompts, forced, dev, mesh=None):
         params = sharding.shard_tree(params, sharding.param_specs(
             params, cfg, mesh, dp_axes=(), ep_axes=dp), mesh)
     out = []
+    caches = steps.init_serving_caches(cfg, b, s + forced.shape[1], dev,
+                                       mesh)
     with meshctx.use_mesh_of(mesh):
         rows = common.constrain_batch(prompts)
         split = rows.shape[0] != b
         toks = common.constrain_batch(forced)
-        caches = model.init_caches(cfg, rows.shape[0], s + forced.shape[1],
-                                   dev)
-        with meshctx.split_rows(split):
+        with meshctx.split_rows(split), meshctx.split_seq(not split):
             logits, caches = model.prefill_step(params, {"inputs": rows},
                                                 caches, cfg, calib=calib)
             out.append(meshctx.dp_gather(logits[:, -1], b))
@@ -3302,8 +3345,11 @@ def tp_order(tp: int):
     other op of a TP shard gives the meshless op's bits on the card
     (column products, attention by heads: scripts/tp_order_probe.py; the
     TD-VMM sites: ``two_rank_sites``), so a 1 x ``tp`` run equals this one
-    bit for bit, and a wrong shard, cache layout or reduction does not."""
-    from repro_torch.models import common
+    bit for bit, and a wrong shard, cache layout or reduction does not.
+    The SSM's gated RMSNorm sums its squares as ``tp`` partial sums added
+    in rank order (``ssm.TP_ORDER``), as a 1 x ``tp`` run's all-reduce
+    does."""
+    from repro_torch.models import common, ssm
     dense, reduce_ = common.dense, common.dense_tp_reduce
 
     def row(params, x):
@@ -3317,18 +3363,37 @@ def tp_order(tp: int):
         y = y.to(x.dtype)
         return y + params["b"].to(y.dtype) if "b" in params else y
 
-    def dense_(params, x, td, key=None, tp="col"):
+    def dense_(params, x, td, key=None, tp="col", shard=None):
         if tp == "row" and not td.enabled:
             return row(params, x)
-        return dense(params, x, td, key, tp)
+        return dense(params, x, td, key, tp, shard)
 
-    def reduce__(params, x, td, key=None):
-        return reduce_(params, x, td, key) if td.enabled else row(params, x)
+    def reduce__(params, x, td, key=None, shard=None):
+        return reduce_(params, x, td, key, shard) if td.enabled else \
+            row(params, x)
     common.dense, common.dense_tp_reduce = dense_, reduce__
+    ssm.TP_ORDER = tp
     try:
         yield
     finally:
         common.dense, common.dense_tp_reduce = dense, reduce_
+        ssm.TP_ORDER = 1
+
+
+@contextlib.contextmanager
+def seq_order(n: int):
+    """The meshless model with each decode step's attention formed as an
+    n x 1 mesh forms it over a sequence-split cache
+    (``attention.SEQ_ORDER``: the softmax's sum and the float32 products
+    over n contiguous segments of the cache, added in segment order): an
+    n x 1 run equals it bit for bit (the prefill and every other op are the
+    meshless ones there), a wrong segment, write or reduction does not."""
+    from repro_torch.models import attention
+    attention.SEQ_ORDER = n
+    try:
+        yield
+    finally:
+        attention.SEQ_ORDER = 1
 
 
 def two_ranks(out: dict, dev) -> dict:
@@ -3546,7 +3611,8 @@ def two_rank_worker(rank: int, init_file: str, job: dict, results) -> None:
         from repro_torch.models import model
         from repro_torch.runtime.engine import Engine, EngineConfig
         dev = torch.device("cuda", 0)
-        cfg = get_config(ARCH).replace(tdvmm_plan=plans()[job["plan"]])
+        cfg = get_config(ARCH).replace(n_layers=SERVE_LAYERS,
+                                       tdvmm_plan=plans()[job["plan"]])
         params = model.init_params(0, cfg, device=dev)
         calib = CalibrationState(windows={
             k: torch.from_numpy(v) for k, v in job["windows"].items()})
@@ -3579,6 +3645,458 @@ def two_rank_worker(rank: int, init_file: str, job: dict, results) -> None:
                     "plain": [x.numpy() for x in forced_logits(
                         params, cfg.replace(tdvmm_plan=None), None, prompts,
                         forced, dev, mesh)]}
+        dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+    results.close()
+    results.join_thread()
+    os._exit(0)
+
+
+def greedy_logits(params, cfg, prompts, steps: int, dev):
+    """The static path greedy for ``steps`` tokens after ``prompts`` (B,
+    S), meshless: (the (B, steps) tokens, every step's (B, V) logits as
+    float32 on the CPU)."""
+    import torch
+    from repro_torch.models import model
+    caches = model.init_caches(cfg, prompts.shape[0],
+                               prompts.shape[1] + steps, dev)
+    logits, caches = model.prefill_step(params, {"inputs": prompts}, caches,
+                                        cfg)
+    toks, out = [], []
+    for t in range(steps):
+        out.append(logits[:, -1].float().cpu())
+        toks.append(logits[:, -1].argmax(-1))
+        if t + 1 < steps:
+            logits, caches = model.decode_step(
+                params, {"inputs": toks[-1][:, None]}, caches, cfg)
+    return torch.stack(toks, 1), out
+
+
+def cache_bytes(cfg, batch: int, max_len: int, dev, mesh=None) -> int:
+    """Bytes of this rank's serving caches (``steps.init_serving_caches``)."""
+    from repro_torch.launch import steps
+    caches = steps.init_serving_caches(cfg, batch, max_len, dev, mesh)
+    return sum(t.numel() * t.element_size() for t in _leaves(caches))
+
+
+def _leaves(tree):
+    from repro_torch.tree import leaves
+    return [t for t in leaves(tree) if hasattr(t, "numel")]
+
+
+def mesh_ssm(dev, ssm_args) -> dict:
+    """"mesh ssm": two processes share the card over gloo
+    (``mesh_ssm_worker``), as "mesh qwen" (b) does.
+    - mamba2-1.3b at full width on 1 x 2 under ssm.* with the serve
+      phase's windows: its TD-VMM sites on each rank's shard bitwise the
+      meshless sites; ``serve_static`` on the serve phase's 4 x 512 prompts
+      for 32 tokens, with exactly L x 32 B1 fused (ssm.in_proj), L x 32 B1
+      raw (ssm.out, int32 sums over ``model``) and L B3 launches a rank;
+      its streams and its teacher-forced logits (plan and TD-VMM off)
+      bitwise the meshless run's in TP's order (``tp_order``), and TD-VMM
+      off within TWO_RANK_RTOL of the plain meshless run.
+    - one qwen1.5-0.5b QAT step at full width in float32 on 1 x 2, every
+      linear a 6-bit site: the new parameters bitwise the meshless step's
+      (the warmup's first learning rate is 0), the gradients within
+      QAT_TP_RTOL; the noisy codes of each rank's shard of ffn.in, ffn.out
+      and the grouped q/k/v bitwise the meshless noisy codes.
+    - zamba2-2.7b at full width in float32 on 2 x 1 with batch 1: a
+      sequence-split cache, a MESH_HYB_PROMPT-token prompt, then
+      MESH_HYB_GEN steps teacher-forced with the meshless greedy stream:
+      every step's logits bitwise the meshless run's in the split's order
+      (``seq_order``), within MESH_HYB_RTOL of the plain meshless run's,
+      the meshless greedy token at every step; each rank's cache bytes."""
+    import multiprocessing as mp
+    import queue
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    t0 = time.perf_counter()
+    cfg, params, calib, prompts = ssm_args
+    plain = cfg.replace(tdvmm_plan=None)
+    with torch.no_grad():
+        forced, _ = greedy_logits(params, cfg.replace(tdvmm_plan=None),
+                                  prompts, MESH_SSM_FORCED, dev)
+        ref_plain = forced_logits(params, plain, None, prompts, forced, dev)
+        with tp_order(TP):
+            ctrl = {"plan": forced_logits(params, cfg, calib, prompts,
+                                          forced, dev),
+                    "plain": forced_logits(params, plain, None, prompts,
+                                           forced, dev)}
+            ctrl_tokens = serve.serve_static(
+                cfg, SSM_BATCH, SSM_PROMPT, SSM_GEN, calib=calib,
+                device=dev, params=params, prompts=prompts)["tokens"]
+        hcfg = get_config(HYB_ARCH).replace(dtype="float32")
+        hparams = model.init_params(0, hcfg, device=dev)
+        g = torch.Generator(device=dev)
+        g.manual_seed(7)
+        hprompt = torch.randint(0, hcfg.vocab_size, (1, MESH_HYB_PROMPT),
+                                generator=g, device=dev)
+        t1 = time.perf_counter()
+        h_tokens, h_logits = greedy_logits(hparams, hcfg, hprompt,
+                                           MESH_HYB_GEN, dev)
+        torch.cuda.synchronize()
+        h_meshless_s = time.perf_counter() - t1
+        h_bytes = cache_bytes(hcfg, 1, MESH_HYB_PROMPT + MESH_HYB_GEN, dev)
+        with seq_order(2):
+            c_logits = forced_logits(hparams, hcfg, None, hprompt, h_tokens,
+                                     dev)
+        del hparams
+        torch.cuda.empty_cache()
+    job = {"windows": {k: v.detach().cpu().numpy() for k, v in
+                       calib.as_arrays("cpu").items()},
+           "prompts": prompts.cpu().numpy(), "forced": forced.cpu().numpy(),
+           "hprompt": hprompt.cpu().numpy(),
+           "hforced": h_tokens.cpu().numpy()}
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    got = {}
+    with tempfile.TemporaryDirectory() as d:
+        procs = [ctx.Process(target=mesh_ssm_worker, args=(
+            r, os.path.join(d, "init"), job, results)) for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            for _ in procs:
+                try:
+                    rank, ok, val = results.get(timeout=MESH_TIMEOUT)
+                except queue.Empty:
+                    raise SmokeFailure("mesh ssm: a rank gave no result in "
+                                       f"{MESH_TIMEOUT} s")
+                require(ok, f"mesh ssm rank {rank}: {val}")
+                got[rank] = val
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+    L = cfg.n_layers
+    res = {"launches": [], "ranks": got}
+    for rank in (0, 1):
+        a = got[rank]["ssm"]
+        bad = [k for k, v in a["sites"].items() if not v]
+        require(not bad, f"mesh ssm rank {rank}: TD-VMM sites differ from "
+                f"the meshless sites: {bad}")
+        need = {"fused": L * SSM_GEN, "raw": L * SSM_GEN, "ssd": L}
+        have = {k: a["launches"][k] for k in need}
+        require(have == need and a["launches"]["calibrated"] == 0,
+                f"mesh ssm rank {rank}: launches {have} != {need}")
+        res["launches"].append(a["launches"])
+        require(torch.equal(torch.from_numpy(a["tokens"]), ctrl_tokens),
+                f"mesh ssm rank {rank}: streams differ from the meshless "
+                "run's in TP order")
+        for kind in ("plan", "plain"):
+            mine = [torch.from_numpy(x) for x in a["logits"][kind]]
+            same = [torch.equal(x, y) for x, y in zip(mine, ctrl[kind])]
+            require(all(same), f"mesh ssm rank {rank} {kind}: teacher-forced "
+                    "logits differ from the meshless run's in TP order at "
+                    f"steps {[i for i, e in enumerate(same) if not e]}")
+        gap = max(float((torch.from_numpy(x) - y).abs().max())
+                  for x, y in zip(a["logits"]["plain"], ref_plain)) / max(
+            float(y.abs().max()) for y in ref_plain)
+        require(gap <= TWO_RANK_RTOL, f"mesh ssm: TD-VMM off, forced logits "
+                f"{gap:.4g} of max|logit| from the plain meshless run's")
+        res.setdefault("ssm_gap", []).append(gap)
+        q = got[rank]["qat"]
+        require(q["params_equal"], f"mesh ssm qat rank {rank}: parameters "
+                f"differ from the meshless step's: {q['params_differ'][:4]}")
+        require(q["grad_gap"] <= QAT_TP_RTOL, f"mesh ssm qat rank {rank}: "
+                f"gradient {q['grad_gap']:.3g} of max|g| at {q['grad_leaf']}")
+        require(not q["noise_bad"], f"mesh ssm qat rank {rank}: noisy codes "
+                f"differ from the meshless codes: {q['noise_bad']}")
+        require(abs(q["loss"] - q["meshless_loss"])
+                <= 1e-6 * abs(q["meshless_loss"]),
+                f"mesh ssm qat: loss {q['loss']} / {q['meshless_loss']}")
+        res["launches"].append(q["launches"])
+        h = got[rank]["hyb"]
+        same = [np.array_equal(x, y.numpy())
+                for x, y in zip(h["logits"], c_logits)]
+        require(all(same), f"mesh ssm rank {rank}: zamba2's sequence-split "
+                "teacher-forced logits differ from the meshless run's in "
+                f"the split's order at steps "
+                f"{[i for i, e in enumerate(same) if not e]}")
+        hgap = max(float((torch.from_numpy(x) - y).abs().max())
+                   for x, y in zip(h["logits"], h_logits)) / max(
+            float(y.abs().max()) for y in h_logits)
+        # the greedy stream the split run takes, step by step
+        agree = [int(np.argmax(x[0])) == int(t) for x, t in
+                 zip(h["logits"], h_tokens[0].tolist())]
+        require(all(agree), f"mesh ssm rank {rank}: zamba2's sequence-split "
+                "greedy tokens differ from the meshless stream at steps "
+                f"{[i for i, a in enumerate(agree) if not a]}")
+        require(hgap <= MESH_HYB_RTOL, f"mesh ssm: zamba2 2 x 1 logits "
+                f"{hgap:.4g} of max|logit| from the meshless run's")
+        # the KV caches split over the two ranks, the SSM state whole on
+        # each (batch 1 cannot split)
+        require(h["cache_bytes"] < h_bytes, f"mesh ssm: a rank's cache "
+                f"{h['cache_bytes']} B is not a share of the meshless "
+                f"{h_bytes} B")
+        res.setdefault("hyb_gap", []).append(hgap)
+        res["launches"].append(h["launches"])
+    res["h_meshless_s"] = h_meshless_s
+    res["h_bytes"] = h_bytes
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def ssm_sites(mesh, dev) -> dict:
+    """mamba2's ssm.in_proj (the grouped column site, pinned and
+    data-calibrated) and ssm.out (the row site, pinned) at full width on
+    this rank's shard of a 1 x 2 mesh against the meshless site: bitwise?"""
+    import torch
+    from repro_torch.core import layers
+    from repro_torch.core.layers import TDVMMLayerConfig
+    from repro_torch.launch import meshctx
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    k, widths = SSM_IN[0], (4096, 4096, 128, 128, 64)
+    x = torch.randn((CHUNK, k), generator=g, device=dev).bfloat16()
+    ws = [(torch.randn((k, n), generator=g, device=dev) * 0.02).bfloat16()
+          for n in widths]
+    xo = torch.randn((CHUNK, SSM_OUT[0]), generator=g, device=dev).bfloat16()
+    wo = (torch.randn(SSM_OUT, generator=g, device=dev) * 0.02).bfloat16()
+    tp, r = meshctx.axis_size("model", mesh), meshctx.axis_rank("model", mesh)
+    out = {}
+    for name, kw in (("in_proj pinned", dict(out_scale=(0.01,) * 5)),
+                     ("in_proj data-calibrated", {})):
+        cfg = TDVMMLayerConfig(enabled=True, site="ssm.in_proj", **kw)
+        want = layers.td_grouped_matmul(x, ws, cfg)
+        with meshctx.use_mesh_of(mesh):
+            got = layers.td_grouped_matmul(
+                x, [w.chunk(tp, -1)[r] for w in ws], cfg, tp="col")
+        out[name] = all(torch.equal(a, b.chunk(tp, -1)[r])
+                        for a, b in zip(got, want))
+    cfg = TDVMMLayerConfig(enabled=True, site="ssm.out", out_scale=0.01)
+    want = layers.td_matmul(xo, wo, cfg)
+    with meshctx.use_mesh_of(mesh):
+        got = layers.td_matmul(xo.chunk(tp, -1)[r], wo.chunk(tp, 0)[r], cfg,
+                               tp="row")
+    out["out pinned"] = bool(torch.equal(got, want))
+    return out
+
+
+def qat_tp_step(dev, mesh) -> dict:
+    """One full-width qwen QAT step in float32 (every linear a 6-bit site)
+    meshless and on ``mesh``: the new parameters equal?, the largest
+    gradient gap over its leaf's max|g|, the noisy codes of this rank's
+    shards against the meshless noisy codes."""
+    import torch
+    from repro_torch.configs import OptimizerConfig, RunConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import layers, quant
+    from repro_torch.core.layers import TDVMMLayerConfig
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+    from repro_torch.kernels.tdvmm import tdvmm as tk
+    from repro_torch.launch import meshctx, sharding, steps
+    from repro_torch.optim import optimizer as om
+    from repro_torch.tree import leaves_with_paths
+    cfg = qat_config().replace(dtype="float32")
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=QAT_STEPS)
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "qat", QAT_SEQ, QAT_BATCH, "train", microbatch_per_shard=QAT_BATCH),
+        seed=0, optimizer=opt_cfg)
+    optimizer = om.make_optimizer(opt_cfg)
+    state = steps.init_train_state(0, cfg, optimizer, dev)
+    batch = make_pipeline(cfg, run.shape, DataConfig(seed=0)).batch_at(0)
+    got, update = [], om.Optimizer.update
+
+    def spy(self, grads, *a, **kw):
+        got.append(grads)
+        return update(self, grads, *a, **kw)
+    om.Optimizer.update = spy
+    try:
+        one, m1 = steps.make_train_step(cfg, run, optimizer)(state, batch)
+        specs = steps.state_specs(state, cfg, mesh)
+        reset_all_launches()
+        two, m2 = steps.make_train_step(cfg, run, optimizer, mesh=mesh,
+                                        specs=specs)(
+            steps.shard_state(state, cfg, mesh), batch)
+        torch.cuda.synchronize()
+        launches = launches_now()
+    finally:
+        om.Optimizer.update = update
+    whole = sharding.gather_tree(two.params, specs[0].params, mesh)
+    differ = [p for (p, a), (_, b) in zip(leaves_with_paths(one.params),
+                                          leaves_with_paths(whole))
+              if not torch.equal(a, b)]
+    grads = sharding.gather_tree(got[1], specs[0].params, mesh)
+    gap, leaf = max((float((a - b).abs().max() / a.abs().max()), p)
+                    for (p, a), (_, b) in zip(leaves_with_paths(got[0]),
+                                              leaves_with_paths(grads)))
+    del one, two, whole, grads, got, state
+    # noisy codes: each rank's shard of ffn.in (column), ffn.out (row) and
+    # the grouped q/k/v (column) against the whole bank's draws, sliced
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    noisy = TDVMMLayerConfig(enabled=True, noise=True)
+    bad = []
+    with meshctx.use_mesh_of(mesh):
+        tp, r = meshctx.tp_size(), meshctx.tp_rank()
+        for name, (k, n), kind in (("ffn.in", FFN_SHAPES[0], "col"),
+                                   ("ffn.out", FFN_SHAPES[1], "row")):
+            w = torch.randn((k, n), generator=g, device=dev) * 0.02
+            dim = -1 if kind == "col" else -2
+            whole_c = quant.program_noise(quant.program_weights(w, 6, True),
+                                          noisy.spec, 5).codes
+            qw = quant.program_weights(w.chunk(tp, dim)[r], 6, True,
+                                       tp_reduce=kind == "row")
+            mine = layers._shard_noise(qw, noisy, 5, kind).codes
+            if not torch.equal(mine, whole_c.chunk(tp, dim)[r]):
+                bad.append(name)
+        ws = [torch.randn((1024, n), generator=g, device=dev) * 0.02
+              for n in QKV_WIDTHS]
+        ns = tuple(w.shape[-1] // tp for w in ws)
+        widths = tuple(tk.padded_size(m, tk.LANE, tk.LANE) for m in ns)
+        qw = quant.concat_group([quant.program_weights(
+            w.chunk(tp, -1)[r], 6, True) for w in ws], widths)
+        mine = layers._group_noise(qw, noisy, 5, "col", ns, widths, None)
+        wide = tuple(tk.padded_size(w.shape[-1], tk.LANE, tk.LANE)
+                     for w in ws)
+        ref = quant.program_noise(quant.concat_group(
+            [quant.program_weights(w, 6, True) for w in ws], wide),
+            noisy.spec, 5).codes
+        off = lo = 0
+        for i, m in enumerate(ns):
+            if not torch.equal(mine.codes[:, lo:lo + m],
+                               ref[:, off + r * m:off + (r + 1) * m]):
+                bad.append(f"attn.qkv member {i}")
+            off += wide[i]
+            lo += widths[i]
+    return {"params_equal": not differ, "params_differ": differ,
+            "grad_gap": gap, "grad_leaf": leaf, "noise_bad": bad,
+            "loss": float(m2["loss"]), "meshless_loss": float(m1["loss"]),
+            "launches": launches}
+
+
+def dryrun_vs_step(dev, engine_args) -> dict:
+    """"mesh ssm" (d): the dry run against the real step.  The full-width
+    qwen prefill (4 x 512 tokens, the ffn_unchained plan data-calibrated)
+    counted by ``launch.roofline.StepCounter`` around the real step on the
+    card (its second call: the first fills the launch caches), and by the
+    dry run (``launch.dryrun.count_fake``: fake tensors, a fake world of
+    one, a (1, 1) mesh): the same kernel calls per storage, the same FLOPs
+    by class and the same HBM bytes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, meshctx, roofline, steps
+    cfg, params, _, _ = engine_args
+    shape = ShapeConfig("prefill", 512, 4, "prefill")
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    # int32 token ids, as the dry run's (and the JAX package's) batches
+    batch = {"inputs": torch.randint(0, cfg.vocab_size, (4, 512),
+                                     generator=g, device=dev,
+                                     dtype=torch.int32)}
+    step = steps.make_prefill_step(cfg)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(2):
+            caches = steps.init_serving_caches(cfg, 4, 512, dev)
+            counter = roofline.StepCounter()
+            counter.known(params, batch, caches)
+            with counter:
+                step(params, batch, caches)
+            torch.cuda.synchronize()
+    real = counter.summary()
+    real_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        fake = dryrun.count_fake(cfg, shape, (1, 1))["counter"]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        meshctx._GROUPS.clear()
+    fake_s = time.perf_counter() - t0
+    ops = {k: (fake["bytes_by_op"].get(k), v)
+           for k, v in real["bytes_by_op"].items()
+           if fake["bytes_by_op"].get(k) != v}
+    ops.update({k: (v, None) for k, v in fake["bytes_by_op"].items()
+                if k not in real["bytes_by_op"]})
+    for k in ("kernel_launches", "flops_by_class", "hbm_bytes",
+              "collective_bytes"):
+        require(real[k] == fake[k], f"dry run vs the real step: {k} "
+                f"{fake[k]} != {real[k]}; bytes by op (dry run, real) "
+                f"where they differ: {ops}")
+    return {"real": real, "real_s": real_s, "fake_s": fake_s}
+
+
+def mesh_ssm_worker(rank: int, init_file: str, job: dict, results) -> None:
+    """One rank of ``mesh_ssm``: device 0, a gloo group of two."""
+    import traceback
+    try:
+        import torch
+        import torch.distributed as dist
+        sys.path.insert(0, str(ROOT / "src"))
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.use_deterministic_algorithms(True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                                rank=rank, world_size=2)
+        from repro_torch.configs import get_config
+        from repro_torch.core.calibration import CalibrationState
+        from repro_torch.launch import mesh as mesh_lib
+        from repro_torch.launch import serve
+        from repro_torch.models import model
+        dev = torch.device("cuda", 0)
+        out = {}
+        # (a) mamba2 on 1 x 2
+        cfg = get_config(SSM_ARCH).replace(tdvmm_plan=ssm_plan())
+        params = model.init_params(0, cfg, device=dev)
+        calib = CalibrationState(windows={
+            k: torch.from_numpy(v) for k, v in job["windows"].items()})
+        prompts = torch.from_numpy(job["prompts"]).to(dev)
+        forced = torch.from_numpy(job["forced"]).to(dev)
+        mesh = mesh_lib.make_test_mesh(1, 2, "cuda")
+        with torch.no_grad():
+            sites = ssm_sites(mesh, dev)
+            reset_all_launches()
+            served = serve.serve_static(
+                cfg, SSM_BATCH, SSM_PROMPT, SSM_GEN, calib=calib,
+                device=dev, params=params, prompts=prompts, mesh=mesh)
+            torch.cuda.synchronize()
+            launches = launches_now()
+            logits = {"plan": [x.numpy() for x in forced_logits(
+                params, cfg, calib, prompts, forced, dev, mesh)],
+                "plain": [x.numpy() for x in forced_logits(
+                    params, cfg.replace(tdvmm_plan=None), None, prompts,
+                    forced, dev, mesh)]}
+        out["ssm"] = dict(sites=sites, launches=launches,
+                          tokens=served["tokens"].numpy(), logits=logits,
+                          prefill_s=served["prefill_s"],
+                          decode_s=served["decode_s"])
+        del params
+        torch.cuda.empty_cache()
+        # (b) one qwen QAT step on 1 x 2
+        t0 = time.perf_counter()
+        out["qat"] = qat_tp_step(dev, mesh)
+        out["qat"]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        # (c) zamba2 on 2 x 1, batch 1, a sequence-split cache
+        hcfg = get_config(HYB_ARCH).replace(dtype="float32")
+        hparams = model.init_params(0, hcfg, device=dev)
+        hprompt = torch.from_numpy(job["hprompt"]).to(dev)
+        hforced = torch.from_numpy(job["hforced"]).to(dev)
+        mesh = mesh_lib.make_test_mesh(2, 1, "cuda")
+        reset_all_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            hl = forced_logits(hparams, hcfg, None, hprompt, hforced, dev,
+                               mesh)
+        torch.cuda.synchronize()
+        out["hyb"] = dict(logits=[x.numpy() for x in hl],
+                          cache_bytes=cache_bytes(
+                              hcfg, 1, MESH_HYB_PROMPT + MESH_HYB_GEN, dev,
+                              mesh),
+                          launches=launches_now(),
+                          seconds=time.perf_counter() - t0)
         dist.destroy_process_group()
         results.put((rank, True, out))
     except BaseException:
@@ -4386,11 +4904,21 @@ def main() -> int:
                 f"{r['gaps']['plain']:.4g} (gate {TWO_RANK_RTOL}), "
                 f"ffn_unchained {r['gaps']['plan']:.4g}")
     say("mesh", f"phase {mq['seconds']:.1f} s")
+    phase_done("mesh qwen")
+    dv = dryrun_vs_step(dev, served[0]["engine_args"])
+    say("mesh", f"(d) dry run vs the real step: {ARCH} prefill 4 x 512 "
+        "under ffn_unchained, data-calibrated: kernel calls "
+        f"{dv['real']['kernel_launches']}, FLOPs "
+        f"{dv['real']['flops_by_class']}, HBM bytes "
+        f"{dv['real']['hbm_bytes']:.0f} counted around the real step == the "
+        f"dry run's (fake tensors, a fake world of one); {dv['real_s']:.2f} "
+        f"s (two counted calls), dry run {dv['fake_s']:.2f} s | {card}")
+    del dv
     for o in served:
         o.pop("engine_args", None)
     del out, ob, cache, mq
     torch.cuda.empty_cache()
-    phase_done("mesh qwen")
+    phase_done("mesh ssm")
 
     ki = serve_kimi(dev)
     served.append({"launches": ki["launches"]})
@@ -4436,9 +4964,50 @@ def main() -> int:
             "and TD-VMM kernels "
             f"{r['tdvmm_device_share']:.3f} of device time; "
             "top " + "; ".join(f"{k} {v:.3f}" for k, v in r["top_kernels"]))
-    del ssm["args"], prof
+    del prof
     torch.cuda.empty_cache()
     phase_done("serve mamba2")
+
+    ms = mesh_ssm(dev, ssm["args"])
+    del ssm["args"]
+    served.extend({"launches": x} for x in ms["launches"])
+    r0 = ms["ranks"][0]
+    say("mesh", f"ssm (a): {SSM_ARCH} full width on 1 x 2, two ranks on the "
+        f"card over gloo: ssm.in_proj (pinned, data-calibrated) and ssm.out "
+        "(pinned) bitwise the meshless sites on each rank's shard; "
+        f"serve_static {SSM_BATCH} x {SSM_PROMPT} + {SSM_GEN} tokens, "
+        f"launches a rank B1 fused {r0['ssm']['launches']['fused']} + raw "
+        f"{r0['ssm']['launches']['raw']}, B3 {r0['ssm']['launches']['ssd']} "
+        f"(prefill {r0['ssm']['prefill_s']:.3f} s, decode "
+        f"{r0['ssm']['decode_s']:.3f} s); streams and teacher-forced logits "
+        "(ssm.* and TD-VMM off) == the meshless run's in TP order, bitwise; "
+        "TD-VMM off against the plain meshless run "
+        + ", ".join(f"{x:.4g}" for x in ms["ssm_gap"])
+        + f" of max|logit| (gate {TWO_RANK_RTOL})")
+    q0 = r0["qat"]
+    say("mesh", f"ssm (b): one {ARCH} QAT step at full width in float32 on "
+        f"1 x 2, every linear 6-bit: parameters == the meshless step's; "
+        f"gradients within {max(ms['ranks'][r]['qat']['grad_gap'] for r in (0, 1)):.3g} "
+        f"of max|g| (gate {QAT_TP_RTOL}, at {q0['grad_leaf']}); loss "
+        f"{q0['loss']:.6f} (meshless {q0['meshless_loss']:.6f}); noisy codes "
+        f"of ffn.in, ffn.out and q/k/v shards == the meshless codes; "
+        f"launches {q0['launches']}; {q0['seconds']:.1f} s")
+    h0 = r0["hyb"]
+    say("mesh", f"ssm (c): {HYB_ARCH} full width on 2 x 1, batch 1, "
+        f"{MESH_HYB_PROMPT} + {MESH_HYB_GEN} tokens on a sequence-split "
+        "cache, float32, teacher-forced with the meshless greedy stream: "
+        "logits == the meshless run's in the split's order, bitwise; "
+        "against the plain meshless run: the same greedy token at every "
+        "step, logits within "
+        + ", ".join(f"{x:.4g}" for x in ms["hyb_gap"])
+        + f" of max|logit| (gate {MESH_HYB_RTOL}); cache bytes a rank "
+        + ", ".join(str(ms["ranks"][r]["hyb"]["cache_bytes"]) for r in (0, 1))
+        + f" (meshless {ms['h_bytes']}); launches {h0['launches']}; "
+        f"{h0['seconds']:.2f} s (meshless {ms['h_meshless_s']:.2f} s)")
+    say("mesh", f"ssm phase {ms['seconds']:.1f} s | {card}")
+    del ms
+    torch.cuda.empty_cache()
+    phase_done("mesh ssm")
 
     say("serve", f"{MOE_ARCH}: full width, depth cut to {MOE_LAYERS} of "
         f"{get_config(MOE_ARCH).n_layers} layers, capacity factor "

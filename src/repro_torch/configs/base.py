@@ -191,6 +191,12 @@ class ModelConfig:
     tdvmm_plan: Optional[TDVMMPlan] = None
     remat_policy: str = "minimal"   # none | minimal | full
     scan_layers: bool = True
+    # One shard of a ``model`` axis (``launch.meshctx.local_config`` sets
+    # these): the shards the config is one of, and how attention splits over
+    # them: "heads" (heads and KV heads divided), "lanes" (every head kept,
+    # head_dim / tp_shards lanes of each) or "whole" (kept on every rank).
+    tp_shards: int = 1
+    attn_split: str = "heads"
 
     def site_tdvmm(self, site: str) -> TDVMMLayerConfig:
         """Resolved TD-VMM config for one canonical site name.

@@ -55,6 +55,13 @@ DEFAULT_BITS = 6        # DIBL-limited precision ceiling (abstract, section 4.1)
 H100_HBM_BW = 3.35e12            # bytes/s
 H100_INT8_OPS = 1979e12          # int8 tensor-core ops/s
 H100_BF16_FLOPS = 989e12         # bf16 tensor-core FLOP/s
+# TF32 tensor-core FLOP/s: the basis of the port's float32 products (B1/B2's
+# 3xTF32 storage counts its three products at this rate, B3 and B4 theirs)
+H100_TF32_FLOPS = 495e12
+H100_HBM_BYTES = 80e9            # HBM3 capacity of one card
+H100_NVLINK_BW = 450e9           # NVLink 4, bytes/s per direction per GPU
+H100_NODE_GPUS = 8               # GPUs joined by NVLink in one node
+H100_IB_BW = 50e9                # InfiniBand NDR 400 Gb/s, one NIC per GPU
 
 
 @dataclasses.dataclass(frozen=True)

@@ -209,7 +209,7 @@ def _record_z(cfg: TDVMMLayerConfig, z: torch.Tensor, per_tile: bool,
                      if whole_cols is not None
                      else total * meshctx.tp_size())
         if dp_rows:
-            exceed = meshctx.dp_sum_exact(exceed)
+            exceed = meshctx.dp_sum(exceed)
             total *= meshctx.dp_size()
         calibration.record_clip(cfg.site, exceed, total)
 
@@ -287,22 +287,77 @@ def _max0(z: torch.Tensor) -> torch.Tensor:
 #     integrates raw once, all-reduces its slot maxima with MAX and reads
 #     out with that window (B1 fused on the card).  A site with a pinned
 #     window (or none) runs its fused launch on its shard unchanged.
-# TD-VMM training (gradients, programming noise) with a model axis > 1 is
-# not ported (ROADMAP A8b) and raises; with data-split rows it runs.
-def _tp_mode(tp: Optional[str], cfg: TDVMMLayerConfig, key,
-             *inputs: torch.Tensor) -> Optional[str]:
+# TD-VMM training on a shard takes the reference's custom gradient on its
+# operands: a column site's x gradient is a partial sum, all-reduced over
+# ``model`` by the column input's ``meshctx.copy_to_tp``; a row site's
+# gradients (``_RowCore``) are its own slices, x's and w's, from the
+# cotangent of the whole (replicated) output.  Programming noise is drawn
+# for the whole weight from the site's key and sliced (``_shard_noise``),
+# so a shard's noisy codes are the meshless codes.
+def _tp_mode(tp: Optional[str]) -> Optional[str]:
     from repro_torch.launch import meshctx
     if tp is None or not meshctx.tp_active():
         return None
     if tp not in ("col", "row"):
         raise ValueError(f"tensor-parallel mode {tp!r}")
-    if _noise(cfg, key) or (torch.is_grad_enabled()
-                            and any(t.requires_grad for t in inputs)):
-        raise NotImplementedError(
-            f"site {cfg.site or '<unnamed>'}: TD-VMM training (gradients "
-            "or programming noise) under tensor parallelism is not ported "
-            "(ROADMAP A8b); train on a mesh whose model axis is 1")
     return tp
+
+
+def _chunk_index(size: int) -> torch.Tensor:
+    """This ``model`` rank's contiguous chunk of a dim of ``size`` per
+    rank."""
+    from repro_torch.launch import meshctx
+    r = meshctx.tp_rank()
+    return torch.arange(r * size, (r + 1) * size)
+
+
+def _shard_noise(qw: quant.QuantizedTensor, cfg: TDVMMLayerConfig, key,
+                 tp: Optional[str], shard=None) -> quant.QuantizedTensor:
+    """``quant.program_noise`` on a shard's programmed bank (K, N) or (E,
+    K, N): the draws of the whole bank (N or K times the ``model`` axis),
+    sliced to the shard's columns (a column site) or rows (a row site):
+    ``shard`` when given (the head-dim fallback's lanes), else its
+    contiguous chunk."""
+    if tp is None:
+        return quant.program_noise(qw, cfg.spec, key)
+    from repro_torch.launch import meshctx
+    dim = -1 if tp == "col" else -2
+    shape = list(qw.codes.shape)
+    idx = _chunk_index(shape[dim]) if shard is None else shard
+    shape[dim] *= meshctx.tp_size()
+    idx = idx.to(qw.codes.device)
+    return quant.program_noise(qw, cfg.spec, key, whole=tuple(shape),
+                               select=lambda t: t.index_select(dim, idx))
+
+
+class _RowCore(torch.autograd.Function):
+    """A row site's epilogue on its accumulator summed over ``model``
+    (``acc``), differentiable in this rank's operands: the reference's
+    custom gradient (``ops._TDVMMCore``) with the STE through the readout,
+    which gives each rank its slices of x's and w's gradients."""
+
+    @staticmethod
+    def forward(ctx, x3, w3, x_scale, w_scale, acc, out_window, static):
+        gain, out_bits, out_scale, group_widths = static
+        from repro_torch.kernels.tdvmm import ops
+        e, m, n = acc.shape
+        x_scale = x_scale.reshape(-1, m).to(torch.float32)
+        w_scale = w_scale.reshape(e, n).to(torch.float32)
+        ctx.save_for_backward(x3, w3, x_scale, w_scale)
+        ctx.gain = gain
+        return ops.epilogue(acc, x_scale, w_scale, gain, out_bits, out_scale,
+                            out_window, group_widths)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels.tdvmm import ops
+        x3, w3, x_scale, w_scale = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        denom = x_scale[..., :, None] * w_scale[..., None, :]
+        dacc = g * denom * float(np.float32(ctx.gain))
+        gx, gw = ops._code_grads(dacc, x3.to(torch.float32),
+                                 w3.to(torch.float32), need[0], need[1])
+        return gx, gw, None, None, None, None, None
 
 
 def _dp_rows() -> bool:
@@ -372,8 +427,8 @@ def _mesh_integrate(tp: Optional[str], cfg: TDVMMLayerConfig, xc, wc,
                 torch.full((), _f32(1e-9), dtype=torch.float32,
                            device=z.device))
     if tp == "row":
-        y = ops.epilogue(acc, x_scale, w_scale, gain, out_bits, out_scale,
-                         out_window, group_widths)
+        y = _RowCore.apply(x3, w3, x_scale, w_scale, acc, out_window,
+                           (gain, out_bits, out_scale, group_widths))
         return y[0] if squeeze else y
     return ops.tdvmm_matmul(
         xc, wc, x_scale, w_scale, gain=gain, out_bits=out_bits,
@@ -383,17 +438,19 @@ def _mesh_integrate(tp: Optional[str], cfg: TDVMMLayerConfig, xc, wc,
 
 def td_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TDVMMLayerConfig,
               key: Optional[quant.NoiseKey] = None,
-              tp: Optional[str] = None) -> torch.Tensor:
+              tp: Optional[str] = None, shard=None) -> torch.Tensor:
     """Four-quadrant TD-VMM fast path.  x: (..., N_in), w: (N_in, N_out).
 
     ``key`` with ``cfg.noise`` perturbs the programmed currents
     (``quant.program_noise``).  ``tp`` ("col" or "row") marks a
     tensor-parallel site's shard; it matters only under a mesh whose
     ``model`` axis is > 1 (a row site then returns the whole, reduced
-    output on every rank)."""
+    output on every rank).  ``shard``: the shard's columns (rows) within
+    the whole weight when they are not its contiguous chunk (the noise
+    draws' slice)."""
     if not cfg.enabled:
         return x @ w
-    tp = _tp_mode(tp, cfg, key, x, w)
+    tp = _tp_mode(tp)
     noisy = _noise(cfg, key)
     plan = plan_matmul(x.shape, w.shape, cfg, noisy=noisy)
     kg = _tp_k(tp, plan.k)
@@ -405,7 +462,7 @@ def td_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TDVMMLayerConfig,
         w, cfg.weight_bits, cfg.per_channel,
         tp_reduce=tp == "row" or (tp == "col" and not cfg.per_channel))
     if noisy:
-        qw = quant.program_noise(qw, cfg.spec, key)
+        qw = _shard_noise(qw, cfg, key, tp, shard)
 
     from repro_torch.kernels.tdvmm import ops
     gain = _latch_gain(qx.levels, qw.levels, kg)
@@ -463,7 +520,7 @@ def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
     if e != e2 or k != k2:
         raise ValueError(f"td_expert_matmul shapes {tuple(x.shape)} x "
                          f"{tuple(w.shape)}")
-    tp = _tp_mode(tp, cfg, key, x, w)
+    tp = _tp_mode(tp)
     noisy = _noise(cfg, key)
     kg = _tp_k(tp, k)
     code_dtype = _plan_code_dtype(cfg, kg, noisy)
@@ -476,7 +533,7 @@ def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
         w, cfg.weight_bits, cfg.per_channel,
         tp_reduce=tp == "row" or (tp == "col" and not cfg.per_channel))
     if noisy:
-        qw = quant.program_noise(qw, cfg.spec, key)
+        qw = _shard_noise(qw, cfg, key, tp)
     gain = _latch_gain(qx.levels, qw.levels, kg)
     # qw.scale is (E, 1, N) per-channel or (E, 1, 1) per-tensor
     w_scale = torch.broadcast_to(
@@ -511,7 +568,7 @@ def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
 
 def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
                       key: Optional[quant.NoiseKey] = None,
-                      tp: Optional[str] = None
+                      tp: Optional[str] = None, shard=None
                       ) -> tuple[torch.Tensor, ...]:
     """Grouped four-quadrant TD-VMM: G same-input projections, one launch.
 
@@ -522,7 +579,9 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
     per-column scale row, and per-member readout windows resolve by column
     span (``group_widths``), so the launch is bitwise the G sequential calls
     whenever the windows match.  Programming noise perturbs the concat bank
-    (as the JAX package does).  Returns G tensors shaped (..., N_g)."""
+    (as the JAX package does; on a column shard, its columns of the whole
+    bank's draws: each member's contiguous chunk, or ``shard[g]``).
+    Returns G tensors shaped (..., N_g)."""
     ws = tuple(ws)
     if not ws:
         return ()
@@ -534,7 +593,7 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
         if w.dim() != 2 or w.shape[0] != k:
             raise ValueError(f"grouped member {tuple(w.shape)} for an input "
                              f"of width {k}")
-    tp = _tp_mode(tp, cfg, key, x, *ws)
+    tp = _tp_mode(tp)
     if tp == "row":
         raise ValueError("a grouped site is column-parallel")
     noisy = _noise(cfg, key)
@@ -551,7 +610,7 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
                                and not cfg.per_channel)
          for w in ws], widths)
     if noisy:
-        qw = quant.program_noise(qw, cfg.spec, key)
+        qw = _group_noise(qw, cfg, key, tp, ns, widths, shard)
     gain = _latch_gain(qx.levels, qw.levels, k)
     w_scale = qw.scale.reshape(n_total) * _f32(2.0 * k)
     out_bits, out_scale = _readout_args(cfg, n_experts=len(ws))
@@ -594,6 +653,27 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
                     .to(x.dtype))
         off += wd
     return tuple(outs)
+
+
+def _group_noise(qw, cfg: TDVMMLayerConfig, key, tp, ns, widths, shard):
+    """Noise on a grouped launch's concat bank; on a column shard the
+    draws of the meshless concat bank (each member's whole width rounded
+    to the 128 lane), at the shard's columns (pad columns hold zero codes,
+    which noise leaves zero: they take any draw)."""
+    if tp is None:
+        return quant.program_noise(qw, cfg.spec, key)
+    from repro_torch.kernels.tdvmm import tdvmm
+    from repro_torch.launch import meshctx
+    n_tp = meshctx.tp_size()
+    cols, off = [], 0
+    for g, (n, wd) in enumerate(zip(ns, widths)):
+        idx = _chunk_index(n) if shard is None else shard[g]
+        cols += [off + idx, torch.full((wd - n,), off, dtype=torch.long)]
+        off += tdvmm.padded_size(n * n_tp, tdvmm.LANE, tdvmm.LANE)
+    idx = torch.cat(cols).to(qw.codes.device)
+    return quant.program_noise(qw, cfg.spec, key,
+                               whole=(qw.codes.shape[0], off),
+                               select=lambda t: t.index_select(-1, idx))
 
 
 def calibrate_out_scale(x: torch.Tensor, w: torch.Tensor,

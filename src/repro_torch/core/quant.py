@@ -344,19 +344,27 @@ def noise_draws(key: NoiseKey, shape, device) -> NoiseDraws:
     return NoiseDraws(u, normal)
 
 
-def program_noise(qw: QuantizedTensor, spec, key: NoiseKey) -> QuantizedTensor:
+def program_noise(qw: QuantizedTensor, spec, key: NoiseKey,
+                  whole=None, select=None) -> QuantizedTensor:
     """Stochastic DIBL + FG tuning noise on programmed current codes:
     ``codes = view * (1 + err * u) * exp(0.003 * normal)``.
 
     Multiplicative, so it is the same in the code and value domains; the
     perturbed codes are not integers (analog currents), so the result
     always carries float32 codes, through which the straight-through
-    gradient of ``view()`` flows."""
+    gradient of ``view()`` flows.  ``whole`` and ``select``: ``qw`` is a
+    tensor-parallel shard of a bank of shape ``whole``; the draws are made
+    for the whole bank and ``select`` takes the shard's, so its noisy
+    codes are the meshless bank's."""
     from repro_torch.core import nonideal
 
     err = float(nonideal.relative_error(spec.i_max, spec.v_sg, spec.delta_vd))
     view = qw.view()
-    d = noise_draws(key, view.shape, view.device)
+    if whole is None:
+        d = noise_draws(key, view.shape, view.device)
+    else:
+        d = noise_draws(key, whole, view.device)
+        d = NoiseDraws(select(d.u), select(d.normal))
     codes = view * (1.0 + float(np.float32(err)) * d.u)
     codes = codes * torch.exp(float(np.float32(0.003)) * d.normal)
     return QuantizedTensor(codes=codes, scale=qw.scale, bits=qw.bits)

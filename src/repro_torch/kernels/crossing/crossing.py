@@ -30,7 +30,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, hooks
 from repro_torch.kernels.crossing.ref import crossing_plain, f32
 
 CSRC = Path(__file__).parent / "csrc"
@@ -80,9 +80,16 @@ def crossing_kernel(t_on: torch.Tensor, currents: torch.Tensor,
     [t_lo, t_hi].  A crossing beyond t_hi comes back as t_hi to within
     the last bracket."""
     _check(t_on, currents, iters)
-    if t_on.device.type == "cpu":
+    with hooks.call("crossing", b=t_on.shape[0], k=t_on.shape[1],
+                    n=currents.shape[1]):
+        return _solve(t_on, currents, k_charge, t_lo, t_hi, iters)
+
+
+def _solve(t_on: torch.Tensor, currents: torch.Tensor, k_charge: float,
+           t_lo: float, t_hi: float, iters: int) -> torch.Tensor:
+    if t_on.device.type == "cpu" and not hooks.is_fake(t_on):
         return crossing_plain(t_on, currents, k_charge, t_lo, t_hi, iters)
-    if t_on.device.type != "cuda":
+    if not hooks.card_route(t_on):
         raise ValueError(f"crossing_kernel runs on cuda (or plain on cpu), "
                          f"got {t_on.device}")
     b, k = t_on.shape
@@ -92,7 +99,7 @@ def crossing_kernel(t_on: torch.Tensor, currents: torch.Tensor,
                          f"and N = {n} (below 2^31)")
     t_on, currents = t_on.contiguous(), currents.contiguous()
     out = torch.empty((b, n), dtype=torch.float32, device=t_on.device)
-    if b == 0 or n == 0:
+    if b == 0 or n == 0 or hooks.is_fake(t_on):
         return out
     # the prep kernel's row maxima (B) and column sums (N)
     scratch = torch.empty(b + n, dtype=torch.float32, device=t_on.device)

@@ -31,7 +31,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, hooks
 
 CSRC = Path(__file__).parent / "csrc"
 
@@ -166,9 +166,18 @@ def ssd_scan(x, dt, a_log, b, c, chunk: int = 128):
     final_state (B, H, P, S) float32).
 
     x, b and c are float32 or bfloat16 (one dtype); dt and a_log float32."""
-    if x.device.type == "cpu":
+    if hooks.HOOK is None:
+        return _scan(x, dt, a_log, b, c, chunk)
+    bsz, L, H, Pd = x.shape
+    with hooks.call("ssd", b=bsz, l=L, h=H, p=Pd, g=b.shape[2],
+                    s=b.shape[3], q=chunk, elt=x.element_size()):
+        return _scan(x, dt, a_log, b, c, chunk)
+
+
+def _scan(x, dt, a_log, b, c, chunk: int = 128):
+    if x.device.type == "cpu" and not hooks.is_fake(x):
         return ssd_plain(x, dt, a_log, b, c, chunk)
-    if x.device.type != "cuda":
+    if not hooks.card_route(x):
         raise ValueError(f"ssd_scan runs on cuda (or plain on cpu), got "
                          f"{x.device}")
     _check(x, dt, a_log, b, c)
@@ -202,6 +211,8 @@ def ssd_scan(x, dt, a_log, b, c, chunk: int = 128):
     cum = torch.empty(bsz * nc * H * qp, **f32)
     dtc = torch.empty_like(cum)
     states = torch.empty(bsz * nc * H * Pd * S, **f32)
+    if hooks.is_fake(x):
+        return (y if L_pad == L else y[:, :L]), state
     vec_x, vec_bc = staging(xp, bp, cp)
     err = _build.load(LIBRARIES["b3"]).ssd_b3(
         xp.data_ptr(), dtp.data_ptr(), a_log.data_ptr(), bp.data_ptr(),

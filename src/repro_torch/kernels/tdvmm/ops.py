@@ -181,8 +181,9 @@ def _calib_slots(e: int, n: int, bn: int,
     bn = min(bn, n)
     nn = -(-n // bn)
     if group_widths is None:
-        ids = torch.arange(e, dtype=torch.int32)[:, None].expand(e, nn)
-        return ids.contiguous(), e
+        # built on the host (numpy), as a constant: no device op
+        ids = np.repeat(np.arange(e, dtype=np.int32)[:, None], nn, axis=1)
+        return torch.from_numpy(ids), e
     bounds = np.cumsum(group_widths)
     ids = np.searchsorted(bounds, np.arange(nn) * bn, side="right")
     ids = np.minimum(ids, len(group_widths) - 1).astype(np.int32)

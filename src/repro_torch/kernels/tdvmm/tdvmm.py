@@ -61,7 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import quant
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, hooks
 
 LANE = 128
 CSRC = Path(__file__).parent / "csrc"
@@ -281,8 +281,9 @@ def _check_f32(name: str, t: torch.Tensor, shape: tuple, device) -> None:
 
 
 def _kernel_device(x: torch.Tensor) -> bool:
-    """True for a card tensor (kernel), False for a CPU tensor (plain)."""
-    if x.device.type == "cuda":
+    """True for a card tensor (kernel) or a fake one, False for a CPU
+    tensor (plain)."""
+    if hooks.card_route(x):
         return True
     if x.device.type == "cpu":
         return False
@@ -444,10 +445,45 @@ def _window_3d(window: Optional[torch.Tensor], e: int, n: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Wrappers (kernel on the card, plain version on the CPU)
 # ---------------------------------------------------------------------------
+def _storage(x: torch.Tensor, int4_k, max_code, code_dtype) -> str:
+    """The code storage a call takes, as ``check_code_width`` picks it on
+    the card, without its checks (for the counting hook)."""
+    if x.dtype == torch.int8:
+        return "int8" if int4_k is None else "int4"
+    if code_dtype == "f32x3" or (max_code is not None
+                                 and max_code > BF16_EXACT_MAX):
+        return "f32x3"
+    return "f32"
+
+
+def _hooked(kind: str, impl, x, w, int4_k, max_code, code_dtype,
+            readout: bool, *args):
+    """``impl(x, w, *args)`` inside ``hooks.call`` with its geometry
+    (``readout``: a p-bit readout with its window)."""
+    if hooks.HOOK is None:
+        return impl(x, w, *args)
+    codes = _storage(x, int4_k, max_code, code_dtype)
+    with hooks.call(kind if codes == "int8" else f"{kind}_{codes}",
+                    e=w.shape[0], ex=x.shape[0], m=x.shape[1],
+                    k=x.shape[2] if int4_k is None else int(int4_k),
+                    n=w.shape[2], codes=codes, scales=kind != "raw",
+                    readout=readout):
+        return impl(x, w, *args)
+
+
 def tdvmm_matmul_raw(x: torch.Tensor, w: torch.Tensor,
                      int4_k: Optional[int] = None,
                      max_code: Optional[int] = None,
                      code_dtype: Optional[str] = None) -> torch.Tensor:
+    """B1 raw mode (``_matmul_raw``)."""
+    return _hooked("raw", _matmul_raw, x, w, int4_k, max_code, code_dtype,
+                   False, int4_k, max_code, code_dtype)
+
+
+def _matmul_raw(x: torch.Tensor, w: torch.Tensor,
+                int4_k: Optional[int] = None,
+                max_code: Optional[int] = None,
+                code_dtype: Optional[str] = None) -> torch.Tensor:
     """B1 raw mode: (E, M, N) charge accumulation, int32 for integer codes,
     float32 for float32 codes.  ``max_code``: the largest |code| of either
     operand, for integer float32 codes; ``code_dtype``: the caller's code
@@ -460,7 +496,7 @@ def tdvmm_matmul_raw(x: torch.Tensor, w: torch.Tensor,
     _contig(x, w)
     out = torch.empty((g.e, g.m, g.n), dtype=_out_dtype(g.codes),
                       device=x.device)
-    if out.numel() == 0:
+    if out.numel() == 0 or hooks.is_fake(x):
         return out
     err = _lib("b1").tdvmm_b1(
         x.data_ptr(), w.data_ptr(), None, None, None, 0, 0, out.data_ptr(),
@@ -478,6 +514,19 @@ def tdvmm_fused(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
                 int4_k: Optional[int] = None,
                 max_code: Optional[int] = None,
                 code_dtype: Optional[str] = None) -> torch.Tensor:
+    """B1 fused (``_fused``)."""
+    return _hooked("fused", _fused, x, w, int4_k, max_code, code_dtype,
+                   out_bits is not None, x_scale, w_scale, gain, out_bits,
+                   window, int4_k, max_code, code_dtype)
+
+
+def _fused(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
+           w_scale: torch.Tensor, gain: float = 1.0,
+           out_bits: Optional[int] = None,
+           window: Optional[torch.Tensor] = None,
+           int4_k: Optional[int] = None,
+           max_code: Optional[int] = None,
+           code_dtype: Optional[str] = None) -> torch.Tensor:
     """B1 fused: integrate + gain -> optional readout over a fixed window
     -> per-row x per-column rescale, float32 (E, M, N) out.
 
@@ -501,7 +550,7 @@ def tdvmm_fused(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
         sn = win.stride(2) if win.shape[2] > 1 else 0
     _contig(x, w, x_scale, w_scale)
     out = torch.empty((e, m, n), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
+    if out.numel() == 0 or hooks.is_fake(x):
         return out
     levels, inv_levels = _levels(out_bits)
     err = _lib("b1").tdvmm_b1(
@@ -522,6 +571,19 @@ def tdvmm_calibrated(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
                      int4_k: Optional[int] = None,
                      max_code: Optional[int] = None,
                      code_dtype: Optional[str] = None) -> torch.Tensor:
+    """B2 (``_calibrated``)."""
+    return _hooked("calibrated", _calibrated, x, w, int4_k, max_code,
+                   code_dtype, True, x_scale, w_scale, slots, nslots,
+                   slot_bw, gain, out_bits, int4_k, max_code, code_dtype)
+
+
+def _calibrated(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
+                w_scale: torch.Tensor, slots: torch.Tensor, nslots: int,
+                slot_bw: int, gain: float = 1.0,
+                out_bits: int = 6,
+                int4_k: Optional[int] = None,
+                max_code: Optional[int] = None,
+                code_dtype: Optional[str] = None) -> torch.Tensor:
     """B2: integrate + data-calibrated readout, float32 (E, M, N) out.
 
     ``slots`` (E, ceil(N / slot_bw)) int32 is the readout-slot id of every
@@ -545,7 +607,7 @@ def tdvmm_calibrated(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
                          f"the kernel's {TILE_N}-column tile")
     _contig(x, w, x_scale, w_scale, slots)
     out = torch.empty((e, m, n), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
+    if out.numel() == 0 or hooks.is_fake(x):
         return out
     slot_max = torch.zeros(nslots, dtype=torch.float32, device=x.device)
     levels, inv_levels = _levels(out_bits)

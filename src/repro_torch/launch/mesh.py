@@ -11,8 +11,10 @@ mesh's shape, as a JAX mesh lays out its devices.
 The process group's backend follows the caller's device, never a fallback:
 NCCL for a CUDA device, gloo for the CPU.
 
-``make_production_mesh`` (the 16 x 16 pod) waits for the planning tools'
-dry run, its only caller (ROADMAP A8b).
+``make_production_mesh`` is the JAX package's production pod: 16 x 16
+over ("data", "model"), or two such pods, 2 x 16 x 16 over ("pod", "data",
+"model"), whose ``pod`` axis is a data axis (``axis_info``).  The dry run
+(``launch.dryrun``) builds it over a fake world of 256 or 512 ranks.
 """
 from __future__ import annotations
 
@@ -82,6 +84,20 @@ def make_mesh(shape: tuple[int, ...], names: tuple[str, ...],
                          f"{dist.get_world_size()}")
     return DeviceMesh(device_type, torch.arange(n).reshape(shape),
                       mesh_dim_names=names)
+
+
+PRODUCTION_SHAPE = (16, 16)
+MULTI_POD_SHAPE = (2, 16, 16)
+
+
+def make_production_mesh(multi_pod: bool = False,
+                         device_type: str = "cuda") -> DeviceMesh:
+    """The production mesh over the initialised world (real, or the dry
+    run's fake one), which must hold 256 ranks (512 with ``multi_pod``).
+    Collective."""
+    if multi_pod:
+        return make_mesh(MULTI_POD_SHAPE, AXES_3D, device_type)
+    return make_mesh(PRODUCTION_SHAPE, AXES_2D, device_type)
 
 
 def make_test_mesh(data: int = 2, model: int = 2,

@@ -123,17 +123,20 @@ def axes_group(axes, mesh=None):
     if len(axes) == 1:
         return mesh.get_group(axes[0])
     # keyed by the rank layout, not the mesh object: every rank must hit
-    # or miss the cache alike, as a miss creates groups collectively
-    key = (tuple(mesh.mesh.flatten().tolist()), tuple(mesh.mesh.shape),
-           tuple(mesh.mesh_dim_names), tuple(axes))
-    if key not in _GROUPS:
+    # or miss the cache alike, as a miss creates groups collectively.  The
+    # layout is read outside any tensor mode (the dry run's fake tensors)
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        key = (tuple(mesh.mesh.flatten().tolist()), tuple(mesh.mesh.shape),
+               tuple(mesh.mesh_dim_names), tuple(axes))
         names = list(mesh.mesh_dim_names)
         dims = [names.index(a) for a in axes]
         rest = [d for d in range(len(names)) if d not in dims]
-        grid = mesh.mesh.permute(*(rest + dims)).reshape(
-            -1, axis_size(axes, mesh))
+        rows = mesh.mesh.permute(*(rest + dims)).reshape(
+            -1, axis_size(axes, mesh)).tolist()
+    if key not in _GROUPS:
         mine = None
-        for row in grid.tolist():           # every rank makes every group
+        for row in rows:                    # every rank makes every group
             g = dist.new_group(row)
             if dist.get_rank() in row:
                 mine = g
@@ -200,8 +203,9 @@ def dp_max(x: torch.Tensor) -> torch.Tensor:
     return _all_reduce(x.detach(), dp_group(), dist.ReduceOp.MAX)
 
 
-def dp_sum_exact(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the data axes of tallies (no gradient)."""
+def dp_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the data axes (no gradient): tallies, and the partial
+    softmax sums of a sequence-split cache."""
     if not dp_active():
         return x
     return _all_reduce(x.detach(), dp_group())
@@ -216,25 +220,104 @@ def dp_active() -> bool:
     return dp_size() > 1
 
 
+def attn_split(cfg, n: int) -> str:
+    """How attention splits over a ``model`` axis of ``n``: "heads" when
+    the heads and KV heads divide; else "lanes" (the head-dim fallback:
+    every head kept, ``head_dim / n`` lanes of each, which needs
+    ``head_dim % 2n == 0`` so that each rank holds whole rotary pairs);
+    else "whole": attention kept on every model rank, as the JAX
+    package's placements replicate it where head_dim does not divide, and
+    also where it divides but not into whole pairs (kimi-k2's 112-wide
+    heads at a model axis of 16, which the JAX package splits by lanes)."""
+    if n == 1 or (cfg.n_heads % n == 0 and cfg.n_kv_heads % n == 0):
+        return "heads"
+    if cfg.resolved_head_dim % (2 * n) == 0:
+        return "lanes"
+    return "whole"
+
+
 def local_config(cfg):
-    """The model config of one ``model`` shard: heads and KV heads divided
-    over ``model`` (the head dim pinned).  The identity without tensor
-    parallelism.  Apply it once, at a model entry point."""
+    """The model config of one ``model`` shard (``tp_shards`` set): heads
+    and KV heads divided over ``model`` (the head dim pinned), or under the
+    head-dim fallback every head with its share of lanes
+    (``attn_split``); the SSM layers' heads, x / z channels and B / C
+    columns divided (``models.ssm``).  The identity without tensor
+    parallelism, and on a config that is already a shard's.  Apply it
+    once, at a model entry point."""
     n = tp_size()
-    if n == 1:
+    if n == 1 or cfg.tp_shards == n:
         return cfg
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"tensor parallelism for the {cfg.family} family is not ported "
-            "(ROADMAP A8b); use a mesh whose model axis is 1")
-    if cfg.n_heads % n or cfg.n_kv_heads % n:
-        raise NotImplementedError(
-            f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads over a model "
-            f"axis of {n}: the head-dim fallback is not ported (ROADMAP "
-            "A8b)")
-    return cfg.replace(n_heads=cfg.n_heads // n,
-                       n_kv_heads=cfg.n_kv_heads // n,
-                       head_dim=cfg.resolved_head_dim)
+    if cfg.tp_shards != 1:
+        raise ValueError(f"a config of one of {cfg.tp_shards} shards under "
+                         f"a model axis of {n}")
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        d_inner = s.expand * cfg.d_model
+        if (d_inner // s.head_dim) % n or (s.n_groups * s.d_state) % n:
+            raise ValueError(
+                f"{cfg.name}: {d_inner // s.head_dim} SSM heads and "
+                f"{s.n_groups * s.d_state} B/C columns over a model axis "
+                f"of {n}")
+    out = cfg.replace(tp_shards=n)
+    if cfg.family == "ssm":
+        return out
+    mode = attn_split(cfg, n)
+    hd = cfg.resolved_head_dim
+    if mode == "heads":
+        return out.replace(n_heads=cfg.n_heads // n,
+                           n_kv_heads=cfg.n_kv_heads // n, head_dim=hd)
+    if mode == "lanes":
+        return out.replace(attn_split=mode, head_dim=hd // n)
+    return out.replace(attn_split=mode, head_dim=hd)
+
+
+def lane_index(head_dim: int, n: int, r: int) -> torch.Tensor:
+    """Rank ``r``'s lanes of one head of ``head_dim`` under the head-dim
+    fallback over ``n`` ranks: a slice of each rotary half (lane i pairs
+    with i + head_dim / 2), so the rotation stays within the rank."""
+    half, q = head_dim // 2, head_dim // (2 * n)
+    lo = torch.arange(r * q, (r + 1) * q)
+    return torch.cat([lo, lo + half])
+
+
+def segment_index(sizes, n: int, r: int) -> torch.Tensor:
+    """Rank ``r``'s indices of a dim that concatenates segments of
+    ``sizes``, each split contiguously over ``n`` ranks (the SSM's conv
+    channels: x, B and C)."""
+    out, off = [], 0
+    for s in sizes:
+        q = s // n
+        out.append(torch.arange(off + r * q, off + (r + 1) * q))
+        off += s
+    return torch.cat(out)
+
+
+class _Seq:
+    split = False
+
+
+def seq_split() -> bool:
+    """The dense KV caches made and read in this block hold one data
+    rank's segment of the sequence (a batch the data axes do not divide,
+    e.g. ``long_500k``'s batch of 1): each rank keeps a contiguous slice
+    of the cache, and a decode step's attention combines the ranks'
+    parts (``models.attention._attend_split``)."""
+    return _Seq.split and dp_active()
+
+
+class split_seq:
+    """Context manager: mark the block's dense caches as sequence-split."""
+
+    def __init__(self, on: bool = True):
+        self.on = on
+
+    def __enter__(self):
+        self.old = _Seq.split
+        _Seq.split = self.on
+        return self
+
+    def __exit__(self, *a):
+        _Seq.split = self.old
 
 
 # --------------------------------------------------------------------------
@@ -276,13 +359,16 @@ class _ReduceFromTP(torch.autograd.Function):
 
 class _GatherFromTP(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim):
-        ctx.dim = dim
+    def forward(ctx, x, dim, partial):
+        ctx.dim, ctx.partial = dim, partial
         return all_gather(x, tp_group(), dim)
 
     @staticmethod
     def backward(ctx, g):
-        return g.chunk(tp_size(), dim=ctx.dim)[tp_rank()].contiguous(), None
+        if ctx.partial:
+            g = _all_reduce(g, tp_group())
+        return (g.chunk(tp_size(), dim=ctx.dim)[tp_rank()].contiguous(),
+                None, None)
 
 
 def copy_to_tp(x: torch.Tensor) -> torch.Tensor:
@@ -296,12 +382,16 @@ def reduce_from_tp(x: torch.Tensor) -> torch.Tensor:
     return _ReduceFromTP.apply(x) if tp_active() else x
 
 
-def gather_from_tp(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """All-gather a ``model``-sharded dim (its gradient: this rank's
-    slice)."""
+def gather_from_tp(x: torch.Tensor, dim: int = -1,
+                   partial: bool = False) -> torch.Tensor:
+    """All-gather a ``model``-sharded dim.  Its gradient is this rank's
+    slice of the output's, which every rank holds whole when what follows
+    is replicated (the logits); ``partial``: each rank holds only its own
+    consumers' share (B and C feed each rank's SSM heads), so the
+    gradient is summed over ``model`` first (a reduce-scatter)."""
     if not tp_active():
         return x
-    return _GatherFromTP.apply(x, dim % x.dim())
+    return _GatherFromTP.apply(x, dim % x.dim(), partial)
 
 
 def tp_max(x: torch.Tensor) -> torch.Tensor:

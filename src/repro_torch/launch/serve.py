@@ -97,7 +97,7 @@ from repro_torch.checkpoint import checkpoint
 from repro_torch.configs import TDVMMPlan, get_config, smoke as smoke_cfg, tdvmm_rule
 from repro_torch.core.calibration import CalibrationState
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.launch import meshctx, sharding
+from repro_torch.launch import meshctx, sharding, steps
 from repro_torch.launch.mesh import axis_info
 from repro_torch.models import attention, common, model
 from repro_torch.runtime import fault
@@ -343,8 +343,10 @@ def serve_static(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
     keeps its shards of the params (TP and EP split, replicated over DP),
     runs its rows of the batch (``common.constrain_batch``) against caches
     of its rows and KV heads (``sharding.cache_specs``), and the tokens
-    come back whole.  Calibration runs on the whole batch before the
-    params are split."""
+    come back whole.  A batch the data axes do not divide runs whole on
+    every data rank against a sequence-split cache (``meshctx.split_seq``:
+    each rank holds a segment of every sequence's positions).  Calibration
+    runs on the whole batch before the params are split."""
     device = common.resolve_device(device)
     if params is None:
         params = model.init_params(seed, cfg, device=device)
@@ -414,8 +416,10 @@ def serve_static(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
 
 @contextlib.contextmanager
 def _on_mesh(mesh, split: bool):
-    """The mesh installed, and the rows marked split over its data axes."""
-    with meshctx.use_mesh_of(mesh), meshctx.split_rows(split):
+    """The mesh installed, and the rows marked split over its data axes, or
+    (when they are not) the dense caches sequence-split over them."""
+    with meshctx.use_mesh_of(mesh), meshctx.split_rows(split), \
+            meshctx.split_seq(not split):
         yield
 
 
@@ -430,23 +434,24 @@ def _shard_static(cfg, params, prompts, decode_inputs, max_len: int, mesh,
         prompts = common.constrain_batch(prompts)
         if decode_inputs is not None:
             decode_inputs = common.constrain_batch(decode_inputs)
-        caches = model.init_caches(cfg, prompts.shape[0], max_len, device)
-    if batch % meshctx.axis_size(dp, mesh) == 0:
-        # the caches are this rank's shards under cache_specs (a batch the
-        # data axes do not divide stays whole on every rank: the JAX
-        # package's sequence-split cache is ROADMAP A8b)
-        whole = model.init_caches(cfg, batch, max_len, torch.device("meta"))
-        specs = dict(leaves_with_paths(sharding.cache_specs(whole, cfg,
-                                                            mesh)))
-        for (name, t), (_, w) in zip(leaves_with_paths(caches),
-                                     leaves_with_paths(whole)):
-            if name.endswith("/pos"):
-                # whole (L, B) in the JAX package; here the rank's rows'
-                continue
-            want = sharding.local_shape(tuple(w.shape), specs[name], mesh)
-            if tuple(t.shape) != want:
-                raise ValueError(f"cache {name}: {tuple(t.shape)} is not "
-                                 f"the shard {want} of {tuple(w.shape)}")
+    caches = steps.init_serving_caches(cfg, batch, max_len, device, mesh)
+    # the caches are this rank's shards under cache_specs: its rows, or a
+    # batch the data axes do not divide whole with its segment of the
+    # sequence; its KV heads (or lanes), SSM heads and conv channels
+    if prompts.shape[0] == batch:
+        n = meshctx.axis_size(dp, mesh)
+        max_len = -(-max_len // n) * n
+    whole = model.init_caches(cfg, batch, max_len, torch.device("meta"))
+    specs = dict(leaves_with_paths(sharding.cache_specs(whole, cfg, mesh)))
+    for (name, t), (_, w) in zip(leaves_with_paths(caches),
+                                 leaves_with_paths(whole)):
+        if name.endswith("/pos"):
+            # whole (L, B) in the JAX package; here the rank's rows'
+            continue
+        want = sharding.local_shape(tuple(w.shape), specs[name], mesh)
+        if tuple(t.shape) != want:
+            raise ValueError(f"cache {name}: {tuple(t.shape)} is not "
+                             f"the shard {want} of {tuple(w.shape)}")
     return params, prompts, decode_inputs, caches
 
 

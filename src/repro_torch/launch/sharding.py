@@ -15,6 +15,16 @@ entry per dim, None (replicated) or the mesh axes the dim is split over
 Rules match the TRAILING dims of each leaf, so a leaf with extra leading
 dims gets None on the left.
 
+Two placements of the port split a dim over ``model`` other than in
+contiguous chunks (a ``Split`` entry, which is the axis name to every
+other reader): the head-dim fallback's attention weights and caches
+(``meshctx.lane_index``: each head's share of lanes, whole rotary pairs)
+and the SSM's conv channels (``meshctx.segment_index``: the x, B and C
+segments each split).  The SSM's per-head leaves (``A_log``, ``D``,
+``dt_bias``) and its gated norm's scale follow its heads and channels over
+``model``, where the JAX package replicates them (each rank then holds the
+slice it uses).
+
 ``shard_tree`` slices a full tree into this rank's shards and
 ``gather_tree`` all-gathers shards back into full leaves: both are exact
 copies, and they take the place of ``to_named`` / ``device_put``.
@@ -60,6 +70,37 @@ class P:
         return f"P{self.dims!r}"
 
 
+class Split(str):
+    """A placement entry that splits its dim over axis ``self`` (a str:
+    every other reader takes it as the axis name) in a layout other than
+    contiguous chunks: ``kind`` "lanes" (``layout`` = (heads, head_dim):
+    ``meshctx.lane_index`` of every head) or "segments" (``layout`` = the
+    segment sizes: ``meshctx.segment_index``)."""
+
+    def __new__(cls, axis: str, kind: str, layout):
+        out = str.__new__(cls, axis)
+        out.kind, out.layout = kind, tuple(int(v) for v in layout)
+        return out
+
+    def __getnewargs__(self):
+        return (str(self), self.kind, self.layout)
+
+    def __repr__(self):
+        return f"Split({str(self)!r}, {self.kind!r}, {self.layout})"
+
+    def index(self, size: int, n: int, r: int) -> torch.Tensor:
+        """Rank ``r`` of ``n``'s indices along a dim of ``size``."""
+        if self.kind == "lanes":
+            heads, hd = self.layout
+            if heads * hd != size:
+                raise ValueError(f"{self!r} on a dim of {size}")
+            lanes = meshctx.lane_index(hd, n, r)
+            return (torch.arange(heads)[:, None] * hd + lanes).reshape(-1)
+        if sum(self.layout) != size:
+            raise ValueError(f"{self!r} on a dim of {size}")
+        return meshctx.segment_index(self.layout, n, r)
+
+
 def _rules(fsdp, tp, ep):
     """(regex over '/'-joined path) -> trailing-dims placement entries."""
     return [
@@ -84,7 +125,8 @@ def _rules(fsdp, tp, ep):
         (r"ssm/wo/w$", (tp, fsdp)),
         (r"ssm/conv_w$", (None, None, tp)),
         (r"ssm/conv_b$", (tp,)),
-        (r"ssm/(A_log|D|dt_bias)$", (None,)),
+        (r"ssm/(A_log|D|dt_bias)$", (tp,)),
+        (r"ssm/norm/scale$", (tp,)),
         # embeddings / head / fuse
         (r"embed/table$", (tp, fsdp)),
         (r"head/w$", (fsdp, tp)),
@@ -127,8 +169,33 @@ def param_specs(params: Any, cfg: ModelConfig, mesh,
                     trailing = trailing[-nd:] if nd else ()
                 spec = P(*((None,) * (nd - len(trailing)) + tuple(trailing)))
                 break
-        specs[path] = spec
+        specs[path] = _layout(path, spec, cfg, tp, mesh)
     return _unflatten_paths(params, specs)
+
+
+def _layout(path: str, spec: P, cfg: ModelConfig, tp, mesh) -> P:
+    """``spec`` with its ``model`` entry made a ``Split`` (or dropped) where
+    the leaf's ``model`` shard is not a contiguous chunk: attention under
+    the head-dim fallback (lanes) or kept whole, the SSM's conv channels."""
+    n = meshctx.axis_size(tp, mesh) if tp else 1
+    if n == 1:
+        return spec
+    entry = None
+    if re.search(r"attn/w[qkv]/[wb]$|attn/wo/w$", path):
+        mode = meshctx.attn_split(cfg, n)
+        if mode == "whole":
+            return P(*(None if d == tp else d for d in spec))
+        if mode == "lanes":
+            heads = cfg.n_kv_heads if re.search(r"attn/w[kv]/", path) \
+                else cfg.n_heads
+            entry = Split(tp, "lanes", (heads, cfg.resolved_head_dim))
+    elif re.search(r"ssm/conv_[wb]$", path):
+        s = cfg.ssm
+        gs = s.n_groups * s.d_state
+        entry = Split(tp, "segments", (s.expand * cfg.d_model, gs, gs))
+    if entry is None:
+        return spec
+    return P(*(entry if d == tp else d for d in spec))
 
 
 def _unflatten_paths(tree, by_path: dict):
@@ -177,12 +244,14 @@ def batch_specs(cfg: ModelConfig, mesh, kind: str, global_batch: int):
 
 def cache_specs(caches: Any, cfg: ModelConfig, mesh):
     """KV caches: batch over DP and kv-heads over TP when divisible; falls
-    back to sequence-sharding the cache / head_dim-sharding otherwise."""
+    back to sequence-sharding the cache (``meshctx.split_seq``) and the
+    head-dim fallback's lanes (``meshctx.attn_split``) otherwise."""
     info = axis_info(mesh)
     dp, tp = info["dp_axes"], info["tp_axis"]
     dpn = meshctx.axis_size(dp, mesh)
     tpn = meshctx.axis_size(tp, mesh)
     dp = dp or None
+    kv_ax, hd_ax = _head_axes(cfg, tp, tpn)
 
     def spec_for(s, shape):
         nd = len(shape)
@@ -192,18 +261,21 @@ def cache_specs(caches: Any, cfg: ModelConfig, mesh):
             L, B, S, KV, HD = shape
             b_ax = dp if B % dpn == 0 else None
             s_ax = dp if (b_ax is None and S % dpn == 0) else None
-            kv_ax = tp if KV % tpn == 0 else None
-            hd_ax = tp if (kv_ax is None and HD % tpn == 0) else None
             return P(None, b_ax, s_ax, kv_ax, hd_ax)
         if re.search(r"/(k_scale|v_scale)$", s):   # (L, B, S, KV)
             L, B, S, KV = shape
             b_ax = dp if B % dpn == 0 else None
             s_ax = dp if (b_ax is None and S % dpn == 0) else None
-            return P(None, b_ax, s_ax, tp if KV % tpn == 0 else None)
+            return P(None, b_ax, s_ax, kv_ax)
         if s.endswith("/conv"):               # (L, B, W, C)
             L, B, W, C = shape
             b_ax = dp if B % dpn == 0 else None
-            return P(None, b_ax, None, tp if C % tpn == 0 else None)
+            c_ax = None
+            if tpn > 1:
+                gs = cfg.ssm.n_groups * cfg.ssm.d_state
+                c_ax = Split(tp, "segments",
+                             (cfg.ssm.expand * cfg.d_model, gs, gs))
+            return P(None, b_ax, None, c_ax)
         if s.endswith("/state"):              # (L, B, H, P, S)
             L, B, H, Pp, S = shape
             b_ax = dp if B % dpn == 0 else None
@@ -215,6 +287,19 @@ def cache_specs(caches: Any, cfg: ModelConfig, mesh):
         for p, t in leaves_with_paths(caches)})
 
 
+def _head_axes(cfg: ModelConfig, tp, tpn: int):
+    """(KV-head entry, head-dim entry) of a KV cache's placement, as
+    ``meshctx.attn_split`` splits attention."""
+    if tpn == 1:
+        return None, None
+    mode = meshctx.attn_split(cfg, tpn)
+    if mode == "heads":
+        return tp, None
+    if mode == "lanes":
+        return None, Split(tp, "lanes", (1, cfg.resolved_head_dim))
+    return None, None
+
+
 def paged_specs(caches: Any, cfg: ModelConfig, mesh):
     """Paged KV pools: head dims over TP, the page pool itself replicated
     (block tables index arbitrary page ids, so the page dim is never
@@ -223,17 +308,14 @@ def paged_specs(caches: Any, cfg: ModelConfig, mesh):
     (L, pages, page_size, KV) follow their pool."""
     tp = axis_info(mesh)["tp_axis"]
     tpn = meshctx.axis_size(tp, mesh)
+    kv_ax, hd_ax = _head_axes(cfg, tp, tpn)
 
     def spec_for(s, shape):
         nd = len(shape)
         if re.search(r"/(k|v)$", s):          # (L, pages, ps, KV, HD)
-            L, PG, PS, KV, HD = shape
-            kv_ax = tp if KV % tpn == 0 else None
-            hd_ax = tp if (kv_ax is None and HD % tpn == 0) else None
             return P(None, None, None, kv_ax, hd_ax)
         if re.search(r"/(k_scale|v_scale)$", s):   # (L, pages, ps, KV)
-            L, PG, PS, KV = shape
-            return P(None, None, None, tp if KV % tpn == 0 else None)
+            return P(None, None, None, kv_ax)
         return P(*((None,) * nd))
 
     return _unflatten_paths(caches, {
@@ -282,7 +364,12 @@ def shard(full: torch.Tensor, spec: P, mesh) -> torch.Tensor:
         if t.shape[dim] % k:
             raise ValueError(f"dim {dim} of {tuple(full.shape)} does not "
                              f"split {k} ways (placement {spec})")
-        t = t.chunk(k, dim=dim)[meshctx.axis_rank(ax, mesh)]
+        r = meshctx.axis_rank(ax, mesh)
+        if isinstance(ax, Split):
+            t = t.index_select(dim, ax.index(t.shape[dim], k, r).to(
+                t.device))
+        else:
+            t = t.chunk(k, dim=dim)[r]
     return t.contiguous().clone()
 
 
@@ -293,8 +380,14 @@ def gather(local: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     for dim, ax in enumerate(spec):
         if ax is None:
             continue
-        if meshctx.axis_size(ax, mesh) > 1:
+        k = meshctx.axis_size(ax, mesh)
+        if k > 1:
             t = meshctx.all_gather(t, meshctx.axes_group(ax, mesh), dim)
+            if isinstance(ax, Split):
+                n = t.shape[dim]
+                where = torch.cat([ax.index(n, k, r) for r in range(k)])
+                t = torch.empty_like(t).index_copy_(dim, where.to(t.device),
+                                                    t)
     return t
 
 

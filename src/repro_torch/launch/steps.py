@@ -1,5 +1,5 @@
-"""Train step factory — torch port of ``repro.launch.steps`` (the training
-half; the serving steps are ``models/model``'s).
+"""Train, prefill and decode step factories — torch port of
+``repro.launch.steps``.
 
 ``make_train_step`` takes a gradient per microbatch and sums them in
 float32 (the memory lever for large batches), then applies the optimizer.
@@ -231,7 +231,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, optimizer: Optimizer,
         residuals = state.residuals
         if meshctx.dp_active():
             grads, residuals = _data_mean(grads, compute, residuals, compress)
-            metrics = {k: (meshctx.dp_sum_exact(v) if k == "tokens" else
+            metrics = {k: (meshctx.dp_sum(v) if k == "tokens" else
                            meshctx.dp_mean(v)) for k, v in metrics.items()}
         grads = sharding.reshard(grads, compute, st_specs.params, mesh)
         new_params, new_opt, opt_metrics = optimizer.update(
@@ -239,3 +239,48 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, optimizer: Optimizer,
         return new_params, new_opt, residuals, metrics, opt_metrics
 
     return train_step
+
+
+def _serving_step(fn, cfg: ModelConfig, mesh, calib):
+    def step(params, batch: dict, caches: dict):
+        """(logits of this rank's rows, caches): ``batch["inputs"]`` is the
+        global batch; on a mesh each rank runs its rows (a batch the data
+        axes do not divide: all of them, against sequence-split caches,
+        ``meshctx.split_seq``), ``params`` and ``caches`` its shards."""
+        inputs = batch["inputs"]
+        with meshctx.use_mesh_of(mesh):
+            local = meshctx.dp_shard(inputs)
+            split = local.shape[0] != inputs.shape[0]
+            with meshctx.split_rows(split), meshctx.split_seq(not split):
+                return fn(params, {"inputs": local}, caches, cfg,
+                          calib=calib)
+    return step
+
+
+def make_prefill_step(cfg: ModelConfig, mesh=None, calib=None):
+    """``prefill(params, batch, caches) -> (logits, caches)``:
+    ``model.prefill_step`` on ``mesh`` (None: meshless); ``calib`` pins
+    the TD-VMM readout windows.  Caches for it: ``init_serving_caches``."""
+    return _serving_step(model.prefill_step, cfg, mesh, calib)
+
+
+def make_decode_step(cfg: ModelConfig, mesh=None, calib=None):
+    """``decode(params, batch, caches) -> (logits, caches)``:
+    ``model.decode_step`` on ``mesh``, as ``make_prefill_step``."""
+    return _serving_step(model.decode_step, cfg, mesh, calib)
+
+
+def init_serving_caches(cfg: ModelConfig, global_batch: int, max_len: int,
+                        device, mesh=None) -> dict:
+    """This rank's caches for the serving steps on ``mesh``: its rows, KV
+    heads (or lanes) and SSM heads; sequence-split when the data axes do
+    not divide ``global_batch``, with ``max_len`` rounded up to a multiple
+    of the data ranks (the tail positions are never written or
+    attended)."""
+    with meshctx.use_mesh_of(mesh):
+        n = meshctx.dp_size()
+        if global_batch % n == 0:
+            return model.init_caches(cfg, global_batch // n, max_len, device)
+        with meshctx.split_seq():
+            return model.init_caches(cfg, global_batch, -(-max_len // n) * n,
+                                     device)

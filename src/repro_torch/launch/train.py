@@ -25,11 +25,13 @@ custom gradient of ``kernels/tdvmm/ops``.
 (``launch.steps``: FSDP + TP state, data-parallel gradient averaging;
 ``--grad-compression int8`` for the int8 error-feedback all-reduce).
 Checkpoints hold the whole state, gathered, so a run may resume on another
-mesh.  TD-VMM training with a model axis > 1 is not ported (ROADMAP A8b):
+mesh.  Every family trains under tensor parallelism, with ``--tdvmm`` too
+(each shard takes the reference's custom gradient on its slices; noise is
+drawn for the whole weight and sliced):
 
     PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
-        -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke --steps 3 \
-        --batch 4 --seq 64 --device cpu --mesh 2x2
+        -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke --tdvmm \
+        --steps 3 --batch 4 --seq 64 --device cpu --mesh 2x2
 """
 from __future__ import annotations
 

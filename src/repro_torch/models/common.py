@@ -72,10 +72,14 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S) int32."""
+               theta: float, freqs: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) int32.  ``freqs`` (D/2,) gives
+    the lanes' own frequencies (a head-dim shard's slice of the whole
+    head's), else those of a D-lane head."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                       # (D/2,)
+    if freqs is None:
+        freqs = rope_freqs(d, theta, x.device)                   # (D/2,)
     angles = positions[..., None].to(torch.float32) * freqs      # (B, S, D/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
@@ -104,28 +108,32 @@ def _tp() -> bool:
 
 
 def dense(params, x: torch.Tensor, td: TDVMMLayerConfig,
-          key=None, tp: Optional[str] = "col") -> torch.Tensor:
+          key=None, tp: Optional[str] = "col", shard=None) -> torch.Tensor:
     """``tp``: "col" (columns split over ``model``; the default, as every
     sharded dense weight of the dense and MoE families but the reductions
     is), "row" (rows split; the output summed over ``model``) or None
-    (replicated)."""
+    (replicated).  ``shard``: the shard's columns (rows) within the whole
+    weight when they are not this rank's contiguous chunk (programming
+    noise is drawn for the whole weight)."""
     if not _tp() or tp is None:
         y = td_matmul(x, params["w"], td, key)
     elif tp == "col":
         from repro_torch.launch import meshctx
-        y = td_matmul(meshctx.copy_to_tp(x), params["w"], td, key, tp="col")
+        y = td_matmul(meshctx.copy_to_tp(x), params["w"], td, key, tp="col",
+                      shard=shard)
     else:
-        y = _row(params, x, td, key, explicit=False)
+        y = _row(params, x, td, key, explicit=False, shard=shard)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y
 
 
-def _row(params, x, td: TDVMMLayerConfig, key, explicit: bool):
+def _row(params, x, td: TDVMMLayerConfig, key, explicit: bool,
+         shard=None):
     from repro_torch.launch import meshctx
     if td.enabled:
         # the TD-VMM row site sums its raw accumulators over ``model``
-        return td_matmul(x, params["w"], td, key, tp="row")
+        return td_matmul(x, params["w"], td, key, tp="row", shard=shard)
     if explicit:
         return meshctx.reduce_from_tp((x @ params["w"]).to(torch.bfloat16))
     return row_sum(x, params["w"])
@@ -151,7 +159,8 @@ def partial_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    if x.dtype == torch.float32 or x.device.type != "cuda":
+    from repro_torch.kernels import hooks
+    if x.dtype == torch.float32 or not hooks.card_route(x):
         return x.to(torch.float32) @ w.to(torch.float32)
     if w.dim() == 3:
         return torch.bmm(x, w, out_dtype=torch.float32)
@@ -178,15 +187,18 @@ class _PartialF32(torch.autograd.Function):
 
 
 def dense_group(param_group, x: torch.Tensor, td: TDVMMLayerConfig,
-                key=None) -> tuple[torch.Tensor, ...]:
+                key=None, tp: Optional[str] = "col",
+                shard=None) -> tuple[torch.Tensor, ...]:
     """G same-input dense projections (``attn.qkv``); biases stay
-    per-member digital adds.  Column-parallel under a mesh."""
-    tp = None
-    if _tp():
+    per-member digital adds.  Column-parallel under a mesh (``tp="col"``),
+    or replicated (``tp=None``); ``shard`` as ``td_grouped_matmul``'s."""
+    if _tp() and tp is not None:
         from repro_torch.launch import meshctx
-        x, tp = meshctx.copy_to_tp(x), "col"
+        x = meshctx.copy_to_tp(x)
+    else:
+        tp = None
     ys = td_grouped_matmul(x, tuple(p["w"] for p in param_group), td, key,
-                           tp=tp)
+                           tp=tp, shard=shard)
     return tuple(
         y + p["b"].to(y.dtype) if "b" in p else y
         for p, y in zip(param_group, ys))
@@ -209,12 +221,13 @@ def set_tp_explicit(on: bool) -> None:
 
 
 def dense_tp_reduce(params, x: torch.Tensor, td: TDVMMLayerConfig,
-                    key=None) -> torch.Tensor:
+                    key=None, shard=None) -> torch.Tensor:
     """x: (..., f) with f split over ``model``; w: (f, d) with its rows
-    split.  Without a tensor-parallel mesh, ``dense``."""
+    split (``shard`` as ``dense``'s).  Without a tensor-parallel mesh,
+    ``dense``."""
     if not _tp():
         return dense(params, x, td, key)
-    y = _row(params, x, td, key, explicit=TP_EXPLICIT)
+    y = _row(params, x, td, key, explicit=TP_EXPLICIT, shard=shard)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y

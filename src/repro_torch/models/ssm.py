@@ -15,6 +15,23 @@ the JAX package.  The z/x/B/C/dt input projections
 run as ONE grouped TD-VMM launch (site ``ssm.in_proj``); the output
 projection is site ``ssm.out``.
 
+Under a mesh's ``model`` axis (a config of ``meshctx.local_config``, with
+``tp_shards`` > 1) a block runs on its shard, following the JAX package's
+placements (``launch.sharding``): the heads, their x and z channels and
+``dt`` are column shards of the grouped launch; so are B and C, whose
+``d_state`` columns the placement splits (both archs have one group), so
+each rank all-gathers them after the conv (``meshctx.gather_from_tp``,
+exact) to scan its heads against the whole B and C; the conv's channels
+are the rank's x, B and C segments (``meshctx.segment_index``).  The
+member windows of ``ssm.in_proj`` are then maxima over every rank's
+columns, the meshless windows.  The gated RMSNorm's sum of squares over
+``d_inner`` is summed over ``model`` (a float sum in another order:
+``norm_var``), and ``wo`` (site ``ssm.out``) is row-parallel: B1 raw, its
+int32 sums over ``model``, one epilogue.  Replicating B and C instead
+would keep the gather out but hold the d_state-wide projection whole on
+every rank and need its gradient summed; the placement keeps the weights
+split and costs one small all-gather per block.
+
 Caches are updated **in place**: ``apply_prefill``/``apply_decode`` write
 the new conv context and state into the cache tensors they are given (views
 into the model's stacked per-layer caches) and return them with the
@@ -30,6 +47,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd import ssd as ssd_b3
+from repro_torch.launch import meshctx
 from repro_torch.models import common
 
 
@@ -40,11 +58,26 @@ class SSMCache(NamedTuple):
 
 
 def _dims(cfg: ModelConfig):
+    """(d_inner, heads, conv channels) of one ``model`` shard."""
     s = cfg.ssm
-    d_inner = s.expand * cfg.d_model
+    d_inner = s.expand * cfg.d_model // cfg.tp_shards
     n_heads = d_inner // s.head_dim
-    conv_ch = d_inner + 2 * s.n_groups * s.d_state
+    conv_ch = d_inner + 2 * _bc(cfg)
     return d_inner, n_heads, conv_ch
+
+
+def _bc(cfg: ModelConfig) -> int:
+    """B (and C) columns of one ``model`` shard."""
+    return cfg.ssm.n_groups * cfg.ssm.d_state // cfg.tp_shards
+
+
+def _gather_bc(bc: torch.Tensor, cc: torch.Tensor, cfg: ModelConfig):
+    """The whole B and C from every rank's columns (each rank's heads then
+    read all of them, so the gradient is summed over ``model``)."""
+    if cfg.tp_shards == 1:
+        return bc, cc
+    return (meshctx.gather_from_tp(bc, -1, partial=True),
+            meshctx.gather_from_tp(cc, -1, partial=True))
 
 
 def init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
@@ -156,9 +189,41 @@ def init_cache(cfg: ModelConfig, batch: int, dtype, device) -> SSMCache:
         pos=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
+TP_ORDER = 1   # > 1: the meshless norm_var sums in a TP shard's order
+
+
+def norm_var(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The gated RMSNorm's mean of squares over ``d_inner`` (float32 x,
+    keepdim).  On a ``model`` shard each rank's sum of squares, summed over
+    ``model`` (the sum entering this rank's lanes as a column-parallel
+    input: its gradient is summed back).  Meshless with ``TP_ORDER`` n > 1
+    (``chip_smoke.tp_order``): the same n partial sums added in rank
+    order, which a 1 x n run reproduces bit for bit."""
+    if cfg.tp_shards > 1:
+        ss = torch.sum(torch.square(x), dim=-1, keepdim=True)
+        ss = meshctx.copy_to_tp(meshctx.reduce_from_tp(ss))
+        return ss / float(x.shape[-1] * cfg.tp_shards)
+    if TP_ORDER > 1:
+        ss = None
+        for part in torch.chunk(x, TP_ORDER, dim=-1):
+            p = torch.sum(torch.square(part.contiguous()), dim=-1,
+                          keepdim=True)
+            ss = p if ss is None else ss + p
+        return ss / float(x.shape[-1])
+    return torch.mean(torch.square(x), dim=-1, keepdim=True)
+
+
 def _gate_out(params, y, z, cfg: ModelConfig, key):
-    y = common.rmsnorm(params["norm"], y * F.silu(z), cfg.norm_eps)
-    return common.dense(params["wo"], y, cfg.site_tdvmm("ssm.out"), key)
+    h = y * F.silu(z)
+    if cfg.tp_shards == 1 and TP_ORDER == 1:
+        h = common.rmsnorm(params["norm"], h, cfg.norm_eps)
+    else:
+        # common.rmsnorm's arithmetic around a sharded mean of squares
+        x = h.to(torch.float32)
+        x = x * torch.rsqrt(norm_var(x, cfg) + cfg.norm_eps)
+        h = (x * params["norm"]["scale"].to(torch.float32)).to(h.dtype)
+    return common.dense(params["wo"], h, cfg.site_tdvmm("ssm.out"), key,
+                        tp="row")
 
 
 def _sequence(params, u: torch.Tensor, cfg: ModelConfig, key, left_ctx,
@@ -175,8 +240,9 @@ def _sequence(params, u: torch.Tensor, cfg: ModelConfig, key, left_ctx,
     xbc, conv_ctx = _conv1d(xbc, params["conv_w"], params["conv_b"],
                             left_ctx)
     xbc = F.silu(xbc)
-    gs = s.n_groups * s.d_state
+    gs = _bc(cfg)
     xc, bc, cc = torch.split(xbc, [d_inner, gs, gs], dim=-1)
+    bc, cc = _gather_bc(bc, cc, cfg)
     dt = _softplus(dt.to(torch.float32) + params["dt_bias"])
     xh = xc.reshape(bsz, L, n_heads, s.head_dim)
     bg = bc.reshape(bsz, L, s.n_groups, s.d_state)
@@ -220,8 +286,9 @@ def apply_decode(params, u: torch.Tensor, cfg: ModelConfig, cache: SSMCache,
     xbc, conv_ctx = _conv1d(xbc, params["conv_w"], params["conv_b"],
                             cache.conv)
     xbc = F.silu(xbc)[:, 0]
-    gs = s.n_groups * s.d_state
+    gs = _bc(cfg)
     xc1, bc1, cc1 = torch.split(xbc, [d_inner, gs, gs], dim=-1)
+    bc1, cc1 = _gather_bc(bc1, cc1, cfg)
     dt1 = _softplus(dt[:, 0].to(torch.float32) + params["dt_bias"])
     xh = xc1.reshape(bsz, n_heads, s.head_dim)
     bg = bc1.reshape(bsz, s.n_groups, s.d_state)

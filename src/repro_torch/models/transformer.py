@@ -4,7 +4,9 @@ layers followed by ``attn_moe`` layers, the SSM family's ``ssm`` (Mamba-2)
 segments, and the hybrid family's (zamba2) ``hybrid`` segment: groups of
 ``hybrid_attn_every`` Mamba-2 layers, each followed by ONE shared
 attention + FFN block (a single parameter set, reused by every group),
-fed ``fuse(concat(x, embed0))`` when ``hybrid_concat_embed`` is set.
+fed ``fuse(concat(x, embed0))`` when ``hybrid_concat_embed`` is set
+(under a ``model`` axis: the SSM layers as ``models.ssm`` shards them,
+the shared block by heads, ``fuse`` by columns, all-gathered).
 Serving drops the MoE router's auxiliary losses; training (``apply_train``)
 sums them over the ``attn_moe`` layers, as the JAX package's ``apply`` does
 in its ``"train"`` mode, and runs every family (the SSM and hybrid ones
@@ -67,6 +69,17 @@ def attn_ffn_train(params, x, cfg: ModelConfig, positions, key=None):
         f, aux = moe.apply(params["moe"], h, cfg, key)
         return x + f, aux["lb_loss"], aux["z_loss"]
     return x + ffn.apply(params["ffn"], h, cfg, key), zero, zero
+
+
+def _fuse(params, x, embed0, cfg: ModelConfig, key=None):
+    """The hybrid family's ``fuse(concat(x, embed0))`` (site
+    ``hybrid.fuse``): column-parallel under a ``model`` axis (its d_model
+    columns split, as the JAX package places ``fuse/w``), the columns
+    all-gathered into the replicated stream."""
+    from repro_torch.launch import meshctx
+    y = common.dense(params, torch.cat([x, embed0], dim=-1),
+                     cfg.site_tdvmm("hybrid.fuse"), key)
+    return meshctx.gather_from_tp(y, -1)
 
 
 def _remat(fn, cfg: ModelConfig):
@@ -210,9 +223,7 @@ def apply(params, x: torch.Tensor, cfg: ModelConfig, mode: str,
                 for li in range(g * every, (g + 1) * every):
                     x = ssm_layer(li, x)
                 if cfg.hybrid_concat_embed and embed0 is not None:
-                    x = common.dense(params["fuse"],
-                                     torch.cat([x, embed0], dim=-1),
-                                     cfg.site_tdvmm("hybrid.fuse"), key)
+                    x = _fuse(params["fuse"], x, embed0, cfg, key)
                 x, c = attn_ffn_block(params["shared_attn"], x, cfg, mode,
                                       _layer_cache(shared, g), positions, key,
                                       page_ctx=page_ctx)
@@ -257,9 +268,7 @@ def apply_train(params, x: torch.Tensor, cfg: ModelConfig,
                 for p in layers[g * every:(g + 1) * every]:
                     x = ssm_layer(p, x)
                 if cfg.hybrid_concat_embed and embed0 is not None:
-                    x = common.dense(params["fuse"],
-                                     torch.cat([x, embed0], dim=-1),
-                                     cfg.site_tdvmm("hybrid.fuse"), key)
+                    x = _fuse(params["fuse"], x, embed0, cfg, key)
                 x, _, _ = block(params["shared_attn"], x)
         else:
             for p in layers:

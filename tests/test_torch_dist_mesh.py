@@ -134,11 +134,12 @@ def test_2x2_forward_matches_jax_meshless(world, arch, explicit):
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
-def test_ssm_and_hybrid_run_data_parallel_and_refuse_tp(world, arch):
-    """On a mesh whose model axis is 1 every family runs data-parallel (4 x
-    1: each rank its row of the batch, within LOGIT_RTOL of the JAX
-    meshless forward, equal tokens); a model axis of 2 raises for the SSM
-    and hybrid families, naming ROADMAP A8b."""
+def test_ssm_and_hybrid_run_data_and_tensor_parallel(world, arch):
+    """Every family runs data-parallel (4 x 1: each rank its row of the
+    batch) and tensor-parallel (2 x 2: the SSM heads, x / z channels and
+    B / C columns split over ``model``, B and C all-gathered before the
+    scan; zamba2's shared block by heads and ``fuse`` by columns), each
+    within LOGIT_RTOL of the JAX meshless forward with equal tokens."""
     jc = jsmoke(jget(arch)).replace(vocab_pad_multiple=32)
     jp = jmodel.init_params(jax.random.PRNGKey(1), jc)
     tokens = np.random.default_rng(4).integers(0, jc.vocab_size,
@@ -146,13 +147,12 @@ def test_ssm_and_hybrid_run_data_parallel_and_refuse_tp(world, arch):
     want, _ = jmodel.forward(jp, {"inputs": jnp.asarray(tokens),
                                   "targets": jnp.asarray(tokens)}, jc)
     want = np.asarray(want, np.float32)
-    outs = world.run(cases.forward_2x2, arch, _np(jp), tokens, False, (),
-                     None, (4, 1))
-    assert all(o["agree"] and o["exact"] for o in outs)
-    assert _rel(outs[0]["out"], want) <= LOGIT_RTOL
-    assert np.array_equal(outs[0]["out"].argmax(-1), want.argmax(-1))
-    for msg in world.run(cases.ssm_refuses_tp, arch):
-        assert "A8b" in msg
+    for shape in ((4, 1), (2, 2)):
+        outs = world.run(cases.forward_2x2, arch, _np(jp), tokens, False, (),
+                         None, shape)
+        assert all(o["agree"] and o["exact"] for o in outs), shape
+        assert _rel(outs[0]["out"], want) <= LOGIT_RTOL, shape
+        assert np.array_equal(outs[0]["out"].argmax(-1), want.argmax(-1))
 
 
 @pytest.mark.parametrize("arch,rules", [

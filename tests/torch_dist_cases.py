@@ -139,6 +139,16 @@ def rank() -> int:
     return dist.get_rank()
 
 
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
 def smoke_cfg(arch: str, plan_rules=()):
     """The smoke config of the JAX package's mesh tests: vocab padded to 32,
     MoE capacity 64 (no drops, so the per-shard capacity cannot move a
@@ -699,19 +709,24 @@ def serve_static_2x2(arch: str, calibrate: bool, batch: int):
     return solo["tokens"].numpy(), out["tokens"].numpy(), out["nan_steps"]
 
 
-def ssm_refuses_tp(arch: str):
-    """The SSM and hybrid families on a mesh whose model axis is 2."""
+def count_cfg(arch: str):
+    """The smoke config the dry run's check counts: every linear a 6-bit
+    TD-VMM site (no product takes the card's float32-output route, so the
+    CPU and the card count the same ops)."""
     cfg = smoke_cfg(arch)
-    params = model.init_params(0, cfg, device="cpu")
-    mesh = meshlib.make_test_mesh(2, 2)
-    try:
-        with meshctx.use_mesh_of(mesh):
-            model.forward(params, {"inputs": torch.zeros((4, 8),
-                                                         dtype=torch.long)},
-                          cfg)
-    except NotImplementedError as e:
-        return str(e)
-    return ""
+    return cfg.replace(tdvmm=TDVMMLayerConfig(enabled=True, bits=6,
+                                              weight_bits=6))
+
+
+def count_step(arch: str, shape: dict, mesh_shape=(2, 2)):
+    """``launch.dryrun.run_cell`` on real tensors in this world: the
+    counts of one rank's step (``launch.roofline.StepCounter``)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    mesh = meshlib.make_test_mesh(*mesh_shape)
+    with meshctx.use_mesh_of(mesh):
+        r = dryrun.run_cell(count_cfg(arch), ShapeConfig(**shape), mesh)
+    return r["counter"]
 
 
 def tp_order_1x2(plan: bool, dtype: str):
@@ -720,11 +735,8 @@ def tp_order_1x2(plan: bool, dtype: str):
     gate): teacher-forced logits (``chip_smoke.forced_logits``) and the
     engine's streams and finish steps, equal?  Also the logits' gap to the
     plain meshless run, over max|logit|."""
-    import sys
-    from pathlib import Path
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    import chip_smoke as cs
     from repro_torch.runtime.engine import Engine, EngineConfig
+    cs = _chip_smoke()
     cfg = smoke(get_config("qwen1.5-0.5b")).replace(dtype=dtype, n_layers=2)
     if plan:
         cfg = cfg.replace(tdvmm_plan=cs.plans()["ffn_unchained"])
@@ -753,3 +765,175 @@ def tp_order_1x2(plan: bool, dtype: str):
             "streams": streams(have) == streams(want),
             "gap": max(float((a - b).abs().max()) for a, b in zip(got, ref))
             / max(float(b.abs().max()) for b in ref)}
+
+
+# --------------------------------------------------------------------------
+# Placements of the production mesh: SSM / hybrid TP, the head-dim
+# fallback, the sequence-split cache, TD-VMM training under TP
+# --------------------------------------------------------------------------
+def placement_cfg(arch: str, kv: int = 0):
+    """``smoke_cfg``, with ``kv`` KV heads when given (the head-dim
+    fallback's config: 2 KV heads do not divide a model axis of 4)."""
+    cfg = smoke_cfg(arch)
+    return cfg.replace(n_kv_heads=kv) if kv else cfg
+
+
+def forced_on_mesh(arch: str, np_params: dict, prompts: np.ndarray,
+                   forced: np.ndarray, shape, kv: int = 0,
+                   int8: bool = False, flash_block: int = 0,
+                   order: str = ""):
+    """``chip_smoke.forced_logits`` on a mesh of ``shape`` (every step's
+    teacher-forced logits, gathered whole): the static path's prefill and
+    decode on its shards.  ``flash_block``: flash attention above that
+    many tokens, in blocks of that size.  ``order`` "tp" / "seq": also the
+    meshless run in the mesh's order (``chip_smoke.tp_order`` over the
+    model axis, ``chip_smoke.seq_order`` over the data axis)."""
+    from repro_torch.models import attention
+    cs = _chip_smoke()
+    cfg = placement_cfg(arch, kv)
+    params = convert.params_from_numpy(np_params, cfg, "cpu")
+    old = (attention.FLASH_THRESHOLD, attention.FLASH_BLOCK_Q,
+           attention.FLASH_BLOCK_KV)
+    if flash_block:
+        attention.FLASH_THRESHOLD = flash_block
+        attention.FLASH_BLOCK_Q = attention.FLASH_BLOCK_KV = flash_block
+    attention.set_kv_cache_int8(int8)
+    try:
+        args = (params, cfg, None, torch.from_numpy(prompts),
+                torch.from_numpy(forced), "cpu")
+        got = cs.forced_logits(*args, meshlib.make_test_mesh(*shape))
+        ctrl = None
+        if order:
+            with (cs.tp_order(shape[1]) if order == "tp" else
+                  cs.seq_order(shape[0])):
+                ctrl = [x.numpy() for x in cs.forced_logits(*args)]
+    finally:
+        attention.set_kv_cache_int8(False)
+        (attention.FLASH_THRESHOLD, attention.FLASH_BLOCK_Q,
+         attention.FLASH_BLOCK_KV) = old
+    return {"logits": [x.numpy() for x in got], "ctrl": ctrl}
+
+
+def engine_on_mesh(np_params: dict, requests: list, ecfg: dict, shape,
+                   kv: int, int8: bool):
+    """The paged engine on a mesh of ``shape`` (the head-dim fallback's
+    page pools): every request's stream and finish step."""
+    from repro_torch.models import attention
+    from repro_torch.runtime.engine import Engine, EngineConfig, Request
+    cfg = placement_cfg("yi-34b", kv)
+    params = convert.params_from_numpy(np_params, cfg, "cpu")
+    attention.set_kv_cache_int8(int8)
+    try:
+        rep = Engine(cfg, params, EngineConfig(**ecfg), device="cpu",
+                     mesh=meshlib.make_test_mesh(*shape)).run(
+            [Request(**r) for r in requests])
+    finally:
+        attention.set_kv_cache_int8(False)
+    return [[q["rid"], q["tokens"], q["finish_reason"], q["finished_step"]]
+            for q in rep.requests]
+
+
+def qat_cfg(noise: bool = False):
+    """The smoke qwen with every linear a 6-bit TD-VMM site."""
+    cfg = smoke(get_config("qwen1.5-0.5b"))
+    return cfg.replace(tdvmm=TDVMMLayerConfig(enabled=True, bits=6,
+                                              weight_bits=6, noise=noise))
+
+
+def qat_grads_on_mesh(np_params: dict, batch: dict, shape, key=None):
+    """One training step's gradients (through ``launch.steps``) of the
+    QAT smoke qwen on a mesh of ``shape``, gathered whole, with the loss;
+    with a noise ``key`` also the meshless step's."""
+    from repro_torch.configs import OptimizerConfig, RunConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.optim import optimizer as om
+    cfg = qat_cfg(key is not None)
+    rows, seq = batch["inputs"].shape
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "small", seq, rows, "train", microbatch_per_shard=rows),
+        optimizer=OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=3))
+    opt = om.make_optimizer(run.optimizer)
+    params = convert.params_from_numpy(np_params, cfg, "cpu")
+    state = steps.TrainState(params, opt.init(params))
+    got = []
+    update = om.Optimizer.update
+
+    def spy(self, grads, *a, **kw):
+        got.append(grads)
+        return update(self, grads, *a, **kw)
+    om.Optimizer.update = spy
+    try:
+        out = {}
+        if key is not None:
+            _, m = steps.make_train_step(cfg, run, opt, key=key)(state, batch)
+            out["meshless"] = {p: g.numpy() for p, g in
+                               leaves_with_paths(got.pop())}
+            out["meshless_loss"] = float(m["loss"])
+        mesh = meshlib.make_test_mesh(*shape)
+        specs = steps.state_specs(state, cfg, mesh)
+        _, m = steps.make_train_step(cfg, run, opt, key=key, mesh=mesh,
+                                     specs=specs)(
+            steps.shard_state(state, cfg, mesh), batch)
+    finally:
+        om.Optimizer.update = update
+    whole = sharding.gather_tree(got[0], specs[0].params, mesh)
+    out["grads"] = {p: g.numpy() for p, g in leaves_with_paths(whole)}
+    out["loss"] = float(m["loss"])
+    return out
+
+
+def noisy_codes_on_shards(seed: int, shape=(1, 4)):
+    """Programming noise on a column, a row, an expert and a grouped
+    site's shard (``layers._shard_noise``, ``layers._group_noise``) against
+    the meshless noisy bank, sliced: bitwise?  Returns the names that
+    differ and the number held."""
+    from repro_torch.kernels.tdvmm import tdvmm
+    mesh = meshlib.make_test_mesh(*shape)
+    g = torch.Generator().manual_seed(seed)
+    k, n, e = 64, 96, 3
+    cfg = TDVMMLayerConfig(enabled=True, noise=True)
+    w = torch.randn((k, n), generator=g)
+    we = torch.randn((e, k, n), generator=g)
+    ws = [torch.randn((k, wd), generator=g) for wd in (64, 32, 32)]
+    key = 11 + seed
+    bad, held = [], 0
+
+    def check(name, got, want):
+        nonlocal held
+        if not torch.equal(got, want):
+            bad.append(name)
+        held += 1
+
+    def whole(t):
+        return quant.program_noise(quant.program_weights(t, 6, True),
+                                   cfg.spec, key).codes
+    with meshctx.use_mesh_of(mesh):
+        tp, r = meshctx.tp_size(), meshctx.tp_rank()
+        for name, full, dim, kind in (("col", w, -1, "col"),
+                                      ("row", w, -2, "row"),
+                                      ("expert-col", we, -1, "col"),
+                                      ("expert-row", we, -2, "row")):
+            local = full.chunk(tp, dim)[r]
+            qw = quant.program_weights(local, 6, True,
+                                       tp_reduce=kind == "row")
+            got = layers._shard_noise(qw, cfg, key, kind).codes
+            check(name, got, whole(full).chunk(tp, dim)[r])
+        ns = tuple(t.shape[-1] // tp for t in ws)
+        widths = tuple(tdvmm.padded_size(m, tdvmm.LANE, tdvmm.LANE)
+                       for m in ns)
+        qw = quant.concat_group([quant.program_weights(
+            t.chunk(tp, -1)[r], 6, True) for t in ws], widths)
+        got = layers._group_noise(qw, cfg, key, "col", ns, widths, None)
+        wide = tuple(tdvmm.padded_size(t.shape[-1], tdvmm.LANE, tdvmm.LANE)
+                     for t in ws)
+        ref = quant.program_noise(quant.concat_group(
+            [quant.program_weights(t, 6, True) for t in ws], wide),
+            cfg.spec, key).codes
+        off = lo = 0
+        for i, (t, m) in enumerate(zip(ws, ns)):
+            check(f"grouped{i}", got.codes[:, lo:lo + m],
+                  ref[:, off + r * m:off + (r + 1) * m])
+            off += wide[i]
+            lo += widths[i]
+    return {"bad": bad, "held": held}
