@@ -63,7 +63,7 @@ Phases, each of which stops the script with a non-zero exit on failure:
    the block's input and weights through ``attention.apply_train`` with
    flash against the dense softmax's, within FLASH_TOL elementwise, each
    forward + backward timed;
-4. serving: qwen1.5-0.5b at full width, 12 of its 24 layers
+4. serving: qwen1.5-0.5b at full width, 8 of its 24 layers
    (SERVE_LAYERS; d_model 1024, bf16, random weights from seed 0) under
    the ``ffn_unchained`` and
    ``ffn_chained`` plans: one calibration pass, then the paged engine
@@ -122,8 +122,9 @@ Phases, each of which stops the script with a non-zero exit on failure:
    NaN, the first and last requests alone == batched; its peak allocated
    memory after init, calibration and serving (each expert bank is
    programmed a slice of experts at a time).
-   Then mamba2-1.3b at full width (48 layers, d_model 2048, 64 heads x 64,
-   d_state 128, chunk 128, vocab 50280, bf16, random weights from seed 0)
+   Then mamba2-1.3b at full width (24 of its 48 layers, SSM_SERVE_LAYERS;
+   d_model 2048, 64 heads x 64, d_state 128, chunk 128, vocab 50280, bf16,
+   random weights from seed 0)
    under ``ssm_unchained``: one calibration pass over 4 x 512 tokens, then
    the static path serves 4 prompts x 512 tokens for 32 new tokens each;
    no NaN, exact launch counts, and the batch served in reverse order must
@@ -180,11 +181,30 @@ Phases, each of which stops the script with a non-zero exit on failure:
    every launch in the 3xTF32 storage, counted.  The case study's QAT half
    (``launch/perceptron.qat_case_study``): the 10 x 10 x 10 perceptron
    trained on the card, deployed through B4 with DIBL, digital twin >= 0.9
-   and circuit > 0.8.  mamba2-1.3b at full width and depth, every ssm.*
-   site a 6-bit QAT site, through ``train_loop`` (AdamW lr 1e-3, 4 steps
-   of 4 x 512 tokens, remat "minimal", the scan ``ssd_plain`` under
-   autograd): losses and gradient norms finite, the last loss below the
-   first, B2 exactly sites x layers x (steps + recomputes);
+   and circuit > 0.8.  mamba2-1.3b at full width, 24 of its 48 layers,
+   every ssm.* site a 6-bit QAT site, through ``train_loop`` (AdamW lr
+   1e-3, 4 steps of 4 x 512 tokens, remat "minimal", the scan
+   ``ssd_plain`` under autograd): losses and gradient norms finite, the
+   last loss below the first, B2 exactly sites x layers x (steps +
+   recomputes).  Then three more training paths, each through ``train_loop`` with random weights from seed 0,
+   SyntheticLM seed 0, remat "minimal" and AdamW with 1 warmup step, each
+   gated on finite metrics, the last loss below the first and exactly
+   ``qat_expected_launches`` B2 launches (derived from the resolved plan:
+   the blocks' sites twice a step, the recompute included, the hybrid
+   fuse and the head once) and nothing else, each with its seconds a step
+   and peak allocated memory: "train long", qwen1.5-0.5b at full width
+   and depth, every linear 6-bit, 4 steps of one 4096-token sequence
+   (past FLASH_THRESHOLD: flash under autograd in every layer), then the
+   control in float32 with TD-VMM off, flash's loss and gradients against
+   the dense softmax's (LONG_LOSS_RTOL; FLASH_TOL of each leaf's max|g|);
+   "train mixtral", mixtral-8x7b at full width, 2 of its 32 layers,
+   dropless, every linear 6-bit (B2 on the (8, 2049, K, N) expert grid),
+   4 steps of 4 x 512 with bfloat16 moments (the byte reckoning printed
+   first; float32 moments do not fit), the router's aux losses finite and
+   the load-balance loss positive; "train zamba2", zamba2-2.7b at full
+   width and depth under the hybrid plan, 3 steps of one 4096-token
+   sequence (flash in the shared block, the scan ``ssd_plain`` under
+   autograd: no B3 launch);
 5. small input: the card's kernel path against the CPU plain path at smoke
    width, same weights, for qwen, for mamba2, for mixtral under both MoE
    plans (a prompt longer than its window of 8), for zamba2 under
@@ -230,10 +250,11 @@ H100_BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core rate
 
 ARCH = "qwen1.5-0.5b"
 # qwen's serving paths ("serve qwen", "fault qwen", "observe qwen", "mesh
-# qwen") run 12 of its 24 layers, at full width, since PR 25: with all 24
-# they took ~570 s of a 1,177 s run on a slow card host, near the 1200 s
-# limit; training keeps all 24
-SERVE_LAYERS = 12
+# qwen") run 8 of its 24 layers, at full width: with all 24 they took ~570 s
+# of a 1,177 s run on a slow card host, near the 1200 s limit; with 12 and
+# the three training phases of ``train_new_paths`` the script took 1,018 s
+# on an H100 (those four phases 306 s); training keeps all 24
+SERVE_LAYERS = 8
 CHUNK, SLOTS, PAGE, NUM_PAGES = 64, 4, 16, 64
 CALIB_BATCH = (2, 64)
 CALIB_ROWS = CALIB_BATCH[0] * CALIB_BATCH[1]
@@ -255,6 +276,10 @@ CLOCK_SERIES = ("step_latency_s", "straggler_dt_s", "heartbeat")
 SMALL_LOGIT_RTOL = 1e-5
 
 SSM_ARCH = "mamba2-1.3b"
+# mamba2's serving paths ("serve mamba2", "mesh ssm" (a)) run 24 of its 48
+# layers, at full width, for the script's time limit (zamba2 serves its 54
+# Mamba-2 layers at full depth)
+SSM_SERVE_LAYERS = 24
 SSM_BATCH, SSM_PROMPT, SSM_GEN = 4, 512, 32
 SSM_ROWS = SSM_BATCH * SSM_PROMPT
 # ssm.in_proj: the five members z, x, B, C, dt (4096, 4096, 128, 128, 64),
@@ -408,10 +433,48 @@ KIMI_STEP_C, KIMI_CALIB_C = 4, 54
 KIMI_SOLO = (0, 7)
 # an expert whose window stays at calibration's floor saw no token
 KIMI_FLOOR = 1e-9
-# mamba2-1.3b trained at full width and depth, every ssm.* site a 6-bit QAT
-# site, 4 steps of QAT_BATCH x QAT_SEQ tokens (its scan is ssd_plain under
-# autograd: B3 has no backward)
-SSM_TRAIN_STEPS = 4
+# mamba2-1.3b trained at full width, every ssm.* site a 6-bit QAT site, 4
+# steps of QAT_BATCH x QAT_SEQ tokens (its scan is ssd_plain under
+# autograd: B3 has no backward); depth cut from 48 to 24 layers for the
+# script's time limit (the phase took 57.6 s at 48 on an H100, ~39 s of it
+# the final checkpoint)
+SSM_TRAIN_STEPS, SSM_TRAIN_LAYERS = 4, 24
+# Three more training paths (``train_new_paths``), each through
+# ``train_loop`` with AdamW, remat "minimal", every site of its plan a
+# 6-bit QAT site.  "train long": qwen1.5-0.5b at full width and depth on
+# one 4096-token sequence a step (past FLASH_THRESHOLD: every layer's
+# training attention runs flash under autograd), and a control in float32
+# with TD-VMM off, where flash's loss and gradients must match the dense
+# softmax's: the loss within LONG_LOSS_RTOL relative, each gradient leaf
+# within FLASH_TOL of that leaf's max|g| (the JAX package's flash bound).
+LONG_BATCH, LONG_SEQ, LONG_STEPS = 1, 4096, 4
+LONG_LOSS_RTOL = 1e-5
+# "train mixtral": mixtral-8x7b at full width, 2 of its 32 layers, the
+# dropless capacity factor, MOE_BATCH x MOE_PROMPT tokens a step.  AdamW
+# holds ~18 bytes a parameter (bf16 weight 2, float32 gradient and its
+# clipped copy 8, two float32 moments 8): 3.16 G parameters at 2 layers
+# (~57 GB), 6.07 G at 4 (~109 GB, past the card's 80 GB).  With float32
+# moments the first update of the 2 layers ran out of the H100's 80 GB
+# (78.1 GB allocated), so the moments are bfloat16: 14 bytes a parameter,
+# ~44 GB.
+MIX_TRAIN_LAYERS, MIX_TRAIN_STEPS = 2, 4
+MIX_MOMENTS = "bfloat16"
+# AdamW's first update moves every weight by ~lr: on the H100 it took the
+# 2 layers' loss from 10.87 to 20.40 at lr 1e-3 (qwen's rate), to 19.93 at
+# 2.5e-4 (qwen's scaled by the width ratio 1024 / 4096; the fourth step
+# still ended above the first) and to 18.35 at 1e-4, whose next step fell
+# to 9.45
+MIX_TRAIN_LR = 1e-4
+TRAIN_BYTES_PER_PARAM = {"float32": 18, "bfloat16": 14}
+# "train zamba2": zamba2-2.7b at full width and depth (2.44 G parameters,
+# ~44 GB by the same reckoning) on one sequence of its 4096-token context
+# a step, HYB_SITES 6-bit QAT sites; the shared block's attention trains
+# through flash, the scan is ssd_plain under autograd (no B3 launch).
+HYB_TRAIN_BATCH, HYB_TRAIN_SEQ, HYB_TRAIN_STEPS = 1, 4096, 3
+# sites applied between the rematerialized blocks, once per forward: the
+# hybrid family's fuse (once a group) and the untied head; every other
+# site's block runs again when the backward recomputes it
+OUTSIDE_REMAT = ("hybrid.fuse", "head")
 
 # zamba2-2.7b (arXiv:2411.15242) at full width and depth: 54 Mamba-2 layers
 # (80 heads x 64, d_state 64, chunk 128) in 9 groups of 6, each group
@@ -1618,6 +1681,14 @@ def ssm_plan():
                                        backend="auto"),))
 
 
+def ssm_config():
+    """mamba2-1.3b at full width, SSM_SERVE_LAYERS layers, under
+    ``ssm_plan``."""
+    from repro_torch.configs import get_config
+    return get_config(SSM_ARCH).replace(n_layers=SSM_SERVE_LAYERS,
+                                        tdvmm_plan=ssm_plan())
+
+
 def ssm_expected_launches(n_layers: int) -> dict:
     """Exact kernel launches of the SSM path: per layer one B3 scan per
     prefill; ssm.in_proj (one ragged launch) and ssm.out at every step, B1
@@ -1646,15 +1717,15 @@ def reset_all_launches() -> None:
 
 
 def serve_ssm(dev) -> dict:
-    """mamba2-1.3b at full width through the static path: calibrate on one
-    4 x 512 batch, serve another for 32 new tokens, then the same batch in
-    reverse order."""
+    """mamba2-1.3b at full width (``ssm_config``) through the static path:
+    calibrate on one 4 x 512 batch, serve another for 32 new tokens, then
+    the same batch in reverse order."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import model
 
-    cfg = get_config(SSM_ARCH).replace(tdvmm_plan=ssm_plan())
+    cfg = ssm_config()
     params = model.init_params(0, cfg, device=dev)
     g = torch.Generator(device=dev)
     g.manual_seed(1)
@@ -1928,55 +1999,280 @@ def serve_kimi(dev) -> dict:
 
 
 def train_mamba2(dev, workdir: Path) -> dict:
-    """mamba2-1.3b at full width and depth (48 layers, bf16, random weights
-    from seed 0), every ssm.* site a 6-bit TD-VMM site (QAT: B2 in every
-    forward, the straight-through custom gradient in the backward), trained
-    through ``launch/train.train_loop``: AdamW at lr 1e-3 with 1 warmup
-    step (step 0 takes lr 0), SyntheticLM seed 0, QAT_BATCH x QAT_SEQ
-    tokens a step,
-    SSM_TRAIN_STEPS steps, remat "minimal".  The scan runs ``ssd_plain``
-    under autograd (no B3 launch).  Every loss and gradient norm finite,
-    the last loss below the first, and B2 launched exactly sites x layers
-    x (steps + recomputes)."""
+    """mamba2-1.3b at full width, SSM_TRAIN_LAYERS of its 48 layers (bf16),
+    every ssm.* site a 6-bit QAT site, SSM_TRAIN_STEPS steps of QAT_BATCH x
+    QAT_SEQ tokens through ``qat_train``.  The scan runs ``ssd_plain``
+    under autograd (no B3 launch)."""
+    cfg = ssm_config().replace(n_layers=SSM_TRAIN_LAYERS,
+                               remat_policy="minimal")
+    return qat_train("mamba2", cfg, QAT_BATCH, QAT_SEQ, SSM_TRAIN_STEPS, dev,
+                     workdir)
+
+
+def qat_expected_launches(cfg, steps: int) -> tuple[int, str]:
+    """B2 launches of ``steps`` QAT steps under remat "minimal", derived
+    from the resolved plan, and the formula: every enabled site launches
+    once per application (a grouped site's members in one launch, a GLU's
+    gate and up in two, an expert bank all its experts in one), at its
+    layer multiplicity; a block's sites launch again when the backward
+    recomputes the block, OUTSIDE_REMAT's do not."""
+    from repro_torch.configs import plan as planlib
+    table = planlib.resolve_plan(cfg).table
+    top_k = cfg.moe.top_k if cfg.moe is not None else 1
+    count = {"inside": 0, "outside": 0}
+    terms = []
+    for site, info in planlib.site_linear_shapes(cfg).items():
+        sc = table.get(site)
+        if sc is None or not sc.enabled:
+            continue
+        per_app = (1 if site in planlib.GROUPED_SITES else
+                   len(info["matrices"]) // (top_k if site.startswith(
+                       "moe.expert") else 1))
+        count["outside" if site in OUTSIDE_REMAT else "inside"] += \
+            per_app * info["per_token"]
+        terms.append(f"{site} {per_app} x {info['per_token']}")
+    per_step = 2 * count["inside"] + count["outside"]
+    return per_step * steps, (
+        f"(2 x {count['inside']} in blocks + {count['outside']} outside) x "
+        f"{steps} steps; launches per forward: {', '.join(terms)}")
+
+
+def qat_train(tag: str, cfg, batch: int, seq: int, steps: int, dev,
+              workdir: Path, optimizer=None, lr: float = 1e-3) -> dict:
+    """``steps`` steps of ``cfg`` through ``launch/train.train_loop``:
+    random weights from seed 0, SyntheticLM seed 0, ``batch`` x ``seq``
+    tokens a step, ``optimizer`` (default AdamW) at ``lr`` with 1 warmup
+    step (step 0 takes lr 0).  Every logged metric finite, the last loss
+    below the first, and exactly ``qat_expected_launches`` B2 launches with
+    nothing else launched.  Returns the history, the launches and their
+    formula, the seconds and the peak allocated bytes of the phase."""
     import torch
-    from repro_torch.configs import (OptimizerConfig, RunConfig, TDVMMPlan,
-                                     get_config, tdvmm_rule)
+    from repro_torch.configs import OptimizerConfig, RunConfig
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import train
 
-    cfg = get_config(SSM_ARCH).replace(
-        remat_policy="minimal", tdvmm_plan=TDVMMPlan(rules=(tdvmm_rule(
-            "ssm.*", enabled=True, bits=6, weight_bits=6, backend="auto"),)))
-    shape = ShapeConfig("qat", QAT_SEQ, QAT_BATCH, "train",
-                        microbatch_per_shard=QAT_BATCH)
-    run = RunConfig(model=cfg, shape=shape, seed=0,
-                    optimizer=OptimizerConfig(lr=1e-3, warmup_steps=1,
-                                              total_steps=SSM_TRAIN_STEPS),
-                    checkpoint_dir=str(workdir / "mamba2"),
-                    checkpoint_every=10 * SSM_TRAIN_STEPS)
+    opt = dataclasses.replace(optimizer or OptimizerConfig(), lr=lr,
+                              warmup_steps=1, total_steps=steps)
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        tag, seq, batch, "train", microbatch_per_shard=batch), seed=0,
+        optimizer=opt, checkpoint_dir=str(workdir / tag),
+        checkpoint_every=10 * steps)
+    n_want, formula = qat_expected_launches(cfg, steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
-    out = train.train_loop(run, SSM_TRAIN_STEPS, log_every=1, device=dev)
+    out = train.train_loop(run, steps, log_every=1, device=dev)
     torch.cuda.synchronize()
     launches = launches_now()
+    peak = torch.cuda.max_memory_allocated()
     hist = out["history"]
-    require(len(hist) == SSM_TRAIN_STEPS, f"mamba2 qat: {len(hist)} steps")
+    require(len(hist) == steps, f"{tag}: {len(hist)} logged steps")
     for h in hist:
-        require(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
-                f"mamba2 qat step {h['step']}: loss {h['loss']}, gnorm "
-                f"{h['grad_norm']}")
+        require(all(math.isfinite(v) for v in h.values()),
+                f"{tag} step {h['step']}: {h}")
     require(hist[-1]["loss"] < hist[0]["loss"],
-            f"mamba2 qat: loss {hist[0]['loss']:.4f} -> "
-            f"{hist[-1]['loss']:.4f}")
-    sites = 2                               # ssm.in_proj (grouped), ssm.out
-    want = dict.fromkeys(launches, 0) | {
-        "calibrated": sites * cfg.n_layers * 2 * SSM_TRAIN_STEPS}
-    require(launches == want, f"mamba2 qat launches {launches} != {want}")
+            f"{tag}: loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
+    want = dict.fromkeys(launches, 0) | {"calibrated": n_want}
+    require(launches == want, f"{tag} launches {launches} != {want}")
     del out["state"]
     torch.cuda.empty_cache()
     return dict(cfg=cfg, hist=hist, total_s=out["total_s"],
-                launches=launches,
-                formula=f"{sites} sites x {cfg.n_layers} layers x "
-                f"({SSM_TRAIN_STEPS} steps + {SSM_TRAIN_STEPS} recomputes)")
+                launches=launches, formula=formula, peak=peak,
+                opt=opt)
+
+
+def flash_train_control(dev) -> dict:
+    """Flash against the dense softmax in training at full width:
+    qwen1.5-0.5b in float32 with TD-VMM off (a code that rounds to the next
+    level between the two attentions would make the comparison
+    meaningless), random weights from seed 0, one LONG_BATCH x LONG_SEQ
+    batch of SyntheticLM: ``model.loss_fn`` and its gradients through flash
+    (S past FLASH_THRESHOLD), then with the threshold raised to S for that
+    call only (the dense softmax).  The loss within LONG_LOSS_RTOL
+    relative, each gradient leaf within FLASH_TOL of its max|g|."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+    from repro_torch.models import attention, model
+    from repro_torch.tree import leaves_with_paths
+
+    cfg = get_config(ARCH).replace(dtype="float32", remat_policy="minimal")
+    require(not cfg.tdvmm.enabled and cfg.tdvmm_plan is None,
+            "flash control: TD-VMM must be off")
+    params = model.init_params(0, cfg, device=dev)
+    named = leaves_with_paths(params)
+    for _, p in named:
+        p.requires_grad_(True)
+    batch = make_pipeline(cfg, ShapeConfig("long", LONG_SEQ, LONG_BATCH,
+                                           "train"),
+                          DataConfig(seed=0)).batch_at(0)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    old = attention.FLASH_THRESHOLD
+    runs = {}
+    try:
+        for name, threshold in (("flash", old), ("dense", LONG_SEQ)):
+            attention.FLASH_THRESHOLD = threshold
+            t0 = time.perf_counter()
+            total, metrics = model.loss_fn(params, batch, cfg)
+            grads = torch.autograd.grad(total, [p for _, p in named])
+            torch.cuda.synchronize()
+            runs[name] = (float(metrics["loss"].detach()), grads,
+                          time.perf_counter() - t0)
+    finally:
+        attention.FLASH_THRESHOLD = old
+    (lf, gf, sf), (ld, gd, sd) = runs["flash"], runs["dense"]
+    loss_gap = abs(lf - ld) / abs(ld)
+    require(math.isfinite(lf) and loss_gap <= LONG_LOSS_RTOL,
+            f"flash control: loss {lf} against the dense {ld} "
+            f"({loss_gap:.3g} relative)")
+    worst, worst_leaf = 0.0, None
+    for (name, _), a, b in zip(named, gf, gd):
+        scale = float(b.abs().max())
+        gap = float((a - b).abs().max())
+        rel = gap / scale if scale else gap
+        require(bool(torch.isfinite(a).all()) and rel <= FLASH_TOL,
+                f"flash control: gradient {name} {rel:.3g} of max|g| from "
+                "the dense softmax's")
+        if rel >= worst:
+            worst, worst_leaf = rel, name
+    del runs, gf, gd, params
+    torch.cuda.empty_cache()
+    return dict(loss=(lf, ld), loss_gap=loss_gap, grad_gap=worst,
+                grad_leaf=worst_leaf, seconds=(sf, sd))
+
+
+def train_long(dev, workdir: Path) -> dict:
+    """qwen1.5-0.5b at full width and depth, every linear a 6-bit QAT
+    site, LONG_STEPS steps of one LONG_SEQ-token sequence (past
+    FLASH_THRESHOLD: every layer's training attention is flash under
+    autograd, ``_attend_flash`` or ``_attend_flash_blocks`` as
+    FLASH_BLOCK_SKIP picks), then ``flash_train_control``."""
+    from repro_torch.models import attention
+    require(LONG_SEQ > attention.FLASH_THRESHOLD,
+            f"train long: {LONG_SEQ} tokens do not pass the flash threshold")
+    res = qat_train("long", qat_config(), LONG_BATCH, LONG_SEQ, LONG_STEPS,
+                    dev, workdir)
+    res["control"] = flash_train_control(dev)
+    return res
+
+
+def train_mixtral(dev, workdir: Path) -> dict:
+    """mixtral-8x7b at full width, MIX_TRAIN_LAYERS of its 32 layers, the
+    dropless capacity factor, every linear a 6-bit QAT site (moe.expert.in
+    and moe.expert.out: B2 on the (8, 2049, K, N) expert grid), the
+    optimizer ``launch/dryrun.optimizer_for`` gives it (AdamW) with
+    MIX_MOMENTS moments at MIX_TRAIN_LR, MIX_TRAIN_STEPS steps of MOE_BATCH x MOE_PROMPT tokens.  The router's
+    auxiliary losses finite and the load-balance loss positive."""
+    from repro_torch.core.layers import TDVMMLayerConfig
+    from repro_torch.launch import dryrun
+
+    cfg = moe_config().replace(
+        n_layers=MIX_TRAIN_LAYERS, remat_policy="minimal",
+        tdvmm=TDVMMLayerConfig(enabled=True, bits=6, weight_bits=6))
+    params = {n: cfg.replace(n_layers=n).param_count()
+              for n in (MIX_TRAIN_LAYERS, 2 * MIX_TRAIN_LAYERS)}
+    say("train", "mixtral reckoning, before activations and one expert "
+        "bank's QAT programming temporaries: a bf16 weight 2 B, its float32 "
+        "gradient and clipped copy 8 B, AdamW's two moments 8 B in float32 "
+        "or 4 B in bfloat16: " + "; ".join(
+            f"{n} layers {p / 1e9:.2f} G parameters, " + ", ".join(
+                f"{p * b / 1e9:.1f} GB with {m} moments"
+                for m, b in TRAIN_BYTES_PER_PARAM.items())
+            for n, p in params.items()) + f"; {MIX_MOMENTS} moments taken")
+    opt = dataclasses.replace(dryrun.optimizer_for(cfg),
+                              moment_dtype=MIX_MOMENTS)
+    res = qat_train("mixtral", cfg, MOE_BATCH, MOE_PROMPT, MIX_TRAIN_STEPS,
+                    dev, workdir, optimizer=opt, lr=MIX_TRAIN_LR)
+    for h in res["hist"]:
+        require(h["lb_loss"] > 0, f"mixtral qat step {h['step']}: "
+                f"load-balance loss {h['lb_loss']}")
+    res["params"] = params
+    return res
+
+
+def train_zamba2(dev, workdir: Path) -> dict:
+    """zamba2-2.7b at full width and depth under ``hybrid_plan`` as 6-bit
+    QAT sites, HYB_TRAIN_STEPS steps of one HYB_TRAIN_SEQ-token sequence:
+    the shared block's attention trains through flash, the scan runs
+    ``ssd_plain`` under autograd (B3 has no backward: no B3 launch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+    require(HYB_TRAIN_SEQ > attention.FLASH_THRESHOLD,
+            f"train zamba2: {HYB_TRAIN_SEQ} tokens do not pass the flash "
+            "threshold")
+    cfg = get_config(HYB_ARCH).replace(remat_policy="minimal",
+                                       tdvmm_plan=hybrid_plan())
+    res = qat_train("zamba2", cfg, HYB_TRAIN_BATCH, HYB_TRAIN_SEQ,
+                    HYB_TRAIN_STEPS, dev, workdir)
+    res["params"] = cfg.param_count()
+    return res
+
+
+def say_train(tag: str, res: dict, what: str) -> None:
+    """One line of a ``qat_train`` phase: its losses, gradient norms,
+    seconds a step, peak memory and launches."""
+    hist = res["hist"]
+    say("train", f"{tag}: {what}; loss "
+        + " ".join(f"{h['loss']:.4f}" for h in hist)
+        + "; gnorm " + " ".join(f"{h['grad_norm']:.3f}" for h in hist)
+        + "; step s " + " ".join(f"{h['dt']:.3f}" for h in hist)
+        + f"; {res['total_s']:.1f} s with the checkpoint; peak allocated "
+        f"{res['peak'] / 1e9:.2f} GB; B2 launches "
+        f"{res['launches']['calibrated']} = {res['formula']}")
+
+
+def train_new_paths(dev, served: list) -> None:
+    """The phases "train long", "train mixtral" and "train zamba2", each
+    with its checkpoints in a temporary directory of its own; their
+    launches join ``served``."""
+    import torch
+    with tempfile.TemporaryDirectory() as workdir:
+        tl = train_long(dev, Path(workdir))
+    served.append({"launches": tl["launches"]})
+    c, ctl = tl["cfg"], tl["control"]
+    say_train("train long", tl, f"{ARCH} full width and depth "
+              f"({c.n_layers} layers, {c.dtype}), every linear 6-bit "
+              f"TD-VMM, {LONG_BATCH} x {LONG_SEQ} tokens a step (flash in "
+              "every layer's training attention), AdamW, remat minimal")
+    say("train", f"train long control: float32, TD-VMM off, one {LONG_BATCH}"
+        f" x {LONG_SEQ} batch: loss through flash {ctl['loss'][0]:.7f}, "
+        f"dense {ctl['loss'][1]:.7f} ({ctl['loss_gap']:.3g} relative, gate "
+        f"{LONG_LOSS_RTOL}); gradients within {ctl['grad_gap']:.3g} of each "
+        f"leaf's max|g| (worst {ctl['grad_leaf']}; gate {FLASH_TOL}); loss + "
+        f"gradients {ctl['seconds'][0]:.2f} s flash, {ctl['seconds'][1]:.2f}"
+        " s dense")
+    del tl
+    phase_done("train long")
+
+    with tempfile.TemporaryDirectory() as workdir:
+        tx = train_mixtral(dev, Path(workdir))
+    served.append({"launches": tx["launches"]})
+    say_train("train mixtral", tx, f"{MOE_ARCH} full width, "
+              f"{MIX_TRAIN_LAYERS} of 32 layers ({tx['params'][2] / 1e9:.2f}"
+              f" G parameters), capacity factor {MOE_CAPACITY_FACTOR}, "
+              f"every linear 6-bit TD-VMM (experts on the (8, C, K, N) "
+              f"grid), {MOE_BATCH} x {MOE_PROMPT} tokens a step, "
+              f"{tx['opt'].name} with {tx['opt'].moment_dtype} moments at lr "
+              f"{tx['opt'].lr:g}, remat minimal; lb_loss "
+              + " ".join(f"{h['lb_loss']:.4f}" for h in tx["hist"])
+              + ", z_loss " + " ".join(f"{h['z_loss']:.4f}"
+                                       for h in tx["hist"]))
+    del tx
+    phase_done("train mixtral")
+
+    with tempfile.TemporaryDirectory() as workdir:
+        tz = train_zamba2(dev, Path(workdir))
+    served.append({"launches": tz["launches"]})
+    say_train("train zamba2", tz, f"{HYB_ARCH} full width and depth "
+              f"({tz['params'] / 1e9:.2f} G parameters, "
+              f"{tz['cfg'].n_layers} layers), {', '.join(HYB_SITES)} 6-bit "
+              f"TD-VMM, {HYB_TRAIN_BATCH} x {HYB_TRAIN_SEQ} tokens a step "
+              "(flash in the shared block), the scan ssd_plain under "
+              "autograd, AdamW, remat minimal")
+    del tz
+    torch.cuda.empty_cache()
+    phase_done("train zamba2")
 
 
 def profile_static(args, steps: int) -> dict:
@@ -4048,7 +4344,7 @@ def mesh_ssm_worker(rank: int, init_file: str, job: dict, results) -> None:
         dev = torch.device("cuda", 0)
         out = {}
         # (a) mamba2 on 1 x 2
-        cfg = get_config(SSM_ARCH).replace(tdvmm_plan=ssm_plan())
+        cfg = ssm_config()
         params = model.init_params(0, cfg, device=dev)
         calib = CalibrationState(windows={
             k: torch.from_numpy(v) for k, v in job["windows"].items()})
@@ -4947,7 +5243,8 @@ def main() -> int:
 
     ssm = serve_ssm(dev)
     served.append(ssm)
-    say("serve", f"ssm_unchained: mamba2-1.3b full width, {SSM_BATCH} x "
+    say("serve", f"ssm_unchained: mamba2-1.3b full width, "
+        f"{SSM_SERVE_LAYERS} of 48 layers, {SSM_BATCH} x "
         f"{SSM_PROMPT} prompt tokens + {SSM_GEN} new each: calibrate "
         f"{ssm['calibrate_s']:.3f} s, prefill {ssm['prefill_s']:.3f} s, "
         f"decode {ssm['decode_s']:.3f} s ({ssm['decode_tok_per_s']:.2f} "
@@ -4972,7 +5269,8 @@ def main() -> int:
     del ssm["args"]
     served.extend({"launches": x} for x in ms["launches"])
     r0 = ms["ranks"][0]
-    say("mesh", f"ssm (a): {SSM_ARCH} full width on 1 x 2, two ranks on the "
+    say("mesh", f"ssm (a): {SSM_ARCH} full width ({SSM_SERVE_LAYERS} "
+        "layers) on 1 x 2, two ranks on the "
         f"card over gloo: ssm.in_proj (pinned, data-calibrated) and ssm.out "
         "(pinned) bitwise the meshless sites on each rank's shard; "
         f"serve_static {SSM_BATCH} x {SSM_PROMPT} + {SSM_GEN} tokens, "
@@ -5143,19 +5441,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         tm = train_mamba2(dev, Path(workdir))
     served.append({"launches": tm["launches"]})
-    c = tm["cfg"]
-    say("train", f"qat: {SSM_ARCH} full width and depth ({c.n_layers} "
-        f"layers, d_model {c.d_model}, vocab {c.vocab_size}, {c.dtype}), "
-        f"every ssm.* site 6-bit TD-VMM, {QAT_BATCH} x {QAT_SEQ} tokens a "
-        "step, remat minimal, the scan ssd_plain under autograd: loss "
-        + " ".join(f"{h['loss']:.4f}" for h in tm["hist"])
-        + "; gnorm " + " ".join(f"{h['grad_norm']:.3f}" for h in tm["hist"])
-        + "; step s " + " ".join(f"{h['dt']:.3f}" for h in tm["hist"])
-        + f"; {tm['total_s']:.1f} s with the checkpoint; B2 launches "
-        f"{tm['launches']['calibrated']} = {tm['formula']}")
+    say_train("qat", tm, f"{SSM_ARCH} full width, {tm['cfg'].n_layers} of "
+              f"{get_config(SSM_ARCH).n_layers} layers, every ssm.* site "
+              f"6-bit TD-VMM, {QAT_BATCH} x {QAT_SEQ} tokens a step, remat "
+              "minimal, the scan ssd_plain under autograd")
     del tm
     torch.cuda.empty_cache()
     phase_done("train mamba2")
+
+    train_new_paths(dev, served)
 
     worst = small_input_agreement(dev)
     say("small", "qwen card vs cpu plain path: equal greedy tokens, logits "

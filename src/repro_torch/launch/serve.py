@@ -42,6 +42,10 @@ pools, as int8 codes with per-(token, head) scales.
 
 ``--device cpu`` runs the plain torch path on the CPU; add ``--smoke`` for
 the reduced same-family model.  Weights are random, drawn from ``--seed``.
+``--plan-report`` prints the resolved TD-VMM site table on either path:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+        --smoke --device cpu --tdvmm 'ffn.*' --plan-report [--static]
 
 The engine path is fault tolerant.  ``--snapshot-dir`` installs SIGTERM and
 SIGINT handlers: a preempted run saves its whole in-flight state there and
@@ -217,6 +221,12 @@ def fault_config(args, probe_batch=None, sink=None) -> FaultConfig | None:
         drift=drift, heartbeat=hb, monitor=fault.StragglerMonitor(sink=sink))
 
 
+def print_plan(cfg) -> None:
+    """The resolved TD-VMM site table (``--plan-report``)."""
+    print("[serve] TD-VMM plan:")
+    print(cfg.resolved_tdvmm_plan.describe())
+
+
 def serve_engine(cfg, args, mesh=None):
     """The engine path; with ``mesh`` one rank of a mesh-sharded engine
     (every rank runs this with the same arguments)."""
@@ -230,6 +240,8 @@ def serve_engine(cfg, args, mesh=None):
             generator=gen)}
         calib = model.calibrate(params, batch, cfg, device=device)
         print(f"[serve] calibrated sites: {calib.sites()}")
+    if args.plan_report:
+        print_plan(cfg)
     reqs = make_trace(cfg.vocab_size, args.requests, args.prompt_len,
                       args.gen, args.seed, sla=args.sla,
                       deadline_steps=args.deadline_steps,
@@ -327,7 +339,7 @@ def _sync(device: torch.device) -> None:
 def serve_static(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
                  calibrate: bool = False, calib=None, device=None,
                  params=None, prompts=None, decode_inputs=None,
-                 mesh=None) -> dict:
+                 mesh=None, plan_report: bool = False) -> dict:
     """Uniform-batch prefill + greedy decode (the JAX package's ``serve()``
     without a mesh).  ``calibrate=True`` runs the model-wide readout-window
     pass on the prompt batch first and serves with every TD-VMM site's
@@ -346,8 +358,13 @@ def serve_static(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
     come back whole.  A batch the data axes do not divide runs whole on
     every data rank against a sequence-split cache (``meshctx.split_seq``:
     each rank holds a segment of every sequence's positions).  Calibration
-    runs on the whole batch before the params are split."""
+    runs on the whole batch before the params are split.
+
+    ``plan_report`` prints the resolved site table first (which boundaries
+    are digital and which time-chained)."""
     device = common.resolve_device(device)
+    if plan_report:
+        print_plan(cfg)
     if params is None:
         params = model.init_params(seed, cfg, device=device)
     embeds = cfg.input_mode == "embeddings"
@@ -479,6 +496,8 @@ def main(argv=None):
                     help="pin every TD-VMM site's readout window with one "
                          "calibration pass before serving (needed whenever "
                          "--tdvmm enables a site)")
+    ap.add_argument("--plan-report", action="store_true",
+                    help="print the resolved TD-VMM site table")
     ap.add_argument("--tdvmm", default=None, metavar="PATTERN",
                     help="run the plan sites matching PATTERN (e.g. 'ffn.*') "
                          "as analog TD-VMM tiles")
@@ -588,7 +607,8 @@ def main(argv=None):
             return serve_engine(cfg, args, mesh=mesh)
         out = serve_static(cfg, args.batch, args.prompt_len, args.gen,
                            seed=args.seed, calibrate=args.calibrate,
-                           device=args.device, mesh=mesh)
+                           device=args.device, mesh=mesh,
+                           plan_report=args.plan_report)
     finally:
         attention.set_kv_cache_int8(False)
     print(f"[serve] {args.arch} batch={args.batch} "

@@ -64,9 +64,13 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model.calibrate(params, {"inputs": torch.zeros((1, 4), dtype=torch.long)},
                         cfg)
-    from repro_torch.launch import serve
+    from repro_torch.launch import quickstart, serve, serve_lm
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "qwen1.5-0.5b", "--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quickstart.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_lm.main([])
     # asked for explicitly, the CPU path runs
     Engine(cfg, params, EngineConfig(), device="cpu")
 
@@ -120,6 +124,20 @@ OBSERVABILITY_MODULES = (
 @pytest.mark.parametrize("name", OBSERVABILITY_MODULES)
 def test_observability_modules_are_in_the_isolation_scan(name):
     # the port's own copies of the JAX package's pure-Python modules
+    assert name in _modules()
+    path = PORT.joinpath(*name.split(".")[1:]).with_suffix(".py")
+    assert not FORBIDDEN.search(path.read_text()), path
+
+
+SURFACE_MODULES = (
+    "repro_torch.launch.quickstart", "repro_torch.launch.serve_lm",
+    "repro_torch.launch.roofline_report")
+
+
+@pytest.mark.parametrize("name", SURFACE_MODULES)
+def test_example_and_report_modules_are_in_the_isolation_scan(name):
+    # the port's counterparts of the JAX package's examples and of its
+    # roofline generators, which read JSON and need no device
     assert name in _modules()
     path = PORT.joinpath(*name.split(".")[1:]).with_suffix(".py")
     assert not FORBIDDEN.search(path.read_text()), path
