@@ -122,6 +122,18 @@ Phases, each of which stops the script with a non-zero exit on failure:
    NaN, the first and last requests alone == batched; its peak allocated
    memory after init, calibration and serving (each expert bank is
    programmed a slice of experts at a time).
+   Then "mesh kimi" (``mesh_kimi``): that layer's attention (64 heads, 8 KV
+   heads of 112) split as a model axis of 16 splits it, by KV groups (4
+   query heads and their one KV head a rank), the 16 shards run one after
+   another in this process (``ShardView``: rank r's view of the mesh, no
+   process group), each from ``meshctx.local_config`` and
+   ``sharding.shard``: a 4 x 512 prefill and 8 decode steps on a dense
+   cache; every shard's attention output before ``wo`` is bitwise the
+   meshless layer's heads, and the 16 ``wo`` partials summed in rank order
+   are bitwise the layer's output, in the mesh's order (``tp_order(16)``
+   with each column product formed as its shards form it); a shard's cache
+   is 1/8 of the meshless one.  The kernel phase also holds B1 at kimi's
+   expert shard on the 16 x 16 mesh (24 experts, d_ff 128).
    Then mamba2-1.3b at full width (24 of its 48 layers, SSM_SERVE_LAYERS;
    d_model 2048, 64 heads x 64, d_state 128, chunk 128, vocab 50280, bf16,
    random weights from seed 0)
@@ -433,6 +445,11 @@ KIMI_STEP_C, KIMI_CALIB_C = 4, 54
 KIMI_SOLO = (0, 7)
 # an expert whose window stays at calibration's floor saw no token
 KIMI_FLOOR = 1e-9
+# "mesh kimi": the production mesh's axes (16 x 16); the attention of that
+# one layer split by KV groups over a model axis of 16, a prefill of
+# KIMI_MESH_PROMPT and KIMI_MESH_GEN decode steps on a dense cache
+KIMI_MESH = 16
+KIMI_MESH_PROMPT, KIMI_MESH_GEN = (4, 512), 8
 # mamba2-1.3b trained at full width, every ssm.* site a 6-bit QAT site, 4
 # steps of QAT_BATCH x QAT_SEQ tokens (its scan is ssd_plain under
 # autograd: B3 has no backward); depth cut from 48 to 24 layers for the
@@ -950,6 +967,17 @@ def tp_shard_cases() -> list[dict]:
                        ex=e, m=DP * KIMI_STEP_C, k=k, n=n, tp="ep"),
                   dict(kernel="tdvmm_matmul_raw", mode="raw", e=e, ex=e,
                        m=DP * KIMI_CALIB_C, k=k, n=n, tp="ep")]
+    # the production mesh's 16 x 16: 24 local experts, d_ff 2048 / 16 over
+    # the model axis (the up banks' columns, the down bank's rows), each
+    # expert's rows from all 16 data ranks
+    e, f = KIMI_E // KIMI_MESH, KIMI_IN[1] // KIMI_MESH
+    for k, n in ((KIMI_IN[0], f), (f, KIMI_OUT[1])):
+        cases += [dict(kernel="tdvmm_fused", mode="expert_windows", e=e,
+                       ex=e, m=KIMI_MESH * KIMI_STEP_C, k=k, n=n,
+                       tp="ep x tp 16x16"),
+                  dict(kernel="tdvmm_matmul_raw", mode="raw", e=e, ex=e,
+                       m=KIMI_MESH * KIMI_CALIB_C, k=k, n=n,
+                       tp="ep x tp 16x16")]
     return cases
 
 
@@ -1996,6 +2024,137 @@ def serve_kimi(dev) -> dict:
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     return out
+
+
+class ShardView:
+    """Rank ``r``'s view of a 1 x ``n`` ("data", "model") mesh with no
+    process group: what ``meshctx``'s sizes and ranks and
+    ``sharding``'s placements read of a mesh.  A collective on it raises
+    (there is no group to reduce over)."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, n: int, r: int):
+        self.n, self.r = n, r
+
+    def size(self, dim: int = -1) -> int:
+        return (1, self.n)[dim] if dim >= 0 else self.n
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.r if axis == "model" else 0
+
+
+def mesh_kimi(dev, cfg=None, prompt=KIMI_MESH_PROMPT,
+              gen=KIMI_MESH_GEN) -> dict:
+    """kimi-k2-1t-a32b's attention at full width (one layer: d_model 7168,
+    64 heads and 8 KV heads of 112, random bf16 weights from seed 3) split
+    by KV groups over a model axis of KIMI_MESH, the shards run one after
+    another (``ShardView``): each rank's config (``meshctx.local_config``:
+    4 heads, 1 KV head) and weights (``sharding.shard``: ``wq``'s and
+    ``wo``'s 448 columns / rows, ``wk`` / ``wv``'s 112 of KV head r / 2),
+    a KIMI_MESH_PROMPT prefill and KIMI_MESH_GEN decode steps on its dense
+    cache.  Against the meshless layer in the mesh's order
+    (``tp_order(16)``, ``attn.qkv`` in the shards' column slices): at every
+    step each shard's attention output before ``wo`` is bitwise that
+    layer's 4 heads, and the 16 float32 ``wo`` partials
+    (``common.partial_f32``) summed in rank order and rounded once are
+    bitwise its output; each shard's cache holds the meshless cache's KV
+    head bitwise, in 1/8 of its bytes.  Also the gaps of the mesh-order
+    layer to the plain meshless one (column products at K 7168 may take
+    another reduction order on the card).  ``cfg``, ``prompt`` and
+    ``gen``: another attention config and sizes (a small one on the CPU)."""
+    import torch
+    from repro_torch.launch import meshctx, sharding
+    from repro_torch.models import attention, common
+
+    t0 = time.perf_counter()
+    cfg = kimi_config() if cfg is None else cfg
+    n, kv = KIMI_MESH, cfg.n_kv_heads
+    per = cfg.n_heads // n
+    (b, s), steps = prompt, gen
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    params = {"attn": attention.init(g, cfg, bf16, dev)}
+    xs = [torch.randn((b, s, cfg.d_model), generator=g, device=dev)
+          .to(bf16)]
+    xs += [torch.randn((b, 1, cfg.d_model), generator=g, device=dev)
+           .to(bf16) for _ in range(steps)]
+
+    def run(p, c, out_fn):
+        """Every step's (attention output before wo, layer output) and the
+        cache, with ``attention._out`` replaced by ``out_fn``."""
+        cache = attention.init_cache(c, b, s + steps, bf16, dev)
+        old, seen = attention._out, []
+
+        def out_(params_, out, cfg_, key=None):
+            seen.append(out)
+            return out_fn(params_, out, cfg_, key)
+        attention._out = out_
+        try:
+            ys = []
+            with torch.no_grad():
+                y, cache = attention.apply_prefill(p, xs[0], c, cache)
+                ys.append(y)
+                for x in xs[1:]:
+                    y, cache = attention.apply_decode(p, x, c, cache)
+                    ys.append(y)
+        finally:
+            attention._out = old
+        return list(zip(seen, ys)), cache
+
+    plain, _ = run(params["attn"], cfg, attention._out)
+    with tp_order(n, col_parts=(n, kv, kv)):
+        ctrl, ctrl_cache = run(params["attn"], cfg, attention._out)
+    ctrl_bytes = ctrl_cache.k.nbytes + ctrl_cache.v.nbytes
+    sums, t_shards = None, []
+    for r in range(n):
+        view = ShardView(n, r)
+        ts = time.perf_counter()
+        with meshctx.use_mesh_of(view):
+            local = meshctx.local_config(cfg)
+            require(local.attn_split == "groups" and local.n_heads == per
+                    and local.n_kv_heads == 1,
+                    f"mesh kimi: rank {r}'s config {local.attn_split} "
+                    f"{local.n_heads} x {local.n_kv_heads}")
+            specs = sharding.param_specs(params, cfg, view, dp_axes=())
+            mine = sharding.shard_tree(params, specs, view)["attn"]
+            got, cache = run(mine, local, lambda p_, o, c_, k=None:
+                             common.partial_f32(
+                                 attention._merge_heads(o), p_["wo"]["w"]))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t_shards.append(time.perf_counter() - ts)
+        for i, ((o, part), (co, _)) in enumerate(zip(got, ctrl)):
+            require(torch.equal(o, co[:, :, r * per:(r + 1) * per]),
+                    f"mesh kimi: rank {r}'s attention output at step {i} "
+                    "is not the meshless layer's heads, bitwise")
+        h = r * kv // n
+        require(torch.equal(cache.k[:, :, 0], ctrl_cache.k[:, :, h])
+                and torch.equal(cache.v[:, :, 0], ctrl_cache.v[:, :, h])
+                and kv * (cache.k.nbytes + cache.v.nbytes) == ctrl_bytes,
+                f"mesh kimi: rank {r}'s cache is not KV head {h}'s in "
+                f"1/{kv} of the meshless cache's bytes")
+        shard_bytes = cache.k.nbytes + cache.v.nbytes
+        del cache
+        parts = [part for _, part in got]
+        sums = parts if sums is None else [a + p for a, p in
+                                           zip(sums, parts)]
+    for i, (tot, (_, cy)) in enumerate(zip(sums, ctrl)):
+        require(torch.equal(tot.to(bf16), cy),
+                f"mesh kimi: the {n} wo partials summed in rank order at "
+                f"step {i} are not the layer's output, bitwise")
+
+    def gap(a, b_):
+        return float((a.float() - b_.float()).abs().max()
+                     / b_.float().abs().max().clamp_min(1e-30))
+    return {"cache_bytes": ctrl_bytes, "shard_cache_bytes": shard_bytes,
+            "steps": len(ctrl), "shard_s": sum(t_shards),
+            "gap_out": max(gap(co, po) for (co, _), (po, _) in
+                           zip(ctrl, plain)),
+            "gap_layer": max(gap(cy, py) for (_, cy), (_, py) in
+                             zip(ctrl, plain)),
+            "seconds": time.perf_counter() - t0}
 
 
 def train_mamba2(dev, workdir: Path) -> dict:
@@ -3632,7 +3791,7 @@ def forced_logits(params, cfg, calib, prompts, forced, dev, mesh=None):
 
 
 @contextlib.contextmanager
-def tp_order(tp: int):
+def tp_order(tp: int, col_parts=None):
     """The meshless model with each row-parallel product outside the TD-VMM
     sites (``common.dense(..., tp="row")``, ``common.dense_tp_reduce``:
     attn.wo, and ffn.w_down with TD-VMM off) formed as a 1 x ``tp`` mesh
@@ -3644,9 +3803,15 @@ def tp_order(tp: int):
     bit for bit, and a wrong shard, cache layout or reduction does not.
     The SSM's gated RMSNorm sums its squares as ``tp`` partial sums added
     in rank order (``ssm.TP_ORDER``), as a 1 x ``tp`` run's all-reduce
-    does."""
+    does.  ``col_parts``: the grouped column products (``attn.qkv`` with
+    TD-VMM off) formed as the shards form them too, member g as
+    ``col_parts[g]`` products of equal column slices, concatenated: at
+    kimi-k2's K 7168 a column slice's product is not always the whole
+    product's columns on the card (scripts/tp_order_probe.py)."""
+    import torch
     from repro_torch.models import common, ssm
     dense, reduce_ = common.dense, common.dense_tp_reduce
+    group = common.dense_group
 
     def row(params, x):
         k = x.shape[-1] // tp
@@ -3667,12 +3832,27 @@ def tp_order(tp: int):
     def reduce__(params, x, td, key=None, shard=None):
         return reduce_(params, x, td, key, shard) if td.enabled else \
             row(params, x)
+
+    def group_(param_group, x, td, key=None, tp="col", shard=None,
+               replicas=None):
+        if td.enabled or col_parts is None:
+            return group(param_group, x, td, key, tp, shard, replicas)
+        out = []
+        for p, parts in zip(param_group, col_parts):
+            w = p["w"]
+            c = w.shape[-1] // parts
+            y = torch.cat([x @ w[:, i * c:(i + 1) * c].contiguous()
+                           for i in range(parts)], dim=-1)
+            out.append(y + p["b"].to(y.dtype) if "b" in p else y)
+        return tuple(out)
     common.dense, common.dense_tp_reduce = dense_, reduce__
+    common.dense_group = group_
     ssm.TP_ORDER = tp
     try:
         yield
     finally:
         common.dense, common.dense_tp_reduce = dense, reduce_
+        common.dense_group = group
         ssm.TP_ORDER = 1
 
 
@@ -5240,6 +5420,25 @@ def main() -> int:
         f"tokens {ki['tokens']}; phase {ki['seconds']:.1f} s")
     del ki
     phase_done("serve kimi")
+
+    mk = mesh_kimi(dev)
+    say("mesh", f"kimi: {KIMI_ARCH}'s attention at full width (one layer, "
+        f"64 heads and 8 KV heads of 112) split by KV groups over a model "
+        f"axis of {KIMI_MESH}, the {KIMI_MESH} shards from local_config and "
+        f"sharding.shard one after another: {KIMI_MESH_PROMPT[0]} x "
+        f"{KIMI_MESH_PROMPT[1]} prefill + {KIMI_MESH_GEN} decode steps on a "
+        "dense cache; every shard's attention output before wo == the "
+        "meshless layer's heads, the 16 wo partials summed in rank order == "
+        "its output, bitwise, in the mesh's order (tp_order(16), q/k/v in "
+        "the shards' column slices); cache bytes a shard "
+        f"{mk['shard_cache_bytes']} = 1/8 of the meshless "
+        f"{mk['cache_bytes']}; the mesh-order layer against the plain "
+        f"meshless one: attention output {mk['gap_out']:.3g}, layer output "
+        f"{mk['gap_layer']:.3g} of max|y|; shards {mk['shard_s']:.2f} s, "
+        f"phase {mk['seconds']:.1f} s | {card}")
+    del mk
+    torch.cuda.empty_cache()
+    phase_done("mesh kimi")
 
     ssm = serve_ssm(dev)
     served.append(ssm)

@@ -15,6 +15,12 @@ slice of the operands, as a rank of a 1 x 2 mesh computes it.
 - Attention (``models.attention._attend``'s einsums) at 8 of qwen's 16 heads
   against those heads of the 16-head call, decode (1 query, 80 keys) and
   prefill (64 queries and keys).
+- kimi-k2's KV-group split over a model axis of 16 (``attn_split``
+  "groups"): the column products at K 7168 (``wq`` N 7168 in 16 slices of
+  448, ``wk`` N 896 in its 8 KV heads of 112) at M 4, 64 and 2048, and
+  attention at 4 of its 64 query heads with their one KV head of 8 against
+  those heads of the whole call, decode (1 query, 520 keys) and prefill
+  (512 queries and keys), causal.
 - Row-parallel products (attn.wo K 1024, ffn.w_down K 2816, N 1024): the
   meshless bf16 matmul, against the two halves' float32 partial products
   summed in rank order and rounded once, computed (a) from float32 copies of
@@ -110,6 +116,44 @@ def main() -> int:
             kk[:, :, i * 8:(i + 1) * 8].contiguous(),
             v[:, :, i * 8:(i + 1) * 8].contiguous())) for i in (0, 1))
     res["attention_heads_bitwise"] = att
+
+    kimi = {}
+    for name, n, parts in (("wq", 7168, 16), ("wk", 896, 8)):
+        w = rnd(7168, n, scale=7168 ** -0.5)
+        for m in (4, 64, 2048):
+            x = rnd(m, 7168)
+            full = x @ w
+            c = n // parts
+            kimi[f"{name} M{m}"] = all(
+                _equal(full[:, i * c:(i + 1) * c],
+                       x @ w[:, i * c:(i + 1) * c].contiguous())
+                for i in range(parts))
+
+    def gqa(q, k, v, causal):
+        b, sq, h, d = q.shape
+        kv = k.shape[2]
+        qg = q.reshape(b, sq, kv, h // kv, d)
+        lg = torch.einsum("bskgd,btkd->bkgst", qg, k).to(torch.float32) \
+            * d ** -0.5
+        if causal:
+            t = k.shape[1]
+            mask = torch.arange(t, device=dev)[None, :] <= (
+                torch.arange(sq, device=dev)[:, None] + t - sq)
+            lg = torch.where(mask, lg, -1e30)
+        p = torch.softmax(lg, dim=-1).to(v.dtype)
+        return torch.einsum("bkgst,btkd->bskgd", p, v).reshape(b, sq, h, d)
+    for name, b, sq, skv in (("decode", 4, 1, 520), ("prefill", 4, 512,
+                                                     512)):
+        q = rnd(b, sq, 64, 112)
+        kk, v = rnd(b, skv, 8, 112), rnd(b, skv, 8, 112)
+        full = gqa(q, kk, v, True)
+        kimi[f"attention {name}"] = all(_equal(
+            full[:, :, 4 * r:4 * r + 4],
+            gqa(q[:, :, 4 * r:4 * r + 4].contiguous(),
+                kk[:, :, r // 2:r // 2 + 1].contiguous(),
+                v[:, :, r // 2:r // 2 + 1].contiguous(), True))
+            for r in range(16))
+    res["kimi_groups_bitwise"] = kimi
 
     row = {}
     try:

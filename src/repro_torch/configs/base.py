@@ -194,9 +194,12 @@ class ModelConfig:
     # One shard of a ``model`` axis (``launch.meshctx.local_config`` sets
     # these): the shards the config is one of, and how attention splits over
     # them: "heads" (heads and KV heads divided), "lanes" (every head kept,
-    # head_dim / tp_shards lanes of each) or "whole" (kept on every rank).
+    # head_dim / tp_shards lanes of each), "groups" (the shard's heads and
+    # the one KV head they read, of ``tp_kv_heads``) or "whole" (kept on
+    # every rank).
     tp_shards: int = 1
     attn_split: str = "heads"
+    tp_kv_heads: int = 0
 
     def site_tdvmm(self, site: str) -> TDVMMLayerConfig:
         """Resolved TD-VMM config for one canonical site name.

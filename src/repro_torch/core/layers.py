@@ -176,13 +176,16 @@ def _record_window(cfg: TDVMMLayerConfig, x_codes: torch.Tensor,
 def _record_z(cfg: TDVMMLayerConfig, z: torch.Tensor, per_tile: bool,
               group_widths: Optional[tuple[int, ...]],
               tp_col: bool = False, dp_rows: bool = False,
-              whole_cols: Optional[int] = None) -> None:
+              whole_cols: Optional[int] = None,
+              counted: Optional[torch.Tensor] = None) -> None:
     """Record a site's |z| maxima (and clip tally) from its latch-normalized
     |z|.  ``tp_col``: ``z`` holds this rank's columns of a column-parallel
     site; ``dp_rows``: its rows of a batch split over the data axes.  The
     maxima are taken and clips counted over every such rank;
     ``whole_cols`` is the meshless launch's column count (a grouped
-    launch's member spans pad to the 128 lane per shard)."""
+    launch's member spans pad to the 128 lane per shard); ``counted``
+    (N,) marks the columns this rank's tally counts (a column several
+    ranks hold is counted on the first of them)."""
     from repro_torch.core import calibration
     from repro_torch.launch import meshctx
     ref = calibration.clip_reference(cfg.site)
@@ -202,7 +205,10 @@ def _record_z(cfg: TDVMMLayerConfig, z: torch.Tensor, per_tile: bool,
             thresh = ref.reshape(-1, 1, 1)
         else:
             thresh = ref.reshape(())
-        exceed, total = torch.sum(z > thresh), z.numel()
+        over = z > thresh
+        if counted is not None:
+            over = over & counted.to(z.device)
+        exceed, total = torch.sum(over), z.numel()
         if tp_col:
             exceed = meshctx.tp_sum_exact(exceed)
             total = (total // max(z.shape[-1], 1) * whole_cols
@@ -386,7 +392,8 @@ def _mesh_integrate(tp: Optional[str], cfg: TDVMMLayerConfig, xc, wc,
                     x_scale, w_scale, gain: float, out_bits, out_scale,
                     out_window, backend: str, code_dtype: str, max_code,
                     per_tile: bool = False, group_widths=None,
-                    whole_cols: Optional[int] = None) -> torch.Tensor:
+                    whole_cols: Optional[int] = None,
+                    counted: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Integrate + readout of a site on a mesh (see above).  Returns
     (E, M, N), or (M, N) for 2-D codes."""
     from repro_torch.core import calibration
@@ -420,7 +427,7 @@ def _mesh_integrate(tp: Optional[str], cfg: TDVMMLayerConfig, xc, wc,
         if capture:
             _record_z(cfg, z[0] if squeeze else z, per_tile, group_widths,
                       tp_col=tp == "col", dp_rows=dp_rows,
-                      whole_cols=whole_cols)
+                      whole_cols=whole_cols, counted=counted)
         if data_cal:
             out_window = torch.maximum(
                 reduce(_slot_max(z, group_widths)),
@@ -568,7 +575,7 @@ def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
 
 def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
                       key: Optional[quant.NoiseKey] = None,
-                      tp: Optional[str] = None, shard=None
+                      tp: Optional[str] = None, shard=None, replicas=None
                       ) -> tuple[torch.Tensor, ...]:
     """Grouped four-quadrant TD-VMM: G same-input projections, one launch.
 
@@ -580,7 +587,11 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
     span (``group_widths``), so the launch is bitwise the G sequential calls
     whenever the windows match.  Programming noise perturbs the concat bank
     (as the JAX package does; on a column shard, its columns of the whole
-    bank's draws: each member's contiguous chunk, or ``shard[g]``).
+    bank's draws: each member's contiguous chunk, or ``shard[g]`` where it
+    is not None).  ``replicas[g]``: the consecutive ``model`` ranks that
+    hold the same columns of member g (the KV groups split's ``wk`` /
+    ``wv``: one KV head a rank), whose whole width is then N_g x tp /
+    replicas[g], and whose clips the first of them counts.
     Returns G tensors shaped (..., N_g)."""
     ws = tuple(ws)
     if not ws:
@@ -609,8 +620,9 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
                                tp_reduce=tp is not None
                                and not cfg.per_channel)
          for w in ws], widths)
+    reps = (1,) * len(ws) if replicas is None else tuple(replicas)
     if noisy:
-        qw = _group_noise(qw, cfg, key, tp, ns, widths, shard)
+        qw = _group_noise(qw, cfg, key, tp, ns, widths, shard, reps)
     gain = _latch_gain(qx.levels, qw.levels, k)
     w_scale = qw.scale.reshape(n_total) * _f32(2.0 * k)
     out_bits, out_scale = _readout_args(cfg, n_experts=len(ws))
@@ -621,15 +633,21 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
     # one (G,) vector for the site
     max_code = _max_code(qx, qw, plan.code_dtype)
     if tp is not None or _dp_rows():
-        whole = None
+        whole = counted = None
         if tp is not None:
             from repro_torch.launch import meshctx
-            whole = sum(tdvmm.padded_size(n * meshctx.tp_size(), tdvmm.LANE,
-                                          tdvmm.LANE) for n in ns)
+            n_tp, r = meshctx.tp_size(), meshctx.tp_rank()
+            whole = sum(tdvmm.padded_size(n * n_tp // rp, tdvmm.LANE,
+                                          tdvmm.LANE)
+                        for n, rp in zip(ns, reps))
+            if any(rp > 1 for rp in reps):
+                counted = torch.cat([torch.full((wd,), r % rp == 0)
+                                     for wd, rp in zip(widths, reps)])
         y = _mesh_integrate(tp, cfg, xc, wc, qx.scale.reshape(plan.m),
                             w_scale, gain, out_bits, out_scale, out_window,
                             plan.backend, plan.code_dtype, max_code,
-                            group_widths=widths, whole_cols=whole)
+                            group_widths=widths, whole_cols=whole,
+                            counted=counted)
     else:
         _record_window(cfg, xc.detach(), wc.detach(), plan.backend,
                        plan.code_dtype, gain, max_code, group_widths=widths)
@@ -655,21 +673,26 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
     return tuple(outs)
 
 
-def _group_noise(qw, cfg: TDVMMLayerConfig, key, tp, ns, widths, shard):
+def _group_noise(qw, cfg: TDVMMLayerConfig, key, tp, ns, widths, shard,
+                 replicas=None):
     """Noise on a grouped launch's concat bank; on a column shard the
-    draws of the meshless concat bank (each member's whole width rounded
-    to the 128 lane), at the shard's columns (pad columns hold zero codes,
-    which noise leaves zero: they take any draw)."""
+    draws of the meshless concat bank (each member's whole width, N_g x
+    tp / replicas[g], rounded to the 128 lane), at the shard's columns
+    (pad columns hold zero codes, which noise leaves zero: they take any
+    draw)."""
     if tp is None:
         return quant.program_noise(qw, cfg.spec, key)
     from repro_torch.kernels.tdvmm import tdvmm
     from repro_torch.launch import meshctx
     n_tp = meshctx.tp_size()
+    replicas = replicas or (1,) * len(ns)
     cols, off = [], 0
     for g, (n, wd) in enumerate(zip(ns, widths)):
-        idx = _chunk_index(n) if shard is None else shard[g]
+        idx = _chunk_index(n) if shard is None or shard[g] is None \
+            else shard[g]
         cols += [off + idx, torch.full((wd - n,), off, dtype=torch.long)]
-        off += tdvmm.padded_size(n * n_tp, tdvmm.LANE, tdvmm.LANE)
+        off += tdvmm.padded_size(n * n_tp // replicas[g], tdvmm.LANE,
+                                 tdvmm.LANE)
     idx = torch.cat(cols).to(qw.codes.device)
     return quant.program_noise(qw, cfg.spec, key,
                                whole=(qw.codes.shape[0], off),

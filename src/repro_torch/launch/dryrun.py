@@ -207,7 +207,8 @@ def run_cell(cfg, shape, mesh, microbatch=None, device="cpu") -> dict:
     peak = arg_bytes + counter.peak_bytes
     return {"setup_s": t_setup, "run_s": t_run, "arg_bytes": arg_bytes,
             "out_bytes": out_bytes, "alias_bytes": alias, "peak": peak,
-            "counter": counter.summary(), **extra}
+            "counter": counter.summary(), "peak_by_op": counter.peak_by_op,
+            **extra}
 
 
 def count_fake(cfg, shape, mesh_shape: tuple, rank: int = 0,
@@ -294,6 +295,9 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         "step": {k: v for k, v in r.items()
                  if k in ("accum", "optimizer", "param_bytes",
                           "cache_bytes", "sequence_split")},
+        # what the step holds at its peak beyond its arguments, by the op
+        # and dtype that made it (``StepCounter.peak_by_op``, top 12)
+        "temp_at_peak_by_op": dict(list(r["peak_by_op"].items())[:12]),
         "roofline": terms.as_dict(),
     }
 

@@ -135,13 +135,19 @@ def axes_group(axes, mesh=None):
         rows = mesh.mesh.permute(*(rest + dims)).reshape(
             -1, axis_size(axes, mesh)).tolist()
     if key not in _GROUPS:
-        mine = None
-        for row in rows:                    # every rank makes every group
-            g = dist.new_group(row)
-            if dist.get_rank() in row:
-                mine = g
-        _GROUPS[key] = mine
+        _GROUPS[key] = _new_groups(rows)
     return _GROUPS[key]
+
+
+def _new_groups(rows) -> Optional[object]:
+    """A process group of each row of ranks, made on every rank (as
+    ``dist.new_group`` requires); this rank's."""
+    mine = None
+    for row in rows:
+        g = dist.new_group(row)
+        if dist.get_rank() in row:
+            mine = g
+    return mine
 
 
 def tp_size() -> int:
@@ -221,29 +227,35 @@ def dp_active() -> bool:
 
 
 def attn_split(cfg, n: int) -> str:
-    """How attention splits over a ``model`` axis of ``n``: "heads" when
-    the heads and KV heads divide; else "lanes" (the head-dim fallback:
-    every head kept, ``head_dim / n`` lanes of each, which needs
+    """How attention splits over a ``model`` axis of ``n``, in this order:
+    "heads" when the heads and KV heads divide; "lanes" (the head-dim
+    fallback: every head kept, ``head_dim / n`` lanes of each, which needs
     ``head_dim % 2n == 0`` so that each rank holds whole rotary pairs);
+    "groups" when the heads divide and the ranks divide into the KV heads'
+    groups (rank r holds query heads ``[r H / n, (r + 1) H / n)`` and the
+    one KV head they read, ``r n_kv / n``, replicated on the ``n / n_kv``
+    ranks of its group: kimi-k2's 64 heads and 8 KV heads of 112 lanes at
+    a model axis of 16, which the JAX package splits by lanes, 7 a rank);
     else "whole": attention kept on every model rank, as the JAX
-    package's placements replicate it where head_dim does not divide, and
-    also where it divides but not into whole pairs (kimi-k2's 112-wide
-    heads at a model axis of 16, which the JAX package splits by lanes)."""
+    package's placements replicate it where head_dim does not divide."""
     if n == 1 or (cfg.n_heads % n == 0 and cfg.n_kv_heads % n == 0):
         return "heads"
     if cfg.resolved_head_dim % (2 * n) == 0:
         return "lanes"
+    if cfg.n_heads % n == 0 and n % cfg.n_kv_heads == 0:
+        return "groups"
     return "whole"
 
 
 def local_config(cfg):
     """The model config of one ``model`` shard (``tp_shards`` set): heads
     and KV heads divided over ``model`` (the head dim pinned), or under the
-    head-dim fallback every head with its share of lanes
-    (``attn_split``); the SSM layers' heads, x / z channels and B / C
-    columns divided (``models.ssm``).  The identity without tensor
-    parallelism, and on a config that is already a shard's.  Apply it
-    once, at a model entry point."""
+    head-dim fallback every head with its share of lanes, or under the KV
+    groups split the rank's heads and its one KV head (``attn_split``;
+    ``tp_kv_heads`` keeps the whole model's KV heads); the SSM layers'
+    heads, x / z channels and B / C columns divided (``models.ssm``).  The
+    identity without tensor parallelism, and on a config that is already a
+    shard's.  Apply it once, at a model entry point."""
     n = tp_size()
     if n == 1 or cfg.tp_shards == n:
         return cfg
@@ -268,7 +280,49 @@ def local_config(cfg):
                            n_kv_heads=cfg.n_kv_heads // n, head_dim=hd)
     if mode == "lanes":
         return out.replace(attn_split=mode, head_dim=hd // n)
+    if mode == "groups":
+        return out.replace(attn_split=mode, n_heads=cfg.n_heads // n,
+                           n_kv_heads=1, tp_kv_heads=cfg.n_kv_heads,
+                           head_dim=hd)
     return out.replace(attn_split=mode, head_dim=hd)
+
+
+def kv_head(n: int, n_kv: int, r: int) -> int:
+    """The KV head ``model`` rank ``r`` of ``n`` holds under the KV groups
+    split of ``n_kv`` KV heads."""
+    return r * n_kv // n
+
+
+def kv_group(size: int, mesh=None):
+    """The process group of this rank's KV group: the ``size`` consecutive
+    ``model`` ranks that hold its KV head, made once per rank layout on
+    every rank (``axes_group``'s rule)."""
+    mesh = _MESH if mesh is None else mesh
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        names = list(mesh.mesh_dim_names)
+        tp = names.index(_TP_AXIS)
+        rest = [d for d in range(len(names)) if d != tp]
+        rows = mesh.mesh.permute(*(rest + [tp])).reshape(-1, size).tolist()
+        key = (tuple(mesh.mesh.flatten().tolist()), tuple(mesh.mesh.shape),
+               tuple(names), "kv", size)
+    if key not in _GROUPS:
+        _GROUPS[key] = _new_groups(rows)
+    return _GROUPS[key]
+
+
+def kv_group_sum(g: torch.Tensor, size: int) -> torch.Tensor:
+    """Sum a replicated KV head's gradient over the ``size`` ranks of its
+    KV group (each holds only its own query heads' part): all-gathered and
+    added in rank order, so every copy of the head gets the same bits."""
+    if size == 1:
+        return g
+    parts = [torch.empty_like(g) for _ in range(size)]
+    dist.all_gather(parts, g.contiguous(), group=kv_group(size))
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
 
 
 def lane_index(head_dim: int, n: int, r: int) -> torch.Tensor:

@@ -23,7 +23,9 @@ rank of it, under ``StepCounter`` (a ``TorchDispatchMode``):
     its group crosses: NVLink within a node of ``H100_NODE_GPUS`` ranks
     (row-major rank order), InfiniBand across nodes;
   * the live bytes the step allocates (each storage from its first op to
-    its release), whose peak the dry run adds to the step's arguments.
+    its release), whose peak the dry run adds to the step's arguments, and
+    what is live at that peak by the op and dtype that made it
+    (``peak_by_op``).
 
 ``RooflineTerms`` has the JAX module's fields and ``as_dict`` keys, its
 times on the H100's data-sheet peaks: compute is the sum over operand
@@ -138,8 +140,8 @@ def _nbytes(t: torch.Tensor) -> int:
 class StepCounter(TorchDispatchMode):
     """Count one rank's step (see the module docstring).  Use as a context
     manager around the step; read ``flops``, ``hbm_bytes`` (and by op or
-    kernel, ``bytes_by_op``), ``coll``, ``coll_links``, ``launches`` and
-    ``peak_bytes`` after it, or ``summary()``."""
+    kernel, ``bytes_by_op``), ``coll``, ``coll_links``, ``launches``,
+    ``peak_bytes`` and ``peak_by_op`` after it, or ``summary()``."""
 
     def __init__(self, node_gpus: int = C.H100_NODE_GPUS):
         super().__init__()
@@ -154,6 +156,9 @@ class StepCounter(TorchDispatchMode):
         self.launches: dict[str, int] = {}
         self.live = 0
         self.peak_bytes = 0
+        self._live_by: dict[str, int] = {}
+        self._peak_by: dict[str, int] = {}
+        self._at_peak = False
         self._inside = 0
         from torch.utils.weak import WeakIdKeyDictionary
         self._storages = WeakIdKeyDictionary()
@@ -193,19 +198,36 @@ class StepCounter(TorchDispatchMode):
             self._storages[st] = st.nbytes()
 
     # -- every op ------------------------------------------------------
-    def _track(self, out) -> None:
+    def _track(self, out, op: str) -> None:
         for t in _tensors(out):
             st = t.untyped_storage()
             if st in self._storages:
                 continue
             n = st.nbytes()
             self._storages[st] = n
+            key = f"{op} {str(t.dtype).removeprefix('torch.')}"
             self.live += n
-            self.peak_bytes = max(self.peak_bytes, self.live)
-            weakref.finalize(st, self._free, n)
+            self._live_by[key] = self._live_by.get(key, 0) + n
+            if self.live > self.peak_bytes:
+                self.peak_bytes = self.live
+                self._at_peak = True
+            weakref.finalize(st, self._free, n, key)
 
-    def _free(self, n: int) -> None:
+    def _free(self, n: int, key: str) -> None:
+        if self._at_peak:               # leaving a peak: keep what it held
+            self._peak_by = {k: v for k, v in self._live_by.items() if v}
+            self._at_peak = False
         self.live -= n
+        self._live_by[key] -= n
+
+    @property
+    def peak_by_op(self) -> dict[str, int]:
+        """The bytes live at the peak, by the op and dtype that made them,
+        largest first."""
+        by = self._peak_by
+        if self._at_peak:
+            by = {k: v for k, v in self._live_by.items() if v}
+        return dict(sorted(by.items(), key=lambda kv: -kv[1]))
 
     def _link(self, pg) -> str:
         if pg not in self._links:
@@ -235,7 +257,7 @@ class StepCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        self._track(out)
+        self._track(out, func.overloadpacket.__name__)
         if self._inside:
             return out
         ns = func.namespace

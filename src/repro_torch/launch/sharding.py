@@ -15,12 +15,14 @@ entry per dim, None (replicated) or the mesh axes the dim is split over
 Rules match the TRAILING dims of each leaf, so a leaf with extra leading
 dims gets None on the left.
 
-Two placements of the port split a dim over ``model`` other than in
+Three placements of the port split a dim over ``model`` other than in
 contiguous chunks (a ``Split`` entry, which is the axis name to every
 other reader): the head-dim fallback's attention weights and caches
-(``meshctx.lane_index``: each head's share of lanes, whole rotary pairs)
-and the SSM's conv channels (``meshctx.segment_index``: the x, B and C
-segments each split).  The SSM's per-head leaves (``A_log``, ``D``,
+(``meshctx.lane_index``: each head's share of lanes, whole rotary pairs),
+the KV groups split's ``wk`` / ``wv`` columns and KV caches (one KV head a
+rank, the same head on every rank of its group) and the SSM's conv
+channels (``meshctx.segment_index``: the x, B and C segments each
+split).  The SSM's per-head leaves (``A_log``, ``D``,
 ``dt_bias``) and its gated norm's scale follow its heads and channels over
 ``model``, where the JAX package replicates them (each rank then holds the
 slice it uses).
@@ -74,8 +76,11 @@ class Split(str):
     """A placement entry that splits its dim over axis ``self`` (a str:
     every other reader takes it as the axis name) in a layout other than
     contiguous chunks: ``kind`` "lanes" (``layout`` = (heads, head_dim):
-    ``meshctx.lane_index`` of every head) or "segments" (``layout`` = the
-    segment sizes: ``meshctx.segment_index``)."""
+    ``meshctx.lane_index`` of every head), "groups" (``layout`` = (KV
+    heads, head_dim): rank r holds KV head ``meshctx.kv_head``'s columns,
+    so a rank's shard is one head wide and the ranks of a KV group hold
+    the same columns) or "segments" (``layout`` = the segment sizes:
+    ``meshctx.segment_index``)."""
 
     def __new__(cls, axis: str, kind: str, layout):
         out = str.__new__(cls, axis)
@@ -88,8 +93,29 @@ class Split(str):
     def __repr__(self):
         return f"Split({str(self)!r}, {self.kind!r}, {self.layout})"
 
+    def copies(self, n: int) -> int:
+        """How many of ``n`` ranks hold each index ("groups": the ranks of
+        a KV group; else 1)."""
+        return n // self.layout[0] if self.kind == "groups" else 1
+
+    def local(self, size: int, n: int) -> int:
+        """The size of one rank's shard of a dim of ``size`` over ``n``."""
+        if self.kind == "groups":
+            heads, hd = self.layout
+            if heads * hd != size or n % heads:
+                raise ValueError(f"{self!r} on a dim of {size} over {n}")
+            return hd
+        if size % n:
+            raise ValueError(f"dim of {size} does not split {n} ways "
+                             f"({self!r})")
+        return size // n
+
     def index(self, size: int, n: int, r: int) -> torch.Tensor:
         """Rank ``r`` of ``n``'s indices along a dim of ``size``."""
+        if self.kind == "groups":
+            hd = self.local(size, n)
+            h = meshctx.kv_head(n, self.layout[0], r)
+            return torch.arange(h * hd, (h + 1) * hd)
         if self.kind == "lanes":
             heads, hd = self.layout
             if heads * hd != size:
@@ -99,6 +125,12 @@ class Split(str):
         if sum(self.layout) != size:
             raise ValueError(f"{self!r} on a dim of {size}")
         return meshctx.segment_index(self.layout, n, r)
+
+
+def groups_entry(spec):
+    """The KV groups split's entry of a placement, or None."""
+    return next((ax for ax in (spec or ()) if isinstance(ax, Split)
+                 and ax.kind == "groups"), None)
 
 
 def _rules(fsdp, tp, ep):
@@ -176,7 +208,9 @@ def param_specs(params: Any, cfg: ModelConfig, mesh,
 def _layout(path: str, spec: P, cfg: ModelConfig, tp, mesh) -> P:
     """``spec`` with its ``model`` entry made a ``Split`` (or dropped) where
     the leaf's ``model`` shard is not a contiguous chunk: attention under
-    the head-dim fallback (lanes) or kept whole, the SSM's conv channels."""
+    the head-dim fallback (lanes), ``wk`` / ``wv`` under the KV groups
+    split (``wq``'s and ``wo``'s heads are contiguous chunks there), or
+    attention kept whole; the SSM's conv channels."""
     n = meshctx.axis_size(tp, mesh) if tp else 1
     if n == 1:
         return spec
@@ -189,6 +223,9 @@ def _layout(path: str, spec: P, cfg: ModelConfig, tp, mesh) -> P:
             heads = cfg.n_kv_heads if re.search(r"attn/w[kv]/", path) \
                 else cfg.n_heads
             entry = Split(tp, "lanes", (heads, cfg.resolved_head_dim))
+        if mode == "groups" and re.search(r"attn/w[kv]/", path):
+            entry = Split(tp, "groups",
+                          (cfg.n_kv_heads, cfg.resolved_head_dim))
     elif re.search(r"ssm/conv_[wb]$", path):
         s = cfg.ssm
         gs = s.n_groups * s.d_state
@@ -244,8 +281,9 @@ def batch_specs(cfg: ModelConfig, mesh, kind: str, global_batch: int):
 
 def cache_specs(caches: Any, cfg: ModelConfig, mesh):
     """KV caches: batch over DP and kv-heads over TP when divisible; falls
-    back to sequence-sharding the cache (``meshctx.split_seq``) and the
-    head-dim fallback's lanes (``meshctx.attn_split``) otherwise."""
+    back to sequence-sharding the cache (``meshctx.split_seq``), and to
+    the head-dim fallback's lanes or the KV groups split's one head a rank
+    (``meshctx.attn_split``), otherwise."""
     info = axis_info(mesh)
     dp, tp = info["dp_axes"], info["tp_axis"]
     dpn = meshctx.axis_size(dp, mesh)
@@ -297,6 +335,8 @@ def _head_axes(cfg: ModelConfig, tp, tpn: int):
         return tp, None
     if mode == "lanes":
         return None, Split(tp, "lanes", (1, cfg.resolved_head_dim))
+    if mode == "groups":
+        return Split(tp, "groups", (cfg.n_kv_heads, 1)), None
     return None, None
 
 
@@ -304,8 +344,9 @@ def paged_specs(caches: Any, cfg: ModelConfig, mesh):
     """Paged KV pools: head dims over TP, the page pool itself replicated
     (block tables index arbitrary page ids, so the page dim is never
     split; the DP slot-pool dim lives in the block tables).  kv-heads go
-    over TP when divisible, else head_dim.  Per-position int8 KV scales
-    (L, pages, page_size, KV) follow their pool."""
+    over TP when divisible, else head_dim (the head-dim fallback) or one KV
+    head a rank (the KV groups split).  Per-position int8 KV scales (L,
+    pages, page_size, KV) follow their pool."""
     tp = axis_info(mesh)["tp_axis"]
     tpn = meshctx.axis_size(tp, mesh)
     kv_ax, hd_ax = _head_axes(cfg, tp, tpn)
@@ -347,6 +388,9 @@ def local_shape(shape: tuple, spec: P, mesh) -> tuple:
     out = []
     for n, ax in zip(shape, spec):
         k = meshctx.axis_size(ax, mesh) if ax is not None else 1
+        if isinstance(ax, Split):
+            out.append(ax.local(n, k))
+            continue
         if n % k:
             raise ValueError(f"dim of {n} does not split {k} ways "
                              f"(placement {spec})")
@@ -361,7 +405,7 @@ def shard(full: torch.Tensor, spec: P, mesh) -> torch.Tensor:
         if ax is None:
             continue
         k = meshctx.axis_size(ax, mesh)
-        if t.shape[dim] % k:
+        if not isinstance(ax, Split) and t.shape[dim] % k:
             raise ValueError(f"dim {dim} of {tuple(full.shape)} does not "
                              f"split {k} ways (placement {spec})")
         r = meshctx.axis_rank(ax, mesh)
@@ -375,7 +419,8 @@ def shard(full: torch.Tensor, spec: P, mesh) -> torch.Tensor:
 
 def gather(local: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     """The full tensor from every rank's shard (an all-gather per split
-    dim, over that dim's axes).  Collective."""
+    dim, over that dim's axes; a KV head that several ranks hold is taken
+    once, from the first of them).  Collective."""
     t = local
     for dim, ax in enumerate(spec):
         if ax is None:
@@ -383,7 +428,11 @@ def gather(local: torch.Tensor, spec: P, mesh) -> torch.Tensor:
         k = meshctx.axis_size(ax, mesh)
         if k > 1:
             t = meshctx.all_gather(t, meshctx.axes_group(ax, mesh), dim)
-            if isinstance(ax, Split):
+            if isinstance(ax, Split) and ax.kind == "groups":
+                heads, w = ax.layout[0], t.shape[dim] // k
+                t = torch.cat([t.narrow(dim, (h * k // heads) * w, w)
+                               for h in range(heads)], dim)
+            elif isinstance(ax, Split):
                 n = t.shape[dim]
                 where = torch.cat([ax.index(n, k, r) for r in range(k)])
                 t = torch.empty_like(t).index_copy_(dim, where.to(t.device),
@@ -422,8 +471,10 @@ def regather(local: Any, have: Any, want: Any, mesh) -> Any:
 
 def reshard(local: Any, have: Any, want: Any, mesh) -> Any:
     """Slice the dims ``want`` splits and ``have`` replicates (the inverse
-    of ``regather``, no communication)."""
+    of ``regather``, no communication).  A sliced leaf is a copy, so the
+    whole one is released with its tree."""
     def one(t, h, w):
+        whole = t
         for dim, (a, b) in enumerate(zip(h, w)):
             if a == b:
                 continue
@@ -431,5 +482,6 @@ def reshard(local: Any, have: Any, want: Any, mesh) -> Any:
                 raise ValueError(f"dim {dim}: {h} -> {w}")
             k = meshctx.axis_size(b, mesh)
             t = t.chunk(k, dim=dim)[meshctx.axis_rank(b, mesh)]
-        return t.contiguous()
+        return t.contiguous() if t is whole else t.clone(
+            memory_format=torch.contiguous_format)
     return tree_map(one, local, have, want)

@@ -1,9 +1,12 @@
 """Train, prefill and decode step factories — torch port of
 ``repro.launch.steps``.
 
-``make_train_step`` takes a gradient per microbatch and sums them in
-float32 (the memory lever for large batches), then applies the optimizer.
-A step is functional: it returns a new ``TrainState``.
+``make_train_step`` takes a gradient per microbatch and sums them into
+one float32 accumulator in place (the memory lever for large batches, as
+the JAX step's scan carry), then applies the optimizer.  A step is
+functional: it returns a new ``TrainState``; each whole-tree temporary
+inside it (the gathered compute-layout parameters, a microbatch's
+gradients, the data-axes reduction) is released or reused once read.
 
 On a mesh (``mesh=``) the state holds this rank's shards under
 ``state_specs`` (``launch.sharding.param_specs`` / ``opt_state_specs``:
@@ -16,7 +19,11 @@ all-reduce under ``grad_compression="int8"``, whose residuals the state
 carries — and applies the optimizer to its shards (the global norm and
 Adafactor's factored means summed over the axes that split them).
 Leaves replicated over ``model`` get their whole gradient on every
-``model`` rank from the model's TP operators (``meshctx.copy_to_tp``).
+``model`` rank from the model's TP operators (``meshctx.copy_to_tp``); a
+KV head that the ranks of its KV group each hold (the KV groups split)
+gets only its rank's query heads' part there, and the step sums it over
+the group (``meshctx.kv_group_sum``, in rank order: every copy stays
+equal).
 An expert bank split over the data axes (EP) is reduced by the
 all-to-all's backward already: its owner holds the sum of every data
 rank's gradient, and divides it by their count.
@@ -26,6 +33,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.launch import meshctx, sharding
@@ -127,12 +135,27 @@ def gather_state(state: TrainState, specs: TrainState, mesh) -> TrainState:
                       residuals)
 
 
+def _kv_group_sum(grads, compute):
+    """Each replicated KV head's gradient (a ``wk`` / ``wv`` leaf under the
+    KV groups split) summed over its KV group, in float32."""
+    specs = dict(leaves_with_paths(compute))
+    out = []
+    for path, g in leaves_with_paths(grads):
+        ax = sharding.groups_entry(specs[path])
+        if ax is not None:
+            g = meshctx.kv_group_sum(g.to(torch.float32),
+                                     ax.copies(meshctx.tp_size()))
+        out.append(g)
+    return unflatten(grads, out)
+
+
 def _data_mean(grads, compute, residuals, compress: bool):
     """Each leaf's gradient of the global batch's mean loss from this data
     rank's: the mean over the data axes (the int8 error-feedback all-reduce
     under ``compress``, which returns the new residuals), or for an expert
     bank the data axes split, its sum over them (already here) / their
-    count.  Returns (gradients, residuals)."""
+    count.  In place on a float32 gradient (no second tree).  Returns
+    (gradients, residuals)."""
     dp, n = meshctx.dp_axes(), float(meshctx.dp_size())
     specs = dict(leaves_with_paths(compute))
     have = dict(leaves_with_paths(residuals))
@@ -140,18 +163,46 @@ def _data_mean(grads, compute, residuals, compress: bool):
     for path, g in leaves_with_paths(grads):
         g = g.to(torch.float32)
         if _data_split(specs[path], dp):
-            out.append(g / n)
+            out.append(g.div_(n))
         elif compress:
             y, r = compressed_all_reduce(g, meshctx.dp_group(),
                                          have[path][0])
             out.append(y)
             new[path] = r[None]
         else:
-            out.append(meshctx.dp_mean(g))
+            dist.all_reduce(g, group=meshctx.dp_group())
+            out.append(g.div_(n))
     if compress:
         residuals = unflatten(residuals, [new[p] for p, _ in
                                           leaves_with_paths(residuals)])
     return unflatten(grads, out), residuals
+
+
+def accumulate(grads_of, params, batch: dict, accum: int):
+    """The mean gradient of ``accum`` microbatches of ``batch`` (split
+    along the batch axis) and their mean metrics (``tokens`` summed):
+    ``grads_of(params, microbatch)`` -> (gradients as a list in
+    ``leaves(params)`` order, metrics).  One float32 accumulator, each
+    microbatch's gradients added into it in place and released once read:
+    the values of ``a + b.to(float32)`` per microbatch, then / accum."""
+    gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for p in leaves(params)]
+    msum = None
+    for i in range(accum):
+        mb = {k: v.reshape((accum, v.shape[0] // accum)
+                           + tuple(v.shape[1:]))[i]
+              for k, v in batch.items()}
+        g, m = grads_of(params, mb)
+        for j, a in enumerate(gsum):
+            a.add_(g[j])
+            g[j] = None
+        del g
+        msum = m if msum is None else {k: msum[k] + m[k] for k in msum}
+    for a in gsum:
+        a.div_(accum)
+    metrics = {k: v / accum for k, v in msum.items()}
+    metrics["tokens"] = msum["tokens"]
+    return gsum, metrics
 
 
 def make_train_step(cfg: ModelConfig, run: RunConfig, optimizer: Optimizer,
@@ -168,36 +219,23 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, optimizer: Optimizer,
         optimizer.cfg.grad_compression == "int8"
 
     def grads_of(params, batch):
+        """(the gradients as a list in ``leaves(params)`` order, metrics)."""
         ps = leaves(params)
         for p in ps:
             p.requires_grad_(True)
         total, metrics = model.loss_fn(params, batch, cfg, key)
-        grads = torch.autograd.grad(total, ps)
+        grads = list(torch.autograd.grad(total, ps))
         for p in ps:
             p.requires_grad_(False)
-        return unflatten(params, list(grads)), {
-            k: v.detach() for k, v in metrics.items()}
+        return grads, {k: v.detach() for k, v in metrics.items()}
 
     def local_step(params, batch):
-        device = leaves(params)[0].device
-        batch = _to_device(batch, device)
+        batch = _to_device(batch, leaves(params)[0].device)
         if accum <= 1:
             grads, metrics = grads_of(params, batch)
         else:
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                  device=device), params)
-            msum = None
-            for i in range(accum):
-                mb = {k: v.reshape((accum, v.shape[0] // accum)
-                                   + tuple(v.shape[1:]))[i]
-                      for k, v in batch.items()}
-                g, m = grads_of(params, mb)
-                gsum = tree_map(lambda a, b: a + b.to(torch.float32), gsum, g)
-                msum = m if msum is None else {k: msum[k] + m[k] for k in msum}
-            grads = tree_map(lambda g: g / accum, gsum)
-            metrics = {k: v / accum for k, v in msum.items()}
-            metrics["tokens"] = msum["tokens"]
-        return grads, metrics
+            grads, metrics = accumulate(grads_of, params, batch, accum)
+        return unflatten(params, grads), metrics
 
     def train_step(state: TrainState, batch: dict):
         if mesh is None:
@@ -228,7 +266,9 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, optimizer: Optimizer,
         split = local["inputs"].shape[0] != rows
         with meshctx.split_rows(split):
             grads, metrics = local_step(params, local)
+        del params, local                 # the gathered copies: read
         residuals = state.residuals
+        grads = _kv_group_sum(grads, compute)
         if meshctx.dp_active():
             grads, residuals = _data_mean(grads, compute, residuals, compress)
             metrics = {k: (meshctx.dp_sum(v) if k == "tokens" else

@@ -22,14 +22,25 @@ attends over the codes it just wrote while the dense prefill attends over
 the full-precision keys before storing them: the engine's streams then
 equal the engine's own solo streams, not the dense path's.
 
-Under a mesh's ``model`` axis attention runs on its heads' shard (the
-config of ``meshctx.local_config``).  Where the heads or KV heads do not
-divide, the head-dim fallback (``cfg.attn_split == "lanes"``) keeps every
-head with ``head_dim / tp`` of its lanes (whole rotary pairs,
-``meshctx.lane_index``): scores are partial dot products summed over
-``model`` (``_qk``), the softmax is replicated, ``softmax . v`` stays on
-the rank's lanes (``_pv``), ``wo``'s rows are the (head, lane) rows, and
-an int8 cache's per-(token, head) scale is a max over every rank's lanes.
+Under a mesh's ``model`` axis attention runs on its shard (the config of
+``meshctx.local_config``), split in one of three modes
+(``meshctx.attn_split``), or kept whole on every rank where none applies:
+
+* "heads": the heads and KV heads divided, each rank its contiguous heads;
+* "lanes", the head-dim fallback: every head kept with ``head_dim / tp`` of
+  its lanes (whole rotary pairs, ``meshctx.lane_index``); scores are
+  partial dot products summed over ``model`` (``_qk``), the softmax is
+  replicated, ``softmax . v`` stays on the rank's lanes (``_pv``), ``wo``'s
+  rows are the (head, lane) rows, and an int8 cache's per-(token, head)
+  scale is a max over every rank's lanes;
+* "groups", where the heads divide and the ranks divide into the KV
+  heads' groups: a rank holds its contiguous query heads and the one KV
+  head they read (``wk`` / ``wv``'s columns of that head, replicated on
+  the ranks of its KV group, and one head of the cache); the projections
+  are column-parallel and ``wo`` row-parallel as under "heads", with no
+  score all-reduce, and an int8 cache's scales are the rank's own.  Each
+  copy of a KV head's weight gets only its own query heads' gradient: the
+  training step sums it over the KV group (``meshctx.kv_group_sum``).
 With ``meshctx.split_seq`` on (a batch the data axes do not divide) each
 data rank's dense cache holds a contiguous segment of the sequence: a
 prefill writes the positions its rank owns (its attention runs whole: the
@@ -130,6 +141,12 @@ def _lanes(cfg: ModelConfig) -> bool:
     return cfg.attn_split == "lanes" and cfg.tp_shards > 1
 
 
+def _groups(cfg: ModelConfig) -> bool:
+    """This shard holds its query heads and their one KV head (the KV
+    groups split)."""
+    return cfg.attn_split == "groups" and cfg.tp_shards > 1
+
+
 def _tp(cfg: ModelConfig) -> Optional[str]:
     """The projections' tensor-parallel kind: replicated (None) where
     attention is kept whole on every model rank."""
@@ -150,14 +167,21 @@ def _qkv(params, x: torch.Tensor, cfg: ModelConfig, key=None):
     """q/k/v projections as one grouped site (``attn.qkv``)."""
     td = cfg.site_tdvmm("attn.qkv")
     hd = cfg.resolved_head_dim
-    shard = None
+    shard = replicas = None
     if _lanes(cfg):
         shard = (_lane_rows(cfg.n_heads, cfg),
                  _lane_rows(cfg.n_kv_heads, cfg),
                  _lane_rows(cfg.n_kv_heads, cfg))
+    elif _groups(cfg):
+        h = meshctx.kv_head(cfg.tp_shards, cfg.tp_kv_heads,
+                            meshctx.tp_rank())
+        cols = torch.arange(h * hd, (h + 1) * hd)
+        shard = (None, cols, cols)
+        size = cfg.tp_shards // cfg.tp_kv_heads
+        replicas = (1, size, size)
     q, k, v = common.dense_group(
         (params["wq"], params["wk"], params["wv"]), x, td, key,
-        tp=_tp(cfg), shard=shard)
+        tp=_tp(cfg), shard=shard, replicas=replicas)
     return (_split_heads(q, cfg.n_heads, hd),
             _split_heads(k, cfg.n_kv_heads, hd),
             _split_heads(v, cfg.n_kv_heads, hd))

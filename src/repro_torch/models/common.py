@@ -187,18 +187,19 @@ class _PartialF32(torch.autograd.Function):
 
 
 def dense_group(param_group, x: torch.Tensor, td: TDVMMLayerConfig,
-                key=None, tp: Optional[str] = "col",
-                shard=None) -> tuple[torch.Tensor, ...]:
+                key=None, tp: Optional[str] = "col", shard=None,
+                replicas=None) -> tuple[torch.Tensor, ...]:
     """G same-input dense projections (``attn.qkv``); biases stay
     per-member digital adds.  Column-parallel under a mesh (``tp="col"``),
-    or replicated (``tp=None``); ``shard`` as ``td_grouped_matmul``'s."""
+    or replicated (``tp=None``); ``shard`` and ``replicas`` as
+    ``td_grouped_matmul``'s."""
     if _tp() and tp is not None:
         from repro_torch.launch import meshctx
         x = meshctx.copy_to_tp(x)
     else:
         tp = None
     ys = td_grouped_matmul(x, tuple(p["w"] for p in param_group), td, key,
-                           tp=tp, shard=shard)
+                           tp=tp, shard=shard, replicas=replicas)
     return tuple(
         y + p["b"].to(y.dtype) if "b" in p else y
         for p, y in zip(param_group, ys))

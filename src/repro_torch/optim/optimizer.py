@@ -13,7 +13,8 @@ Under a mesh the state holds this rank's shards (``launch.sharding``):
 reduction over a split dim — the global norm, Adafactor's row and column
 means and its update RMS — is summed over the axes that split it, so the
 step is the meshless step on the whole tensors (in float32 sums of another
-association).  ``grad_compression="int8"`` selects the int8 error-feedback
+association).  A KV head that the ranks of its KV group each hold (the KV
+groups split) is counted once, on the first of them.  ``grad_compression="int8"`` selects the int8 error-feedback
 all-reduce for the data-parallel gradient reduction (``optim.compression``,
 run by ``launch.steps``).
 """
@@ -62,6 +63,26 @@ def _split_axes(spec) -> tuple:
     return tuple(sorted(set(out)))
 
 
+def _copies(spec) -> int:
+    """How many ``model`` ranks hold each of a leaf's columns (the KV
+    groups split's ``wk`` / ``wv``: the ranks of a KV group); else 1."""
+    from repro_torch.launch import meshctx, sharding
+    ax = sharding.groups_entry(spec)
+    return 1 if ax is None else ax.copies(meshctx.axis_size(ax))
+
+
+def _counted(t: torch.Tensor, spec) -> torch.Tensor:
+    """``t``, a partial sum over a leaf's shard, as the reduction over
+    the ranks counts it: zero on a rank whose copy of a KV head the first
+    rank of its KV group counts."""
+    c = _copies(spec)
+    if c == 1:
+        return t
+    from repro_torch.launch import meshctx, sharding
+    rank = meshctx.axis_rank(sharding.groups_entry(spec))
+    return t if rank % c == 0 else torch.zeros_like(t)
+
+
 def _sum_over(t: torch.Tensor, axes: tuple) -> torch.Tensor:
     if not axes:
         return t
@@ -84,8 +105,8 @@ def global_norm(tree, specs=None) -> torch.Tensor:
             total = total + torch.sum(torch.square(g.to(torch.float32)))
         return torch.sqrt(total)
     by_axes: dict = {}
-    for g, axes in zip(gs, split):
-        sq = torch.sum(torch.square(g.to(torch.float32)))
+    for g, axes, spec in zip(gs, split, leaves(specs)):
+        sq = _counted(torch.sum(torch.square(g.to(torch.float32))), spec)
         by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
     total = 0
     for axes in sorted(by_axes):
@@ -164,9 +185,11 @@ def _adafactor_init(params, cfg: OptimizerConfig):
 def _mean(x: torch.Tensor, dim, spec, keepdim: bool = False):
     """``torch.mean`` over ``dim`` (an int, or None for every dim) of the
     whole tensor whose shard ``x`` is: a dim split over mesh axes is summed
-    over them and divided by its whole size."""
+    over them and divided by its whole size (a KV head held by several
+    ranks counted once)."""
     dims = tuple(range(x.dim())) if dim is None else (dim % x.dim(),)
-    axes = _split_axes([spec[d] for d in dims] if spec is not None else None)
+    sub = [spec[d] for d in dims] if spec is not None else None
+    axes = _split_axes(sub)
     if not axes:
         return torch.mean(x) if dim is None else \
             torch.mean(x, dim=dim, keepdim=keepdim)
@@ -174,8 +197,8 @@ def _mean(x: torch.Tensor, dim, spec, keepdim: bool = False):
     n = 1
     for d in dims:
         n *= x.shape[d]
-    n *= meshctx.axis_size(axes)
-    total = torch.sum(x, dim=dims, keepdim=keepdim)
+    n *= meshctx.axis_size(axes) // _copies(sub)
+    total = _counted(torch.sum(x, dim=dims, keepdim=keepdim), sub)
     return _sum_over(total, axes) / float(n)
 
 

@@ -162,7 +162,8 @@ CELLS = [("yi-34b", "prefill_32k", ["--opt-level", "2"]),
          ("mamba2-1.3b", "long_500k", []),
          ("zamba2-2.7b", "long_500k", []),
          ("qwen1.5-0.5b", "train_4k", ["--tdvmm", "--microbatch", "1"]),
-         ("yi-34b", "long_500k", [])]
+         ("yi-34b", "long_500k", []),
+         ("kimi-k2-1t-a32b", "decode_32k", [])]
 
 
 @pytest.fixture(scope="module")
@@ -209,7 +210,10 @@ def test_production_cells_at_16x16(production, arch, shape, extra):
     model axis of 16; mamba2 and zamba2 run long_500k's batch of 1 with
     SSM tensor parallelism (zamba2's shared block on a sequence-split
     cache); qwen trains under TD-VMM with TP; yi-34b skips long_500k with
-    the JAX package's reason.  Each cell writes the JAX package's keys."""
+    the JAX package's reason; kimi-k2's 8 KV heads of 112 take the KV
+    groups split, its decode cache one KV head a rank (1/8 of the whole
+    heads' bytes), and the cell fits an H100.  Each cell writes the JAX
+    package's keys."""
     out, param_bytes = production
     r = json.loads((out / f"{arch}__{shape}__pod1.json").read_text())
     if shape == "long_500k" and arch == "yi-34b":
@@ -232,3 +236,10 @@ def test_production_cells_at_16x16(production, arch, shape, extra):
         assert r["kernel_launches"].get("ssd", 0) == 0   # decode: no scan
     if "--tdvmm" in extra:
         assert r["kernel_launches"]["raw"] > 0
+    if arch.startswith("kimi"):
+        cfg, sh = get_config(arch), SHAPES[shape]
+        rows, pos = sh.global_batch // 16, r["layers"] * sh.global_batch // 4
+        whole_kv = (2 * r["layers"] * rows * sh.seq_len * cfg.n_kv_heads
+                    * cfg.resolved_head_dim * 2)
+        assert 8 * (r["step"]["cache_bytes"] - pos) == whole_kv
+        assert r["fits_h100"] is True

@@ -771,17 +771,21 @@ def tp_order_1x2(plan: bool, dtype: str):
 # Placements of the production mesh: SSM / hybrid TP, the head-dim
 # fallback, the sequence-split cache, TD-VMM training under TP
 # --------------------------------------------------------------------------
-def placement_cfg(arch: str, kv: int = 0):
-    """``smoke_cfg``, with ``kv`` KV heads when given (the head-dim
-    fallback's config: 2 KV heads do not divide a model axis of 4)."""
+def placement_cfg(arch: str, kv: int = 0, hd: int = 0):
+    """``smoke_cfg``, with ``kv`` KV heads and a head dim of ``hd`` when
+    given (the head-dim fallback's config: 2 KV heads do not divide a model
+    axis of 4; the KV groups split's: 2 KV heads of 14 lanes at a model axis
+    of 4, 14 not a multiple of 8, as kimi-k2's 112 is not of 32)."""
     cfg = smoke_cfg(arch)
-    return cfg.replace(n_kv_heads=kv) if kv else cfg
+    if kv:
+        cfg = cfg.replace(n_kv_heads=kv)
+    return cfg.replace(head_dim=hd) if hd else cfg
 
 
 def forced_on_mesh(arch: str, np_params: dict, prompts: np.ndarray,
                    forced: np.ndarray, shape, kv: int = 0,
                    int8: bool = False, flash_block: int = 0,
-                   order: str = ""):
+                   order: str = "", hd: int = 0):
     """``chip_smoke.forced_logits`` on a mesh of ``shape`` (every step's
     teacher-forced logits, gathered whole): the static path's prefill and
     decode on its shards.  ``flash_block``: flash attention above that
@@ -790,7 +794,7 @@ def forced_on_mesh(arch: str, np_params: dict, prompts: np.ndarray,
     model axis, ``chip_smoke.seq_order`` over the data axis)."""
     from repro_torch.models import attention
     cs = _chip_smoke()
-    cfg = placement_cfg(arch, kv)
+    cfg = placement_cfg(arch, kv, hd)
     params = convert.params_from_numpy(np_params, cfg, "cpu")
     old = (attention.FLASH_THRESHOLD, attention.FLASH_BLOCK_Q,
            attention.FLASH_BLOCK_KV)
@@ -815,12 +819,13 @@ def forced_on_mesh(arch: str, np_params: dict, prompts: np.ndarray,
 
 
 def engine_on_mesh(np_params: dict, requests: list, ecfg: dict, shape,
-                   kv: int, int8: bool):
+                   kv: int, int8: bool, arch: str = "yi-34b", hd: int = 0):
     """The paged engine on a mesh of ``shape`` (the head-dim fallback's
-    page pools): every request's stream and finish step."""
+    or the KV groups split's page pools): every request's stream and
+    finish step."""
     from repro_torch.models import attention
     from repro_torch.runtime.engine import Engine, EngineConfig, Request
-    cfg = placement_cfg("yi-34b", kv)
+    cfg = placement_cfg(arch, kv, hd)
     params = convert.params_from_numpy(np_params, cfg, "cpu")
     attention.set_kv_cache_int8(int8)
     try:
@@ -937,3 +942,202 @@ def noisy_codes_on_shards(seed: int, shape=(1, 4)):
             off += wide[i]
             lo += widths[i]
     return {"bad": bad, "held": held}
+
+
+# --------------------------------------------------------------------------
+# The KV groups split (kimi-k2's attention at a model axis of 16)
+# --------------------------------------------------------------------------
+def _groups_train(cfg, params, batch: dict, shape, accum: int = 1,
+                  opt: str = "adamw"):
+    """A RunConfig, optimizer and whole state of ``params`` for steps of
+    ``cfg`` on ``batch`` in ``accum`` microbatches a data rank."""
+    from repro_torch.configs import OptimizerConfig, RunConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.optim import optimizer as om
+    rows, seq = batch["inputs"].shape
+    dp = shape[0] if shape is not None else 1
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "small", seq, rows, "train",
+        microbatch_per_shard=rows // dp // accum),
+        optimizer=OptimizerConfig(name=opt, lr=1e-3, warmup_steps=1,
+                                  total_steps=3))
+    opt_ = om.make_optimizer(run.optimizer)
+    return run, opt_, steps.TrainState(params, opt_.init(params))
+
+
+def kv_group_qat(np_params: dict, batch: dict, shape, kv: int, hd: int):
+    """One QAT step (every linear a 6-bit TD-VMM site, the aux losses'
+    coefficients 0: a data shard's are its own rows') of the smoke kimi-k2
+    under the KV groups split on a mesh of ``shape``: the gradients the
+    optimizer gets, gathered whole, the loss, and this rank's ``wk`` /
+    ``wv`` shards after the update (parameters and moments), to hold the
+    copies of a KV head equal."""
+    import functools
+    from repro_torch.launch import steps
+    from repro_torch.optim import optimizer as om
+    cfg = placement_cfg("kimi-k2-1t-a32b", kv, hd).replace(
+        tdvmm=TDVMMLayerConfig(enabled=True, bits=6, weight_bits=6))
+    run, opt, state = _groups_train(
+        cfg, convert.params_from_numpy(np_params, cfg, "cpu"), batch, shape)
+    got = []
+    update, loss_fn = om.Optimizer.update, model.loss_fn
+
+    def spy(self, grads, *a, **kw):
+        got.append(grads)
+        return update(self, grads, *a, **kw)
+    om.Optimizer.update = spy
+    model.loss_fn = functools.partial(loss_fn, lb_coef=0.0, z_coef=0.0)
+    try:
+        mesh = meshlib.make_test_mesh(*shape)
+        specs = steps.state_specs(state, cfg, mesh)
+        new, m = steps.make_train_step(cfg, run, opt, mesh=mesh,
+                                       specs=specs)(
+            steps.shard_state(state, cfg, mesh), batch)
+    finally:
+        om.Optimizer.update, model.loss_fn = update, loss_fn
+    with meshctx.use_mesh_of(mesh):
+        split = meshctx.attn_split(cfg, meshctx.tp_size())
+    whole = sharding.gather_tree(got[0], specs[0].params, mesh)
+    kv_leaves = {p: t.numpy() for p, t in leaves_with_paths(new)
+                 if "/attn/wk/" in p or "/attn/wv/" in p}
+    return {"split": split, "loss": float(m["loss"]),
+            "grads": {p: g.numpy() for p, g in leaves_with_paths(whole)},
+            "kv_leaves": kv_leaves}
+
+
+def kv_group_checkpoint(directory: str, kv: int, hd: int, to: tuple):
+    """A 2 x 2 state of the smoke kimi-k2 under the KV groups split,
+    saved whole (gathered: each KV head once) and restored elastically on
+    a mesh of ``to``: whole leaves and shards exact?"""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    cfg = placement_cfg("kimi-k2-1t-a32b", kv, hd)
+    params = model.init_params(5, cfg, device="cpu")
+    mesh_a = meshlib.make_test_mesh(2, 2)
+    spec_a = sharding.param_specs(params, cfg, mesh_a)
+    shards_a = sharding.shard_tree(params, spec_a, mesh_a)
+    whole = sharding.gather_tree(shards_a, spec_a, mesh_a)
+    sub = os.path.join(directory, "x".join(map(str, to)))
+    if rank() == 0:
+        ckpt.save(whole, sub, step=3)
+    dist.barrier()
+    mesh_b = meshlib.make_test_mesh(*to)
+    spec_b = sharding.param_specs(params, cfg, mesh_b)
+    like = sharding.shard_tree(params, spec_b, mesh_b)
+    restored, step = ckpt.restore(like, sub, shardings=(spec_b, mesh_b))
+    back = sharding.gather_tree(restored, spec_b, mesh_b)
+    groups = sum(getattr(a, "kind", None) == "groups"
+                 for _, s in leaves_with_paths(spec_a) for a in s)
+    return {"step": step, "groups_leaves": groups,
+            "saved_exact": all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                leaves_with_paths(params), leaves_with_paths(whole))),
+            "exact": all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                leaves_with_paths(params), leaves_with_paths(back))),
+            "shards_exact": all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                leaves_with_paths(restored), leaves_with_paths(
+                    sharding.shard_tree(params, spec_b, mesh_b))))}
+
+
+def _old_accumulate(grads_of, params, batch: dict, accum: int):
+    """The training step's accumulation before the in-place accumulator: a
+    new float32 tree per microbatch, ``a + b.to(float32)``, then a new one
+    for ``/ accum``."""
+    from repro_torch.tree import leaves
+    gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for p in leaves(params)]
+    msum = None
+    for i in range(accum):
+        mb = {k: v.reshape((accum, v.shape[0] // accum)
+                           + tuple(v.shape[1:]))[i]
+              for k, v in batch.items()}
+        g, m = grads_of(params, mb)
+        gsum = [a + b.to(torch.float32) for a, b in zip(gsum, g)]
+        msum = m if msum is None else {k: msum[k] + m[k] for k in msum}
+    grads = [g / accum for g in gsum]
+    metrics = {k: v / accum for k, v in msum.items()}
+    metrics["tokens"] = msum["tokens"]
+    return grads, metrics
+
+
+def accumulation_bitwise(arch: str, batch: dict, shape, accum: int,
+                         kv: int = 0, hd: int = 0):
+    """Two steps of ``accum`` microbatches (bfloat16 weights, so the
+    accumulator's upcast matters), meshless (``shape`` None) or on a mesh
+    of ``shape``, with the in-place accumulator and with the formula it
+    replaced (``_old_accumulate``): the whole TrainStates and the metrics
+    equal bit for bit?"""
+    from repro_torch.launch import steps
+    cfg = placement_cfg(arch, kv, hd).replace(dtype="bfloat16")
+    run, opt, state = _groups_train(cfg, model.init_params(3, cfg, "cpu"),
+                                    batch, shape, accum)
+    mesh = specs = None
+    if shape is not None:
+        mesh = meshlib.make_test_mesh(*shape)
+        specs = steps.state_specs(state, cfg, mesh)
+    out = []
+    new = steps.accumulate
+    for fn in (new, _old_accumulate):
+        steps.accumulate = fn
+        try:
+            step = steps.make_train_step(cfg, run, opt, accum, mesh=mesh,
+                                         specs=specs)
+            st = state if mesh is None else steps.shard_state(state, cfg,
+                                                              mesh)
+            metrics = []
+            for _ in range(2):
+                st, m = step(st, batch)
+                metrics.append({k: float(v) for k, v in m.items()})
+            if mesh is not None:
+                st = steps.gather_state(st, specs[0], mesh)
+            out.append((st, metrics))
+        finally:
+            steps.accumulate = new
+    (a, ma), (b, mb) = out
+
+    def bits(t):
+        return t.reshape(-1).contiguous().view(torch.uint8)
+    la, lb = leaves_with_paths(a), leaves_with_paths(b)
+    return {"leaves": len(la),
+            "bitwise": all(pa == pb and torch.equal(bits(x), bits(y))
+                           for (pa, x), (pb, y) in zip(la, lb)),
+            "metrics": ma == mb, "accum": accum}
+
+
+def kv_group_noise(seed: int, kv: int = 2, hd: int = 14):
+    """Programming noise on the grouped ``attn.qkv`` launch's shard under
+    the KV groups split on 1 x 4 (4 heads, ``kv`` KV heads of ``hd``
+    lanes): each member's noisy codes (``wq``'s chunk, ``wk`` / ``wv``'s
+    KV head, ``layers._group_noise`` with the members' replicas) against
+    the meshless concat bank's, sliced: the members that differ."""
+    from repro_torch.kernels.tdvmm import tdvmm
+    mesh = meshlib.make_test_mesh(1, 4)
+    g = torch.Generator().manual_seed(seed)
+    cfg = TDVMMLayerConfig(enabled=True, noise=True)
+    k, key = 64, 21 + seed
+    ws = [torch.randn((k, 4 * hd), generator=g)] + [
+        torch.randn((k, kv * hd), generator=g) for _ in range(2)]
+    wide = tuple(tdvmm.padded_size(t.shape[-1], tdvmm.LANE, tdvmm.LANE)
+                 for t in ws)
+    ref = quant.program_noise(quant.concat_group(
+        [quant.program_weights(t, 6, True) for t in ws], wide),
+        cfg.spec, key).codes
+    with meshctx.use_mesh_of(mesh):
+        tp, r = meshctx.tp_size(), meshctx.tp_rank()
+        h = meshctx.kv_head(tp, kv, r)
+        cols = torch.arange(h * hd, (h + 1) * hd)
+        local = [ws[0].chunk(tp, -1)[r], ws[1][:, cols], ws[2][:, cols]]
+        ns = (hd, hd, hd)
+        widths = tuple(tdvmm.padded_size(n, tdvmm.LANE, tdvmm.LANE)
+                       for n in ns)
+        qw = quant.concat_group([quant.program_weights(t, 6, True)
+                                 for t in local], widths)
+        got = layers._group_noise(qw, cfg, key, "col", ns, widths,
+                                  (None, cols, cols),
+                                  (1, tp // kv, tp // kv)).codes
+    starts = (r * hd, wide[0] + h * hd, wide[0] + wide[1] + h * hd)
+    bad, lo = [], 0
+    for i, (s0, wd) in enumerate(zip(starts, widths)):
+        if not torch.equal(got[:, lo:lo + hd], ref[:, s0:s0 + hd]):
+            bad.append(i)
+        lo += wd
+    return bad
