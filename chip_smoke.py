@@ -62,14 +62,23 @@ Phases, each of which stops the script with a non-zero exit on failure:
    in float32 and bfloat16, and its backward: the gradients of q, k, v,
    the block's input and weights through ``attention.apply_train`` with
    flash against the dense softmax's, within FLASH_TOL elementwise, each
-   forward + backward timed;
+   forward + backward timed; then "autotune" (``autotune_phase``): (a) the
+   tile sweep of ``launch/autotune_tdvmm`` over the main path's serving
+   shapes (qwen's ffn.in / ffn.out at 4, 64, 128 and 256 rows) and two
+   M = 512 shapes of its work list, every tile bitwise the others and the
+   plain version (B1 raw, B1 fused, B2), B1 fused timed at each tile, the
+   table written to a temporary file, never to the committed one; (b) at
+   every committed entry of those serving shapes, the table's tile bitwise
+   ``plan_tile``'s; ``plan_kernel``'s host time per call;
 4. serving: qwen1.5-0.5b at full width, 8 of its 24 layers
    (SERVE_LAYERS; d_model 1024, bf16, random weights from seed 0) under
    the ``ffn_unchained`` and
    ``ffn_chained`` plans: one calibration pass, then the paged engine
    serves 8 ragged requests; every request must finish with its full token
    budget, no NaN logits, its stream equal to the same request served alone,
-   and the kernel launch counts must match the plan's sites exactly; the
+   and the kernel launch counts must match the plan's sites exactly; (c)
+   the engine report's ``autotune`` names the card's platform, every entry
+   a table hit, and each B1/B2 launch took the tile its entry names; the
    same for ``ffn_unchained`` with the int8 KV cache (int8 page pools).
    Then the engine's fault tolerance on that model, params, calibration
    and trace (``fault_qwen``): killed mid-prefill, at the first decode and
@@ -1007,8 +1016,9 @@ def qat_cases() -> list[dict]:
 
 
 def tile_edge_cases() -> list[dict]:
-    """B1/B2 at the edges of the two CTA tiles (``tdvmm.plan_tile``: 16
-    rows up to M 256, 128 rows above) and of the float32 codes' exact
+    """B1/B2 at the edges of the two CTA tiles (``tdvmm.plan_tile``, the
+    lookup's rule on a miss: 16 rows up to M 256, 128 rows above) and of
+    the float32 codes' exact
     envelope:
 
     - M = 1, 16, 17, 129, 256, 257 at qwen's ffn.in shape (int8, scalar
@@ -1227,9 +1237,88 @@ def run_case(case: dict, dev, seed: int) -> dict:
                library_tf32_ms=None if library_tf32 is None
                else timed(library_tf32, 3 if big else 10),
                library_padded=library is not None and padded,
-               tile=tk.plan_tile(m).name)
+               tile=tk.autotune_blocks(m, k, n, codes).name)
     row.pop("rep", None)
     return row
+
+
+# The autotune phase's M = 512 shapes of the work list: qwen's ffn.in, and
+# its ffn.out, where the committed table's tile is not plan_tile's
+AUTOTUNE_WORK = ((512, 1024, 2816, "int8"), (512, 2816, 1024, "int8"))
+PLAN_CALLS = 20_000
+
+
+def autotune_phase(dev) -> dict:
+    """The tile autotuner on the card: (a) the sweep
+    (``launch/autotune_tdvmm``: every tile bitwise the others and the plain
+    version in B1 raw, B1 fused and B2, then B1 fused timed at each tile)
+    over the main path's serving shapes and ``AUTOTUNE_WORK``, its table
+    written to a temporary file, never to the committed one; (b) at every
+    committed entry of the main path's serving shapes, the table's tile
+    bitwise ``plan_tile``'s in the three modes; ``plan_kernel``'s host
+    time per call (memoized)."""
+    import torch
+    from repro_torch.kernels.tdvmm import autotune_table, ops, tdvmm as tk
+    from repro_torch.launch import autotune_tdvmm as at
+
+    t0 = time.perf_counter()
+    serving = at.serving_shapes()
+    rows = at.sweep(serving + list(AUTOTUNE_WORK), 1e13,
+                    log=lambda line: say("autotune", line[11:]))
+    picks = at.measured_entries(rows)
+    require(len(picks) == len(rows), "a shape of the autotune phase was "
+            "not timed")
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "autotune_table.py"
+        path.write_text(at.render(picks))
+        written = {}
+        exec(path.read_text(), written)
+    require(written["HOPPER_TABLE"] == picks,
+            "the rendered table does not read back as the sweep's picks")
+    committed = autotune_table.HOPPER_TABLE
+    agree = sum(committed.get(key) == tile for key, tile in picks.items())
+    differ = []
+    for i, key in enumerate(serving):
+        require(key in committed, f"{key} is not in the committed table")
+        table_tile, planned = tk.autotune_blocks(*key), tk.plan_tile(key[0])
+        o = at.operands(*key, dev, 500 + i)
+        for kind, (kern, _) in at.calls(o).items():
+            require(torch.equal(kern(table_tile), kern(planned)),
+                    f"{key} {kind}: the table's tile {table_tile.name} "
+                    f"differs from plan_tile's {planned.name}")
+        if table_tile != planned:
+            differ.append(key)
+    t = time.perf_counter()
+    for _ in range(PLAN_CALLS):
+        ops.plan_kernel("auto", CHUNK, *FFN_SHAPES[0], "int8", dev)
+    plan_us = (time.perf_counter() - t) / PLAN_CALLS * 1e6
+    ops.reset_autotune_report()
+    return dict(rows=rows, agree=agree, checked=len(serving), differ=differ,
+                plan_us=plan_us, seconds=time.perf_counter() - t0)
+
+
+def check_tiles_taken(rep, name: str) -> dict:
+    """(c): the engine's report names the card's platform and every
+    recorded entry is a table hit; each B1/B2 launch since the counts were
+    reset took the tile its recorded entry names.  Returns the launches by
+    tile."""
+    from repro_torch.kernels.tdvmm import tdvmm as tk
+    at_rep = rep.autotune
+    entries = at_rep["entries"]
+    require(at_rep["platform"] == "sm_90a" and entries
+            and not at_rep["misses"],
+            f"{name}: autotune report platform {at_rep['platform']}, "
+            f"{len(entries)} entries, misses {at_rep['misses']}")
+    by_tile = dict.fromkeys((t.name for t in tk.TILES), 0)
+    for (m, k, n, dtype, tile), count in tk.TILE_LAUNCHES.items():
+        key = f"{m}x{k}x{n}:{dtype}"
+        require(key in entries and entries[key]["tile"] == tile,
+                f"{name}: {count} launches at {key} took tile {tile}, the "
+                f"report has {entries.get(key)}")
+        by_tile[tile] += count
+    require(sum(by_tile.values()) == sum(tk.LAUNCHES.values()),
+            f"{name}: launches by tile {by_tile} != {tk.LAUNCHES}")
+    return by_tile
 
 
 # ---------------------------------------------------------------------------
@@ -1603,7 +1692,7 @@ def serve_plan(name: str, plan, dev, params_cache: dict) -> dict:
     ``attention.set_kv_cache_int8``)."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.tdvmm import tdvmm as tk
+    from repro_torch.kernels.tdvmm import ops, tdvmm as tk
     from repro_torch.models import attention, model
     from repro_torch.runtime.engine import Engine, EngineConfig, Request
     from repro_torch.runtime.paged_cache import pages_for
@@ -1623,6 +1712,7 @@ def serve_plan(name: str, plan, dev, params_cache: dict) -> dict:
 
     # ---- the main path: counts at 0, calibrate, serve, read ---------------
     reset_all_launches()
+    ops.reset_autotune_report()
     t0 = time.perf_counter()
     calib = model.calibrate(params, {"inputs": calib_tokens}, cfg)
     torch.cuda.synchronize()
@@ -1632,6 +1722,7 @@ def serve_plan(name: str, plan, dev, params_cache: dict) -> dict:
     rep = engine.run(trace)
     torch.cuda.synchronize()
     launches = dict(tk.LAUNCHES)
+    by_tile = check_tiles_taken(rep, name)
     serve_launches = {k: launches[k] - at_calib[k] for k in launches}
     pool = engine._st.caches["seg0"]
     require((pool.k.dtype == torch.int8) == attention.KV_CACHE_INT8
@@ -1669,7 +1760,8 @@ def serve_plan(name: str, plan, dev, params_cache: dict) -> dict:
                 fj_per_op=rep.fj_per_op, utilization=rep.utilization,
                 launches=launches, launches_calibrate=at_calib,
                 engine_args=(cfg, params, ecfg, calib), trace=trace,
-                report=rep)
+                report=rep, by_tile=by_tile,
+                autotune_entries=sorted(rep.autotune["entries"]))
 
 
 def profile_plan(out: dict) -> dict:
@@ -3638,7 +3730,7 @@ def run_f32x3_case(case: dict, dev, seed: int) -> dict:
                plain_ms=time_ms(plain, 5), bound_ms=bound_ms,
                bound_by=bound_by, library_ms=time_ms(library, 10),
                library_tf32_ms=None, library_padded=False,
-               tile=tk.plan_tile(m).name)
+               tile=tk.autotune_blocks(m, k, n, storage or "f32").name)
     row.pop("rep", None)
     return row
 
@@ -5202,6 +5294,18 @@ def main() -> int:
             f"plain_ms={row['plain_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
             f"({row['bound_by']}) library_ms=none")
     phase_done("kernels")
+    au = autotune_phase(dev)
+    say("autotune", f"(a) sweep of {len(au['rows'])} shapes (the main path's "
+        f"serving shapes and {len(AUTOTUNE_WORK)} of M 512), every tile "
+        "bitwise the others and the plain version, written to a temporary "
+        f"table: picks equal to the committed table's at {au['agree']} of "
+        f"{len(au['rows'])}; (b) the committed table's tile bitwise "
+        f"plan_tile's at the {au['checked']} serving entries (B1 raw, B1 "
+        f"fused, B2; where they differ: {au['differ'] or 'none'}); "
+        f"plan_kernel {au['plan_us']:.3f} us of host time a call; phase "
+        f"{au['seconds']:.1f} s | {card}")
+    del au
+    phase_done("autotune")
     fl = flash_on_card(dev)
     say("flash", f"{HYB_ARCH} shared block, B {HYB_BATCH} x S {HYB_PROMPT} x "
         f"32 heads x 80, float32: flash within "
@@ -5240,6 +5344,9 @@ def main() -> int:
             f"{out['utilization']:.3f}, launches calibrate "
             f"{out['launches_calibrate']} total {out['launches']}, "
             "batched == solo")
+        say("autotune", f"(c) {name}: report platform sm_90a, every entry a "
+            f"table hit ({', '.join(out['autotune_entries'])}); B1/B2 "
+            f"launches by tile {out['by_tile']}, each at its entry's tile")
     for out in served:
         prof = profile_plan(out)
         say("profile", f"{out['plan']}: {prof['steps'][0]} prefill + "

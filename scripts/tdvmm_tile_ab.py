@@ -13,7 +13,8 @@ slept.
     python3 scripts/tdvmm_tile_ab.py [--out tile_ab.json]
 
 Prints one line per (shape, storage, kernel, M) with the milliseconds of each
-tile and the tile ``plan_tile`` picks, then the card's name and power limit;
+tile, the tile ``plan_tile`` picks and the autotune table's
+(``tdvmm.autotune_lookup``), then the card's name and power limit;
 ``--out`` also writes the rows as JSON.
 Needs one CUDA card; imports nothing of JAX.
 """
@@ -48,30 +49,6 @@ RUNS = [("int8", DENSE, ROWS), ("f32", ("qwen ffn.in",), SMALL_ROWS),
 LIMITS = {"int8": (63, 63), "f32": (255, 15), "int4": (7, 7)}
 
 
-def time_ms(fn, iters: int = 20) -> float:
-    """Device milliseconds of one call: CUDA events around ``iters`` calls
-    queued behind a device sleep, so no host gap is in the time."""
-    import torch
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    cycles = 50_000_000
-    for _ in range(5):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        ahead = not start.query()
-        end.synchronize()
-        if ahead:
-            return start.elapsed_time(end) / iters
-        cycles *= 4
-    raise RuntimeError("the timed calls could not be queued ahead of the card")
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="write the rows as JSON to this file")
@@ -84,78 +61,76 @@ def main() -> int:
         return 1
     from repro_torch.core import quant
     from repro_torch.kernels.tdvmm import ops, tdvmm as tk
+    from repro_torch.launch.autotune_tdvmm import time_ms
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    planned = tk.plan_tile
     rows_out = []
-    try:
-        for codes, shapes, rows in RUNS:
-            lim_x, lim_w = LIMITS[codes]
-            dtype = torch.float32 if codes == "f32" else torch.int8
-            for shape in shapes:
-                e, k, n = SHAPES[shape]
-                for m in rows:
-                    g = torch.Generator(device=dev)
-                    g.manual_seed(args.seed)
-                    x = torch.randint(-lim_x, lim_x + 1, (e, m, k), generator=g,
-                                      device=dev, dtype=dtype)
-                    w = torch.randint(-lim_w, lim_w + 1, (e, k, n), generator=g,
-                                      device=dev, dtype=dtype)
-                    xs = torch.rand((e, m), generator=g, device=dev) + 0.5
-                    ws = torch.rand((e, n), generator=g, device=dev) + 0.5
-                    gain = 1.0 / (float(lim_x) * float(lim_w) * 2.0 * k)
-                    i4 = None
-                    if codes == "int4":
-                        x = quant.pack_int4(x, axis=-1).contiguous()
-                        w = quant.pack_int4(w, axis=-2).contiguous()
-                        i4 = k
-                    mc = max(lim_x, lim_w)
-                    window = torch.full((), 0.5, device=dev)
-                    slots, nslots = ops._calib_slots(e, n, tk.TILE_N, None)
-                    slots = slots.contiguous().to(dev)
-                    calls = {
-                        "raw": (lambda: tk.tdvmm_matmul_raw(x, w, i4, mc),
-                                lambda: tk.tdvmm_raw_plain(x, w, i4)),
-                        "fused": (lambda: tk.tdvmm_fused(
-                                      x, w, xs, ws, gain, 6, window, i4, mc),
-                                  lambda: tk.tdvmm_fused_plain(
-                                      x, w, xs, ws, gain, 6, window, i4)),
-                        "calibrated": (lambda: tk.tdvmm_calibrated(
-                                           x, w, xs, ws, slots, nslots,
-                                           tk.TILE_N, gain, 6, i4, mc),
-                                       lambda: tk.tdvmm_calibrated_plain(
-                                           x, w, xs, ws, slots, nslots,
-                                           tk.TILE_N, gain, 6, i4)),
-                    }
-                    iters = 3 if e * m * k * n > 1e11 else 20
-                    for kind, (kern, plain) in calls.items():
-                        ref = plain()
-                        ms = {}
-                        for tile in tk.TILES:
-                            tk.plan_tile = lambda _m, t=tile: t
-                            y = kern()
-                            same = torch.equal(y, ref)
-                            del y
-                            if not same:
-                                raise RuntimeError(
-                                    f"{shape} {codes} {kind} M={m}: tile "
-                                    f"{tile.name} differs from plain")
-                            ms[tile.name] = time_ms(kern, iters)
-                        tk.plan_tile = planned
-                        del ref
-                        best = min(ms, key=ms.get)
-                        row = dict(shape=shape, codes=codes, kernel=kind, e=e,
-                                   m=m, k=k, n=n, ms=ms, best=best,
-                                   planned=planned(m).name)
-                        rows_out.append(row)
-                        print(f"[tile_ab] {shape:18s} {codes:4s} {kind:10s} "
-                              f"E={e} M={m:<4d} " + " ".join(
-                                  f"{t}={v:.5f}" for t, v in ms.items())
-                              + f" best={best} planned={row['planned']}",
-                              flush=True)
-    finally:
-        tk.plan_tile = planned
+    for codes, shapes, rows in RUNS:
+        lim_x, lim_w = LIMITS[codes]
+        dtype = torch.float32 if codes == "f32" else torch.int8
+        for shape in shapes:
+            e, k, n = SHAPES[shape]
+            for m in rows:
+                g = torch.Generator(device=dev)
+                g.manual_seed(args.seed)
+                x = torch.randint(-lim_x, lim_x + 1, (e, m, k), generator=g,
+                                  device=dev, dtype=dtype)
+                w = torch.randint(-lim_w, lim_w + 1, (e, k, n), generator=g,
+                                  device=dev, dtype=dtype)
+                xs = torch.rand((e, m), generator=g, device=dev) + 0.5
+                ws = torch.rand((e, n), generator=g, device=dev) + 0.5
+                gain = 1.0 / (float(lim_x) * float(lim_w) * 2.0 * k)
+                i4 = None
+                if codes == "int4":
+                    x = quant.pack_int4(x, axis=-1).contiguous()
+                    w = quant.pack_int4(w, axis=-2).contiguous()
+                    i4 = k
+                mc = max(lim_x, lim_w)
+                window = torch.full((), 0.5, device=dev)
+                slots, nslots = ops._calib_slots(e, n, tk.TILE_N, None)
+                slots = slots.contiguous().to(dev)
+                calls = {
+                    "raw": (lambda t: tk.tdvmm_matmul_raw(
+                                x, w, i4, mc, tile=t),
+                            lambda: tk.tdvmm_raw_plain(x, w, i4)),
+                    "fused": (lambda t: tk.tdvmm_fused(
+                                  x, w, xs, ws, gain, 6, window, i4, mc,
+                                  tile=t),
+                              lambda: tk.tdvmm_fused_plain(
+                                  x, w, xs, ws, gain, 6, window, i4)),
+                    "calibrated": (lambda t: tk.tdvmm_calibrated(
+                                       x, w, xs, ws, slots, nslots,
+                                       tk.TILE_N, gain, 6, i4, mc, tile=t),
+                                   lambda: tk.tdvmm_calibrated_plain(
+                                       x, w, xs, ws, slots, nslots,
+                                       tk.TILE_N, gain, 6, i4)),
+                }
+                iters = 3 if e * m * k * n > 1e11 else 20
+                for kind, (kern, plain) in calls.items():
+                    ref = plain()
+                    ms = {}
+                    for tile in tk.TILES:
+                        y = kern(tile)
+                        same = torch.equal(y, ref)
+                        del y
+                        if not same:
+                            raise RuntimeError(
+                                f"{shape} {codes} {kind} M={m}: tile "
+                                f"{tile.name} differs from plain")
+                        ms[tile.name] = time_ms(lambda: kern(tile), iters)
+                    del ref
+                    best = min(ms, key=ms.get)
+                    row = dict(shape=shape, codes=codes, kernel=kind, e=e,
+                               m=m, k=k, n=n, ms=ms, best=best,
+                               planned=tk.plan_tile(m).name,
+                               table=tk.autotune_blocks(m, k, n, codes).name)
+                    rows_out.append(row)
+                    print(f"[tile_ab] {shape:18s} {codes:4s} {kind:10s} "
+                          f"E={e} M={m:<4d} " + " ".join(
+                              f"{t}={v:.5f}" for t, v in ms.items())
+                          + f" best={best} planned={row['planned']} "
+                          f"table={row['table']}", flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout

@@ -5,7 +5,8 @@ td_matmul is the closed form of the four-quadrant TD-VMM, structured as the
 code-and-scale pipeline of ``core/quant.py``:
 
     plan         flatten (..., N_in) to 2-D, pick code storage, resolve the
-                 integrate backend
+                 integrate backend and the kernels' CTA tile from the
+                 per-shape table (``ops.plan_kernel``)
     encode       x -> p-bit signed time codes + per-row scale   (Eq. 2, DAC)
     program      W -> signed current codes + per-channel scale  (FG tuning)
     integrate    codes matmul — kernel B1/B2 on the card, the plain torch
@@ -57,6 +58,7 @@ class MatmulPlan(NamedTuple):
     n: int
     backend: str                     # resolved: "jnp" | "cuda"
     code_dtype: str                  # "int4" | "int8" | "f32" | "f32x3"
+    tile: "tdvmm.Tile"               # the kernels' CTA tile (the table's)
 
 
 def _plan_code_dtype(cfg: TDVMMLayerConfig, k: int, noisy: bool) -> str:
@@ -84,7 +86,11 @@ def _plan_code_dtype(cfg: TDVMMLayerConfig, k: int, noisy: bool) -> str:
 
 
 def plan_matmul(x_shape, w_shape, cfg: TDVMMLayerConfig,
-                noisy: bool = False) -> MatmulPlan:
+                noisy: bool = False, device=None,
+                k_global: Optional[int] = None) -> MatmulPlan:
+    """The plan of an (..., K) x (K, N) launch of codes on ``device``; the
+    storage is picked for the global K ``k_global`` of a row-parallel
+    shard (default K)."""
     k, n = w_shape
     if x_shape[-1] != k:
         raise ValueError(f"td_matmul shapes {tuple(x_shape)} x {tuple(w_shape)}")
@@ -92,10 +98,11 @@ def plan_matmul(x_shape, w_shape, cfg: TDVMMLayerConfig,
     m = 1
     for d in batch_shape:
         m *= d
-    code_dtype = _plan_code_dtype(cfg, k, noisy)
+    code_dtype = _plan_code_dtype(cfg, k if k_global is None else k_global,
+                                  noisy)
     from repro_torch.kernels.tdvmm import ops
-    return MatmulPlan(batch_shape, m, k, n, ops.resolve_backend(cfg.backend),
-                      code_dtype)
+    kp = ops.plan_kernel(cfg.backend, m, k, n, code_dtype, device)
+    return MatmulPlan(batch_shape, m, k, n, kp.backend, code_dtype, kp.tile)
 
 
 def _readout_args(
@@ -391,11 +398,11 @@ def _slot_max(z: torch.Tensor, group_widths) -> torch.Tensor:
 def _mesh_integrate(tp: Optional[str], cfg: TDVMMLayerConfig, xc, wc,
                     x_scale, w_scale, gain: float, out_bits, out_scale,
                     out_window, backend: str, code_dtype: str, max_code,
-                    per_tile: bool = False, group_widths=None,
+                    tile, per_tile: bool = False, group_widths=None,
                     whole_cols: Optional[int] = None,
                     counted: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Integrate + readout of a site on a mesh (see above).  Returns
-    (E, M, N), or (M, N) for 2-D codes."""
+    """Integrate + readout of a site on a mesh (see above), its launches at
+    the planned ``tile``.  Returns (E, M, N), or (M, N) for 2-D codes."""
     from repro_torch.core import calibration
     from repro_torch.kernels.tdvmm import ops
     from repro_torch.launch import meshctx
@@ -415,12 +422,12 @@ def _mesh_integrate(tp: Optional[str], cfg: TDVMMLayerConfig, xc, wc,
             xc, wc, x_scale, w_scale, gain=gain, out_bits=out_bits,
             out_scale=out_scale, backend=backend, code_dtype=code_dtype,
             group_widths=group_widths, out_window=out_window,
-            max_code=max_code)
+            max_code=max_code, tile=tile)
     x3 = xc[None] if xc.dim() == 2 else xc
     w3 = wc[None] if wc.dim() == 2 else wc
     with torch.no_grad():
         acc = ops.raw_acc(x3.detach(), w3.detach(), backend, code_dtype,
-                          max_code)
+                          max_code, tile)
         if tp == "row":
             acc = meshctx.tp_sum_exact(acc)
         z = torch.abs(acc.to(torch.float32) * _f32(gain))
@@ -440,7 +447,8 @@ def _mesh_integrate(tp: Optional[str], cfg: TDVMMLayerConfig, xc, wc,
     return ops.tdvmm_matmul(
         xc, wc, x_scale, w_scale, gain=gain, out_bits=out_bits,
         out_scale=out_scale, backend=backend, code_dtype=code_dtype,
-        group_widths=group_widths, out_window=out_window, max_code=max_code)
+        group_widths=group_widths, out_window=out_window, max_code=max_code,
+        tile=tile)
 
 
 def td_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TDVMMLayerConfig,
@@ -459,10 +467,9 @@ def td_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TDVMMLayerConfig,
         return x @ w
     tp = _tp_mode(tp)
     noisy = _noise(cfg, key)
-    plan = plan_matmul(x.shape, w.shape, cfg, noisy=noisy)
-    kg = _tp_k(tp, plan.k)
-    if kg != plan.k:
-        plan = plan._replace(code_dtype=_plan_code_dtype(cfg, kg, noisy))
+    kg = _tp_k(tp, w.shape[0])
+    plan = plan_matmul(x.shape, w.shape, cfg, noisy=noisy, device=x.device,
+                       k_global=kg)
 
     qx = quant.encode_input(x, cfg.bits, tp_reduce=tp == "row")
     qw = quant.program_weights(
@@ -484,7 +491,8 @@ def td_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TDVMMLayerConfig,
     if tp is not None or _dp_rows():
         y = _mesh_integrate(tp, cfg, xc, wc, qx.scale.reshape(plan.m),
                             w_scale, gain, out_bits, out_scale, out_window,
-                            plan.backend, plan.code_dtype, max_code)
+                            plan.backend, plan.code_dtype, max_code,
+                            plan.tile)
         return y.reshape(plan.batch_shape + (plan.n,)).to(x.dtype)
     _record_window(cfg, xc.detach(), wc.detach(), plan.backend,
                    plan.code_dtype, gain, max_code)
@@ -500,6 +508,7 @@ def td_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TDVMMLayerConfig,
         code_dtype=plan.code_dtype,
         out_window=out_window,
         max_code=max_code,
+        tile=plan.tile,
     )
     return y.reshape(plan.batch_shape + (plan.n,)).to(x.dtype)
 
@@ -532,7 +541,9 @@ def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
     kg = _tp_k(tp, k)
     code_dtype = _plan_code_dtype(cfg, kg, noisy)
     from repro_torch.kernels.tdvmm import ops
-    backend = ops.resolve_backend(cfg.backend)
+    # the expert grid is keyed by its per-expert rows, E not in the key
+    kp = ops.plan_kernel(cfg.backend, c, k, n, code_dtype, x.device)
+    backend = kp.backend
 
     qx = quant.encode_input(x, cfg.bits,                        # scale (E, C, 1)
                             tp_reduce=tp == "row")
@@ -554,7 +565,7 @@ def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
         return _mesh_integrate(tp, cfg, xc, wc, qx.scale.reshape(e, c),
                                w_scale, gain, out_bits, out_scale,
                                out_window, backend, code_dtype, max_code,
-                               per_tile=True).to(x.dtype)
+                               kp.tile, per_tile=True).to(x.dtype)
     _record_window(cfg, xc.detach(), wc.detach(), backend, code_dtype, gain,
                    max_code, per_tile=True)
     y = ops.tdvmm_matmul(
@@ -569,6 +580,7 @@ def td_expert_matmul(x: torch.Tensor, w: torch.Tensor,
         code_dtype=code_dtype,
         out_window=out_window,
         max_code=max_code,
+        tile=kp.tile,
     )
     return y.to(x.dtype)
 
@@ -608,11 +620,12 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
     if tp == "row":
         raise ValueError("a grouped site is column-parallel")
     noisy = _noise(cfg, key)
-    plan = plan_matmul(x.shape, (k, sum(ns)), cfg, noisy=noisy)
     from repro_torch.kernels.tdvmm import ops, tdvmm
     # per-member column spans: each member rounds to the 128 lane only
     widths = tuple(tdvmm.padded_size(n, tdvmm.LANE, tdvmm.LANE) for n in ns)
     n_total = sum(widths)
+    plan = plan_matmul(x.shape, (k, n_total), cfg, noisy=noisy,
+                       device=x.device)
 
     qx = quant.encode_input(x, cfg.bits)                       # encode ONCE
     qw = quant.concat_group(
@@ -646,7 +659,7 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
         y = _mesh_integrate(tp, cfg, xc, wc, qx.scale.reshape(plan.m),
                             w_scale, gain, out_bits, out_scale, out_window,
                             plan.backend, plan.code_dtype, max_code,
-                            group_widths=widths, whole_cols=whole,
+                            plan.tile, group_widths=widths, whole_cols=whole,
                             counted=counted)
     else:
         _record_window(cfg, xc.detach(), wc.detach(), plan.backend,
@@ -664,6 +677,7 @@ def td_grouped_matmul(x: torch.Tensor, ws, cfg: TDVMMLayerConfig,
             group_widths=widths,
             out_window=out_window,
             max_code=max_code,
+            tile=plan.tile,
         )                                                      # (M, n_total)
     outs, off = [], 0
     for n, wd in zip(ns, widths):
@@ -713,7 +727,7 @@ def calibrate_out_scale(x: torch.Tensor, w: torch.Tensor,
     if not cfg.enabled:
         raise ValueError("calibrate_out_scale needs an enabled TD-VMM config")
     noisy = _noise(cfg, key)
-    plan = plan_matmul(x.shape, w.shape, cfg, noisy=noisy)
+    plan = plan_matmul(x.shape, w.shape, cfg, noisy=noisy, device=x.device)
     with torch.no_grad():
         qx = quant.encode_input(x, cfg.bits)
         qw = quant.program_weights(w, cfg.weight_bits, cfg.per_channel)

@@ -19,7 +19,8 @@ normalization is the division ``xf / s`` (never a reciprocal multiply), the
 scale is ``max(max|x| with initial 0, 1e-6)``, and rounding is half to even.
 Every constant enters as an explicit float32 tensor, so no double-precision
 scalar arithmetic sneaks in.  ``concat_group`` joins G programmed members
-into the ragged bank of a grouped launch.
+into the ragged bank of a grouped launch; ``stack_group`` stacks them into
+a (G, K, N) bank, as the JAX package's public API does.
 
 Storage: int8 for p <= 7; integer-valued float32 for p = 8 (``signed_codes``,
 the JAX package's straight-through form ``lin + detach(q - lin)``, whose
@@ -255,6 +256,43 @@ SLICE_ELEMS = 1 << 28
 def expert_step(w: torch.Tensor) -> int:
     """Experts in one slice of the (E, K, N) bank ``w``."""
     return max(1, SLICE_ELEMS // max(w[0].numel(), 1))
+
+
+def stack_group(qws, n_to: int) -> QuantizedTensor:
+    """Stack G programmed (K, N_g) members into one (G, K, ``n_to``) bank.
+
+    Uneven widths are zero-padded up to ``n_to``: zero codes are inert (a
+    never-on current source), so pad columns integrate zero charge, and
+    their scale entries are 1.0 (never multiplied against a nonzero code).
+    Members share the code width; per-channel ``(1, N_g)`` and per-tensor
+    ``(1, 1)`` scales both stack to a ``(G, 1, n_to)`` scale, and STE
+    linear terms stack beside the codes, zero-padded.  Nothing in either
+    package calls it (grouped launches take ``concat_group``'s ragged
+    bank); it is kept as the JAX package's public API."""
+    qws = tuple(qws)
+    if not qws:
+        raise ValueError("stack_group needs at least one member")
+    bits = qws[0].bits
+    if any(q.bits != bits for q in qws):
+        raise ValueError(f"grouped members must share a code width, got "
+                         f"{[q.bits for q in qws]}")
+    if any(q.codes.dim() != 2 for q in qws):
+        raise ValueError("stack_group stacks 2-D (K, N) weight members")
+    if any(q.codes.shape[-1] > n_to for q in qws):
+        raise ValueError(f"n_to={n_to} smaller than a member width "
+                         f"{[q.codes.shape[-1] for q in qws]}")
+
+    def pad(t):
+        return F.pad(t, (0, n_to - t.shape[-1]))
+
+    codes = torch.stack([pad(q.codes) for q in qws])
+    scale = torch.stack([F.pad(
+        torch.broadcast_to(q.scale, (1, q.codes.shape[-1])),
+        (0, n_to - q.codes.shape[-1]), value=1.0) for q in qws])
+    stes = None
+    if all(q.ste is not None for q in qws):
+        stes = torch.stack([pad(q.ste) for q in qws])
+    return QuantizedTensor(codes=codes, scale=scale, bits=bits, ste=stes)
 
 
 def concat_group(qws, widths: tuple[int, ...]) -> QuantizedTensor:

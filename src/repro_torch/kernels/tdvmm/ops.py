@@ -37,6 +37,12 @@ bf16 tile, up to 2047 in 3xTF32, wider ones raise.  Codes with programming
 noise are not integers: "f32x3" casts them to float32 as "f32" does and
 runs them in 3xTF32 on the card.
 
+Tiles: ``plan_kernel`` resolves the backend and looks the launch's CTA
+tile up in the per-shape table (``tdvmm.autotune_lookup``), records every
+lookup in ``autotune_report()`` and logs each untuned shape once; callers
+pass its tile on (``tile=``).  A call without one (the calibration
+capture's ``codes_matmul``) takes the same lookup's tile unrecorded.
+
 Gradients: float32 codes (the straight-through views of QAT) go through
 ``_TDVMMCore``, a ``torch.autograd.Function`` around every mode (raw,
 no-readout, fixed window, data-calibrated B2, ragged ``group_widths``,
@@ -53,7 +59,8 @@ straight to the kernels.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+import logging
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -69,6 +76,69 @@ def resolve_backend(backend: str) -> str:
     if backend != "jnp":
         raise ValueError(f"unknown TD-VMM backend {backend!r}")
     return backend
+
+
+class KernelPlan(NamedTuple):
+    """Resolved backend + the CTA tile for one codes matmul."""
+    backend: str
+    tile: tdvmm.Tile
+    code_dtype: str = "f32"
+    autotune_hit: bool = False   # False: plan_tile's rule (an untuned shape)
+    platform: str = "plain"      # "sm_90a" for codes on the card
+
+
+# Every plan_kernel lookup of this process by (M, K, N, storage name): the
+# report that shows which shapes ran untuned
+_AUTOTUNE_LOG: dict[tuple[int, int, int, str], dict] = {}
+_AUTOTUNE_WARNED: set[tuple[int, int, int, str]] = set()
+_logger = logging.getLogger(__name__)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(backend: str, m: int, k: int, n: int, code_dtype: str,
+          platform: str) -> tuple[KernelPlan, tuple, dict]:
+    name = tdvmm.dtype_name(code_dtype)
+    tile, hit = tdvmm.autotune_lookup(m, k, n, name, platform)
+    entry = {"tile": tile.name, "hit": hit, "platform": platform}
+    return (KernelPlan(resolve_backend(backend), tile, code_dtype, hit,
+                       platform), (m, k, n, name), entry)
+
+
+def plan_kernel(backend: str, m: int, k: int, n: int,
+                code_dtype: str = "f32", device=None) -> KernelPlan:
+    """``resolve_backend`` + the (M, K, N, storage)-keyed tile table, for
+    codes on ``device``.  Records the lookup in ``autotune_report()`` and
+    logs each missed shape once: run ``python -m
+    repro_torch.launch.autotune_tdvmm`` on the card to tune it."""
+    platform = tdvmm.autotune_platform(device)
+    kp, key, entry = _plan(backend, int(m), int(k), int(n), code_dtype,
+                           platform)
+    _AUTOTUNE_LOG[key] = entry
+    if not kp.autotune_hit and key not in _AUTOTUNE_WARNED:
+        _AUTOTUNE_WARNED.add(key)
+        # logged, not warnings.warn: planning runs on hot, otherwise
+        # warning-free paths; the miss also lands in autotune_report()
+        _logger.warning(
+            "TD-VMM autotune miss: no table entry for (M, K, N, dtype)="
+            "(%d, %d, %d, %s); using plan_tile's %s tile.  Run python -m "
+            "repro_torch.launch.autotune_tdvmm to tune this shape.",
+            *key, kp.tile.name)
+    return kp
+
+
+def autotune_report(platform: Optional[str] = None) -> dict:
+    """Every (M, K, N, storage) this process planned since the last reset,
+    with its tile and whether the table answered.  ``platform`` defaults to
+    ``tdvmm.autotune_platform()``."""
+    entries = {f"{m}x{k}x{n}:{name}": dict(v)
+               for (m, k, n, name), v in sorted(_AUTOTUNE_LOG.items())}
+    return {"platform": platform or tdvmm.autotune_platform(),
+            "entries": entries,
+            "misses": sorted(k for k, v in entries.items() if not v["hit"])}
+
+
+def reset_autotune_report() -> None:
+    _AUTOTUNE_LOG.clear()
 
 
 def _f32(v, device) -> torch.Tensor:
@@ -214,7 +284,8 @@ def _operands(x_codes, w_codes, code_dtype: str):
 
 def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
                 out_scale, out_window, backend, code_dtype,
-                fused_calibration, group_widths=None, max_code=None):
+                fused_calibration, group_widths=None, max_code=None,
+                tile=None):
     ex, m, k = x_codes.shape
     e, _, n = w_codes.shape
     if min(e, m, k, n) == 0:
@@ -241,7 +312,7 @@ def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
             else:
                 window = _f32(out_scale, xi.device)
         return tdvmm.tdvmm_fused(xi, wi, x_scale, w_scale, gain, out_bits,
-                                 window, int4_k, max_code, code_dtype)
+                                 window, int4_k, max_code, code_dtype, tile)
     if fused_calibration:
         # every member span is a multiple of the 128 lane, so no 64-column
         # tile of B2 straddles two members' readout slots
@@ -250,8 +321,8 @@ def _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
         return tdvmm.tdvmm_calibrated(
             xi, wi, x_scale, w_scale, slots, nslots,
             min(tdvmm.TILE_N, n), gain, out_bits, int4_k, max_code,
-            code_dtype)
-    acc = tdvmm.tdvmm_matmul_raw(xi, wi, int4_k, max_code, code_dtype)
+            code_dtype, tile)
+    acc = tdvmm.tdvmm_matmul_raw(xi, wi, int4_k, max_code, code_dtype, tile)
     return _epilogue(acc, x_scale, w_scale, gain, out_bits, out_scale,
                      out_window, group_widths)
 
@@ -294,10 +365,10 @@ class _TDVMMCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x_codes, w_codes, x_scale, w_scale, out_window, static):
         (gain, out_bits, out_scale, backend, code_dtype, fused_calibration,
-         group_widths, max_code) = static
+         group_widths, max_code, tile) = static
         y = _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
                         out_scale, out_window, backend, code_dtype,
-                        fused_calibration, group_widths, max_code)
+                        fused_calibration, group_widths, max_code, tile)
         ctx.save_for_backward(x_codes, w_codes, x_scale, w_scale, y)
         ctx.gain = gain
         return y
@@ -347,17 +418,20 @@ def _raw_acc(x3, w3, backend, code_dtype, max_code) -> torch.Tensor:
     return raw_acc(x3, w3, backend, code_dtype, max_code).to(torch.float32)
 
 
-def raw_acc(x3, w3, backend, code_dtype, max_code) -> torch.Tensor:
+def raw_acc(x3, w3, backend, code_dtype, max_code,
+            tile: Optional[tdvmm.Tile] = None) -> torch.Tensor:
     """The raw (E|1, M, K) x (E, K, N) charge accumulation in the storage's
     own dtype: int32 for integer codes (exact), float32 for float32 codes
-    (B1 raw mode on the card).  A tensor-parallel row site sums these over
-    ``model`` before its one epilogue."""
+    (B1 raw mode on the card, at ``tile`` or the lookup's).  A
+    tensor-parallel row site sums these over ``model`` before its one
+    epilogue."""
     if backend == "jnp":
         xi, wi, _ = _operands(x3, w3,
                               "int8" if code_dtype == "int4" else code_dtype)
         return tdvmm.acc_plain(xi, wi)
     return tdvmm.tdvmm_matmul_raw(*_operands(x3, w3, code_dtype),
-                                  max_code=max_code, code_dtype=code_dtype)
+                                  max_code=max_code, code_dtype=code_dtype,
+                                  tile=tile)
 
 
 def epilogue(acc, x_scale, w_scale, gain, out_bits, out_scale=None,
@@ -411,6 +485,7 @@ def tdvmm_matmul(
     fused_calibration: bool = True,
     out_window: Optional[torch.Tensor] = None,
     max_code: Optional[int] = None,
+    tile: Optional[tdvmm.Tile] = None,
 ) -> torch.Tensor:
     """Quantized four-quadrant TD-VMM: codes matmul + readout + scale epilogue.
 
@@ -428,7 +503,8 @@ def tdvmm_matmul(
     ``max_code`` is the largest |code| of either operand; integer float32
     codes ("f32") on the card need it (``tdvmm.check_code_width`` picks
     their storage from it).  ``code_dtype="f32x3"`` marks float32 codes
-    off the integer grid.
+    off the integer grid.  ``tile``: the CTA tile of the caller's
+    ``plan_kernel`` (the JAX package's ``block_sizes``), else the lookup's.
 
     Float32 codes (straight-through views) are differentiable through
     ``_TDVMMCore``; integer codes are not.
@@ -492,9 +568,10 @@ def tdvmm_matmul(
         y = _TDVMMCore.apply(
             x_codes, w_codes, x_scale, w_scale, out_window,
             (gain, out_bits, out_scale, backend, code_dtype,
-             bool(fused_calibration), group_widths, max_code))
+             bool(fused_calibration), group_widths, max_code, tile))
     else:
         y = _tdvmm_impl(x_codes, w_codes, x_scale, w_scale, gain, out_bits,
                         out_scale, out_window, backend, code_dtype,
-                        bool(fused_calibration), group_widths, max_code)
+                        bool(fused_calibration), group_widths, max_code,
+                        tile)
     return y[0] if squeeze else y

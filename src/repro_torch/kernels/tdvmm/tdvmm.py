@@ -34,8 +34,13 @@ one output buffer (``tdvmm_calibrated``).  Both take batched
            (the lo parts are zero), bitwise while worst |acc| < 2^24
            (``check_code_width`` sends them here).
 
-Each launch takes one of two CTA tiles, chosen by M alone
-(``plan_tile``): 16 x 64 up to 256 rows, 128 x 128 beyond.  What bounds
+Each launch takes one of two CTA tiles (``TILES``: 16 x 64 and 128 x
+128) from one lookup, ``autotune_lookup``: the per-shape table measured on
+an H100 (``autotune_table.py``, written by ``launch/autotune_tdvmm.py``),
+keyed by the unpadded (M, K, N, storage name), and on a miss the rule by M
+alone (``plan_tile``: 16 x 64 up to 256 rows, 128 x 128 beyond).  A caller
+that planned a tile (``ops.plan_kernel``) passes it as ``tile=``.  Which
+tile a launch takes never changes its bits on integer codes.  What bounds
 them on the card: device-memory bytes at decode (the weight codes); at
 thousands of rows, staging the codes through shared memory (for float32
 codes, their 4 bytes each), well below the tensor-core rate.
@@ -45,7 +50,7 @@ version beside it (same arithmetic in torch ops, exact accumulation); a
 tensor on the card goes to the kernel, or the wrapper raises.  There is no
 fallback.  ``LAUNCHES`` counts kernel launches only, per wrapper and code
 storage (``"fused"`` is int8, ``"fused_f32"`` and ``"fused_int4"`` the
-others).
+others); ``TILE_LAUNCHES`` counts them per lookup key and tile.
 
 The kernels are built at first use with ``nvcc`` for ``sm_90a`` into the
 port's kernel build directory (``kernels/_build.py``: one shared library
@@ -54,6 +59,7 @@ per source, built in parallel) and bound with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import NamedTuple, Optional
 
@@ -62,6 +68,7 @@ import torch
 
 from repro_torch.core import quant
 from repro_torch.kernels import _build, hooks
+from repro_torch.kernels.tdvmm import autotune_table as _table
 
 LANE = 128
 CSRC = Path(__file__).parent / "csrc"
@@ -102,13 +109,89 @@ SMALL_TILE_MAX_ROWS = 256
 
 
 def plan_tile(m: int) -> Tile:
-    """The CTA tile for M rows, by M alone: 16 x 64 while M <= 256, 128 x
-    128 above.  Measured on an H100 (``scripts/tdvmm_tile_ab.py``): the
-    small tile's many CTAs win at decode and at qwen's 64-row chunks and
-    128-row captures, the large tile's reuse of each staged code at the
-    2048-row prefills and the MoE dispatch buffer; between 256 and 1024
-    rows the winner depends on N (no serving shape has those rows)."""
+    """The CTA tile for M rows, by M alone (the lookup's rule on a miss):
+    16 x 64 while M <= 256, 128 x 128 above.  Measured on an H100
+    (``scripts/tdvmm_tile_ab.py``): the small tile's many CTAs win at
+    decode and at qwen's 64-row chunks and 128-row captures, the large
+    tile's reuse of each staged code at the 2048-row prefills and the MoE
+    dispatch buffer; between 256 and 1024 rows the winner depends on N."""
     return TILES[0] if m <= SMALL_TILE_MAX_ROWS else TILES[1]
+
+
+# ---------------------------------------------------------------------------
+# The per-shape tile table (storage: autotune_table.py, a generated file)
+# ---------------------------------------------------------------------------
+# Storage names of the table's keys: the JAX package's names for int8, int4
+# and the bf16-tile float32 codes, and the 3xTF32 storage's own
+DTYPE_NAMES = ("int8", "int4", "float32", "f32x3")
+PLATFORMS = ("sm_90a", "plain")
+
+
+def autotune_platform(device=None) -> str:
+    """The platform whose launches a plan is for: "sm_90a" for codes on
+    the card, "plain" for the CPU (the dry run's fake tensors too);
+    without a device, the card when this process has one."""
+    if device is None:
+        return "sm_90a" if torch.cuda.is_available() else "plain"
+    return "sm_90a" if torch.device(device).type == "cuda" else "plain"
+
+
+@functools.lru_cache(maxsize=1)
+def _read_table() -> dict:
+    tiles = {t.name: t for t in TILES}
+    out = {}
+    for key, name in _table.HOPPER_TABLE.items():
+        m, k, n, dtype = key
+        if name not in tiles:
+            raise ValueError(f"autotune table entry {key}: unknown tile "
+                             f"{name!r} (tiles {sorted(tiles)})")
+        if dtype not in DTYPE_NAMES or min(m, k, n) < 1:
+            raise ValueError(f"autotune table key {key}: expected positive "
+                             f"(M, K, N) and a storage of {DTYPE_NAMES}")
+        out[key] = tiles[name]
+    return out
+
+
+def autotune_table(platform: Optional[str] = None) -> dict:
+    """The table (M, K, N, storage name) -> ``Tile``.  Both platforms read
+    the one table measured on the H100: the plain version ignores the tile,
+    so a CPU run sees the card's hits.  Raises if an entry names no tile of
+    ``TILES``."""
+    if platform is not None and platform not in PLATFORMS:
+        raise ValueError(f"platform {platform!r}, expected one of {PLATFORMS}")
+    return _read_table()
+
+
+def dtype_name(dtype) -> str:
+    """The table's storage name for a code storage or dtype: "f32" (and a
+    float32 dtype) is "float32", as the JAX package names it."""
+    if isinstance(dtype, torch.dtype):
+        dtype = {torch.int8: "int8", torch.float32: "float32"}.get(dtype,
+                                                                    dtype)
+    name = {"f32": "float32"}.get(dtype, dtype)
+    if name not in DTYPE_NAMES:
+        raise ValueError(f"code storage {dtype!r}, expected one of "
+                         f"{DTYPE_NAMES}")
+    return name
+
+
+def autotune_lookup(m: int, k: int, n: int, dtype="float32",
+                    platform: Optional[str] = None) -> tuple[Tile, bool]:
+    """(tile, table hit) for a codes matmul of unpadded M x K x N (int4: the
+    unpacked K) in storage ``dtype``; a miss takes ``plan_tile(m)``."""
+    autotune_table(platform)
+    return _lookup(int(m), int(k), int(n), dtype_name(dtype))
+
+
+@functools.lru_cache(maxsize=4096)
+def _lookup(m: int, k: int, n: int, name: str) -> tuple[Tile, bool]:
+    tile = _read_table().get((m, k, n, name))
+    return (plan_tile(m), False) if tile is None else (tile, True)
+
+
+def autotune_blocks(m: int, k: int, n: int, dtype="float32") -> Tile:
+    """The tile for a codes matmul: the table's, or ``plan_tile``'s."""
+    return autotune_lookup(m, k, n, dtype)[0]
 
 
 def check_code_width(codes: str, max_code: Optional[int]) -> str:
@@ -172,11 +255,14 @@ CODES = {"int8": 0, "int4": 1, "f32": 2, "f32x3": 3}
 # 3xTF32 storage.
 LAUNCHES = {f"{kind}{'' if codes == 'int8' else '_' + codes}": 0
             for kind in ("raw", "fused", "calibrated") for codes in CODES}
+# The same launches by (M, K, N, storage name) lookup key and tile name
+TILE_LAUNCHES: dict[tuple[int, int, int, str, str], int] = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    TILE_LAUNCHES.clear()
 
 
 def padded_size(size: int, block: int, tile: int) -> int:
@@ -270,8 +356,23 @@ def _check_codes(x: torch.Tensor, w: torch.Tensor,
     return Launch(e, m, k, n, ex == 1 and e > 1, codes)
 
 
-def _count(kind: str, codes: str) -> None:
+def _count(kind: str, codes: str, key: tuple, tile: Tile) -> None:
     LAUNCHES[kind if codes == "int8" else f"{kind}_{codes}"] += 1
+    key = key + (tile.name,)
+    TILE_LAUNCHES[key] = TILE_LAUNCHES.get(key, 0) + 1
+
+
+def _tile(g: Launch, code_dtype: Optional[str],
+          tile: Optional[Tile]) -> tuple[tuple, Tile]:
+    """(lookup key, tile) of a launch: the caller's storage name (its plan's
+    ``code_dtype``, else the dtypes'), and the caller's tile or the
+    lookup's."""
+    key = (g.m, g.k, g.n, dtype_name(code_dtype or g.codes))
+    if tile is None:
+        tile = _lookup(*key)[0]
+    elif tile not in TILES:
+        raise ValueError(f"tile {tile}, expected one of {TILES}")
+    return key, tile
 
 
 def _check_f32(name: str, t: torch.Tensor, shape: tuple, device) -> None:
@@ -474,25 +575,29 @@ def _hooked(kind: str, impl, x, w, int4_k, max_code, code_dtype,
 def tdvmm_matmul_raw(x: torch.Tensor, w: torch.Tensor,
                      int4_k: Optional[int] = None,
                      max_code: Optional[int] = None,
-                     code_dtype: Optional[str] = None) -> torch.Tensor:
+                     code_dtype: Optional[str] = None,
+                     tile: Optional[Tile] = None) -> torch.Tensor:
     """B1 raw mode (``_matmul_raw``)."""
     return _hooked("raw", _matmul_raw, x, w, int4_k, max_code, code_dtype,
-                   False, int4_k, max_code, code_dtype)
+                   False, int4_k, max_code, code_dtype, tile)
 
 
 def _matmul_raw(x: torch.Tensor, w: torch.Tensor,
                 int4_k: Optional[int] = None,
                 max_code: Optional[int] = None,
-                code_dtype: Optional[str] = None) -> torch.Tensor:
+                code_dtype: Optional[str] = None,
+                tile: Optional[Tile] = None) -> torch.Tensor:
     """B1 raw mode: (E, M, N) charge accumulation, int32 for integer codes,
     float32 for float32 codes.  ``max_code``: the largest |code| of either
     operand, for integer float32 codes; ``code_dtype``: the caller's code
     storage ("f32x3" for float32 codes off the integer grid), else taken
-    from the dtypes (``check_code_width`` picks the storage from both)."""
+    from the dtypes (``check_code_width`` picks the storage from both);
+    ``tile``: the CTA tile its caller planned, else ``autotune_lookup``'s."""
     if not _kernel_device(x):
         return tdvmm_raw_plain(x, w, int4_k)
     g = _check_codes(x, w, int4_k, code_dtype)
     codes = check_code_width(g.codes, max_code)
+    key, tile = _tile(g, code_dtype, tile)
     _contig(x, w)
     out = torch.empty((g.e, g.m, g.n), dtype=_out_dtype(g.codes),
                       device=x.device)
@@ -501,9 +606,9 @@ def _matmul_raw(x: torch.Tensor, w: torch.Tensor,
     err = _lib("b1").tdvmm_b1(
         x.data_ptr(), w.data_ptr(), None, None, None, 0, 0, out.data_ptr(),
         g.e, g.m, g.k, g.n, int(g.shared_x), *_vecs(x, w, g), 0,
-        CODES[codes], plan_tile(g.m).index, 1.0, 0.0, 0.0, _stream())
+        CODES[codes], tile.index, 1.0, 0.0, 0.0, _stream())
     _build.check_launch(err, "tdvmm_matmul_raw")
-    _count("raw", codes)
+    _count("raw", codes, key, tile)
     return out
 
 
@@ -513,11 +618,12 @@ def tdvmm_fused(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
                 window: Optional[torch.Tensor] = None,
                 int4_k: Optional[int] = None,
                 max_code: Optional[int] = None,
-                code_dtype: Optional[str] = None) -> torch.Tensor:
+                code_dtype: Optional[str] = None,
+                tile: Optional[Tile] = None) -> torch.Tensor:
     """B1 fused (``_fused``)."""
     return _hooked("fused", _fused, x, w, int4_k, max_code, code_dtype,
                    out_bits is not None, x_scale, w_scale, gain, out_bits,
-                   window, int4_k, max_code, code_dtype)
+                   window, int4_k, max_code, code_dtype, tile)
 
 
 def _fused(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
@@ -526,18 +632,20 @@ def _fused(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
            window: Optional[torch.Tensor] = None,
            int4_k: Optional[int] = None,
            max_code: Optional[int] = None,
-           code_dtype: Optional[str] = None) -> torch.Tensor:
+           code_dtype: Optional[str] = None,
+           tile: Optional[Tile] = None) -> torch.Tensor:
     """B1 fused: integrate + gain -> optional readout over a fixed window
     -> per-row x per-column rescale, float32 (E, M, N) out.
 
     x_scale (E|1, M), w_scale (E, N) float32; ``window`` (with ``out_bits``)
-    is (), (E,), (E, 1, 1) or (E, 1, N) float32; ``max_code`` and
-    ``code_dtype`` as for ``tdvmm_matmul_raw``."""
+    is (), (E,), (E, 1, 1) or (E, 1, N) float32; ``max_code``,
+    ``code_dtype`` and ``tile`` as for ``tdvmm_matmul_raw``."""
     if not _kernel_device(x):
         return tdvmm_fused_plain(x, w, x_scale, w_scale, gain, out_bits,
                                  window, int4_k)
     g = _check_codes(x, w, int4_k, code_dtype)
     codes = check_code_width(g.codes, max_code)
+    key, tile = _tile(g, code_dtype, tile)
     e, m, n = g.e, g.m, g.n
     _check_f32("x_scale", x_scale, (x.shape[0], m), x.device)
     _check_f32("w_scale", w_scale, (e, n), x.device)
@@ -557,10 +665,10 @@ def _fused(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
         x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
         None if win is None else win.data_ptr(), se, sn, out.data_ptr(),
         e, m, g.k, n, int(g.shared_x), *_vecs(x, w, g), mode,
-        CODES[codes], plan_tile(m).index, float(np.float32(gain)), levels,
+        CODES[codes], tile.index, float(np.float32(gain)), levels,
         inv_levels, _stream())
     _build.check_launch(err, "tdvmm_fused")
-    _count("fused", codes)
+    _count("fused", codes, key, tile)
     return out
 
 
@@ -570,11 +678,13 @@ def tdvmm_calibrated(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
                      out_bits: int = 6,
                      int4_k: Optional[int] = None,
                      max_code: Optional[int] = None,
-                     code_dtype: Optional[str] = None) -> torch.Tensor:
+                     code_dtype: Optional[str] = None,
+                     tile: Optional[Tile] = None) -> torch.Tensor:
     """B2 (``_calibrated``)."""
     return _hooked("calibrated", _calibrated, x, w, int4_k, max_code,
                    code_dtype, True, x_scale, w_scale, slots, nslots,
-                   slot_bw, gain, out_bits, int4_k, max_code, code_dtype)
+                   slot_bw, gain, out_bits, int4_k, max_code, code_dtype,
+                   tile)
 
 
 def _calibrated(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
@@ -583,18 +693,20 @@ def _calibrated(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
                 out_bits: int = 6,
                 int4_k: Optional[int] = None,
                 max_code: Optional[int] = None,
-                code_dtype: Optional[str] = None) -> torch.Tensor:
+                code_dtype: Optional[str] = None,
+                tile: Optional[Tile] = None) -> torch.Tensor:
     """B2: integrate + data-calibrated readout, float32 (E, M, N) out.
 
     ``slots`` (E, ceil(N / slot_bw)) int32 is the readout-slot id of every
     ``slot_bw``-wide column block (``ops._calib_slots``); each slot's window
-    is max(max|z| over its columns, 1e-9).  ``max_code`` and ``code_dtype``
-    as for ``tdvmm_matmul_raw``."""
+    is max(max|z| over its columns, 1e-9).  ``max_code``, ``code_dtype``
+    and ``tile`` as for ``tdvmm_matmul_raw``."""
     if not _kernel_device(x):
         return tdvmm_calibrated_plain(x, w, x_scale, w_scale, slots, nslots,
                                       slot_bw, gain, out_bits, int4_k)
     g = _check_codes(x, w, int4_k, code_dtype)
     codes = check_code_width(g.codes, max_code)
+    key, tile = _tile(g, code_dtype, tile)
     e, m, n = g.e, g.m, g.n
     _check_f32("x_scale", x_scale, (x.shape[0], m), x.device)
     _check_f32("w_scale", w_scale, (e, n), x.device)
@@ -615,8 +727,8 @@ def _calibrated(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
         x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
         slots.data_ptr(), nsb, slot_bw, slot_max.data_ptr(), out.data_ptr(),
         e, m, g.k, n, int(g.shared_x), *_vecs(x, w, g), CODES[codes],
-        plan_tile(m).index, float(np.float32(gain)), levels, inv_levels,
+        tile.index, float(np.float32(gain)), levels, inv_levels,
         _stream())
     _build.check_launch(err, "tdvmm_calibrated")
-    _count("calibrated", codes)
+    _count("calibrated", codes, key, tile)
     return out

@@ -133,6 +133,8 @@ from repro_torch.core import energy as energy_model
 from repro_torch.core.calibration import (CalibrationState, apply_calibration,
                                           clip_rate_metrics)
 from repro_torch.kernels import _build
+from repro_torch.kernels.tdvmm import ops as tdvmm_ops
+from repro_torch.kernels.tdvmm import tdvmm
 from repro_torch.launch import meshctx
 from repro_torch.launch import sharding as shardlib
 from repro_torch.models import model
@@ -232,9 +234,7 @@ def _device_fault(e: RuntimeError) -> bool:
 
 @dataclasses.dataclass
 class EngineReport:
-    """Aggregate run stats + per-request records (rid order).  The JAX
-    package's ``autotune`` (its Pallas tile autotuner, which the port does
-    not have: it picks its tile by M alone) is not ported."""
+    """Aggregate run stats + per-request records (rid order)."""
     requests: list[dict]
     steps: int
     prefill_steps: int
@@ -278,6 +278,7 @@ class EngineReport:
     # --- mesh-sharded serving ---------------------------------------------
     devices: int = 1              # mesh size (1 = meshless engine)
     total_slots: int = 0          # dp_size * ecfg.slots aggregate decode width
+    autotune: Optional[dict] = None           # kernels.tdvmm autotune report
 
     def to_json(self) -> dict:
         return dataclasses.asdict(self)
@@ -1231,4 +1232,6 @@ class Engine:
                            if self.tracer is not None else None),
             devices=self.devices,
             total_slots=self.total_slots,
+            autotune=tdvmm_ops.autotune_report(
+                tdvmm.autotune_platform(self.device)),
         )

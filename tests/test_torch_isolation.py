@@ -30,6 +30,9 @@ def _modules() -> list[str]:
 def test_importing_the_port_loads_no_jax_and_no_reference():
     mods = _modules()
     assert "repro_torch.runtime.engine" in mods and len(mods) > 20
+    assert {"repro_torch.kernels.ssd.ops",
+            "repro_torch.kernels.tdvmm.autotune_table",
+            "repro_torch.launch.autotune_tdvmm"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -155,3 +155,60 @@ def test_readout_bitwise(bits, scale):
     yt = tquant.readout(torch.from_numpy(x), bits, scale)
     yj = jquant.readout(jnp.asarray(x), bits, scale)
     _eq(yt, yj)
+
+
+def _stack_members(bits: int, per_channel: bool, grad: bool):
+    """Members of uneven widths (40, 128, 7) programmed in both packages."""
+    rng = np.random.default_rng(bits)
+    ws = [rng.standard_normal((24, n)).astype(np.float32) for n in (40, 128, 7)]
+    t = [tquant.program_weights(torch.from_numpy(w).requires_grad_(grad),
+                                bits, per_channel) for w in ws]
+    j = [jquant.program_weights(jnp.asarray(w), bits, per_channel)
+         for w in ws]
+    return t, j
+
+
+@pytest.mark.parametrize("bits", [6, 8])
+@pytest.mark.parametrize("per_channel", [True, False])
+def test_stack_group_matches_reference(bits, per_channel):
+    """Codes, (G, 1, n_to) scales and the STE term equal the JAX
+    package's; uneven widths zero-padded to n_to (scale 1.0 there)."""
+    t, j = _stack_members(bits, per_channel, grad=True)
+    qt = tquant.stack_group(t, 128)
+    qj = jquant.stack_group(j, 128)
+    assert qt.bits == qj.bits == bits
+    _eq(qt.codes.detach(), qj.codes)
+    _eq(qt.scale, qj.scale)
+    assert tuple(qt.scale.shape) == (3, 1, 128)
+    assert float(qt.scale[2, 0, 7:].min()) == 1.0
+    assert not qt.codes[0, :, 40:].any() and not qt.codes[2, :, 7:].any()
+    if bits == 8:          # float32 storage: the codes carry their STE
+        assert qt.ste is None and qj.ste is None
+    else:
+        _eq(qt.ste.detach(), qj.ste)
+        assert qt.ste.requires_grad
+
+
+def test_stack_group_without_gradient_has_no_ste():
+    t, _ = _stack_members(6, True, grad=False)
+    assert tquant.stack_group(t, 128).ste is None
+
+
+def test_stack_group_raises_the_reference_errors():
+    t, j = _stack_members(6, True, grad=False)
+    t8, j8 = _stack_members(5, True, grad=False)
+    bank = tquant.QuantizedTensor(codes=t[0].codes[None], scale=t[0].scale,
+                                  bits=6)
+    jbank = jquant.QuantizedTensor(codes=j[0].codes[None], scale=j[0].scale,
+                                   bits=6)
+    for (mine, n_to), (ref, _) in (
+            (([], 128), ([], 128)),
+            (([t[0], t8[0]], 128), ([j[0], j8[0]], 128)),
+            (([bank], 128), ([jbank], 128)),
+            ((t, 64), (j, 64))):
+        with pytest.raises(ValueError) as ej:
+            jquant.stack_group(ref, n_to)
+        with pytest.raises(ValueError) as et:
+            tquant.stack_group(mine, n_to)
+        assert str(et.value) == str(ej.value)
+

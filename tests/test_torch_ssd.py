@@ -117,6 +117,23 @@ def test_ssd_plain_matches_interpret_mode_kernel(case):
     assert _rel(y, yk[:, :l]) <= NAIVE_RTOL
 
 
+@pytest.mark.parametrize("case", ["multiple_g1", "multiple_g2"])
+def test_ssd_op_matches_reference_op(case):
+    """``ssd.ops.ssd`` (y alone) against the JAX package's ``ssd.ops.ssd``,
+    its Pallas kernel in interpret mode; on the CPU it is ``ssd_plain``'s y
+    and launches no kernel."""
+    from repro.kernels.ssd import ops as jssd_ops
+    from repro_torch.kernels.ssd import ops as tssd_ops
+    b, l, h, p, g, s, chunk = CASES[case]
+    arrs = _inputs(b, l, h, p, g, s, seed=6)
+    yj = np.asarray(jssd_ops.ssd(*_j(*arrs), chunk=chunk, interpret=True))
+    tssd.reset_launches()
+    y = tssd_ops.ssd(*_t(*arrs), chunk)
+    assert tssd.LAUNCHES["ssd"] == 0
+    assert torch.equal(y, tssd.ssd_plain(*_t(*arrs), chunk)[0])
+    assert _rel(y, yj) <= NAIVE_RTOL
+
+
 def test_ssd_plain_bfloat16_inputs():
     b, l, h, p, g, s, chunk = CASES["ragged_g2"]
     x, dt, a_log, bb, cc = _inputs(b, l, h, p, g, s, seed=3)

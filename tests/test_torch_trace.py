@@ -265,6 +265,30 @@ def test_traced_engine_records_the_reference_engines_events():
          for r, row in ref.items()}
 
 
+def test_engine_report_autotune_has_the_reference_engines_keys():
+    """The report's ``autotune`` (tests/test_trace.py asserts its keys of
+    the JAX engine's): after a reset of both, the same requests plan the
+    same "MxKxN:dtype" entries, int8 at the smoke qwen's ffn sites; none of
+    these smoke shapes is in the port's table, so each is a miss."""
+    from repro.kernels.tdvmm import ops as jops
+    from repro_torch.kernels.tdvmm import ops as tops
+    jc, _, jparams, _, jcal, _, _ = _served()
+    trace_ = _trace(jc.vocab_size)
+    jops.reset_autotune_report()
+    jrep = jengine.Engine(jc, jparams, jengine.EngineConfig(**ECFG),
+                          calib=jcal).run(
+        [jengine.Request(**r) for r in trace_])
+    tops.reset_autotune_report()
+    rep = _engine().run([Request(**r) for r in trace_])
+    mine, ref = rep.autotune, jrep.autotune
+    assert set(mine) == set(ref) == {"platform", "entries", "misses"}
+    assert set(mine["entries"]) == set(ref["entries"]) != set()
+    assert all(k.endswith(":int8") for k in mine["entries"])
+    assert mine["platform"] == "plain"
+    assert mine["misses"] == sorted(mine["entries"])
+    assert {v["platform"] for v in mine["entries"].values()} == {"plain"}
+
+
 # --------------------------------------------------------------------------
 # The port's engine on its own (tests/test_trace.py's engine tests)
 # --------------------------------------------------------------------------
@@ -342,7 +366,8 @@ def test_report_to_json_serializes():
         rep.site_attribution["per_site"]
     assert doc["trace_summary"]["ticks"] >= rep.steps
     assert (doc["rejected"], doc["over_budget"], doc["alerts"]) == (0, 0, 0)
-    assert "autotune" not in doc
+    assert set(doc["autotune"]) == {"platform", "entries", "misses"}
+    assert doc["autotune"] == rep.autotune
 
 
 def test_trace_rides_a_disk_snapshot_as_one_document(tmp_path):
