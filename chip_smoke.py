@@ -69,7 +69,15 @@ Phases, each of which stops the script with a non-zero exit on failure:
    plain version (B1 raw, B1 fused, B2), B1 fused timed at each tile, the
    table written to a temporary file, never to the committed one; (b) at
    every committed entry of those serving shapes, the table's tile bitwise
-   ``plan_tile``'s; ``plan_kernel``'s host time per call;
+   ``plan_tile``'s; ``plan_kernel``'s host time per call; then "api"
+   (``api_phase``): the layer object a user reaches for,
+   ``repro_torch.core.TDVMMLinear``, at qwen's ffn.in width (1024 -> 2816,
+   bf16, int8 codes at p = 6, a nonzero bias) on API_ROWS rows: its
+   forward bitwise a direct ``td_matmul`` on the same weights plus the
+   bias, exactly one B2 launch (the data-calibrated window); ``calibrate``
+   equal to ``calibrate_out_scale``, exactly one B1 raw launch; the pinned
+   config's forward bitwise ``td_matmul`` under it, exactly one B1 fused
+   launch;
 4. serving: qwen1.5-0.5b at full width, 8 of its 24 layers
    (SERVE_LAYERS; d_model 1024, bf16, random weights from seed 0) under
    the ``ffn_unchained`` and
@@ -1245,6 +1253,8 @@ def run_case(case: dict, dev, seed: int) -> dict:
 # The autotune phase's M = 512 shapes of the work list: qwen's ffn.in, and
 # its ffn.out, where the committed table's tile is not plan_tile's
 AUTOTUNE_WORK = ((512, 1024, 2816, "int8"), (512, 2816, 1024, "int8"))
+# the "api" phase's rows: a prefill chunk of the qwen engine (CHUNK)
+API_ROWS = 64
 PLAN_CALLS = 20_000
 
 
@@ -1295,6 +1305,66 @@ def autotune_phase(dev) -> dict:
     ops.reset_autotune_report()
     return dict(rows=rows, agree=agree, checked=len(serving), differ=differ,
                 plan_us=plan_us, seconds=time.perf_counter() - t0)
+
+
+def api_phase(dev) -> dict:
+    """``repro_torch.core.TDVMMLinear`` on the card at qwen's ffn.in width
+    (FFN_SHAPES[0], bf16, 6-bit int8 codes, bias on and drawn nonzero),
+    random weights and API_ROWS rows from seed 0: the forward with the
+    window data-calibrated, ``calibrate``, and the forward under the pinned
+    config, each launch-counted alone, then each held to a direct
+    ``td_matmul`` / ``calibrate_out_scale`` call on the same weights and
+    rows: outputs bitwise, the window equal, exactly one B2, one B1 raw
+    and one B1 fused launch, nothing else.  Returns the launches, the
+    window and the seconds."""
+    import torch
+    from repro_torch.core import TDVMMLayerConfig, TDVMMLinear, td_matmul
+    from repro_torch.core.layers import calibrate_out_scale
+
+    t0 = time.perf_counter()
+    k, n = FFN_SHAPES[0]
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    cfg = TDVMMLayerConfig(enabled=True, bits=6, weight_bits=6)
+    layer = TDVMMLinear(k, n, cfg, bias=True, dtype=torch.bfloat16,
+                        generator=g)
+    x = torch.randn((API_ROWS, k), generator=g, device=dev).to(
+        torch.bfloat16)
+    runs = {}
+    with torch.no_grad():
+        layer.b.normal_(generator=g)
+        for name in ("forward", "calibrate", "pinned"):
+            reset_all_launches()
+            out = layer.calibrate(x) if name == "calibrate" else layer(x)
+            torch.cuda.synchronize()
+            runs[name] = (out, launches_now())
+            if name == "calibrate":
+                layer.cfg = out
+        w, b = layer.w.detach(), layer.b.detach()
+        want = {"forward": td_matmul(x, w, cfg) + b,
+                "pinned": td_matmul(x, w, layer.cfg) + b}
+        window = calibrate_out_scale(x, w, cfg)
+    for name in ("forward", "pinned"):
+        y = runs[name][0]
+        require(tuple(y.shape) == (API_ROWS, n) and y.dtype == torch.bfloat16
+                and bool(torch.isfinite(y).all()),
+                f"api {name}: {tuple(y.shape)} {y.dtype}, finite "
+                f"{bool(torch.isfinite(y).all())}")
+        require(torch.equal(y, want[name]), f"api {name}: TDVMMLinear "
+                f"differs from td_matmul by "
+                f"{float((y.float() - want[name].float()).abs().max())}")
+    require(runs["calibrate"][0].out_scale == window,
+            f"api calibrate: {runs['calibrate'][0].out_scale} != "
+            f"calibrate_out_scale's {window}")
+    launches = {}
+    for name, kind in (("forward", "calibrated"), ("calibrate", "raw"),
+                       ("pinned", "fused")):
+        got = runs[name][1]
+        want_l = dict.fromkeys(got, 0) | {kind: 1}
+        require(got == want_l, f"api {name} launches {got} != {want_l}")
+        launches[kind] = 1
+    return dict(launches=launches, window=window,
+                seconds=time.perf_counter() - t0)
 
 
 def check_tiles_taken(rep, name: str) -> dict:
@@ -5330,6 +5400,17 @@ def main() -> int:
     del fg
     torch.cuda.empty_cache()
     phase_done("flash")
+
+    ap = api_phase(dev)
+    say("api", f"repro_torch.core.TDVMMLinear {FFN_SHAPES[0][0]} -> "
+        f"{FFN_SHAPES[0][1]}, bf16, int8 codes at p = 6, bias on, "
+        f"{API_ROWS} rows: forward bitwise td_matmul + b (1 B2 launch), "
+        f"calibrate == calibrate_out_scale = {ap['window']:.6g} (1 B1 raw), "
+        f"pinned forward bitwise td_matmul under it (1 B1 fused); "
+        f"launches {ap['launches']}; phase "
+        f"{ap['seconds']:.2f} s | {card}")
+    del ap
+    phase_done("api")
 
     served, cache = [], {}
     for name, plan in plans().items():

@@ -31,6 +31,15 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
 
+def leaf_from_numpy(a, device) -> torch.Tensor:
+    """One JAX package leaf, given as a numpy array, as a tensor of its own
+    dtype on ``device`` (numpy's bfloat16 extension type as
+    ``torch.bfloat16``)."""
+    name = np.asarray(a).dtype.name
+    dtype = torch.bfloat16 if name == "bfloat16" else getattr(torch, name)
+    return _tensor(a, dtype, device)
+
+
 # leaves (and subtrees) the JAX package initialises in float32 for every
 # model dtype
 FLOAT32_LEAVES = frozenset({"dt_bias", "A_log", "D", "router"})

@@ -336,3 +336,35 @@ def request_energy_bounds(energy: dict, prompt_len: int,
         "min_energy_j": min_e,
         "full_energy_j": full_e,
     }
+
+
+# --------------------------------------------------------------------------
+# Mapping full LM architectures onto TD-VMM tiles (section 4.2's TDM reuse)
+# --------------------------------------------------------------------------
+def llm_mapping_cost(linear_shapes: list[tuple[int, int]], tile_n: int = 1024,
+                     bits: int = DEFAULT_BITS) -> dict[str, float]:
+    """Cost of running all of a model's linear layers on tile_n x tile_n
+    TD-VMM tiles with time-division multiplexing (weights stationary,
+    section 4.2).
+
+    linear_shapes: (d_in, d_out) of every weight matrix applied per token.
+    Returns the tile count, energy and MACs a token, TOps/J, the latency a
+    token (all tiles of one layer in parallel, layers pipelined: one
+    period) and the tiles' area."""
+    c = cost(tile_n, bits)
+    total_tiles = 0
+    e_token = 0.0
+    macs = 0.0
+    for d_in, d_out in linear_shapes:
+        tiles = -(-d_in // tile_n) * -(-d_out // tile_n)
+        total_tiles += tiles
+        e_token += tiles * c.e_total_j
+        macs += d_in * d_out
+    return {
+        "tiles": float(total_tiles),
+        "energy_per_token_j": e_token,
+        "macs_per_token": macs,
+        "tops_per_j": 2.0 * macs / e_token / 1e12,
+        "latency_per_token_s": c.period_s,
+        "area_mm2": total_tiles * c.area_um2 * 1e-6,
+    }

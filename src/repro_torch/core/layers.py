@@ -1,5 +1,5 @@
 """td_matmul: the paper's multiplier as a drop-in linear layer (torch port
-of ``repro.core.layers``, serving subset).
+of ``repro.core.layers``).
 
 td_matmul is the closed form of the four-quadrant TD-VMM, structured as the
 code-and-scale pipeline of ``core/quant.py``:
@@ -19,7 +19,9 @@ code-and-scale pipeline of ``core/quant.py``:
 expert banks: one analog tile per expert, per-expert scales and (E,)
 readout windows, the expert dim on the kernels' batched grid axis.
 ``td_grouped_matmul`` runs G same-input projections (``ssm.in_proj``) as
-one ragged concat launch.
+one ragged concat launch.  ``TDVMMLinear`` is the JAX package's layer
+object as an ``nn.Module`` around ``td_matmul`` (``init_linear`` draws its
+weight).
 
 Code storage follows the JAX package's rule (``_plan_code_dtype``): int8
 for p <= 7 on both operands, int4-packed pairs for p <= 3 on both, float32
@@ -38,6 +40,7 @@ and take the "f32x3" storage.
 """
 from __future__ import annotations
 
+import math
 import warnings
 from typing import NamedTuple, Optional
 
@@ -47,8 +50,9 @@ import torch
 from repro_torch.configs.base import TDVMMLayerConfig  # re-export
 from repro_torch.core import quant
 
-__all__ = ["TDVMMLayerConfig", "td_matmul", "td_expert_matmul",
-           "td_grouped_matmul", "calibrate_out_scale"]
+__all__ = ["TDVMMLayerConfig", "TDVMMLinear", "td_matmul",
+           "td_expert_matmul", "td_grouped_matmul", "calibrate_out_scale",
+           "init_linear"]
 
 class MatmulPlan(NamedTuple):
     """Shape/backend/storage bookkeeping for one td_matmul call."""
@@ -740,3 +744,68 @@ def calibrate_out_scale(x: torch.Tensor, w: torch.Tensor,
     gain = _latch_gain(qx.levels, qw.levels, plan.k)
     z_max = _max0(torch.abs(acc * _f32(gain)))
     return max(float(z_max), 1e-9)
+
+
+def init_linear(generator: Optional[torch.Generator], d_in: int, d_out: int,
+                dtype=torch.float32, scale: Optional[float] = None,
+                device=None) -> torch.Tensor:
+    """A (d_in, d_out) weight: standard normal draws from ``generator``
+    (torch's default generator when None) times ``scale``, by default
+    1 / sqrt(d_in), in ``dtype``; on ``device``, by default the
+    generator's."""
+    if device is None and generator is not None:
+        device = generator.device
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=generator, device=device)
+    return (w * scale).to(dtype)
+
+
+class TDVMMLinear(torch.nn.Module):
+    """The paper's multiplier as a linear layer: ``td_matmul(x, w, cfg)``
+    plus an optional bias.  ``w`` is (d_in, d_out), the JAX package's
+    layout; ``b`` is (d_out,), zeros at construction.
+
+    ``calibrate`` captures the readout window on a representative batch and
+    returns the config that pins it; assign it to ``cfg`` to serve with the
+    window fixed (on the card: B1 fused, where an unpinned window takes
+    B2)."""
+
+    def __init__(self, d_in: int, d_out: int, cfg: TDVMMLayerConfig,
+                 bias: bool = False, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.w = torch.nn.Parameter(
+            init_linear(generator, d_in, d_out, dtype, device=device))
+        self.register_parameter("b", torch.nn.Parameter(torch.zeros(
+            d_out, dtype=dtype, device=self.w.device)) if bias else None)
+
+    @classmethod
+    def from_params(cls, params: dict, cfg: TDVMMLayerConfig,
+                    device=None) -> "TDVMMLinear":
+        """The layer holding the JAX package's parameters ``{"w": (d_in,
+        d_out)[, "b": (d_out,)]}`` given as numpy arrays, each in its own
+        dtype (bfloat16 stays bfloat16)."""
+        from repro_torch import convert
+        w = convert.leaf_from_numpy(params["w"], device)
+        layer = cls(*w.shape, cfg, bias="b" in params, dtype=w.dtype,
+                    device="meta")
+        layer.w = torch.nn.Parameter(w)
+        if "b" in params:
+            layer.b = torch.nn.Parameter(
+                convert.leaf_from_numpy(params["b"], device))
+        return layer
+
+    def forward(self, x: torch.Tensor,
+                key: Optional[quant.NoiseKey] = None) -> torch.Tensor:
+        y = td_matmul(x, self.w, self.cfg, key)
+        return y if self.b is None else y + self.b
+
+    def calibrate(self, x: torch.Tensor,
+                  key: Optional[quant.NoiseKey] = None) -> TDVMMLayerConfig:
+        """``cfg`` with ``out_scale`` pinned to the window captured on
+        ``x`` (``calibrate_out_scale``; pass ``key`` on a noisy config so
+        the window covers the perturbed currents).  The layer is not
+        changed."""
+        return self.cfg.replace(
+            out_scale=calibrate_out_scale(x, self.w, self.cfg, key))

@@ -97,6 +97,10 @@ class QuantizedTensor:
         # other form rounds twice and lands an ulp off the grid)
         return qf + (self.ste - self.ste.detach())
 
+    def dequantize(self) -> torch.Tensor:
+        """Back to model units: codes / L * scale."""
+        return self.view() * (self.scale / float(self.levels))
+
 
 def pack_int4(codes: torch.Tensor, axis: int) -> torch.Tensor:
     """Pack int8 codes with |code| <= 7 (p <= 3) two per byte along ``axis``.

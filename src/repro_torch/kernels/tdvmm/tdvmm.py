@@ -413,8 +413,9 @@ def _vecs(x: torch.Tensor, w: torch.Tensor, g: "Launch") -> tuple[int, int]:
     return _vec(x, eb * x.shape[-1]), _vec(w, eb * g.n)
 
 
-def _out_dtype(codes: str) -> torch.dtype:
-    """The raw accumulator's dtype: int32 for integer codes, else float32."""
+def acc_dtype_for(codes: str) -> torch.dtype:
+    """The raw accumulator's dtype for a code storage name: int32 for
+    integer codes, else float32."""
     return torch.float32 if codes.startswith("f32") else torch.int32
 
 
@@ -599,7 +600,7 @@ def _matmul_raw(x: torch.Tensor, w: torch.Tensor,
     codes = check_code_width(g.codes, max_code)
     key, tile = _tile(g, code_dtype, tile)
     _contig(x, w)
-    out = torch.empty((g.e, g.m, g.n), dtype=_out_dtype(g.codes),
+    out = torch.empty((g.e, g.m, g.n), dtype=acc_dtype_for(g.codes),
                       device=x.device)
     if out.numel() == 0 or hooks.is_fake(x):
         return out

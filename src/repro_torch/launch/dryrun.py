@@ -126,7 +126,10 @@ def _bytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
-def _batch(cfg, shape, device):
+def input_specs(cfg, shape, device) -> dict:
+    """Every model input of a step of ``shape`` as zeros on ``device`` (fake
+    tensors under the dry run's ``FakeTensorMode``: shapes and dtypes, no
+    storage): the tokens or embeddings, and a training step's targets."""
     b, s = shape.global_batch, shape.seq_len
     s_in = 1 if shape.kind == "decode" else s
     if cfg.input_mode == "tokens":
@@ -157,7 +160,7 @@ def run_cell(cfg, shape, mesh, microbatch=None, device="cpu") -> dict:
     world (the same count of a step that runs)."""
     info = axis_info(mesh)
     t0 = time.time()
-    batch = _batch(cfg, shape, device)
+    batch = input_specs(cfg, shape, device)
     if shape.kind == "train":
         opt_cfg = optimizer_for(cfg)
         run = RunConfig(model=cfg, shape=shape, optimizer=opt_cfg)

@@ -140,6 +140,15 @@ class FaultInjector:
                 ev.fired = True
                 time.sleep(ev.sleep_s)
 
+    def report(self) -> list[dict]:
+        """Each event's fields as a dict, its class name under "event"."""
+        out = []
+        for ev in self.events:
+            d = dataclasses.asdict(ev)
+            d["event"] = type(ev).__name__
+            out.append(d)
+        return out
+
 
 def _model_spec(cfg) -> TDVMMSpec:
     """The TDVMMSpec drift perturbations are priced against: any enabled

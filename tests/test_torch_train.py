@@ -2,7 +2,8 @@
 width in float32: ``loss_fn`` (value, metrics, per-leaf gradients, the MoE
 aux losses; the dense, MoE, SSM and hybrid families; qwen and zamba2 also
 past a lowered flash threshold), the optimizers and their schedule and
-clip, the data pipeline, three steps of ``train_loop`` (every family); and the port's own invariants, held exactly:
+clip, the data pipeline, three steps of ``train_loop`` (every family) and
+twelve of qwen and mamba2; and the port's own invariants, held exactly:
 microbatch accumulation, remat, checkpoint resume.  Then the entry points
 (``launch/train``, ``launch/train_lm``, ``launch/perceptron --qat``) and the
 fault helpers.
@@ -72,6 +73,17 @@ A_LOG_GRAD_RTOL = 4e-5
 # AdamW updates carry the float32 differences above into the next steps'
 # weights.  Measured <= 5.5e-7 (the gradient norm; the losses <= 7.8e-8).
 TRAIN_RTOL = 1e-5
+# twelve steps of train_loop.  With TD-VMM off the packages stay within
+# TRAIN_RTOL for all twelve (measured <= 6.2e-7).  Under TD-VMM the
+# updates leave the two packages' weights float32 rounding apart, and some
+# 6-bit activation codes then round to the neighbouring level on one side,
+# as zamba2's do (test_zamba2_steps_under_tdvmm_part_only_at_the_quantizer):
+# the smoke qwen's gradient norms part at step 3 (1.9e-4), mamba2's losses
+# at step 4 (1.4e-3).  The first three steps hold TRAIN_RTOL; after them,
+# measured over steps 3-11: losses <= 3.51e-3 (mamba2), gradient norms
+# <= 7.64e-3 (qwen).
+LONG_LOSS_RTOL = 1e-2
+LONG_GNORM_RTOL = 2.5e-2
 # one optimizer update: the same float32 expressions; pow, sqrt and cos
 # may round differently in the two packages.  Measured <= 2.2e-7.
 OPT_RTOL = 1e-6
@@ -486,32 +498,40 @@ SMALL_SHAPE = dict(name="small", seq_len=16, global_batch=4, kind="train",
 SMALL_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=3)
 
 
-def _train_loop_matches_reference(arch, tmp_path, monkeypatch, tdvmm=True):
+def _train_loop_matches_reference(arch, tmp_path, monkeypatch, tdvmm=True,
+                                  steps=3, rtol=None):
+    """``steps`` steps of both train loops from the same weights: every
+    logged metric within TRAIN_RTOL, or within ``rtol[key]`` from step 3
+    on.  Returns (port run, reference run)."""
     jc, tc, pj, _ = _models(arch)
     if not tdvmm:
         jc, tc = (jc.replace(tdvmm=JLayer(enabled=False)),
                   tc.replace(tdvmm=TLayer(enabled=False)))
+    opt = dict(SMALL_OPT, total_steps=steps)
     jrun = JRun(model=jc, shape=JShape(**SMALL_SHAPE),
-                optimizer=JOpt(**SMALL_OPT),
+                optimizer=JOpt(**opt),
                 checkpoint_dir=str(tmp_path / "jax"))
     trun = TRun(model=tc, shape=TShape(**SMALL_SHAPE),
-                optimizer=TOpt(**SMALL_OPT),
+                optimizer=TOpt(**opt),
                 checkpoint_dir=str(tmp_path / "torch"))
-    ref = jtrain.train_loop(jrun, 3, log_every=1)
+    ref = jtrain.train_loop(jrun, steps, log_every=1)
     # start from the reference's weights (its init draws jax.random bits)
 
     def init_state(seed, cfg, optimizer, device=None):
         params = _port_params(arch)
         return tsteps.TrainState(params, optimizer.init(params))
     monkeypatch.setattr(tsteps, "init_train_state", init_state)
-    out = ttrain.train_loop(trun, 3, log_every=1, device="cpu")
-    assert len(out["history"]) == len(ref["history"]) == 3
+    out = ttrain.train_loop(trun, steps, log_every=1, device="cpu")
+    assert len(out["history"]) == len(ref["history"]) == steps
     for a, b in zip(out["history"], ref["history"]):
         assert a["step"] == b["step"]
         for k in ("loss", "grad_norm", "lr", "tokens"):
-            assert abs(a[k] - b[k]) <= TRAIN_RTOL * abs(b[k]), (a, b, k)
-    assert out["step"] == 3 and tckpt.latest_step(trun.checkpoint_dir) == 3
-    return out
+            tol = TRAIN_RTOL if a["step"] < 3 or k not in (rtol or {}) \
+                else rtol[k]
+            assert abs(a[k] - b[k]) <= tol * abs(b[k]), (a, b, k)
+    assert out["step"] == steps and \
+        tckpt.latest_step(trun.checkpoint_dir) == steps
+    return out, ref
 
 
 def test_train_loop_three_steps_match_reference(tmp_path, monkeypatch):
@@ -520,9 +540,28 @@ def test_train_loop_three_steps_match_reference(tmp_path, monkeypatch):
 
 def test_train_loop_three_steps_of_mamba2_match_reference(tmp_path,
                                                           monkeypatch):
-    out = _train_loop_matches_reference("mamba2-1.3b", tmp_path, monkeypatch)
+    out, _ = _train_loop_matches_reference("mamba2-1.3b", tmp_path,
+                                           monkeypatch)
     losses = [h["loss"] for h in out["history"]]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("tdvmm", [True, False])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-1.3b"])
+def test_train_loop_twelve_steps_match_reference(arch, tdvmm, tmp_path,
+                                                 monkeypatch):
+    """Twelve steps: with TD-VMM off every step within TRAIN_RTOL; under
+    TD-VMM the first three, then the losses and gradient norms within the
+    measured band (LONG_LOSS_RTOL, LONG_GNORM_RTOL), where the two
+    packages' activation codes part at the quantizer.  Both runs' losses
+    finite and falling: the last below the first."""
+    band = {"loss": LONG_LOSS_RTOL, "grad_norm": LONG_GNORM_RTOL}
+    out, ref = _train_loop_matches_reference(
+        arch, tmp_path, monkeypatch, tdvmm, steps=12,
+        rtol=band if tdvmm else None)
+    for run in (out, ref):
+        losses = [h["loss"] for h in run["history"]]
+        assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
 @pytest.mark.parametrize("arch,tdvmm", [("mixtral-8x7b", True),
@@ -533,7 +572,8 @@ def test_train_loop_three_steps_of_moe_and_hybrid_match_reference(
     reference's expert path with ``backend="jnp"``: its Pallas B2 fails
     under this jax); zamba2 with TD-VMM off, for the reason the next test
     shows."""
-    out = _train_loop_matches_reference(arch, tmp_path, monkeypatch, tdvmm)
+    out, _ = _train_loop_matches_reference(arch, tmp_path, monkeypatch,
+                                           tdvmm)
     losses = [h["loss"] for h in out["history"]]
     assert all(np.isfinite(losses))
     if arch.startswith("mixtral"):
