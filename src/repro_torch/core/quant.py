@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import encoding as enc
+from repro_torch.runtime.trace import span
 
 # Signed-magnitude codes span [-(2^p - 1), 2^p - 1]: int8 holds p <= 7.
 INT8_MAX_BITS = 7
@@ -222,20 +223,23 @@ def program_weights(
     ``tp_reduce``: a reduced dim is split over the mesh's ``model`` axis,
     so each scale is the max over every rank's slice.
     """
-    if w.dim() == 3 and not (w.requires_grad and torch.is_grad_enabled()):
-        step = expert_step(w)
-        if step < w.shape[0]:
-            e, _, n = w.shape
-            codes = torch.empty(w.shape, dtype=storage_dtype(bits),
-                                device=w.device)
-            scale = torch.empty((e, 1, n if per_channel else 1),
-                                dtype=torch.float32, device=w.device)
-            for lo in range(0, e, step):
-                q = _program(w[lo:lo + step], bits, per_channel, tp_reduce)
-                codes[lo:lo + step] = q.codes
-                scale[lo:lo + step] = q.scale
-            return QuantizedTensor(codes=codes, scale=scale, bits=bits)
-    return _program(w, bits, per_channel, tp_reduce)
+    with span("tdvmm.program"):
+        if w.dim() == 3 and not (w.requires_grad
+                                 and torch.is_grad_enabled()):
+            step = expert_step(w)
+            if step < w.shape[0]:
+                e, _, n = w.shape
+                codes = torch.empty(w.shape, dtype=storage_dtype(bits),
+                                    device=w.device)
+                scale = torch.empty((e, 1, n if per_channel else 1),
+                                    dtype=torch.float32, device=w.device)
+                for lo in range(0, e, step):
+                    q = _program(w[lo:lo + step], bits, per_channel,
+                                 tp_reduce)
+                    codes[lo:lo + step] = q.codes
+                    scale[lo:lo + step] = q.scale
+                return QuantizedTensor(codes=codes, scale=scale, bits=bits)
+        return _program(w, bits, per_channel, tp_reduce)
 
 
 def _program(w: torch.Tensor, bits: int, per_channel: bool,

@@ -27,6 +27,7 @@ from repro_torch.core import calibration
 from repro_torch.launch import meshctx
 from repro_torch.models import attention, common, ssm, transformer
 from repro_torch.runtime.paged_cache import DecodeCtx, PrefillChunkCtx
+from repro_torch.runtime.trace import span
 
 
 def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
@@ -194,24 +195,26 @@ def prefill_step(params, batch: dict, caches: dict, cfg: ModelConfig,
     """Absorb a prompt.  Returns (logits at the last position (B, 1, V),
     caches).  ``calib`` (a ``CalibrationState``) pins each TD-VMM site's
     readout window."""
-    cfg = meshctx.local_config(calibration.apply_calibration(cfg, calib))
-    x = _embed(params, batch, cfg)
-    x, caches = transformer.apply(params["blocks"], x, cfg, "prefill", caches,
-                                  embed0=x)
-    x = common.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
-    return _head(params, x, cfg), caches
+    with span("model.prefill"):
+        cfg = meshctx.local_config(calibration.apply_calibration(cfg, calib))
+        x = _embed(params, batch, cfg)
+        x, caches = transformer.apply(params["blocks"], x, cfg, "prefill",
+                                      caches, embed0=x)
+        x = common.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
+        return _head(params, x, cfg), caches
 
 
 def decode_step(params, batch: dict, caches: dict, cfg: ModelConfig,
                 calib=None):
     """One token for every sequence, batch['inputs']: (B, 1).  Returns
     (logits (B, 1, V), caches)."""
-    cfg = meshctx.local_config(calibration.apply_calibration(cfg, calib))
-    x = _embed(params, batch, cfg)
-    x, caches = transformer.apply(params["blocks"], x, cfg, "decode", caches,
-                                  embed0=x)
-    x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return _head(params, x, cfg), caches
+    with span("model.decode"):
+        cfg = meshctx.local_config(calibration.apply_calibration(cfg, calib))
+        x = _embed(params, batch, cfg)
+        x, caches = transformer.apply(params["blocks"], x, cfg, "decode",
+                                      caches, embed0=x)
+        x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        return _head(params, x, cfg), caches
 
 
 # --------------------------------------------------------------------------
@@ -248,17 +251,19 @@ def prefill_chunk(params, batch: dict, caches: dict, cfg: ModelConfig,
     the page pools are written in place.  ``windows`` (site -> float32
     window tensor, ``CalibrationState.as_arrays()``) are the pinned readout
     windows as operands."""
-    cfg = meshctx.local_config(calibration.apply_calibration(cfg, calib))
-    ctx = PrefillChunkCtx(block_row=batch["block_row"],
-                          offset=batch["offset"], valid=batch["valid"])
-    with calibration.runtime_windows(windows):
-        x = _embed(params, batch, cfg)
-        x, caches = transformer.apply(params["blocks"], x, cfg,
-                                      "prefill_paged", caches, page_ctx=ctx)
-        last = (ctx.valid - 1).reshape(1).long()
-        x = torch.index_select(x, 1, last)
-        x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-        return _head(params, x, cfg), caches
+    with span("model.prefill"):
+        cfg = meshctx.local_config(calibration.apply_calibration(cfg, calib))
+        ctx = PrefillChunkCtx(block_row=batch["block_row"],
+                              offset=batch["offset"], valid=batch["valid"])
+        with calibration.runtime_windows(windows):
+            x = _embed(params, batch, cfg)
+            x, caches = transformer.apply(params["blocks"], x, cfg,
+                                          "prefill_paged", caches,
+                                          page_ctx=ctx)
+            last = (ctx.valid - 1).reshape(1).long()
+            x = torch.index_select(x, 1, last)
+            x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+            return _head(params, x, cfg), caches
 
 
 def decode_slots(params, batch: dict, caches: dict, cfg: ModelConfig,
@@ -267,15 +272,16 @@ def decode_slots(params, batch: dict, caches: dict, cfg: ModelConfig,
     {"inputs": (B, 1), "block_tables": (B, P), "pos": (B,), "active": (B,)}
     tensors.  Returns (logits (B, 1, V), caches); inactive rows produce
     ignored logits.  ``windows`` as in ``prefill_chunk``."""
-    cfg = meshctx.local_config(calibration.apply_calibration(cfg, calib))
-    ctx = DecodeCtx(block_tables=batch["block_tables"], pos=batch["pos"],
-                    active=batch["active"])
-    with calibration.runtime_windows(windows):
-        x = _embed(params, batch, cfg)
-        x, caches = transformer.apply(params["blocks"], x, cfg,
-                                      "decode_paged", caches, page_ctx=ctx)
-        x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-        return _head(params, x, cfg), caches
+    with span("model.decode"):
+        cfg = meshctx.local_config(calibration.apply_calibration(cfg, calib))
+        ctx = DecodeCtx(block_tables=batch["block_tables"], pos=batch["pos"],
+                        active=batch["active"])
+        with calibration.runtime_windows(windows):
+            x = _embed(params, batch, cfg)
+            x, caches = transformer.apply(params["blocks"], x, cfg,
+                                          "decode_paged", caches, page_ctx=ctx)
+            x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+            return _head(params, x, cfg), caches
 
 
 @torch.no_grad()

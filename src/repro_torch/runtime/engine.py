@@ -143,6 +143,7 @@ from repro_torch.runtime import sla as sla_policy
 from repro_torch.runtime.paged_cache import PagePool, pages_for
 from repro_torch.runtime.scheduler import (Request, RequestRecord, Slot,
                                            SlotScheduler, static_baseline)
+from repro_torch.runtime.trace import span
 from repro_torch.tree import leaves_with_paths, tree_map
 
 __all__ = ["Engine", "EngineConfig", "EngineReport", "FaultConfig",
@@ -575,35 +576,38 @@ class Engine:
         """One engine iteration: admit, then run one prefill chunk OR one
         batched decode step OR fast-forward to the next arrival.  Returns
         False when the trace is fully served."""
-        st = self._st
-        if st.steps > self.ecfg.max_steps:
-            raise RuntimeError(f"engine exceeded max_steps={self.ecfg.max_steps}")
-        if self.tracer is not None:
-            for req in st.sched.pending:     # open `queued` spans (idempotent)
-                if req.arrival_step <= st.steps:
-                    self.tracer.note_arrival(req.rid, st.steps)
-        self._admit()
-        occupied = st.sched.occupied()
-        prefilling = [s for s in occupied if s.prefilling]
-        decoding = [s for s in occupied if not s.prefilling]
-        if prefilling:
-            self._prefill_tick(prefilling[0])
-            return True
-        if decoding:
-            self._decode_tick(decoding)
-            return True
-        if st.sched.has_pending():
-            nxt = st.sched.next_arrival()
-            if nxt is None or nxt <= st.steps:
+        with span("engine.tick"):
+            st = self._st
+            if st.steps > self.ecfg.max_steps:
                 raise RuntimeError(
-                    "scheduler stall: pending request cannot be admitted "
-                    "into an empty engine (page budget inconsistency)")
+                    f"engine exceeded max_steps={self.ecfg.max_steps}")
             if self.tracer is not None:
-                self.tracer.mark_idle(st.steps, nxt)
-            st.idle_steps += nxt - st.steps
-            st.steps = nxt
-            return True
-        return False
+                # open `queued` spans (idempotent)
+                for req in st.sched.pending:
+                    if req.arrival_step <= st.steps:
+                        self.tracer.note_arrival(req.rid, st.steps)
+            self._admit()
+            occupied = st.sched.occupied()
+            prefilling = [s for s in occupied if s.prefilling]
+            decoding = [s for s in occupied if not s.prefilling]
+            if prefilling:
+                self._prefill_tick(prefilling[0])
+                return True
+            if decoding:
+                self._decode_tick(decoding)
+                return True
+            if st.sched.has_pending():
+                nxt = st.sched.next_arrival()
+                if nxt is None or nxt <= st.steps:
+                    raise RuntimeError(
+                        "scheduler stall: pending request cannot be admitted "
+                        "into an empty engine (page budget inconsistency)")
+                if self.tracer is not None:
+                    self.tracer.mark_idle(st.steps, nxt)
+                st.idle_steps += nxt - st.steps
+                st.steps = nxt
+                return True
+            return False
 
     def _admit(self) -> None:
         """Admission (FIFO, or priority with aging under ``sla=``);

@@ -1,5 +1,30 @@
-"""Request-level tracing for the serving engine (Chrome-trace export) —
-the port's copy of ``repro.runtime.trace``.
+"""Tracing for the port: request-level spans of the serving engine
+(Chrome-trace export, the port's copy of ``repro.runtime.trace``) and
+profiler ranges around the program's own work (``span``).
+
+Two mechanisms, two clocks:
+
+  * :class:`Tracer` records the engine's request lifecycle on its own
+    **cumulative engine clock** (below).  It is the operator's view of one
+    serving run: exported by ``serve --trace-out``, read by
+    ``launch/trace_report`` and held event for event against the JAX
+    package's tracer by the tests.  Its clock is summed tick wall-time, so
+    it rides a snapshot and a restore; it shares no clock with the device.
+  * :func:`span` opens a ``torch.profiler.record_function`` range while a
+    ``torch.profiler`` profile is recording, and nothing otherwise.  The ranges
+    land in the profiler's own trace, on the profiler's clock beside the
+    card's kernels, and the CUDA activity trace links every kernel to the
+    launch call that queued it, so a kernel is owned by the range its launch
+    fell in, whenever it ran.  Four ranges exist, one per unit of work a
+    reader attributes device time to: ``tdvmm.program`` (one call of
+    ``core/quant.program_weights``: weight programming), ``model.prefill``
+    (``models/model.prefill_step`` and ``prefill_chunk``), ``model.decode``
+    (``decode_step`` and ``decode_slots``) and ``engine.tick`` (one
+    ``runtime/engine.Engine.tick``).
+
+The Tracer's engine clock stays as it is, not the profiler's: a trace must
+continue across a kill and restore in a fresh process, and its events must
+equal the JAX reference's, neither of which a wall or profiler clock gives.
 
 The engine's whole request lifecycle — ``queued -> admitted ->
 prefill_chunk[i] -> decode tick -> finished/evicted/rejected/over_budget``
@@ -31,7 +56,9 @@ kernels are queued, and its device time shows up in the next tick that
 reads a result back (the chunk that emits a token, or a decode step).  So
 a tick slice is host wall time, including whatever device wait that tick
 absorbed — not the device time of that tick's own kernels.  The engine
-adds no sync to make it so (the JAX package's engine has none either).
+adds no sync to make it so (the JAX package's engine has none either); a
+profiler's trace gives a tick's own device time, from its ``engine.tick``
+range, instead.
 
 Timestamps come from the tracer's own **cumulative engine clock**
 (microseconds of summed tick wall-time, advanced only in ``tick_done``),
@@ -46,14 +73,30 @@ balanced stack-disciplined ``B``/``E`` pairs.
 """
 from __future__ import annotations
 
-import numpy as np
+import contextlib
 
-__all__ = ["Tracer", "validate_chrome_trace", "ENGINE_PID", "REQUEST_PID"]
+import numpy as np
+import torch
+
+__all__ = ["Tracer", "validate_chrome_trace", "span", "ENGINE_PID",
+           "REQUEST_PID"]
 
 ENGINE_PID = 0
 REQUEST_PID = 1
 
 _PHASES = ("B", "E", "X", "C", "i", "M")
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range named ``name`` while a ``torch.profiler`` profile
+    is recording; else one shared no-op context (an unguarded
+    ``record_function`` costs its entry even with no profiler, on every call
+    of the hot path)."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class Tracer:

@@ -7,7 +7,11 @@ live ``clip_rate.<site>`` series equal the JAX package's
 ``clip_rate_metrics`` on its own drifted weights; and the port's engine on
 its own (tests/test_trace.py's engine tests): traced == untraced, spans
 carry the report's steps, one continuous trace across a kill and a disk
-snapshot, bit-exact site attribution, the serve CLI's files."""
+snapshot, bit-exact site attribution, the serve CLI's files; and the
+profiler ranges of ``trace.span`` (a no-op with no profiler running; under
+one, ``model.prefill`` / ``model.decode`` around each model step and
+``engine.tick`` around each tick, one ``tdvmm.program`` inside a step for
+each programmed bank, and outputs bitwise those of an unprofiled run)."""
 import functools
 import importlib.util
 import json
@@ -36,6 +40,7 @@ from repro_torch.configs import get_config as tget
 from repro_torch.configs import smoke as tsmoke
 from repro_torch.configs import tdvmm_rule as trule
 from repro_torch.core import calibration as tcalib
+from repro_torch.core import quant as tquant
 from repro_torch.core.nonideal import NonIdealityConfig
 from repro_torch.launch import trace_report
 from repro_torch.models import model as tmodel
@@ -44,6 +49,7 @@ from repro_torch.runtime import telemetry as tele
 from repro_torch.runtime import trace
 from repro_torch.runtime.engine import (DriftConfig, Engine, EngineConfig,
                                         FaultConfig, Request)
+from repro_torch.tree import leaves
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -532,3 +538,162 @@ def test_cli_writes_metrics_trace_and_report(tmp_path, capsys):
     with pytest.raises(SystemExit, match="--alert-on 'x': want"):
         serve.main(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
                     "--alert-on", "x"])
+
+
+# --------------------------------------------------------------------------
+# Profiler ranges inside the program (trace.span)
+# --------------------------------------------------------------------------
+RANGES = ("tdvmm.program", "model.prefill", "model.decode", "engine.tick")
+# the smoke kimi-k2 (4 experts, top-2, one shared expert) under ``moe.*``
+MOE_ECFG = dict(slots=2, page_size=4, num_pages=24, chunk=4)
+
+
+@functools.lru_cache(maxsize=None)
+def _moe():
+    """(cfg, params, calibration, prompts (2, 6)) of the smoke kimi-k2."""
+    cfg = tsmoke(tget("kimi-k2-1t-a32b")).replace(tdvmm_plan=TPlan(
+        (trule("moe.*", enabled=True),)))
+    params = tmodel.init_params(0, cfg, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 6), generator=gen)
+    calib = tmodel.calibrate(params, {"inputs": tokens}, cfg, max_len=16,
+                             device="cpu")
+    return cfg, params, calib, tokens
+
+
+def _static_steps():
+    """A prefill and two decode steps of the smoke kimi-k2: (logits of each
+    step, the caches after the last)."""
+    cfg, params, calib, tokens = _moe()
+    caches = tmodel.init_caches(cfg, 2, 16, "cpu")
+    logits, caches = tmodel.prefill_step(params, {"inputs": tokens}, caches,
+                                         cfg, calib=calib)
+    out = [logits]
+    for _ in range(2):
+        tok = torch.argmax(logits[:, -1:], -1)
+        logits, caches = tmodel.decode_step(params, {"inputs": tok}, caches,
+                                            cfg, calib=calib)
+        out.append(logits)
+    return out, caches
+
+
+def _engine_run():
+    """The smoke kimi-k2's paged engine over three requests: (report, the
+    page pools after the run)."""
+    cfg, params, calib, tokens = _moe()
+    eng = Engine(cfg, params, EngineConfig(**MOE_ECFG), calib=calib,
+                 device="cpu")
+    reqs = [Request(rid=i, prompt=tuple(int(t) for t in tokens[i % 2]),
+                    max_new_tokens=3, arrival_step=i) for i in range(3)]
+    rep = eng.run(reqs)
+    return rep, eng._st.caches
+
+
+def _profiled(fn, monkeypatch):
+    """(fn()'s result, the program's ranges as (name, start_ns, end_ns)
+    sorted outermost first, program_weights calls) under a CPU profiler;
+    every expert bank is programmed one expert a slice, so a range per
+    slice would show."""
+    calls = []
+    real = tquant.program_weights
+
+    def counting(w, *a, **k):
+        calls.append(tuple(w.shape))
+        return real(w, *a, **k)
+    monkeypatch.setattr(tquant, "program_weights", counting)
+    monkeypatch.setattr(tquant, "SLICE_ELEMS", 1)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn()
+    ranges = sorted(((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                     for e in prof.profiler.kineto_results.events()
+                     if e.is_user_annotation() and e.name() in RANGES),
+                    key=lambda r: (r[1], -r[2]))
+    return out, ranges, calls
+
+
+def _parents(ranges):
+    """Each range's innermost enclosing range's name (None at the top);
+    raises where two ranges overlap without nesting."""
+    out, stack = [], []
+    for name, a, b in ranges:
+        while stack and stack[-1][2] <= a:
+            stack.pop()
+        if stack:
+            assert b <= stack[-1][2], f"{name} overlaps {stack[-1][0]}"
+        out.append((name, stack[-1][0] if stack else None))
+        stack.append((name, a, b))
+    return out
+
+
+def _programs_per_step(ranges):
+    """The number of ``tdvmm.program`` ranges inside each model step."""
+    return [sum(1 for n, a, _ in ranges
+                if n == "tdvmm.program" and lo <= a < hi)
+            for name, lo, hi in ranges if name.startswith("model.")]
+
+
+def _tensors(tree):
+    return [t for t in leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def test_span_is_the_shared_noop_without_a_profiler():
+    assert not torch.autograd.profiler._is_profiler_enabled
+    a, b = trace.span("model.decode"), trace.span("tdvmm.program")
+    assert a is b and type(a).__name__ == "nullcontext"
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        on = trace.span("model.decode")
+        assert isinstance(on, torch.profiler.record_function)
+    assert trace.span("model.decode") is a
+
+
+def test_static_steps_record_nested_ranges(monkeypatch):
+    _moe()
+    _, ranges, calls = _profiled(_static_steps, monkeypatch)
+    parents = _parents(ranges)
+    steps = [n for n, p in parents if p is None]
+    assert steps == ["model.prefill", "model.decode", "model.decode"]
+    assert all(p in ("model.prefill", "model.decode")
+               for n, p in parents if n == "tdvmm.program")
+    programs = [n for n, _ in parents if n == "tdvmm.program"]
+    assert calls and len(programs) == len(calls)
+    assert any(len(s) == 3 for s in calls)       # the expert banks, sliced
+    per_step = _programs_per_step(ranges)        # the same banks each step
+    assert len(per_step) == 3 and len(set(per_step)) == 1
+    assert {n for n, _ in parents} == {"model.prefill", "model.decode",
+                                       "tdvmm.program"}
+
+
+def test_engine_ticks_record_nested_ranges(monkeypatch):
+    _moe()
+    rep, ranges, calls = _profiled(lambda: _engine_run()[0], monkeypatch)
+    parents = _parents(ranges)
+    ticks = [n for n, p in parents if p is None]
+    assert ticks and set(ticks) == {"engine.tick"}
+    steps = [n for n, p in parents if p == "engine.tick"]
+    assert steps.count("model.prefill") == rep.prefill_steps > 0
+    assert steps.count("model.decode") == rep.decode_steps > 0
+    assert len(steps) <= len(ticks)
+    programs = [p for n, p in parents if n == "tdvmm.program"]
+    assert len(programs) == len(calls) > 0
+    assert set(programs) == {"model.prefill", "model.decode"}
+    per_step = _programs_per_step(ranges)
+    assert len(per_step) == rep.prefill_steps + rep.decode_steps
+    assert len(set(per_step)) == 1
+
+
+@pytest.mark.parametrize("run", ["static", "engine"])
+def test_outputs_bitwise_equal_with_the_profiler_on(run):
+    fn = _static_steps if run == "static" else _engine_run
+    _moe()
+    plain = fn()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        profiled = fn()
+    if run == "engine":
+        _same_streams(plain[0], profiled[0])
+    a, b = _tensors(plain), _tensors(profiled)
+    assert len(a) == len(b) > 0
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y)
